@@ -1,0 +1,37 @@
+"""Carry state from the JAX package to the port.
+
+``ivf_state_from_jax(ivf)`` reads a built ``neumann_tpu.ops.ivf.
+DeviceIVFInt8`` as host numpy arrays, through ``np.asarray`` only (this
+module never imports JAX: the arrays convert themselves).
+``neumann_tpu_torch.ops.ivf.DeviceIVFInt8.from_state(state, device)``
+then gives the port the same index, so both packages can search one
+layout. (Their k-means inits differ by construction — ``jax.random``
+and ``torch.Generator`` draw different numbers — so two independent
+builds do not give the same layout.)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+IVF_STATE_KEYS = ("centroids", "_buf", "_rmult", "_scale", "_rbuf",
+                  "_rscale", "_starts", "_row_ids", "_window", "nprobe",
+                  "_fixed")
+
+
+def ivf_state_from_jax(ivf) -> dict:
+    """Host copy of a built JAX ``DeviceIVFInt8``'s search state."""
+    if getattr(ivf, "_buf", None) is None:
+        raise ValueError("the JAX index is not built")
+    if getattr(ivf, "_dn", 0) or getattr(ivf, "_deleted", 0):
+        raise ValueError("the JAX index has un-compacted adds/deletes; "
+                         "the port has no delta plane yet (compact() "
+                         "first)")
+    state = {}
+    for key in IVF_STATE_KEYS:
+        value = getattr(ivf, key)
+        state[key] = None if value is None else np.asarray(value)
+    state["_window"] = int(state["_window"])
+    state["nprobe"] = int(state["nprobe"])
+    state["_fixed"] = bool(state["_fixed"])
+    return state

@@ -1,0 +1,355 @@
+"""The auto-IVF path's two kernels, written by hand in CUDA C++ for
+Hopper, with their plain PyTorch versions (port of kernels 1 and 2 of
+``neumann_tpu/ops/pallas_kernels.py``).
+
+* ``ivf_probe_scores`` (``csrc/ivf_probe.cu``) replaces the Pallas IVF
+  probe kernel ``_ivf_probe_kernel`` (``ivf_probe_scores_pallas`` /
+  ``ivf_windowed_topk_pallas``): the latency path's first pass.
+* ``batched_probe`` (``csrc/batched_probe.cu``) replaces the Pallas
+  top-2 kernel ``_batched_probe_kernel`` (``batched_probe_pallas``): the
+  throughput path's first pass, packed strided-pool winners.
+
+Every wrapper takes its plain version only for tensors on the CPU; for
+a CUDA tensor it launches the kernel or raises — there is no fallback.
+``LAUNCHES`` counts kernel launches per kernel (a run can prove the main
+path went through them); the plain versions never touch it.
+
+The kernels are compiled at first use by ``nvcc`` for ``sm_90a`` from
+the sources in ``csrc/`` into ``build/neumann_tpu_torch/`` at the root
+of the checkout, and bound with ``ctypes`` (plain C entry points that
+return ``cudaGetLastError()``). Outputs are allocated here with
+``torch.empty`` and the kernels run on the current stream.
+
+Differences from the Pallas wrappers: the per-query trace-time unroll
+is gone (the query is a grid axis), and the final cut of
+``ivf_windowed_topk`` is an exact ``torch.topk`` instead of
+``approx_max_k`` — its recall is at least that of the approximate cut.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+LAUNCHES = {"ivf_probe": 0, "batched_probe": 0}
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("ivf_probe.cu", "batched_probe.cu")
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "neumann_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+
+# strided pools per window in the batched kernel's packed output
+_POOL_LANES = 128
+# batched kernel: query slots staged per block (csrc kTile) x d bytes of
+# shared memory must stay under the 48 KB static launch limit
+_MAX_BATCHED_DIM = 3072
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "csrc/ at first use and need the CUDA toolkit")
+
+
+def build_kernels(verbose: bool = False) -> ctypes.CDLL:
+    """Compile (once per source content) and load the kernel library.
+
+    The shared object's name carries a hash of the sources and flags, so
+    an edited source rebuilds and a stale build is never loaded.
+    ``verbose`` adds ``-Xptxas=-v`` and prints nvcc's report (registers,
+    shared memory, spills per kernel)."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for name in SOURCES:
+            digest.update((CSRC_DIR / name).read_bytes())
+        so = BUILD_DIR / f"libneumann_kernels-{digest.hexdigest()[:16]}.so"
+        if not so.exists() or verbose:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS,
+                   *(["-Xptxas=-v"] if verbose else []),
+                   "-o", str(tmp), *(str(CSRC_DIR / n) for n in SOURCES)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
+            if verbose:
+                print(proc.stdout + proc.stderr, flush=True)
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.neumann_ivf_probe_scores.argtypes = [
+            vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, vp]
+        lib.neumann_ivf_probe_scores.restype = i32
+        lib.neumann_batched_probe.argtypes = [
+            vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
+        lib.neumann_batched_probe.restype = i32
+        _lib = lib
+        return lib
+
+
+def _check(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
+    if t.dtype != dtype or t.ndim != ndim:
+        raise ValueError(f"{name}: want {ndim}-D {dtype}, got "
+                         f"{t.ndim}-D {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+
+
+def _launch_ready(name: str, t: torch.Tensor) -> None:
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous for the kernel")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned for the kernel")
+
+
+def _raise_on(err: int, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error "
+                           f"{err}")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# kernel 1: IVF probe scores (the latency path)
+# ---------------------------------------------------------------------------
+
+def ivf_probe_scores_plain(buf, rmult, start_blocks, queries, window: int):
+    """Plain PyTorch version of the probe kernel (see
+    ``ivf_probe_scores``). One query's candidates at a time bounds the
+    f32 gather to nprobe x window x d."""
+    q, nprobe = start_blocks.shape
+    n = buf.shape[0]
+    qb = queries.float().to(torch.bfloat16).float()
+    pos = ((start_blocks.long() * 128)[:, :, None]
+           + torch.arange(window, device=buf.device)).reshape(q, -1)
+    inb = pos < n
+    pos = pos.clamp(0, n - 1)
+    out = torch.empty((q, nprobe * window), dtype=torch.float32,
+                      device=buf.device)
+    for i in range(q):
+        dots = buf[pos[i]].float() @ qb[i]
+        rm = rmult[pos[i]]
+        out[i] = torch.where(inb[i] & (rm > 0), dots * rm,
+                             torch.full_like(dots, float("-inf")))
+    return out
+
+
+def ivf_probe_scores(buf, rmult, start_blocks, queries, window: int):
+    """Scores of every probed window row.
+
+    buf [N, d] int8 cluster-sorted corpus, rmult [N] f32 cosine row
+    multipliers (0 = dead row), start_blocks [Q, nprobe] (or [nprobe])
+    int32 window starts // 128, queries [Q, d] f32 (normalized). Returns
+    [Q, nprobe * window] f32: bf16(query) . row in f32, times rmult,
+    -inf where rmult <= 0 or the row is past N."""
+    if start_blocks.ndim == 1:
+        start_blocks = start_blocks[None, :]
+    dev = buf.device
+    _check("buf", buf, torch.int8, 2, dev)
+    _check("rmult", rmult, torch.float32, 1, dev)
+    _check("start_blocks", start_blocks, torch.int32, 2, dev)
+    _check("queries", queries, torch.float32, 2, dev)
+    n, d = buf.shape
+    q, nprobe = start_blocks.shape
+    if window % 128 or queries.shape != (q, d) or rmult.shape[0] != n:
+        raise ValueError(
+            f"probe shapes: buf {tuple(buf.shape)}, rmult "
+            f"{tuple(rmult.shape)}, start_blocks {(q, nprobe)}, queries "
+            f"{tuple(queries.shape)}, window {window} (multiple of 128)")
+    if dev.type == "cpu":
+        return ivf_probe_scores_plain(buf, rmult, start_blocks, queries,
+                                      window)
+    if dev.type != "cuda":
+        raise ValueError(f"ivf_probe_scores: unsupported device {dev}")
+    if d % 16 or q > 65535 or nprobe > 65535:
+        raise ValueError(f"probe kernel needs d % 16 == 0 and Q, nprobe "
+                         f"<= 65535 (d={d}, Q={q}, nprobe={nprobe})")
+    for name, t in (("buf", buf), ("rmult", rmult),
+                    ("start_blocks", start_blocks), ("queries", queries)):
+        _launch_ready(name, t)
+    lib = build_kernels()
+    out = torch.empty((q, nprobe * window), dtype=torch.float32, device=dev)
+    if q and nprobe:
+        with torch.cuda.device(dev):
+            err = lib.neumann_ivf_probe_scores(
+                buf.data_ptr(), rmult.data_ptr(), start_blocks.data_ptr(),
+                queries.data_ptr(), out.data_ptr(), n, d, q, nprobe, window,
+                _stream())
+        _raise_on(err, "ivf_probe")
+        LAUNCHES["ivf_probe"] += 1
+    return out
+
+
+def ivf_windowed_topk(buf, rmult, cents, starts, queries, k: int,
+                      nprobe: int, window: int):
+    """Windowed-IVF first pass through the probe kernel.
+
+    Requires 128-aligned window starts and a window that is a multiple
+    of 128 (``DeviceIVFInt8`` lays the corpus out that way). Returns
+    (scores [Q, k], positions [Q, k] int32 in sorted-buffer
+    coordinates); positions may repeat across overlapping windows."""
+    qn = queries / queries.norm(dim=1, keepdim=True).clamp_min(1e-30)
+    _, probe = torch.topk(qn @ cents.T, nprobe, dim=1)
+    sb = torch.div(starts[probe], 128, rounding_mode="floor").int()
+    scores = ivf_probe_scores(buf, rmult, sb.contiguous(), qn.contiguous(),
+                              window)
+    pos = ((sb.long() * 128)[:, :, None]
+           + torch.arange(window, device=buf.device)).reshape(qn.shape[0], -1)
+    s, i = torch.topk(scores, min(k, scores.shape[1]), dim=1)
+    return s, torch.gather(pos, 1, i).int()
+
+
+# ---------------------------------------------------------------------------
+# kernel 2: batched top-2 probe (the throughput path)
+# ---------------------------------------------------------------------------
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: float) -> torch.Tensor:
+    """Single-rounding f32 fused multiply-add a * b + c (a, b f32).
+
+    The product is exact in float64 (24 + 24 significant bits); the
+    float64 sum is made round-to-odd (TwoSum error, then one ulp toward
+    it on an even mantissa), and round-to-odd followed by one rounding
+    to f32 is the correctly rounded f32 result (53 >= 24 + 2 bits)."""
+    p = a.double() * b.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    bump = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    return torch.where(bump, torch.nextafter(s, toward), s).float()
+
+
+def batched_probe_plain(buf, rmult2d, qsel, scmult, window: int,
+                        top2: bool = False, windows_per_step: int = 64):
+    """Plain PyTorch version of the batched kernel (see
+    ``batched_probe``), bit-identical to it and to the Pallas kernel.
+
+    The int8 dots are exact in float64 and are rounded to f32 as the
+    kernel's int32 -> f32 conversion does; ``s`` is one fused
+    multiply-add, as XLA computes ``dots * (mult * rm) + 2.0``. Windows
+    go in steps to bound the float64 temporaries."""
+    n_win, q_cap, d = qsel.shape
+    pool = window // _POOL_LANES
+    low_mask = ~(pool - 1)
+    lanes = 2 * _POOL_LANES if top2 else _POOL_LANES
+    out = torch.empty((n_win, q_cap, lanes), dtype=torch.int32,
+                      device=qsel.device)
+    member = torch.div(torch.arange(window, device=qsel.device),
+                       _POOL_LANES, rounding_mode="floor").int()
+    for c0 in range(0, n_win, windows_per_step):
+        c1 = min(n_win, c0 + windows_per_step)
+        rows = buf[c0 * window:c1 * window].reshape(c1 - c0, window, d)
+        dots = torch.bmm(qsel[c0:c1].double(),
+                         rows.double().transpose(1, 2)).float()
+        rm = rmult2d[c0:c1, None, :]
+        s = _fma_f32(dots, scmult[c0:c1, :, None] * rm, 2.0)
+        s = torch.where(rm > 0, s, torch.zeros_like(s))
+        bits = ((s.view(torch.int32) & low_mask) | member).reshape(
+            c1 - c0, q_cap, pool, _POOL_LANES)
+        w1 = torch.zeros_like(bits[:, :, 0])
+        w2 = torch.zeros_like(w1)
+        for a in range(pool):
+            x = bits[:, :, a]
+            if top2:
+                w2 = torch.maximum(w2, torch.minimum(w1, x))
+            w1 = torch.maximum(w1, x)
+        out[c0:c1] = torch.cat([w1, w2], dim=2) if top2 else w1
+    return out
+
+
+def batched_probe(buf, rmult2d, qsel, scmult, window: int,
+                  top2: bool = False):
+    """Fused batched-IVF first pass over ALL windows.
+
+    buf     [C*window, d] int8 fixed-window corpus.
+    rmult2d [C, window] f32 cosine row multipliers (0 = dead row).
+    qsel    [C, q_cap, d] int8 per-window selected queries.
+    scmult  [C, q_cap] f32 per-slot query scales (0 = empty slot).
+    Returns packed winner bits [C, q_cap, 128] int32: 128 strided pools
+    of ``window // 128`` rows each (member i of pool b is row
+    i * 128 + b); decode with ``decode_strided_pool_bits``. top2=True:
+    [C, q_cap, 256] with each pool's runner-up in lanes 128:."""
+    dev = qsel.device
+    _check("buf", buf, torch.int8, 2, dev)
+    _check("rmult2d", rmult2d, torch.float32, 2, dev)
+    _check("qsel", qsel, torch.int8, 3, dev)
+    _check("scmult", scmult, torch.float32, 2, dev)
+    n_win, q_cap, d = qsel.shape
+    pool = window // _POOL_LANES
+    if (window % _POOL_LANES or pool & (pool - 1)
+            or buf.shape != (n_win * window, d)
+            or rmult2d.shape != (n_win, window)
+            or scmult.shape != (n_win, q_cap)):
+        raise ValueError(
+            f"batched probe shapes: buf {tuple(buf.shape)}, rmult2d "
+            f"{tuple(rmult2d.shape)}, qsel {tuple(qsel.shape)}, scmult "
+            f"{tuple(scmult.shape)}, window {window} (a power-of-two "
+            f"multiple of 128)")
+    if dev.type == "cpu":
+        return batched_probe_plain(buf, rmult2d, qsel, scmult, window, top2)
+    if dev.type != "cuda":
+        raise ValueError(f"batched_probe: unsupported device {dev}")
+    if d % 16 or d > _MAX_BATCHED_DIM:
+        raise ValueError(f"batched kernel needs d % 16 == 0 and d <= "
+                         f"{_MAX_BATCHED_DIM} (d={d})")
+    for name, t in (("buf", buf), ("rmult2d", rmult2d), ("qsel", qsel),
+                    ("scmult", scmult)):
+        _launch_ready(name, t)
+    lib = build_kernels()
+    lanes = 2 * _POOL_LANES if top2 else _POOL_LANES
+    out = torch.empty((n_win, q_cap, lanes), dtype=torch.int32, device=dev)
+    if n_win and q_cap:
+        with torch.cuda.device(dev):
+            err = lib.neumann_batched_probe(
+                qsel.data_ptr(), buf.data_ptr(), scmult.data_ptr(),
+                rmult2d.data_ptr(), out.data_ptr(), n_win, q_cap, d, window,
+                int(top2), _stream())
+        _raise_on(err, "batched_probe")
+        LAUNCHES["batched_probe"] += 1
+    return out
+
+
+def decode_strided_pool_bits(wb, window: int):
+    """(scores f32, within-window positions int32, -1 = dead) from the
+    packed strided-pool winner bits (last axis = 128 pools, or 256 for
+    top-2 output, whose lanes 128: are the runners-up)."""
+    pool = window // _POOL_LANES
+    dead = wb < 0x3F800000                  # below bitcast(1.0)
+    scores = torch.where(
+        dead, torch.full(wb.shape, float("-inf"), device=wb.device),
+        (wb & ~(pool - 1)).view(torch.float32) - 2.0)
+    lane = torch.arange(wb.shape[-1], device=wb.device,
+                        dtype=torch.int32) % _POOL_LANES
+    pos = torch.where(dead, torch.full_like(wb, -1),
+                      (wb & (pool - 1)) * _POOL_LANES + lane)
+    return scores, pos
