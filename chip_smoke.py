@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's auto-IVF SIMILAR path once on one NVIDIA GPU.
+"""Drive the PyTorch port's SIMILAR paths once on one NVIDIA GPU: the
+auto-IVF path, then the brute-force pooled, int8 and binary routes.
 
 Usage, from the root of a checkout, on a machine with one CUDA card and
 the CUDA toolkit (nvcc)::
 
-    python3 chip_smoke.py [--seed 0] [--rows 4194304]
+    python3 chip_smoke.py [--seed 0] [--rows 4194304] [--pooled-rows 1048576]
 
 Phases (each raises on failure; exit code 0 only if all pass):
 
-1. print the card's name and power limit (nvidia-smi), build the two
+1. print the card's name and power limit (nvidia-smi), build the six
    CUDA kernels from neumann_tpu_torch/csrc and print the build time;
 2. hold each kernel against its plain PyTorch version on the card at
-   the main path's shapes (probe: 32 queries x 81 probes x 1,024-row
-   windows x 768; batched top-2: 4,096 windows x 64 slots) and time
-   both with CUDA events;
+   its path's shapes, timing both with CUDA events (probe: 32 queries x
+   81 probes x 1,024-row windows x 768; batched top-2: 4,096 windows x
+   64 slots; int8 scores: 64 x 1,048,576 x 768; int8 and f32 pooled
+   bits: 8 and 1,024 queries x 1,048,576 x 768 at pool 512; hamming:
+   1,024 x 131,072 rows x 24 words);
 3. generate a 4,194,304 x 768 corpus from --seed with numpy (4,096
    N(0,1) centres + sigma 0.25 noise) and load it with
    ``router.vector.ingest_matrix``;
@@ -23,12 +26,30 @@ Phases (each raises on failure; exit code 0 only if all pass):
    on 1,024 queries (QPS); read the launch counts;
 5. recall@10 of both routes against the port's exact f32 scan over all
    rows (each >= 0.95), and both kernels launched by the main path;
-6. re-embed one key, search with the new vector, that key comes first.
+6. re-embed one key, search with the new vector, that key comes first;
+   then release that router.
+7. the default pooled route (BASELINE configs 2 and 3): a second router
+   with 1,048,576 x 768 rows of the same recipe, loaded by
+   ``store_embedding(key, v, {"cat": i % 16})`` under ``bulk_ingest()``
+   (capacity 2^20, so the gate picks pool 512 over 2,048 pools); counted:
+   64 single SIMILARs (p50/p99), a batch of 1,024 (QPS), 16 SIMILARs
+   WHERE cat = 3; recall@10 of each against the exact f32 scan (masked
+   for the filtered ones) >= 0.95, every filtered hit in cat 3;
+8. an int8 collection of the same rows (``CREATE COLLECTION q8 ...
+   QUANTIZATION int8``, ``store_in_collection``); counted: 64 single
+   SIMILARs IN q8 and a ``batch_search_ns`` of 1,024 on the int8 pooled
+   route (recall@10 >= 0.95 against the f32 scan), 16 SIMILARs IN q8
+   METRIC euclidean on the int8 scan (ids equal to the plain
+   ``int8_topk_scan`` on the card, except at equal scores);
+9. a binary collection of the same rows; counted: 64 single SIMILARs
+   and a batch of 1,024, each query's 10 distances equal to the plain
+   hamming top-10's.
 
-After the counted phase it also profiles 8 single SIMILARs and one
-batch (cProfile on the host, torch.profiler on the device) into
-chiprun_out/profile_*.txt, and the first SIMILAR (the build) into
-chiprun_out/profile_build_host.txt.
+Every kernel must launch in the counted phases. After phase 4 it
+profiles 8 single SIMILARs and one batch (cProfile on the host,
+torch.profiler on the device) into chiprun_out/profile_*.txt, and the
+first SIMILAR (the build) into chiprun_out/profile_build_host.txt;
+phases 7-9 profile their single queries and batch the same way.
 
 Prints the metrics JSON line, the kernels JSON line, the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``. Everything is also
@@ -39,6 +60,7 @@ without a CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -59,12 +81,36 @@ MIN_RECALL = 0.95
 # probe: f32 sums in another order; for unit rows the worst case is
 # d * 2^-24 ~= 4.6e-5
 PROBE_ATOL = 1e-4
+# phases 7-9: rows of the brute-force corpus, metadata categories, and
+# the pool the default gate picks at 2^20 rows
+POOLED_ROWS = 1 << 20
+N_CATS = 16
+FILTER_CAT = 3
+N_FILTERED = 16
+POOL = 512
+# f32 pooled kernel vs plain: the dots are f32 sums in another order,
+# and a decoded winner keeps 23 - log2(pool) mantissa bits, so a winner
+# score may move by one packed step (pool * 2^-22 for scores in [1, 4))
+# plus 1e-6 for the sums; winning rows must agree on >= 99 % of pools
+F32_POOLED_ATOL = POOL * 2.0 ** -22 + 1e-6
+F32_POOLED_MIN_AGREE = 0.99
 KERNELS = {
     "ivf_probe": dict(source="neumann_tpu_torch/csrc/ivf_probe.cu",
                       replaces="neumann_tpu/ops/pallas_kernels.py:212"),
     "batched_probe": dict(source="neumann_tpu_torch/csrc/batched_probe.cu",
                           replaces="neumann_tpu/ops/pallas_kernels.py:329"),
+    "int8_dot_scores": dict(source="neumann_tpu_torch/csrc/int8_scores.cu",
+                            replaces="neumann_tpu/ops/pallas_kernels.py:162"),
+    "int8_pooled_bits": dict(source="neumann_tpu_torch/csrc/int8_scores.cu",
+                             replaces="neumann_tpu/ops/quant.py:371"),
+    "f32_pooled_bits": dict(source="neumann_tpu_torch/csrc/f32_pooled.cu",
+                            replaces="neumann_tpu/ops/quant.py:525"),
+    "hamming_scores": dict(source="neumann_tpu_torch/csrc/hamming.cu",
+                           replaces="neumann_tpu/ops/pallas_kernels.py:40"),
 }
+# the wrappers a route's reference swaps for their plain versions
+_PLAIN_SWAPPED = ("int8_dot_scores", "int8_pooled_bits", "f32_pooled_bits",
+                  "hamming_scores")
 
 
 def say(msg: str) -> None:
@@ -193,6 +239,148 @@ def check_kernels(dev, rows: int, seed: int) -> dict:
     return out
 
 
+def _decode(bits, pool: int):
+    """Winner scores of packed pooled bits (-inf for dead pools)."""
+    import torch
+
+    return torch.where(bits > 0, (bits & ~(pool - 1)).view(torch.float32)
+                       - 2.0, torch.full(bits.shape, float("-inf"),
+                                         device=bits.device))
+
+
+def check_new_kernels(dev, seed: int) -> dict:
+    """Phase 2, the brute-force routes' kernels: each against its plain
+    version at the shapes phases 7-9 give it, on random rows."""
+    import torch
+
+    from neumann_tpu_torch.ops import kernels as tk
+    from neumann_tpu_torch.ops.quant import (
+        _pooled_bits_select,
+        binary_quantize,
+        int8_cosine_row_mult,
+        scalar_quantize,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    n, step = POOLED_ROWS, 1 << 18
+    x = torch.randn(n, DIM, generator=g, device=dev)
+    rm = 1.0 / x.norm(dim=1)
+    cq = torch.empty((n, DIM), dtype=torch.int8, device=dev)
+    cs = torch.empty(n, device=dev)
+    for r0 in range(0, n, step):
+        cq[r0:r0 + step], cs[r0:r0 + step] = scalar_quantize(x[r0:r0 + step])
+    rm8 = torch.cat([int8_cosine_row_mult(cq[r0:r0 + step], cs[r0:r0 + step])
+                     for r0 in range(0, n, step)])
+    # 1 % dead rows
+    bias = torch.where(torch.rand(n, generator=g, device=dev) < 0.99,
+                       torch.full((n,), 2.0, device=dev),
+                       torch.full((n,), -1e30, device=dev))
+    qs = x[torch.randint(0, n, (N_BATCH,), generator=g, device=dev)] \
+        + 0.1 * torch.randn(N_BATCH, DIM, generator=g, device=dev)
+    qq, qsc = scalar_quantize(qs)
+    qm8 = qsc / torch.sqrt(((qq.float() * qsc[:, None]) ** 2).sum(1))
+    qmf = 1.0 / qs.norm(dim=1)
+    out = {}
+
+    got = tk.int8_dot_scores(cq, rm8, qq[:64], qm8[:64])
+    want = tk.int8_dot_scores_plain(cq, rm8, qq[:64], qm8[:64])
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"int8_dot_scores: {int((got != want).sum())} "
+                             f"scores differ from plain (must be "
+                             f"bit-exact)")
+    out["int8_dot_scores"] = dict(
+        max_abs_err=float((got - want).abs().max()),
+        ms=cuda_ms(lambda: tk.int8_dot_scores(cq, rm8, qq[:64], qm8[:64]),
+                   10),
+        plain_ms=cuda_ms(lambda: tk.int8_dot_scores_plain(
+            cq, rm8, qq[:64], qm8[:64]), 3),
+        shape=f"Q=64 N={n} d={DIM}")
+    del got, want
+
+    for name, fn, plain, args in (
+            ("int8_pooled_bits", tk.int8_pooled_bits,
+             tk.int8_pooled_bits_plain, (cq, rm8, bias, qq, qm8)),
+            ("f32_pooled_bits", tk.f32_pooled_bits,
+             tk.f32_pooled_bits_plain, (x, rm, bias, qs, qmf))):
+        rec = {"shape": f"Q=8 and Q={N_BATCH}, N={n} d={DIM} pool={POOL}"}
+        for q in (8, N_BATCH):
+            a = args[:3] + (args[3][:q], args[4][:q])
+            got, want = fn(*a, POOL), plain(*a, POOL)
+            torch.cuda.synchronize()
+            s_got, s_want = _decode(got, POOL), _decode(want, POOL)
+            live = torch.isfinite(s_want)
+            if not torch.equal(torch.isfinite(s_got), live):
+                raise AssertionError(f"{name}: dead pools differ from plain")
+            err = float((s_got - s_want)[live].abs().max())
+            if name == "int8_pooled_bits":
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"{name}: {int((got != want).sum())} packed words "
+                        f"differ from plain (must be bit-exact)")
+            else:
+                agree = float(((got & (POOL - 1)) == (want & (POOL - 1)))
+                              [live].float().mean())
+                # candidate-set recall: the 80 candidates the rerank sees
+                _, r_got = _pooled_bits_select(got, POOL, 80)
+                _, r_want = _pooled_bits_select(want, POOL, 80)
+                cand = float(np.mean([
+                    len(set(a_.tolist()) & set(b_.tolist())) / 80
+                    for a_, b_ in zip(r_got.cpu(), r_want.cpu())]))
+                rec[f"winner_agree_q{q}"] = agree
+                rec[f"candidate_recall_q{q}"] = cand
+                if err > F32_POOLED_ATOL or agree < F32_POOLED_MIN_AGREE:
+                    raise AssertionError(
+                        f"{name}: max decoded err {err} (atol "
+                        f"{F32_POOLED_ATOL}), winners agree {agree} (min "
+                        f"{F32_POOLED_MIN_AGREE})")
+            key = "" if q == N_BATCH else f"_q{q}"
+            rec[f"max_abs_err{key}"] = err
+            rec[f"ms{key}"] = cuda_ms(lambda: fn(*a, POOL), 5)
+            rec[f"plain_ms{key}"] = cuda_ms(lambda: plain(*a, POOL), 1,
+                                            warm=False)
+            del got, want, s_got, s_want, live
+        out[name] = rec
+
+    cb = binary_quantize(x[:131_072])
+    qb = binary_quantize(qs)
+    got = tk.hamming_scores(cb, qb)
+    want = tk.hamming_scores_plain(cb, qb)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"hamming_scores: {int((got != want).sum())} "
+                             f"distances differ from plain")
+    out["hamming_scores"] = dict(
+        max_abs_err=0.0, ms=cuda_ms(lambda: tk.hamming_scores(cb, qb), 10),
+        plain_ms=cuda_ms(lambda: tk.hamming_scores_plain(cb, qb), 1,
+                         warm=False),
+        shape=f"Q={N_BATCH} N=131072 W={cb.shape[1]}")
+    for name, rec in out.items():
+        say(f"[2] {name} kernel vs plain ({rec['shape']}): max_abs_err "
+            f"{rec['max_abs_err']:.3g}; kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms"
+            + (f"; at Q=8 kernel {rec['ms_q8']:.4f} ms, plain "
+               f"{rec['plain_ms_q8']:.4f} ms" if "ms_q8" in rec else ""))
+    return out
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Swap the brute-force routes' kernel wrappers for their plain
+    versions, so a route's reference runs on the same card (its calls
+    launch no kernel and count nothing)."""
+    from neumann_tpu_torch.ops import kernels as tk
+
+    saved = {n: getattr(tk, n) for n in _PLAIN_SWAPPED}
+    try:
+        for n in _PLAIN_SWAPPED:
+            setattr(tk, n, getattr(tk, n + "_plain"))
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(tk, n, fn)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the corpus
 # ---------------------------------------------------------------------------
@@ -222,19 +410,9 @@ def mixture(n: int, centres: np.ndarray, seed_seq, chunk: int = 1 << 17
 
 def profile_paths(router, stmts, fresh, batch, out_dir: str) -> dict:
     """Where the time goes, after the counted phase (its launches are not
-    counted). Host: cProfile of 8 single SIMILARs and of one batch (top
-    functions by cumulative time). Device: torch.profiler over the same
-    calls; kernel time summed from the CUDA events, and the device busy
-    share = kernel time / wall time (the profiler's own overhead is in
-    the wall time). Parse: host time of ``parse_cached`` on statements
-    it has not seen (``fresh``), the router's first step."""
-    import cProfile
-    import io
-    import pstats
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    counted): ``profile_calls`` of 8 single SIMILARs and of one batch,
+    and the host time of ``parse_cached`` on statements it has not seen
+    (``fresh``), the router's first step."""
     from neumann_tpu_torch.lang.parser import parse_cached
 
     parse_ms = []
@@ -245,8 +423,27 @@ def profile_paths(router, stmts, fresh, batch, out_dir: str) -> dict:
     out = {"parse_ms": parse_ms}
     say(f"[profile] parse of an unseen 768-float SIMILAR: median "
         f"{float(np.median(parse_ms)):.3f} ms")
-    calls = {"single": lambda: [router.execute(s) for s in stmts],
-             "batch": lambda: router.vector.batch_search(batch, TOP_K)}
+    out.update(profile_calls(
+        {"single": lambda: [router.execute(s) for s in stmts],
+         "batch": lambda: router.vector.batch_search(batch, TOP_K)},
+        out_dir))
+    return out
+
+
+def profile_calls(calls: dict, out_dir: str) -> dict:
+    """For each named call: cProfile on the host (top functions by
+    cumulative time, profile_<name>_host.txt), then torch.profiler over a
+    second run (profile_<name>_device.txt): kernel time summed from the
+    CUDA events, and the device busy share = kernel time / wall time (the
+    profiler's own overhead is in the wall time)."""
+    import cProfile
+    import io
+    import pstats
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
     for name, fn in calls.items():
         prof = cProfile.Profile()
         prof.enable()
@@ -283,6 +480,29 @@ def profile_paths(router, stmts, fresh, batch, out_dir: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def gc_pauses_ms():
+    """Record collector pauses, in ms: every full (generation 2) one, and
+    every young (generation 0-1) one of 1 ms or more."""
+    full, young, t0 = [], [], [0.0]
+
+    def watch(phase, info):
+        if phase == "start":
+            t0[0] = time.perf_counter()
+            return
+        ms = (time.perf_counter() - t0[0]) * 1e3
+        if info.get("generation") == 2:
+            full.append(ms)
+        elif ms >= 1.0:
+            young.append(ms)
+
+    gc.callbacks.append(watch)
+    try:
+        yield full, young
+    finally:
+        gc.callbacks.remove(watch)
+
+
 def vec_literal(v: np.ndarray) -> str:
     return "[" + ", ".join(f"{x:.7g}" for x in v.tolist()) + "]"
 
@@ -295,13 +515,11 @@ def recall(got_rows, truth: np.ndarray) -> float:
 def run(args, dev, config=None, on_card: bool = True) -> dict:
     """All phases on ``dev``. ``config`` (a VectorEngineConfig) and
     on_card=False exist only to rehearse the control flow on the CPU at
-    a toy size: phases 1-2 and the launch check need the card."""
+    a toy size: phases 1-2 and the launch checks need the card."""
     import torch
 
     import neumann_tpu_torch  # noqa: F401  (sets TF32 off)
     from neumann_tpu_torch.ops import kernels as tk
-    from neumann_tpu_torch.ops.scan import topk_scan
-    from neumann_tpu_torch.router import QueryRouter
 
     report = {}
     if on_card:
@@ -315,12 +533,55 @@ def run(args, dev, config=None, on_card: bool = True) -> dict:
         say(f"[1] kernels built in {report['build_kernels_s']:.3f} s")
         report["kernels"] = check_kernels(dev, args.rows, args.seed)
         torch.cuda.empty_cache()
+        report["kernels"].update(check_new_kernels(dev, args.seed))
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
     root = np.random.SeedSequence(args.seed)
     s_centres, s_corpus, s_queries = root.spawn(3)
     centres = np.random.default_rng(s_centres).standard_normal(
         (N_CENTRES, DIM)).astype(np.float32)
+    report.update(run_ivf(args, dev, centres, s_corpus, s_queries, config,
+                          on_card))
+    # phases 1-6's router is gone with run_ivf's frame; give its memory
+    # back before the brute-force corpora
+    gc.unfreeze()
+    gc.collect()
+    if on_card:
+        report["peak_device_mem_gb_ivf"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    s_corpus7, s_queries7 = root.spawn(2)
+    report.update(run_brute(args, dev, centres, s_corpus7, s_queries7,
+                            on_card))
+    report["launches"] = {
+        name: sum(report[f"launches_{ph}"].get(name, 0)
+                  for ph in ("ivf", "pooled", "int8", "binary"))
+        for name in tk.LAUNCHES}
+    if on_card:
+        missing = [n for n, c in report["launches"].items() if c <= 0]
+        if missing:
+            raise AssertionError(f"kernels never launched by the counted "
+                                 f"phases: {missing}")
+        report["peak_device_mem_gb_brute"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        report["peak_device_mem_gb"] = max(
+            report["peak_device_mem_gb_ivf"],
+            report["peak_device_mem_gb_brute"])
+    return report
+
+
+def run_ivf(args, dev, centres, s_corpus, s_queries, config,
+            on_card: bool) -> dict:
+    """Phases 3-6: the auto-IVF path at --rows."""
+    import torch
+
+    from neumann_tpu_torch.ops import kernels as tk
+    from neumann_tpu_torch.ops.scan import topk_scan
+    from neumann_tpu_torch.router import QueryRouter
+
+    report = {}
     t0 = time.perf_counter()
     corpus = mixture(args.rows, centres, s_corpus)
     queries = mixture(N_SINGLE + N_BATCH + 1, centres, s_queries)
@@ -337,63 +598,53 @@ def run(args, dev, config=None, on_card: bool = True) -> dict:
         f"{report['ingest_s']:.1f} s")
 
     # ---- phase 4: the main path, counted -----------------------------
-    gc_pauses = []
-    gc_t0 = [0.0]
+    with gc_pauses_ms() as (gc_pauses, young):
+        tk.reset_launch_counts()
+        single_rows, lat = [], []
+        for i in range(N_SINGLE):
+            stmt = f"SIMILAR {vec_literal(queries[i])} TOP {TOP_K}"
+            build_prof = None
+            if i == 0 and on_card:
+                import cProfile
 
-    def gc_watch(phase, info):
-        if info.get("generation") == 2:
-            if phase == "start":
-                gc_t0[0] = time.perf_counter()
-            else:
-                gc_pauses.append((time.perf_counter() - gc_t0[0]) * 1e3)
+                build_prof = cProfile.Profile()
+                build_prof.enable()
+            t0 = time.perf_counter()
+            res = router.execute(stmt)
+            lat.append(time.perf_counter() - t0)
+            if build_prof is not None:
+                import io
+                import pstats
 
-    gc.callbacks.append(gc_watch)
-    tk.reset_launch_counts()
-    single_rows, lat = [], []
-    for i in range(N_SINGLE):
-        stmt = f"SIMILAR {vec_literal(queries[i])} TOP {TOP_K}"
-        build_prof = None
-        if i == 0 and on_card:
-            import cProfile
-
-            build_prof = cProfile.Profile()
-            build_prof.enable()
-        t0 = time.perf_counter()
-        res = router.execute(stmt)
-        lat.append(time.perf_counter() - t0)
-        if build_prof is not None:
-            import io
-            import pstats
-
-            build_prof.disable()
-            txt = io.StringIO()
-            pstats.Stats(build_prof, stream=txt).sort_stats(
-                "cumulative").print_stats(40)
-            with open(os.path.join("chiprun_out", "profile_build_host.txt"),
-                      "w") as f:
-                f.write(txt.getvalue())
-        scores = [h["score"] for h in res.results]
-        if res.kind != "similar" or len(scores) != TOP_K or not all(
-                np.isfinite(scores)) or max(abs(x) for x in scores) > 1.01:
-            raise AssertionError(f"bad SIMILAR result: {res.results}")
-        single_rows.append([int(h["key"][1:]) for h in res.results])
-    report["first_query_incl_build_s"] = lat[0]
-    report["single_ms"] = [x * 1e3 for x in lat[1:]]
-    warm = np.array(lat[1:]) * 1e3
-    report["single_p50_ms"] = float(np.percentile(warm, 50))
-    report["single_p99_ms"] = float(np.percentile(warm, 99))
-    batch = queries[N_SINGLE:N_SINGLE + N_BATCH]
-    times = []
-    for _ in range(4):                          # the first one warms up
-        t0 = time.perf_counter()
-        res_b = router.vector.batch_search(batch, TOP_K)
-        times.append(time.perf_counter() - t0)
-    report["batch_s"] = times
-    times = times[1:]
-    report["batch_qps"] = N_BATCH / float(np.median(times))
-    launches = dict(tk.LAUNCHES)
-    gc.callbacks.remove(gc_watch)
+                build_prof.disable()
+                txt = io.StringIO()
+                pstats.Stats(build_prof, stream=txt).sort_stats(
+                    "cumulative").print_stats(40)
+                with open(os.path.join("chiprun_out",
+                                       "profile_build_host.txt"), "w") as f:
+                    f.write(txt.getvalue())
+            scores = [h["score"] for h in res.results]
+            if res.kind != "similar" or len(scores) != TOP_K or not all(
+                    np.isfinite(scores)) or max(abs(x) for x in scores) > 1.01:
+                raise AssertionError(f"bad SIMILAR result: {res.results}")
+            single_rows.append([int(h["key"][1:]) for h in res.results])
+        report["first_query_incl_build_s"] = lat[0]
+        report["single_ms"] = [x * 1e3 for x in lat[1:]]
+        warm = np.array(lat[1:]) * 1e3
+        report["single_p50_ms"] = float(np.percentile(warm, 50))
+        report["single_p99_ms"] = float(np.percentile(warm, 99))
+        batch = queries[N_SINGLE:N_SINGLE + N_BATCH]
+        times = []
+        for _ in range(4):                          # the first one warms up
+            t0 = time.perf_counter()
+            res_b = router.vector.batch_search(batch, TOP_K)
+            times.append(time.perf_counter() - t0)
+        report["batch_s"] = times
+        times = times[1:]
+        report["batch_qps"] = N_BATCH / float(np.median(times))
+        launches = dict(tk.LAUNCHES)
     report["gc_gen2_pauses_ms"] = gc_pauses
+    report["gc_young_pauses_ms"] = young
     say(f"[4] first SIMILAR (incl. index build) "
         f"{report['first_query_incl_build_s']:.2f} s; single p50 "
         f"{report['single_p50_ms']:.3f} ms p99 "
@@ -408,7 +659,7 @@ def run(args, dev, config=None, on_card: bool = True) -> dict:
             batch, "chiprun_out")
 
     # ---- phase 5: recall against the exact scan, launches --------------
-    slab = router.vector._corpora[DIM].slab
+    slab = router.vector._corpora[""][DIM].slab
     emb, valid = slab.device_view()
     qd = torch.from_numpy(queries[:N_SINGLE + N_BATCH]).to(dev)
     _, oracle = topk_scan(emb, qd, TOP_K, "cosine", valid)
@@ -424,9 +675,8 @@ def run(args, dev, config=None, on_card: bool = True) -> dict:
         f"batch {report['recall_batch']:.4f} (>= {MIN_RECALL})")
     if min(report["recall_single"], report["recall_batch"]) < MIN_RECALL:
         raise AssertionError("recall below the limit")
-    if on_card and min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: "
-                             f"{launches}")
+    if on_card:
+        require_launches(launches, ("ivf_probe", "batched_probe"), "5")
 
     # ---- phase 6: delta rescan -----------------------------------------
     key = f"k{args.rows // 3}"
@@ -438,9 +688,268 @@ def run(args, dev, config=None, on_card: bool = True) -> dict:
     say(f"[6] delta rescan: re-embedded {key} comes first "
         f"(score {hits[0]['score']:.6f})")
 
-    report["launches"] = launches
+    report["launches_ivf"] = launches
+    return report
+
+
+def require_launches(launches: dict, names, phase: str) -> None:
+    missing = [n for n in names if launches.get(n, 0) <= 0]
+    if missing:
+        raise AssertionError(f"[{phase}] kernels of the path never "
+                             f"launched: {missing} ({launches})")
+
+
+def similar_series(router, stmts, cosine: bool = True):
+    """Execute SIMILAR statements one by one, host clock around each.
+    Returns (latencies ms, row ids per statement, scores per statement);
+    each must give TOP_K finite hits (cosine ones within [-1.01,
+    1.01])."""
+    lat, rows, scores = [], [], []
+    for stmt in stmts:
+        t0 = time.perf_counter()
+        res = router.execute(stmt)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        sc = [h["score"] for h in res.results]
+        if res.kind != "similar" or len(sc) != TOP_K or not all(
+                np.isfinite(sc)) or (cosine and max(map(abs, sc)) > 1.01):
+            raise AssertionError(f"bad SIMILAR result ({stmt[:32]}...): "
+                                 f"{res.results}")
+        rows.append([int(h["key"][1:]) for h in res.results])
+        scores.append(sc)
+    return lat, rows, scores
+
+
+def batch_series(fn):
+    """Four calls of a batch search (the first warms up): QPS over the
+    median of the last three, the call times, and the last result's
+    (row ids, scores) per query."""
+    times = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        res = fn()
+        times.append(time.perf_counter() - t0)
+    rows, scores = [], []
+    for hits in res:
+        if len(hits) != TOP_K or not all(np.isfinite(h.score) for h in hits):
+            raise AssertionError(f"bad batch result: {hits}")
+        rows.append([int(h.key[1:]) for h in hits])
+        scores.append([h.score for h in hits])
+    return N_BATCH / float(np.median(times[1:])), times, rows, scores
+
+
+def latency_stats(report: dict, prefix: str, lat) -> None:
+    """First call on its own (it builds the route's device view), p50 and
+    p99 over the rest."""
+    report[f"{prefix}_first_ms"] = lat[0]
+    report[f"{prefix}_ms"] = lat[1:]
+    report[f"{prefix}_p50_ms"] = float(np.percentile(lat[1:], 50))
+    report[f"{prefix}_p99_ms"] = float(np.percentile(lat[1:], 99))
+
+
+def run_brute(args, dev, centres, s_corpus, s_queries,
+              on_card: bool) -> dict:
+    """Phases 7-9: the brute-force routes at --pooled-rows (f32 pooled,
+    int8 pooled and int8 scan, binary), each counted on its own."""
+    import torch
+
+    from neumann_tpu_torch.engines.vector import FilterCondition
+    from neumann_tpu_torch.ops import kernels as tk
+    from neumann_tpu_torch.ops.quant import (
+        binary_quantize,
+        hamming_topk,
+        int8_topk_scan,
+    )
+    from neumann_tpu_torch.ops.scan import topk_scan
+    from neumann_tpu_torch.router import QueryRouter
+
+    n = args.pooled_rows
+    report = {}
+    t0 = time.perf_counter()
+    corpus = mixture(n, centres, s_corpus)
+    queries = mixture(N_SINGLE + N_BATCH + N_FILTERED, centres, s_queries)
+    single = queries[:N_SINGLE]
+    batch = queries[N_SINGLE:N_SINGLE + N_BATCH]
+    extra = queries[N_SINGLE + N_BATCH:]
+    report["pooled_generate_s"] = time.perf_counter() - t0
+    router = QueryRouter(device=dev)
+    eng = router.vector
+    t0 = time.perf_counter()
+    with eng.bulk_ingest():
+        for i in range(n):
+            eng.store_embedding(f"k{i}", corpus[i], {"cat": i % N_CATS})
+    report["pooled_ingest_s"] = time.perf_counter() - t0
+    base = eng._corpora[""][DIM]
+    say(f"[7] corpus {n} x {DIM} generated in "
+        f"{report['pooled_generate_s']:.1f} s, stored row by row (with "
+        f"metadata) in {report['pooled_ingest_s']:.1f} s; slab capacity "
+        f"{base.slab.capacity}")
+
+    # the exact f32 scan over all rows: the recall oracle of phases 7-9
+    cond = FilterCondition.eq("cat", FILTER_CAT)
+    t0 = time.perf_counter()
+    cat_rows = base.filter_mask(cond)
+    report["filter_mask_ms"] = (time.perf_counter() - t0) * 1e3
+    emb, valid = base.slab.device_view()
+    qd = torch.from_numpy(queries).to(dev)
+    _, oracle = topk_scan(emb, qd, TOP_K, "cosine", valid)
+    _, oracle_f = topk_scan(emb, qd[N_SINGLE + N_BATCH:], TOP_K, "cosine",
+                            valid & torch.from_numpy(cat_rows).to(dev))
+    oracle, oracle_f = oracle.cpu().numpy(), oracle_f.cpu().numpy()
+    del emb, valid
+
+    # ---- phase 7: the default pooled route, counted --------------------
+    stmts = [f"SIMILAR {vec_literal(q)} TOP {TOP_K}" for q in single]
+    with gc_pauses_ms() as (pauses, young):
+        tk.reset_launch_counts()
+        lat, rows_s, _ = similar_series(router, stmts)
+        qps, times, rows_b, _ = batch_series(
+            lambda: eng.batch_search(batch, TOP_K))
+        lat_f, rows_f, _ = similar_series(router, [
+            f"SIMILAR {vec_literal(q)} WHERE cat = {FILTER_CAT} TOP {TOP_K}"
+            for q in extra])
+        launches = dict(tk.LAUNCHES)
+    report["gc_gen2_pauses_ms_pooled"] = pauses
+    report["gc_young_pauses_ms_pooled"] = young
+    report["launches_pooled"] = launches
+    latency_stats(report, "pooled_single", lat)
+    latency_stats(report, "pooled_filtered", lat_f)
+    report["pooled_batch_s"] = times
+    report["pooled_batch_qps"] = qps
+    report["pooled_recall_single"] = recall(rows_s, oracle[:N_SINGLE])
+    report["pooled_recall_batch"] = recall(rows_b, oracle[N_SINGLE:
+                                                          N_SINGLE + N_BATCH])
+    report["pooled_recall_filtered"] = recall(rows_f, oracle_f)
+    off_cat = [r for rr in rows_f for r in rr if r % N_CATS != FILTER_CAT]
+    say(f"[7] pooled route: single p50 {report['pooled_single_p50_ms']:.3f} "
+        f"ms p99 {report['pooled_single_p99_ms']:.3f} ms (first "
+        f"{lat[0]:.1f} ms); batch of {N_BATCH}: {qps:.0f} QPS; filtered "
+        f"p50 {report['pooled_filtered_p50_ms']:.3f} ms (filter_mask "
+        f"{report['filter_mask_ms']:.1f} ms); recall@{TOP_K} single "
+        f"{report['pooled_recall_single']:.4f} batch "
+        f"{report['pooled_recall_batch']:.4f} filtered "
+        f"{report['pooled_recall_filtered']:.4f}; launches {launches}")
+    if off_cat:
+        raise AssertionError(f"filtered hits outside cat {FILTER_CAT}: "
+                             f"{off_cat[:5]}")
+    if min(report["pooled_recall_single"], report["pooled_recall_batch"],
+           report["pooled_recall_filtered"]) < MIN_RECALL:
+        raise AssertionError("pooled route recall below the limit")
     if on_card:
-        report["peak_device_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        require_launches(launches, ("f32_pooled_bits",), "7")
+        report["profile_pooled"] = profile_calls(
+            {"pooled_single": lambda: [router.execute(s)
+                                       for s in stmts[:8]],
+             "pooled_batch": lambda: eng.batch_search(batch, TOP_K)},
+            "chiprun_out")
+
+    # ---- phase 8: an int8 collection, counted ---------------------------
+    router.execute(f"CREATE COLLECTION q8 DIM {DIM} QUANTIZATION int8")
+    t0 = time.perf_counter()
+    with eng.bulk_ingest():
+        for i in range(n):
+            eng.store_in_collection("q8", f"k{i}", corpus[i])
+    report["int8_ingest_s"] = time.perf_counter() - t0
+    stmts = [f"SIMILAR {vec_literal(q)} IN q8 TOP {TOP_K}" for q in single]
+    with gc_pauses_ms() as (pauses, young):
+        tk.reset_launch_counts()
+        lat, rows_s, _ = similar_series(router, stmts)
+        qps, times, rows_b, _ = batch_series(
+            lambda: eng.batch_search_ns(batch, TOP_K, ns="col/q8"))
+        lat_e, rows_e, _ = similar_series(router, [
+            f"SIMILAR {vec_literal(q)} IN q8 METRIC euclidean TOP {TOP_K}"
+            for q in extra], cosine=False)
+        launches = dict(tk.LAUNCHES)
+    report["gc_gen2_pauses_ms_int8"] = pauses
+    report["gc_young_pauses_ms_int8"] = young
+    report["launches_int8"] = launches
+    latency_stats(report, "int8_single", lat)
+    latency_stats(report, "int8_euclid", lat_e)
+    report["int8_batch_s"] = times
+    report["int8_batch_qps"] = qps
+    report["int8_recall_single"] = recall(rows_s, oracle[:N_SINGLE])
+    report["int8_recall_batch"] = recall(rows_b, oracle[N_SINGLE:
+                                                        N_SINGLE + N_BATCH])
+    # the int8 scan's reference: the plain int8_topk_scan on the card
+    q8 = eng._corpora["col/q8"][DIM]
+    with plain_kernels():
+        cq, cs, valid = q8.slab.quantized_view("int8")
+        ref_s, ref_i = int8_topk_scan(cq, cs, qd[N_SINGLE + N_BATCH:], TOP_K,
+                                      "euclidean", valid)
+    ref_s, ref_i = ref_s.cpu().numpy(), ref_i.cpu().numpy()
+    bad = []
+    for r, got in enumerate(rows_e):
+        want = [int(k[1:]) for k in q8.index.keys_of(ref_i[r].tolist())]
+        for j in range(TOP_K):
+            if (ref_s[r] == ref_s[r, j]).sum() == 1 and got[j] != want[j]:
+                bad.append((r, j, got[j], want[j]))
+    report["int8_euclid_mismatches"] = len(bad)
+    say(f"[8] int8 collection (stored in {report['int8_ingest_s']:.1f} s): "
+        f"single p50 {report['int8_single_p50_ms']:.3f} ms p99 "
+        f"{report['int8_single_p99_ms']:.3f} ms; batch of {N_BATCH}: "
+        f"{qps:.0f} QPS; recall@{TOP_K} single "
+        f"{report['int8_recall_single']:.4f} batch "
+        f"{report['int8_recall_batch']:.4f}; euclidean p50 "
+        f"{report['int8_euclid_p50_ms']:.3f} ms, ids vs the plain int8 "
+        f"scan: {len(bad)} mismatches; launches {launches}")
+    if bad:
+        raise AssertionError(f"int8 euclidean ids differ from the plain "
+                             f"scan: {bad[:5]}")
+    if min(report["int8_recall_single"],
+           report["int8_recall_batch"]) < MIN_RECALL:
+        raise AssertionError("int8 route recall below the limit")
+    if on_card:
+        require_launches(launches, ("int8_pooled_bits", "int8_dot_scores"),
+                         "8")
+
+    # ---- phase 9: a binary collection, counted --------------------------
+    router.execute(f"CREATE COLLECTION bits DIM {DIM} QUANTIZATION binary")
+    t0 = time.perf_counter()
+    with eng.bulk_ingest():
+        for i in range(n):
+            eng.store_in_collection("bits", f"k{i}", corpus[i])
+    report["binary_ingest_s"] = time.perf_counter() - t0
+    stmts = [f"SIMILAR {vec_literal(q)} IN bits TOP {TOP_K}" for q in single]
+    with gc_pauses_ms() as (pauses, young):
+        tk.reset_launch_counts()
+        lat, rows_s, sc_s = similar_series(router, stmts, cosine=False)
+        qps, times, rows_b, sc_b = batch_series(
+            lambda: eng.batch_search_ns(batch, TOP_K, ns="col/bits"))
+        launches = dict(tk.LAUNCHES)
+    report["gc_gen2_pauses_ms_binary"] = pauses
+    report["gc_young_pauses_ms_binary"] = young
+    report["launches_binary"] = launches
+    latency_stats(report, "binary_single", lat)
+    report["binary_batch_s"] = times
+    report["binary_batch_qps"] = qps
+    # recall of 1-bit codes against the f32 scan: recorded, not a limit
+    report["binary_recall_vs_f32"] = recall(rows_s + rows_b,
+                                            oracle[:N_SINGLE + N_BATCH])
+    with plain_kernels():
+        bits, valid = eng._corpora["col/bits"][DIM].slab.quantized_view(
+            "binary")
+        ref_s, _ = hamming_topk(bits, binary_quantize(qd[:N_SINGLE +
+                                                         N_BATCH]),
+                                TOP_K, valid)
+    ref_s = ref_s.cpu().numpy()
+    bad = [r for r, got in enumerate(sc_s + sc_b)
+           if got != ref_s[r].tolist()]
+    say(f"[9] binary collection (stored in {report['binary_ingest_s']:.1f} "
+        f"s): single p50 {report['binary_single_p50_ms']:.3f} ms p99 "
+        f"{report['binary_single_p99_ms']:.3f} ms; batch of {N_BATCH}: "
+        f"{qps:.0f} QPS; distances vs plain hamming top-{TOP_K}: "
+        f"{len(bad)} queries differ; recall vs f32 "
+        f"{report['binary_recall_vs_f32']:.4f}; launches {launches}")
+    if bad:
+        raise AssertionError(f"binary distances differ from the plain "
+                             f"hamming top-{TOP_K} for queries {bad[:5]}")
+    if on_card:
+        require_launches(launches, ("hamming_scores",), "9")
+        report["profile_quantized"] = profile_calls(
+            {"int8_batch": lambda: eng.batch_search_ns(batch, TOP_K,
+                                                       ns="col/q8"),
+             "binary_batch": lambda: eng.batch_search_ns(batch, TOP_K,
+                                                         ns="col/bits")},
+            "chiprun_out")
     return report
 
 
@@ -448,6 +957,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=4_194_304)
+    ap.add_argument("--pooled-rows", type=int, default=POOLED_ROWS)
     args = ap.parse_args()
     try:
         import torch
@@ -467,8 +977,16 @@ def main() -> int:
         print("chip_smoke: --rows must be a multiple of 1,024 and at least "
               "the auto-IVF threshold (4,000,000)", file=sys.stderr)
         return 2
+    if args.pooled_rows & (args.pooled_rows - 1) or \
+            not 1 << 18 <= args.pooled_rows < 4_000_000:
+        print("chip_smoke: --pooled-rows must be a power of two from 262,144 "
+              "(the pooled gate) to below the auto-IVF threshold",
+              file=sys.stderr)
+        return 2
 
+    t_start = time.perf_counter()
     report = run(args, torch.device("cuda"))
+    report["total_s"] = time.perf_counter() - t_start
     kernels = {"kernels": [
         dict(name=name, route="cuda", source=meta["source"],
              replaces=meta["replaces"],
@@ -480,12 +998,22 @@ def main() -> int:
     metrics = {k: report[k] for k in (
         "single_p50_ms", "single_p99_ms", "batch_qps",
         "first_query_incl_build_s", "recall_single", "recall_batch",
-        "build_kernels_s", "generate_s", "ingest_s", "peak_device_mem_gb")}
+        "build_kernels_s", "generate_s", "ingest_s", "peak_device_mem_gb",
+        "pooled_single_p50_ms", "pooled_single_p99_ms", "pooled_batch_qps",
+        "pooled_recall_single", "pooled_recall_batch",
+        "pooled_filtered_p50_ms", "pooled_filtered_p99_ms",
+        "pooled_recall_filtered", "filter_mask_ms", "pooled_ingest_s",
+        "int8_single_p50_ms", "int8_single_p99_ms", "int8_batch_qps",
+        "int8_recall_single", "int8_recall_batch", "int8_euclid_p50_ms",
+        "int8_euclid_p99_ms", "binary_single_p50_ms", "binary_single_p99_ms",
+        "binary_batch_qps", "binary_recall_vs_f32",
+        "peak_device_mem_gb_brute", "total_s")}
     metrics["parse_ms_median"] = float(np.median(
         report["profile"]["parse_ms"]))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(dict(report, **kernels), f, indent=1, default=str)
+        json.dump(dict(report, kernel_checks=report["kernels"], **kernels),
+                  f, indent=1, default=str)
     print(json.dumps({"metrics": metrics, "card": report["smi"],
                       "host_cpu": report["host_cpu"]}))
     print(json.dumps(kernels))

@@ -8,6 +8,13 @@ then gives the port the same index, so both packages can search one
 layout. (Their k-means inits differ by construction — ``jax.random``
 and ``torch.Generator`` draw different numbers — so two independent
 builds do not give the same layout.)
+
+``collection_state_from_jax(engine, name)`` reads one collection of a
+JAX ``VectorEngine`` (its config, keys, vectors and metadata) as host
+values, for the port's ``create_collection`` / ``store_in_collection``.
+Collection snapshots need no converter: both packages write and read
+the same ``.npz`` format (``snapshot_collection`` /
+``load_collection_snapshot``).
 """
 
 from __future__ import annotations
@@ -35,3 +42,29 @@ def ivf_state_from_jax(ivf) -> dict:
     state["nprobe"] = int(state["nprobe"])
     state["_fixed"] = bool(state["_fixed"])
     return state
+
+
+def collection_state_from_jax(engine, name: str) -> dict:
+    """Host copy of a JAX engine's collection: ``config`` (dimension,
+    metric, quantization), ``keys`` [N] str, ``vectors`` [N, d] f32 and
+    ``metadata`` (one dict of scalar fields per key), in store order."""
+    cfg = engine.collection_config(name)
+    prefix = f"col:{name}:"
+    keys, vecs, metas = [], [], []
+    for full in engine.store.scan(prefix):
+        data = engine.store.get(full)
+        emb = data.get("embedding") if data is not None else None
+        if emb is None:
+            continue
+        keys.append(full[len(prefix):])
+        vecs.append(np.asarray(emb.to_dense(), np.float32))
+        metas.append({n: v.value for n, v in data.fields.items()
+                      if n != "embedding" and v.kind == "scalar"})
+    dim = cfg.dimension or (vecs[0].size if vecs else 0)
+    return {"config": {"dimension": cfg.dimension, "metric": cfg.metric,
+                       "quantization": cfg.quantization},
+            "keys": np.array(keys, dtype=object),
+            "vectors": (np.stack(vecs) if vecs
+                        else np.zeros((0, dim), np.float32)),
+            "metadata": metas}
+

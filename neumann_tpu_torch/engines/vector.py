@@ -1,25 +1,36 @@
-"""Vector engine: embedding storage + similarity search on one GPU (the
-auto-IVF slice of ``neumann_tpu/engines/vector.py``).
+"""Vector engine: embedding storage + similarity search on one GPU (port
+of ``neumann_tpu/engines/vector.py``).
 
-The TensorStore stays authoritative (keys ``emb:{key}``); the engine
-mirrors puts/deletes into a device corpus (EmbeddingSlab) through store
-hooks. Search routes:
+The TensorStore stays authoritative (keys ``emb:{key}``,
+``entity:{key}``, ``col:{name}:{key}``); the engine mirrors puts/deletes
+into one device corpus (EmbeddingSlab) per namespace ("" default,
+"entity", "col/{name}") and dimension through store hooks, so WAL replay
+rebuilds the device state. Search routes, in the JAX engine's order:
 
 * cosine (and angular/geodesic, which order by cosine) against a corpus
-  of at least ``ivf_auto_threshold`` rows, unfiltered: the auto IVF
-  index (``ops/ivf.DeviceIVFInt8``), built on the first query. Batches
-  of up to ``ivf_auto_max_batch`` queries take the latency path (probe
-  kernel), larger ones the batched path (top-2 kernel). Rows mutated
-  after the build are dropped from the index results and rescanned
-  exactly at their current values;
+  of at least ``ivf_auto_threshold`` rows, unfiltered, stored as none or
+  int8: the auto IVF index (``ops/ivf.DeviceIVFInt8``), built on the
+  first query. Batches of up to ``ivf_auto_max_batch`` queries take the
+  latency path (probe kernel), larger ones the batched path (top-2
+  kernel). Rows mutated after the build are dropped from the index
+  results and rescanned exactly at their current values;
+* binary storage: hamming top-k over packed sign bits (hamming kernel),
+  score -distance;
+* int8 storage, cosine / dot / euclidean: the pooled-bits int8 scan and
+  an exact f32 rerank (int8 pooled kernel) where the pooled gate passes
+  (``_pooled_pool``: cosine, dense, enough pools), else the int8 scan
+  (int8 scores kernel);
+* unquantized cosine past the pooled gate (by default 256K rows and
+  2,048 pools): the f32 pooled-bits scan and an exact rerank (f32
+  pooled kernel);
 * everything else: the exact f32 scan (``ops/scan.topk_scan``) over the
-  slab's device view, metadata filters fused as a row mask.
+  slab's device view.
+
+Metadata filters are a host-evaluated row mask fused into each route.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): collections, entity embeddings, quantized storage (int8, binary,
-PQ, TT), the pooled-bits brute scan (so corpora under the threshold
-take the exact scan — same or better recall), mesh placement, and the
-HNSW / legacy IVF / saved-index APIs.
+item): PQ and tensor-train storage, mesh placement, and the HNSW /
+legacy IVF / saved-index APIs.
 
 Every tensor lives on the engine's ``device`` (default "cuda"); nothing
 switches to the CPU on its own.
@@ -29,8 +40,10 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import json
+import os
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,13 +52,28 @@ import torch
 from neumann_tpu.store.entity_index import EntityIndex
 from neumann_tpu.store.tensor_store import TensorData, TensorStore, TensorValue
 from neumann_tpu.utils.errors import VectorError
+from neumann_tpu_torch.ops.quant import (
+    _pick_pool,
+    binary_quantize,
+    hamming_topk,
+    int8_topk_scan,
+)
+from neumann_tpu_torch.ops.rerank import (
+    f32_pooled_rerank_topk,
+    int8_pooled_rerank_topk,
+)
 from neumann_tpu_torch.ops.scan import METRICS, host_pull, topk_scan
 from neumann_tpu_torch.store.embedding_slab import EmbeddingSlab
 
 EMB_PREFIX = "emb:"
+ENTITY_PREFIX = "entity:"
+COLLECTION_PREFIX = "col:"
 _EMBEDDING_FIELD = "embedding"
-# ingest_matrix freezes the garbage collector's view of the heap past
-# this many rows (see there)
+
+QUANTIZATIONS = ("none", "int8", "binary", "pq", "tt")
+# a large ingest (ingest_matrix, or a bulk_ingest flush) freezes the
+# garbage collector's view of the heap past this many rows (see
+# ingest_matrix)
 _GC_FREEZE_MIN_ROWS = 1 << 16
 
 
@@ -205,12 +233,30 @@ class VectorEngineConfig:
             raise VectorError("max_dimension must be positive")
 
 
+@dataclass
+class VectorCollectionConfig:
+    """Per-collection config (dimension enforced, metric, storage mode)."""
+
+    dimension: Optional[int] = None
+    metric: str = "cosine"
+    quantization: str = "none"  # none | int8 | binary | pq | tt
+
+    def validate(self) -> None:
+        if self.metric not in METRICS:
+            raise VectorError(f"bad metric {self.metric}")
+        if self.quantization not in QUANTIZATIONS:
+            raise VectorError(f"bad quantization {self.quantization}")
+        if self.dimension is not None and self.dimension <= 0:
+            raise VectorError("dimension must be positive")
+
+
 # ---------------------------------------------------------------------------
 # corpus: one device-searchable namespace
 # ---------------------------------------------------------------------------
 
 class _Corpus:
-    """EntityIndex + EmbeddingSlab + host metadata for one dimension."""
+    """EntityIndex + EmbeddingSlab + host metadata for one namespace and
+    dimension."""
 
     def __init__(self, dim: int, device):
         self.dim = dim
@@ -261,6 +307,36 @@ def _euclid_report(score: float) -> float:
     return 1.0 / (1.0 + max(-score, 0.0))
 
 
+def _pooled_pool(corpus: _Corpus, k: int, metric: str,
+                 extra_mask) -> Optional[int]:
+    """Gate + pool size for the pooled-bits scans, or None to fall back
+    (the JAX engine's gate, same environment overrides).
+
+    Pooled selection keeps ONE row per pool, so it needs a dense corpus
+    and many pools: a true top-k row is lost only when a better one
+    shares its pool, expected loss ~(k-1)/(2 npools). A metadata filter
+    is known on the host, so its actual pool occupancy is checked."""
+    if metric != "cosine":
+        return None
+    cap = corpus.slab.capacity
+    used = corpus.slab.valid_count()
+    pooled_min = int(os.environ.get("NEUMANN_POOLED_MIN_ROWS", 256 * 1024))
+    min_pools = max(int(os.environ.get("NEUMANN_POOLED_MIN_POOLS", 2048)),
+                    32 * k)
+    if used < pooled_min or used * 2 < cap:
+        return None
+    pool_cap = min(4096, max(8, cap // max(min_pools, 1)))
+    pool = _pick_pool(cap, k, pool_cap)
+    if pool is None or cap // pool < min_pools:
+        return None
+    if extra_mask is not None:
+        m = np.asarray(extra_mask, bool)[:cap]
+        nonempty = int(m.reshape(-1, pool).any(axis=1).sum())
+        if nonempty < max(min_pools, 8 * k):
+            return None
+    return pool
+
+
 class VectorEngine:
     def __init__(self, store: Optional[TensorStore] = None,
                  config: Optional[VectorEngineConfig] = None,
@@ -269,10 +345,12 @@ class VectorEngine:
         self.config = config or VectorEngineConfig()
         self.config.validate()
         self.device = torch.device(device)
-        self._corpora: Dict[int, _Corpus] = {}     # dim -> corpus
+        # namespace ("" | "entity" | "col/{name}") -> dim -> corpus
+        self._corpora: Dict[str, Dict[int, _Corpus]] = {}
+        self._collections: Dict[str, VectorCollectionConfig] = {}
         self._lock = threading.RLock()
-        # bulk-ingest mode: queued (key, vec, metadata) puts, flushed as
-        # one vectorized set_rows per dim
+        # bulk-ingest mode: queued (ns, key, vec, metadata) puts, flushed
+        # as one vectorized set_rows per (namespace, dim)
         self._bulk: Optional[list] = None
         self.store.on_put(self._on_store_put)
         self.store.on_delete(self._on_store_delete)
@@ -280,10 +358,25 @@ class VectorEngine:
     # ------------------------------------------------------------------
     # store-hook mirroring
     # ------------------------------------------------------------------
+    @staticmethod
+    def _parse_key(key: str) -> Optional[Tuple[str, str]]:
+        """Store key -> (namespace, inner key), or None for keys that
+        are not embeddings."""
+        if key.startswith(EMB_PREFIX):
+            return "", key[len(EMB_PREFIX):]
+        if key.startswith(ENTITY_PREFIX):
+            return "entity", key[len(ENTITY_PREFIX):]
+        if key.startswith(COLLECTION_PREFIX):
+            name, sep, inner = key[len(COLLECTION_PREFIX):].partition(":")
+            if sep:
+                return f"col/{name}", inner
+        return None
+
     def _on_store_put(self, key: str, data: TensorData) -> None:
-        if not key.startswith(EMB_PREFIX):
+        parsed = self._parse_key(key)
+        if parsed is None:
             return
-        inner = key[len(EMB_PREFIX):]
+        ns, inner = parsed
         emb = data.get(_EMBEDDING_FIELD)
         if emb is None or not emb.is_vector():
             return
@@ -292,15 +385,15 @@ class VectorEngine:
                     if n != _EMBEDDING_FIELD and v.kind == "scalar"}
         with self._lock:
             if self._bulk is not None:
-                self._bulk.append((inner, vec, metadata or None))
+                self._bulk.append((ns, inner, vec, metadata or None))
                 return
-        self._corpus_for(len(vec), create=True).upsert(
+        self._corpus_for(ns, len(vec), create=True).upsert(
             inner, vec, metadata or None)
 
     def bulk_ingest(self):
         """Context manager: defer slab writes during mass ingestion and
-        flush one vectorized ``set_rows`` per dim at exit (searches
-        flush first, so visibility matches the per-row path).
+        flush one vectorized ``set_rows`` per (namespace, dim) at exit
+        (searches flush first, so visibility matches the per-row path).
         Reentrant."""
         @contextlib.contextmanager
         def _cm():
@@ -322,44 +415,52 @@ class VectorEngine:
             self._bulk = None if (end or pending is None) else []
         if not pending:
             return
-        groups: Dict[int, list] = {}
+        groups: Dict[Tuple[str, int], list] = {}
         for item in pending:
-            groups.setdefault(len(item[1]), []).append(item)
-        for dim, items in groups.items():
-            corpus = self._corpus_for(dim, create=True)
+            groups.setdefault((item[0], len(item[2])), []).append(item)
+        for (ns, dim), items in groups.items():
+            corpus = self._corpus_for(ns, dim, create=True)
             with corpus.lock:
                 rows = np.fromiter(
-                    (corpus.index.get_or_insert(it[0]) for it in items),
+                    (corpus.index.get_or_insert(it[1]) for it in items),
                     np.int64, count=len(items))
-                corpus.slab.set_rows(rows, np.stack([it[1] for it in items]))
+                corpus.slab.set_rows(rows, np.stack([it[2] for it in items]))
                 for row, it in zip(rows, items):
-                    if it[2] is not None:
-                        corpus.meta[int(row)] = dict(it[2])
+                    if it[3] is not None:
+                        corpus.meta[int(row)] = dict(it[3])
                     else:
                         corpus.meta.pop(int(row), None)
+        if len(pending) >= _GC_FREEZE_MIN_ROWS:
+            # as after a large ingest_matrix. Without it the young
+            # collections of the next queries took 30-48 ms each after a
+            # 1M-row flush (H100 host), against at most 2 ms with it; no
+            # full collection ran in either case
+            gc.freeze()
 
     def _flush_bulk_if_pending(self) -> None:
         if self._bulk is not None:
             self._flush_bulk()
 
     def _on_store_delete(self, key: str) -> None:
-        if not key.startswith(EMB_PREFIX):
+        parsed = self._parse_key(key)
+        if parsed is None:
             return
         # a queued bulk put of this key must land before the delete
         self._flush_bulk_if_pending()
-        inner = key[len(EMB_PREFIX):]
+        ns, inner = parsed
         with self._lock:
-            corpora = list(self._corpora.values())
+            corpora = list(self._corpora.get(ns, {}).values())
         for corpus in corpora:
             corpus.remove(inner)
 
-    def _corpus_for(self, dim: int, create: bool) -> _Corpus:
+    def _corpus_for(self, ns: str, dim: int, create: bool) -> _Corpus:
         with self._lock:
-            corpus = self._corpora.get(dim)
+            by_dim = self._corpora.setdefault(ns, {})
+            corpus = by_dim.get(dim)
             if corpus is None:
                 if not create:
                     raise VectorError(f"no embeddings of dimension {dim}")
-                corpus = self._corpora[dim] = _Corpus(dim, self.device)
+                corpus = by_dim[dim] = _Corpus(dim, self.device)
             return corpus
 
     # ------------------------------------------------------------------
@@ -411,7 +512,9 @@ class VectorEngine:
     def ingest_matrix(self, keys: Sequence[str], matrix, ns: str = "",
                       copy: bool = True) -> int:
         """Columnar mass ingest: one [N, d] matrix + N keys through the
-        store map, entity index and slab, vectorized. Equivalent to
+        store map, entity index and slab, vectorized, into the default
+        namespace (``ns=""``, keys ``emb:``) or the entity namespace
+        (``ns="entity"``, keys ``entity:``). Equivalent to
         batch_store_embeddings(zip(keys, matrix)) without metadata;
         embeddings are stored dense.
 
@@ -422,13 +525,18 @@ class VectorEngine:
         to the wrong key.
 
         Falls back to the per-row path when the store has a WAL, a
-        recovery overlay, or a put hook other than the engines' own."""
+        recovery overlay, or a put hook other than the engines' own —
+        into the SAME namespace (the JAX engine's fallback writes every
+        row to the default namespace, whatever ``ns`` is)."""
         matrix = np.ascontiguousarray(matrix, dtype=np.float32)
         if matrix.ndim != 2 or len(keys) != matrix.shape[0]:
             raise VectorError("ingest_matrix expects keys + [N, d]")
-        if ns != "":
-            _not_ported(f"ingest into namespace {ns!r}",
-                        "entity embeddings and collections")
+        if ns == "":
+            prefix, put_row = EMB_PREFIX, self.store_embedding
+        elif ns == "entity":
+            prefix, put_row = ENTITY_PREFIX, self.store_entity_embedding
+        else:
+            raise VectorError(f"ingest_matrix: unsupported ns {ns!r}")
         store = self.store
         hooks_ok = all(
             getattr(getattr(h, "__func__", None), "__qualname__", "")
@@ -437,11 +545,11 @@ class VectorEngine:
                 or not hooks_ok:
             with self.bulk_ingest():
                 for i, key in enumerate(keys):
-                    self.store_embedding(key, matrix[i])
+                    put_row(key, matrix[i])
             return len(keys)
         self._flush_bulk_if_pending()
         key_list = keys if isinstance(keys, list) else list(keys)
-        corpus = self._corpus_for(matrix.shape[1], create=True)
+        corpus = self._corpus_for(ns, matrix.shape[1], create=True)
         with corpus.lock:
             rows = corpus.index.get_or_insert_many(key_list)
             adopted = False
@@ -460,11 +568,11 @@ class VectorEngine:
         except Exception:   # noqa: BLE001 — pure-Python fallback below
             pass
         if fast is not None and hasattr(fast, "bulk_embed_entries"):
-            fast.bulk_embed_entries(m, pend, EMB_PREFIX, key_list, matrix,
+            fast.bulk_embed_entries(m, pend, prefix, key_list, matrix,
                                     _EMBEDDING_FIELD)
         else:
             for i, key in enumerate(key_list):
-                full = EMB_PREFIX + key
+                full = prefix + key
                 m[full] = TensorData({_EMBEDDING_FIELD: TensorValue(
                     "vector", matrix[i])})
                 pend.append(full)
@@ -533,10 +641,8 @@ class VectorEngine:
                        extra_mask: Optional[np.ndarray] = None,
                        quantization: str = "none"
                        ) -> List[List[SearchResult]]:
-        """Exact f32 scan over the slab's device view; a metadata filter
-        is a row mask fused into the scan."""
-        if quantization != "none":
-            _not_ported(f"{quantization} storage", "quantized collections")
+        """The brute-force routes (see the module docstring) over one
+        corpus; a metadata filter is a row mask fused into each."""
         angular = metric in ("angular", "geodesic")
         if angular:
             metric = "cosine"
@@ -548,19 +654,55 @@ class VectorEngine:
                               f"dimension {corpus.dim}")
         qp = np.zeros((q.shape[0], corpus.slab.dim_pad), np.float32)
         qp[:, :corpus.dim] = q
+        qd = torch.from_numpy(qp).to(self.device)
         k = max(1, min(top_k, corpus.slab.capacity))
-        emb, valid = corpus.slab.device_view()
-        mask = valid
-        if extra_mask is not None:
-            mask = mask & torch.from_numpy(
+
+        def row_mask(valid):
+            if extra_mask is None:
+                return valid
+            return valid & torch.from_numpy(
                 np.asarray(extra_mask, bool)).to(self.device)
-        scores, idx = host_pull(*topk_scan(
-            emb, torch.from_numpy(qp).to(self.device), k, metric, mask))
+
+        if quantization == "pq":
+            _not_ported("pq storage", "PQ storage")
+        if quantization == "tt":
+            _not_ported("tt storage", "tensor-train storage")
+        if quantization == "binary":
+            bits, valid = corpus.slab.quantized_view("binary")
+            scores, idx = hamming_topk(bits, binary_quantize(qd), k,
+                                       row_mask(valid))
+        elif quantization == "int8" and metric in ("cosine", "dot",
+                                                   "euclidean"):
+            pool = _pooled_pool(corpus, k, metric, extra_mask)
+            if pool is not None:
+                cq, cs, rmult, valid = corpus.slab.quantized_view("int8c")
+                scores, idx = int8_pooled_rerank_topk(
+                    cq, cs, qd, k, pool=pool, mask=row_mask(valid),
+                    row_mult=rmult)
+            else:
+                cq, cs, valid = corpus.slab.quantized_view("int8")
+                scores, idx = int8_topk_scan(cq, cs, qd, k, metric,
+                                             row_mask(valid))
+        else:
+            pool = (_pooled_pool(corpus, k, metric, extra_mask)
+                    if quantization == "none" else None)
+            if pool is not None:
+                emb, rmult, valid = corpus.slab.quantized_view("f32c")
+                scores, idx = f32_pooled_rerank_topk(
+                    emb, qd, k, pool=pool, mask=row_mask(valid),
+                    row_mult=rmult)
+            else:
+                emb, valid = corpus.slab.device_view()
+                scores, idx = topk_scan(emb, qd, k, metric, row_mask(valid))
+        scores, idx = host_pull(scores, idx)
 
         def report(s):
+            if quantization == "binary":
+                return s                 # -hamming distance, any metric
             if metric == "euclidean":
                 return _euclid_report(s)
             if angular:
+                # quantized cosine may slightly exceed [-1, 1]
                 return float(-np.arccos(np.clip(s, -1.0, 1.0)))
             return s
 
@@ -570,9 +712,6 @@ class VectorEngine:
                    filter_cond: Optional[FilterCondition] = None,
                    quantization: str = "none",
                    dim_hint: Optional[int] = None) -> List[SearchResult]:
-        if ns != "":
-            _not_ported(f"search in namespace {ns!r}",
-                        "entity embeddings and collections")
         self._flush_bulk_if_pending()
         if top_k <= 0:
             raise VectorError("top_k must be positive")
@@ -584,7 +723,7 @@ class VectorEngine:
                 float(np.linalg.norm(q)) == 0.0:
             return []
         with self._lock:
-            corpus = self._corpora.get(q.size)
+            corpus = self._corpora.get(ns, {}).get(q.size)
         if corpus is None or corpus.count() == 0:
             return []
         if filter_cond is None:
@@ -602,20 +741,17 @@ class VectorEngine:
     def build_auto_ivf(self, ns: str = "", dim: Optional[int] = None) -> int:
         """Build (or rebuild) the auto IVF index; servers call this at
         load time so the first query is fast. Returns #rows."""
-        if ns != "":
-            _not_ported(f"auto IVF in namespace {ns!r}",
-                        "entity embeddings and collections")
         self._flush_bulk_if_pending()
         dim = dim or self.config.default_dimension
         if dim is None:
             with self._lock:
-                dims = list(self._corpora)
+                dims = list(self._corpora.get(ns, {}))
             if len(dims) != 1:
                 raise VectorError("specify dim (namespace has "
                                   f"{len(dims)} dimensions)")
             dim = dims[0]
         with self._lock:
-            corpus = self._corpora.get(dim)
+            corpus = self._corpora.get(ns, {}).get(dim)
         if corpus is None:
             raise VectorError(f"no corpus for dim {dim}")
         return self._build_auto_ivf(corpus)
@@ -759,21 +895,30 @@ class VectorEngine:
                         filter_cond: Optional[FilterCondition] = None,
                         quantization: Optional[str] = None
                         ) -> List[List[SearchResult]]:
-        if ns != "":
-            _not_ported(f"batch search in namespace {ns!r}",
-                        "entity embeddings and collections")
+        """Batched search against any namespace ("" | "entity" |
+        "col/{name}") with an optional shared metadata filter.
+        Collections resolve their configured metric and quantization
+        when not overridden."""
         self._flush_bulk_if_pending()
         q = np.asarray(queries, dtype=np.float32)
         if q.ndim != 2:
             raise VectorError("batch_search expects [Q, d]")
         if top_k <= 0:
             raise VectorError("top_k must be positive")
+        if ns.startswith("col/"):
+            cfg = self.collection_config(ns[4:])
+            metric = metric or cfg.metric
+            if quantization is None:
+                quantization = cfg.quantization
+            if cfg.dimension and q.shape[1] != cfg.dimension:
+                raise VectorError(f"dimension mismatch: expected "
+                                  f"{cfg.dimension}, got {q.shape[1]}")
         metric = metric or self.config.default_metric
         if metric not in METRICS:
             raise VectorError(f"unknown metric {metric}")
         quantization = quantization or "none"
         with self._lock:
-            corpus = self._corpora.get(q.shape[1])
+            corpus = self._corpora.get(ns, {}).get(q.shape[1])
         if corpus is None or corpus.count() == 0:
             return [[] for _ in range(q.shape[0])]
         if filter_cond is None:
@@ -786,23 +931,155 @@ class VectorEngine:
                                    quantization)
 
     # ------------------------------------------------------------------
+    # entity embeddings
+    # ------------------------------------------------------------------
+    def store_entity_embedding(self, key: str, embedding) -> None:
+        vec = self._validate_vec(embedding)
+        data = self.store.get(ENTITY_PREFIX + key) or TensorData()
+        data.set(_EMBEDDING_FIELD, TensorValue.vector(vec))
+        self.store.put(ENTITY_PREFIX + key, data)
+
+    def get_entity_embedding(self, key: str) -> Optional[np.ndarray]:
+        data = self.store.get(ENTITY_PREFIX + key)
+        if data is None:
+            return None
+        emb = data.get(_EMBEDDING_FIELD)
+        return None if emb is None else emb.to_dense()
+
+    def search_entities(self, query, top_k: int,
+                        metric: Optional[str] = None,
+                        mask_rows: Optional[np.ndarray] = None
+                        ) -> List[SearchResult]:
+        self._flush_bulk_if_pending()
+        q = self._validate_vec(query)
+        metric = metric or self.config.default_metric
+        with self._lock:
+            corpus = self._corpora.get("entity", {}).get(q.size)
+        if corpus is None or corpus.count() == 0:
+            return []
+        return self._device_search(corpus, q, top_k, metric, mask_rows)[0]
+
+    def entity_corpus(self, dim: int) -> Optional[_Corpus]:
+        """The entity corpus of one dimension (for fused hybrid
+        queries)."""
+        self._flush_bulk_if_pending()
+        with self._lock:
+            return self._corpora.get("entity", {}).get(dim)
+
+    # ------------------------------------------------------------------
+    # collections (keys col:{name}:{key}, namespace col/{name})
+    # ------------------------------------------------------------------
+    def create_collection(self, name: str,
+                          config: Optional[VectorCollectionConfig] = None
+                          ) -> None:
+        config = config or VectorCollectionConfig()
+        config.validate()
+        with self._lock:
+            if name in self._collections:
+                raise VectorError(f"collection '{name}' already exists")
+            self._collections[name] = config
+
+    def drop_collection(self, name: str) -> bool:
+        with self._lock:
+            if name not in self._collections:
+                return False
+            del self._collections[name]
+            self._corpora.pop(f"col/{name}", None)
+        for key in self.store.scan(f"{COLLECTION_PREFIX}{name}:"):
+            self.store.delete(key)
+        return True
+
+    def list_collections(self) -> List[str]:
+        with self._lock:
+            return sorted(self._collections)
+
+    def collection_config(self, name: str) -> VectorCollectionConfig:
+        with self._lock:
+            cfg = self._collections.get(name)
+        if cfg is None:
+            raise VectorError(f"unknown collection '{name}'")
+        return cfg
+
+    def collection_stats(self, name: str) -> Dict[str, object]:
+        self._flush_bulk_if_pending()
+        cfg = self.collection_config(name)
+        with self._lock:
+            corpora = list(self._corpora.get(f"col/{name}", {}).values())
+        return {"name": name, "count": sum(c.count() for c in corpora),
+                "dimension": cfg.dimension, "metric": cfg.metric,
+                "quantization": cfg.quantization}
+
+    def store_in_collection(self, name: str, key: str, embedding,
+                            metadata: Optional[Dict[str, object]] = None
+                            ) -> None:
+        cfg = self.collection_config(name)
+        vec = self._validate_vec(embedding, cfg.dimension)
+        if cfg.dimension is None:
+            with self._lock:
+                self._collections[name] = replace(cfg, dimension=vec.size)
+        data = TensorData()
+        data.set(_EMBEDDING_FIELD, TensorValue.vector(vec))
+        for n, v in (metadata or {}).items():
+            data.set(n, TensorValue.scalar(v))
+        self.store.put(f"{COLLECTION_PREFIX}{name}:{key}", data)
+
+    def delete_from_collection(self, name: str, key: str) -> bool:
+        self.collection_config(name)
+        return self.store.delete(f"{COLLECTION_PREFIX}{name}:{key}")
+
+    def search_in_collection(self, name: str, query, top_k: int,
+                             metric: Optional[str] = None
+                             ) -> List[SearchResult]:
+        cfg = self.collection_config(name)
+        return self._search_ns(
+            f"col/{name}", query, top_k, metric or cfg.metric,
+            quantization=cfg.quantization, dim_hint=cfg.dimension)
+
+    def search_filtered_in_collection(self, name: str, query, top_k: int,
+                                      filter_cond: FilterCondition,
+                                      metric: Optional[str] = None
+                                      ) -> List[SearchResult]:
+        cfg = self.collection_config(name)
+        return self._search_ns(
+            f"col/{name}", query, top_k, metric or cfg.metric, filter_cond,
+            quantization=cfg.quantization, dim_hint=cfg.dimension)
+
+    def snapshot_collection(self, name: str, path) -> int:
+        """Persist a collection's vectors + metadata to an .npz file, in
+        the JAX package's format (either package loads the other's)."""
+        self._flush_bulk_if_pending()
+        self.collection_config(name)
+        prefix = f"{COLLECTION_PREFIX}{name}:"
+        keys, vecs, metas = [], [], []
+        for full in self.store.scan(prefix):
+            data = self.store.get(full)
+            emb = data.get(_EMBEDDING_FIELD)
+            if emb is None:
+                continue
+            keys.append(full[len(prefix):])
+            vecs.append(emb.to_dense())
+            metas.append({n: v.value for n, v in data.fields.items()
+                          if n != _EMBEDDING_FIELD and v.kind == "scalar"})
+        np.savez_compressed(
+            path, keys=np.array(keys, dtype=object),
+            vectors=np.array(vecs, dtype=np.float32) if vecs else
+            np.zeros((0, 0), np.float32),
+            metadata=json.dumps(metas))
+        return len(keys)
+
+    def load_collection_snapshot(self, name: str, path) -> int:
+        if name not in self._collections:
+            self.create_collection(name)
+        blob = np.load(path, allow_pickle=True)
+        keys = blob["keys"]
+        metas = json.loads(str(blob["metadata"]))
+        for key, vec, meta in zip(keys, blob["vectors"], metas):
+            self.store_in_collection(name, str(key), vec, meta or None)
+        return len(keys)
+
+    # ------------------------------------------------------------------
     # not ported yet
     # ------------------------------------------------------------------
-    def create_collection(self, *args, **kwargs):
-        _not_ported("collections", "entity embeddings and collections")
-
-    def store_in_collection(self, *args, **kwargs):
-        _not_ported("collections", "entity embeddings and collections")
-
-    def search_in_collection(self, *args, **kwargs):
-        _not_ported("collections", "entity embeddings and collections")
-
-    def store_entity_embedding(self, *args, **kwargs):
-        _not_ported("entity embeddings", "entity embeddings and collections")
-
-    def search_entities(self, *args, **kwargs):
-        _not_ported("entity embeddings", "entity embeddings and collections")
-
     def build_ivf_index(self, *args, **kwargs):
         _not_ported("the legacy IVF index API", "HNSW and legacy IVF APIs")
 

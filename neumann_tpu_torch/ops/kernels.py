@@ -1,6 +1,7 @@
-"""The auto-IVF path's two kernels, written by hand in CUDA C++ for
-Hopper, with their plain PyTorch versions (port of kernels 1 and 2 of
-``neumann_tpu/ops/pallas_kernels.py``).
+"""The port's kernels, written by hand in CUDA C++ for Hopper, with their
+plain PyTorch versions: every Pallas kernel of
+``neumann_tpu/ops/pallas_kernels.py`` plus the pooled-bits scan step
+that XLA fuses on the TPU.
 
 * ``ivf_probe_scores`` (``csrc/ivf_probe.cu``) replaces the Pallas IVF
   probe kernel ``_ivf_probe_kernel`` (``ivf_probe_scores_pallas`` /
@@ -8,6 +9,14 @@ Hopper, with their plain PyTorch versions (port of kernels 1 and 2 of
 * ``batched_probe`` (``csrc/batched_probe.cu``) replaces the Pallas
   top-2 kernel ``_batched_probe_kernel`` (``batched_probe_pallas``): the
   throughput path's first pass, packed strided-pool winners.
+* ``int8_dot_scores`` (``csrc/int8_scores.cu``) replaces the Pallas
+  ``_int8_kernel`` (``int8_dot_scores``): the int8 scan's block scores.
+* ``int8_pooled_bits`` (``csrc/int8_scores.cu``) and ``f32_pooled_bits``
+  (``csrc/f32_pooled.cu``) replace the XLA-fused pooled-bits steps of
+  ``ops/quant.int8_pooled_topk`` / ``f32_pooled_topk``: consecutive
+  pools, packed winner bits, scores never in device memory.
+* ``hamming_scores`` (``csrc/hamming.cu``) replaces the Pallas
+  ``_hamming_kernel`` (``hamming_scores`` / ``hamming_topk_pallas``).
 
 Every wrapper takes its plain version only for tensors on the CPU; for
 a CUDA tensor it launches the kernel or raises — there is no fallback.
@@ -15,9 +24,10 @@ a CUDA tensor it launches the kernel or raises — there is no fallback.
 path went through them); the plain versions never touch it.
 
 The kernels are compiled at first use by ``nvcc`` for ``sm_90a`` from
-the sources in ``csrc/`` into ``build/neumann_tpu_torch/`` at the root
-of the checkout, and bound with ``ctypes`` (plain C entry points that
-return ``cudaGetLastError()``). Outputs are allocated here with
+the sources in ``csrc/`` (one ``nvcc -c`` per source, all at once, then
+one link) into ``build/neumann_tpu_torch/`` at the root of the
+checkout, and bound with ``ctypes`` (plain C entry points that return
+``cudaGetLastError()``). Outputs are allocated here with
 ``torch.empty`` and the kernels run on the current stream.
 
 Differences from the Pallas wrappers: the per-query trace-time unroll
@@ -39,13 +49,16 @@ from typing import Optional
 
 import torch
 
-LAUNCHES = {"ivf_probe": 0, "batched_probe": 0}
+LAUNCHES = {"ivf_probe": 0, "batched_probe": 0, "int8_dot_scores": 0,
+            "int8_pooled_bits": 0, "f32_pooled_bits": 0, "hamming_scores": 0}
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("ivf_probe.cu", "batched_probe.cu")
+SOURCES = ("ivf_probe.cu", "batched_probe.cu", "int8_scores.cu",
+           "f32_pooled.cu", "hamming.cu")
+HEADERS = ("pooled_bits.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "neumann_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -85,30 +98,53 @@ def build_kernels(verbose: bool = False) -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for name in SOURCES:
+        for name in SOURCES + HEADERS:
             digest.update((CSRC_DIR / name).read_bytes())
-        so = BUILD_DIR / f"libneumann_kernels-{digest.hexdigest()[:16]}.so"
+        tag = digest.hexdigest()[:16]
+        so = BUILD_DIR / f"libneumann_kernels-{tag}.so"
         if not so.exists() or verbose:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS,
-                   *(["-Xptxas=-v"] if verbose else []),
-                   "-o", str(tmp), *(str(CSRC_DIR / n) for n in SOURCES)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stdout}\n{proc.stderr}")
+            nvcc, pid = _nvcc(), os.getpid()
+            objs = [BUILD_DIR / f"{Path(n).stem}-{tag}.{pid}.o"
+                    for n in SOURCES]
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
+                 "-c", "-o", str(o), str(CSRC_DIR / n)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for n, o in zip(SOURCES, objs)]
+            logs = [(n, p.communicate()[0], p.returncode)
+                    for n, p in zip(SOURCES, procs)]
+            failed = [f"{n} ({rc}):\n{log}" for n, log, rc in logs if rc]
+            if failed:
+                raise RuntimeError("nvcc failed: " + "\n".join(failed))
             if verbose:
-                print(proc.stdout + proc.stderr, flush=True)
+                print("".join(log for _, log, _ in logs), flush=True)
+            tmp = so.with_suffix(f".{pid}.tmp")
+            proc = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                 *map(str, objs)], capture_output=True, text=True)
+            for o in objs:
+                o.unlink(missing_ok=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):"
+                                   f"\n{proc.stdout}\n{proc.stderr}")
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.neumann_ivf_probe_scores.argtypes = [
-            vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, vp]
-        lib.neumann_ivf_probe_scores.restype = i32
-        lib.neumann_batched_probe.argtypes = [
-            vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
-        lib.neumann_batched_probe.restype = i32
+        for fn, args in (
+                ("neumann_ivf_probe_scores",
+                 [vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, vp]),
+                ("neumann_batched_probe",
+                 [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]),
+                ("neumann_int8_dot_scores",
+                 [vp, vp, vp, vp, vp, i32, i64, i32, vp]),
+                ("neumann_int8_pooled_bits",
+                 [vp, vp, vp, vp, vp, vp, i32, i64, i32, i32, vp]),
+                ("neumann_f32_pooled_bits",
+                 [vp, vp, vp, vp, vp, vp, i32, i64, i32, i32, vp]),
+                ("neumann_hamming_scores", [vp, vp, vp, i64, i32, i32, vp])):
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = i32
         _lib = lib
         return lib
 
@@ -232,8 +268,9 @@ def ivf_windowed_topk(buf, rmult, cents, starts, queries, k: int,
 # kernel 2: batched top-2 probe (the throughput path)
 # ---------------------------------------------------------------------------
 
-def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: float) -> torch.Tensor:
-    """Single-rounding f32 fused multiply-add a * b + c (a, b f32).
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
+    """Single-rounding f32 fused multiply-add a * b + c (a, b f32; c an
+    f32 tensor that broadcasts, or a float).
 
     The product is exact in float64 (24 + 24 significant bits); the
     float64 sum is made round-to-odd (TwoSum error, then one ulp toward
@@ -353,3 +390,279 @@ def decode_strided_pool_bits(wb, window: int):
     pos = torch.where(dead, torch.full_like(wb, -1),
                       (wb & (pool - 1)) * _POOL_LANES + lane)
     return scores, pos
+
+
+# ---------------------------------------------------------------------------
+# kernels 4 and 5: int8 scores and int8 pooled bits (one dot loop)
+# ---------------------------------------------------------------------------
+
+# an f32 matmul of int8 values is exact while every partial sum is an
+# integer of magnitude below 2^24: |dot| <= 127^2 d
+_EXACT_F32_DIM = (1 << 24) // (127 * 127)
+# the plain versions bound their [Q, rows] temporaries to this many
+# elements per step
+_PLAIN_STEP_ELEMS = 1 << 24
+
+
+def _int8_dots(qq: torch.Tensor, cq: torch.Tensor) -> torch.Tensor:
+    """Exact int8 dots [Q, N] as f32, as the kernels' int32 sums
+    converted to f32 (float64 past the exact-f32 depth)."""
+    if qq.shape[1] <= _EXACT_F32_DIM:
+        return qq.float() @ cq.float().T
+    return (qq.double() @ cq.double().T).float()
+
+
+def _row_steps(n: int, q: int, align: int = 1):
+    step = max(align, _PLAIN_STEP_ELEMS // max(q, 1) // align * align)
+    return ((r0, min(n, r0 + step)) for r0 in range(0, n, step))
+
+
+def _check_int8_scan(corpus_q, row_mult, queries_q, q_mult, dev):
+    _check("corpus_q", corpus_q, torch.int8, 2, dev)
+    _check("row_mult", row_mult, torch.float32, 1, dev)
+    _check("queries_q", queries_q, torch.int8, 2, dev)
+    _check("q_mult", q_mult, torch.float32, 1, dev)
+    if (queries_q.shape[1] != corpus_q.shape[1]
+            or row_mult.shape[0] != corpus_q.shape[0]
+            or q_mult.shape[0] != queries_q.shape[0]):
+        raise ValueError(
+            f"int8 scan shapes: corpus {tuple(corpus_q.shape)}, row_mult "
+            f"{tuple(row_mult.shape)}, queries {tuple(queries_q.shape)}, "
+            f"q_mult {tuple(q_mult.shape)}")
+
+
+def _cuda_ready(name: str, dev, d: int, d_mult: int, q: int, tensors):
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if d % d_mult or q > 65535 * 16:
+        raise ValueError(f"{name} kernel needs d % {d_mult} == 0 and Q <= "
+                         f"{65535 * 16} (d={d}, Q={q})")
+    for tname, t in tensors:
+        _launch_ready(tname, t)
+
+
+def int8_dot_scores_plain(corpus_q, row_mult, queries_q, q_mult):
+    """Plain PyTorch version of ``int8_dot_scores``, bit-identical to it
+    and to the Pallas kernel: exact dots, then two f32 roundings."""
+    q, n = queries_q.shape[0], corpus_q.shape[0]
+    out = torch.empty((q, n), dtype=torch.float32, device=corpus_q.device)
+    for r0, r1 in _row_steps(n, q):
+        out[:, r0:r1] = ((_int8_dots(queries_q, corpus_q[r0:r1])
+                          * q_mult[:, None]) * row_mult[None, r0:r1])
+    return out
+
+
+def int8_dot_scores(corpus_q, row_mult, queries_q, q_mult):
+    """[Q, N] f32 fused-dequant scores ``(float(q . c) * q_mult) *
+    row_mult`` (the Pallas ``int8_dot_scores``; q_mult may be [Q, 1] and
+    row_mult [1, N] as there).
+
+    corpus_q [N, d] int8, queries_q [Q, d] int8; the dots are exact
+    int32 sums, so the output is bit-exact."""
+    q_mult, row_mult = q_mult.reshape(-1), row_mult.reshape(-1)
+    dev = corpus_q.device
+    _check_int8_scan(corpus_q, row_mult, queries_q, q_mult, dev)
+    if dev.type == "cpu":
+        return int8_dot_scores_plain(corpus_q, row_mult, queries_q, q_mult)
+    (n, d), q = corpus_q.shape, queries_q.shape[0]
+    _cuda_ready("int8_dot_scores", dev, d, 64, q,
+                (("corpus_q", corpus_q), ("row_mult", row_mult),
+                 ("queries_q", queries_q), ("q_mult", q_mult)))
+    lib = build_kernels()
+    out = torch.empty((q, n), dtype=torch.float32, device=dev)
+    if q and n:
+        with torch.cuda.device(dev):
+            err = lib.neumann_int8_dot_scores(
+                queries_q.data_ptr(), corpus_q.data_ptr(), q_mult.data_ptr(),
+                row_mult.data_ptr(), out.data_ptr(), q, n, d, _stream())
+        _raise_on(err, "int8_dot_scores")
+        LAUNCHES["int8_dot_scores"] += 1
+    return out
+
+
+def _check_pool(pool: int, n: int) -> None:
+    if not 8 <= pool <= 4096 or pool & (pool - 1) or n % pool:
+        raise ValueError(f"pool must be a power of two in [8, 4096] that "
+                         f"divides N (pool={pool}, N={n})")
+
+
+def _pack_pool_max(a, row_mult, bias, r0: int, pool: int):
+    """The pooled epilogue on scores a = dots * q_mult of rows r0..:
+    fma(a, rm, bias) as one rounding, bitcast, in-pool index in the low
+    log2(pool) bits, max per pool."""
+    s = _fma_f32(a, row_mult[None, :], bias[None, :])
+    member = (torch.arange(r0, r0 + a.shape[1], device=a.device)
+              & (pool - 1)).int()
+    bits = (s.view(torch.int32) & ~(pool - 1)) | member
+    return bits.reshape(a.shape[0], -1, pool).amax(dim=2)
+
+
+def int8_pooled_bits_plain(corpus_q, row_mult, bias, queries_q, q_mult,
+                           pool: int):
+    """Plain PyTorch version of ``int8_pooled_bits``, bit-identical to
+    it and to the JAX package's fused step (exact dots, f32 product,
+    exactly rounded f32 FMA)."""
+    q, n = queries_q.shape[0], corpus_q.shape[0]
+    out = torch.empty((q, n // pool), dtype=torch.int32,
+                      device=corpus_q.device)
+    for r0, r1 in _row_steps(n, q, pool):
+        a = _int8_dots(queries_q, corpus_q[r0:r1]) * q_mult[:, None]
+        out[:, r0 // pool:r1 // pool] = _pack_pool_max(
+            a, row_mult[r0:r1], bias[r0:r1], r0, pool)
+    return out
+
+
+def int8_pooled_bits(corpus_q, row_mult, bias, queries_q, q_mult,
+                     pool: int):
+    """Packed pool winners of the int8 cosine scan (the XLA-fused step of
+    the JAX package's ``int8_pooled_topk``).
+
+    corpus_q [N, d] int8, row_mult [N] f32 (cosine multipliers), bias
+    [N] f32 (2.0 live, -1e30 dead), queries_q [Q, d] int8, q_mult [Q]
+    f32. Pools are ``pool`` CONSECUTIVE rows (a power of two in [8,
+    4096] dividing N). Returns [Q, N / pool] int32: per pool the max of
+    ``(bitcast(fma(float(dot) * q_mult, rm, bias)) & ~(pool - 1)) |
+    (row % pool)``; decode with ``ops/quant._pooled_bits_select``."""
+    dev = corpus_q.device
+    _check_int8_scan(corpus_q, row_mult, queries_q, q_mult, dev)
+    _check("bias", bias, torch.float32, 1, dev)
+    (n, d), q = corpus_q.shape, queries_q.shape[0]
+    _check_pool(pool, n)
+    if bias.shape[0] != n:
+        raise ValueError(f"bias {tuple(bias.shape)} for {n} rows")
+    if dev.type == "cpu":
+        return int8_pooled_bits_plain(corpus_q, row_mult, bias, queries_q,
+                                      q_mult, pool)
+    _cuda_ready("int8_pooled_bits", dev, d, 64, q,
+                (("corpus_q", corpus_q), ("row_mult", row_mult),
+                 ("bias", bias), ("queries_q", queries_q),
+                 ("q_mult", q_mult)))
+    lib = build_kernels()
+    out = torch.empty((q, n // pool), dtype=torch.int32, device=dev)
+    if q and n:
+        with torch.cuda.device(dev):
+            err = lib.neumann_int8_pooled_bits(
+                queries_q.data_ptr(), corpus_q.data_ptr(), q_mult.data_ptr(),
+                row_mult.data_ptr(), bias.data_ptr(), out.data_ptr(), q, n,
+                d, pool, _stream())
+        _raise_on(err, "int8_pooled_bits")
+        LAUNCHES["int8_pooled_bits"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernel 6: f32 pooled bits
+# ---------------------------------------------------------------------------
+
+def f32_pooled_bits_plain(corpus, row_mult, bias, queries, q_mult,
+                          pool: int):
+    """Plain PyTorch version of ``f32_pooled_bits``: an f32 matmul (no
+    TF32), then the same epilogue. Its dots are summed in another order
+    than the kernel's, so the two agree to a tolerance, not bit for
+    bit."""
+    q, n = queries.shape[0], corpus.shape[0]
+    out = torch.empty((q, n // pool), dtype=torch.int32, device=corpus.device)
+    for r0, r1 in _row_steps(n, q, pool):
+        a = (queries @ corpus[r0:r1].T) * q_mult[:, None]
+        out[:, r0 // pool:r1 // pool] = _pack_pool_max(
+            a, row_mult[r0:r1], bias[r0:r1], r0, pool)
+    return out
+
+
+def f32_pooled_bits(corpus, row_mult, bias, queries, q_mult, pool: int):
+    """Packed pool winners of the f32 cosine scan (the XLA-fused step of
+    the JAX package's ``f32_pooled_topk``): as ``int8_pooled_bits`` with
+    an f32 corpus [N, d] and f32 queries [Q, d], dots in full f32."""
+    dev = corpus.device
+    _check("corpus", corpus, torch.float32, 2, dev)
+    _check("row_mult", row_mult, torch.float32, 1, dev)
+    _check("bias", bias, torch.float32, 1, dev)
+    _check("queries", queries, torch.float32, 2, dev)
+    _check("q_mult", q_mult, torch.float32, 1, dev)
+    (n, d), q = corpus.shape, queries.shape[0]
+    _check_pool(pool, n)
+    if (queries.shape[1] != d or row_mult.shape[0] != n
+            or bias.shape[0] != n or q_mult.shape[0] != q):
+        raise ValueError(
+            f"f32 pooled shapes: corpus {tuple(corpus.shape)}, row_mult "
+            f"{tuple(row_mult.shape)}, bias {tuple(bias.shape)}, queries "
+            f"{tuple(queries.shape)}, q_mult {tuple(q_mult.shape)}")
+    if dev.type == "cpu":
+        return f32_pooled_bits_plain(corpus, row_mult, bias, queries, q_mult,
+                                     pool)
+    _cuda_ready("f32_pooled_bits", dev, d, 16, q,
+                (("corpus", corpus), ("row_mult", row_mult), ("bias", bias),
+                 ("queries", queries), ("q_mult", q_mult)))
+    lib = build_kernels()
+    out = torch.empty((q, n // pool), dtype=torch.int32, device=dev)
+    if q and n:
+        with torch.cuda.device(dev):
+            err = lib.neumann_f32_pooled_bits(
+                queries.data_ptr(), corpus.data_ptr(), q_mult.data_ptr(),
+                row_mult.data_ptr(), bias.data_ptr(), out.data_ptr(), q, n,
+                d, pool, _stream())
+        _raise_on(err, "f32_pooled_bits")
+        LAUNCHES["f32_pooled_bits"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernel 3: hamming distances
+# ---------------------------------------------------------------------------
+
+# 16-byte chunks of a packed row the kernel keeps in registers
+_MAX_HAMMING_WORDS = 64
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 bit pattern (SWAR; every mask clears the
+    sign bits an arithmetic shift brings in)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (x & 0xFF) + ((x >> 8) & 0xFF) + ((x >> 16) & 0xFF) + (x >> 24)
+
+
+def hamming_scores_plain(corpus_bits, query_bits):
+    """Plain PyTorch version of ``hamming_scores`` (exact)."""
+    (n, w), q = corpus_bits.shape, query_bits.shape[0]
+    out = torch.empty((q, n), dtype=torch.int32, device=corpus_bits.device)
+    for r0, r1 in _row_steps(n, q * w):
+        x = query_bits[:, None, :] ^ corpus_bits[None, r0:r1, :]
+        out[:, r0:r1] = _popcount32(x).sum(dim=2, dtype=torch.int32)
+    return out
+
+
+def hamming_scores(corpus_bits, query_bits):
+    """[Q, N] int32 hamming distances (the Pallas ``hamming_scores``).
+
+    corpus_bits [N, W] and query_bits [Q, W] int32 bit patterns (the
+    JAX package's uint32 words, same bits). No row padding and no
+    word-major transpose: the kernel reads rows as stored."""
+    dev = corpus_bits.device
+    _check("corpus_bits", corpus_bits, torch.int32, 2, dev)
+    _check("query_bits", query_bits, torch.int32, 2, dev)
+    (n, w), q = corpus_bits.shape, query_bits.shape[0]
+    if query_bits.shape[1] != w:
+        raise ValueError(f"hamming shapes: corpus {tuple(corpus_bits.shape)}"
+                         f", queries {tuple(query_bits.shape)}")
+    if dev.type == "cpu":
+        return hamming_scores_plain(corpus_bits, query_bits)
+    if dev.type != "cuda":
+        raise ValueError(f"hamming_scores: unsupported device {dev}")
+    if w % 4 or w > _MAX_HAMMING_WORDS or q > 65535 * 64:
+        raise ValueError(f"hamming kernel needs W % 4 == 0, W <= "
+                         f"{_MAX_HAMMING_WORDS} and Q <= {65535 * 64} "
+                         f"(W={w}, Q={q})")
+    for name, t in (("corpus_bits", corpus_bits), ("query_bits", query_bits)):
+        _launch_ready(name, t)
+    lib = build_kernels()
+    out = torch.empty((q, n), dtype=torch.int32, device=dev)
+    if q and n:
+        with torch.cuda.device(dev):
+            err = lib.neumann_hamming_scores(
+                corpus_bits.data_ptr(), query_bits.data_ptr(), out.data_ptr(),
+                n, q, w, _stream())
+        _raise_on(err, "hamming_scores")
+        LAUNCHES["hamming_scores"] += 1
+    return out

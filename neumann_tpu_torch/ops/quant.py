@@ -1,14 +1,38 @@
-"""int8 scalar quantization (the slice's part of
+"""Quantized corpus storage modes and their scans (port of
 ``neumann_tpu/ops/quant.py``).
 
-Per-row symmetric scale (absmax/127), round half to even, clip to
+int8: per-row symmetric scale (absmax/127), round half to even, clip to
 [-127, 127] — the same arithmetic as the JAX package, so an int8 plane
-quantized by either package is bit-identical.
+quantized by either package is bit-identical. Scans quantize the query
+the same way and score int8 x int8 -> int32 through the hand kernels of
+``ops/kernels.py``:
+
+* ``int8_topk_scan``: block scores by ``int8_dot_scores`` (kernel 4),
+  a running ``torch.topk`` merge across row blocks;
+* ``int8_pooled_topk`` / ``f32_pooled_topk``: the pooled-bits cosine
+  scans, one ``int8_pooled_bits`` / ``f32_pooled_bits`` launch over the
+  whole corpus (the JAX package's row blocks exist for XLA's sake), then
+  a cut over the [Q, N / pool] winner bits.
+
+binary: sign bits packed 32 per word; the JAX package's uint32 words
+are int32 bit patterns here (torch's uint32 lacks most bitwise ops).
+``hamming_topk`` scores by ``hamming_scores`` (kernel 3) with the
+semantics of ``hamming_topk_pallas``.
+
+Scalars where the JAX package writes ``lax.rsqrt`` are ``1 / sqrt``
+here: two correctly rounded steps, which is what XLA computes on the
+CPU inside the fused scans (the int8 winner bits match only so), while
+torch's CUDA ``rsqrt`` is an approximation.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from neumann_tpu_torch.ops import kernels
+from neumann_tpu_torch.ops.scan import NEG_INF, _as2d
 
 
 def scalar_quantize(x: torch.Tensor):
@@ -25,10 +49,271 @@ def scalar_dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale[..., None]
 
 
+def _inv_sqrt(x: torch.Tensor) -> torch.Tensor:
+    return 1.0 / torch.sqrt(x)
+
+
+def corpus_sqnorms(corpus_q: torch.Tensor,
+                   corpus_scale: torch.Tensor) -> torch.Tensor:
+    """Per-row squared L2 norms of an int8 corpus ([N] f32)."""
+    return (corpus_q.float() ** 2).sum(dim=1) * corpus_scale ** 2
+
+
+def _row_multiplier(corpus_scale, cn2, metric: str):
+    """Per-row score multiplier: scale / ||row|| for cosine (0 for a
+    zero row), the scale itself otherwise."""
+    if metric == "cosine":
+        return torch.where(cn2 > 0, corpus_scale * _inv_sqrt(
+            cn2.clamp_min(1e-30)), torch.zeros_like(cn2))
+    return corpus_scale
+
+
 def int8_cosine_row_mult(corpus_q: torch.Tensor,
                          corpus_scale: torch.Tensor) -> torch.Tensor:
     """Per-row cosine multiplier scale/||row|| (0 = zero row): a unit
     row is ``corpus_q * row_mult``."""
-    cn2 = (corpus_q.float() ** 2).sum(dim=1) * corpus_scale ** 2
-    return torch.where(cn2 > 0, corpus_scale * torch.rsqrt(
-        cn2.clamp_min(1e-30)), torch.zeros_like(cn2))
+    return _row_multiplier(corpus_scale,
+                           corpus_sqnorms(corpus_q, corpus_scale), "cosine")
+
+
+def f32_cosine_row_mult(corpus: torch.Tensor) -> torch.Tensor:
+    """Per-row cosine multiplier 1 / ||row|| of an f32 corpus (0 = zero
+    row)."""
+    cn2 = (corpus * corpus).sum(dim=1)
+    return torch.where(cn2 > 0, _inv_sqrt(cn2.clamp_min(1e-30)),
+                       torch.zeros_like(cn2))
+
+
+def _quantize_queries(queries: torch.Tensor):
+    """(qq int8 [Q, d], q_scale [Q], ||dequantized query||^2 [Q])."""
+    qq, q_scale = scalar_quantize(queries)
+    q_norm2 = ((qq.float() * q_scale[:, None]) ** 2).sum(dim=1)
+    return qq, q_scale, q_norm2
+
+
+def _int8_block_scores(qq, q_scale, q_norm, block_q, block_scale,
+                       metric: str, cn2=None, row_mult=None):
+    """Scores [Q, B] of one int8 corpus block through ``int8_dot_scores``
+    (kernel 4). qq [Q, d] int8, q_scale [Q], q_norm [Q] dequantized
+    query norms; cn2 / row_mult optional precomputed per-row terms.
+    Euclidean is an epilogue on the kernel's scale-only output."""
+    if metric == "dot":
+        return kernels.int8_dot_scores(block_q, block_scale, qq, q_scale)
+    if metric == "cosine":
+        if row_mult is None:
+            if cn2 is None:
+                cn2 = corpus_sqnorms(block_q, block_scale)
+            row_mult = _row_multiplier(block_scale, cn2, metric)
+        q_inv = _inv_sqrt((q_norm * q_norm).clamp_min(1e-30))
+        qmult = torch.where(q_norm > 0, q_scale * q_inv,
+                            torch.zeros_like(q_norm))
+        return kernels.int8_dot_scores(block_q, row_mult, qq, qmult)
+    if metric == "euclidean":
+        if cn2 is None:
+            cn2 = corpus_sqnorms(block_q, block_scale)
+        dots = kernels.int8_dot_scores(block_q, block_scale, qq, q_scale)
+        d2 = (q_norm[:, None] ** 2 - 2.0 * dots) + cn2[None, :]
+        return -d2.clamp_min(0.0)
+    raise ValueError(f"unsupported int8 metric: {metric}")
+
+
+def _merge_topk(best_s, best_i, s, ids, k: int):
+    cand_s = torch.cat([best_s, s], dim=1)
+    cand_i = torch.cat([best_i, ids], dim=1)
+    top_s, pos = torch.topk(cand_s, min(k, cand_s.shape[1]), dim=1)
+    return top_s, torch.gather(cand_i, 1, pos)
+
+
+def int8_topk_scan(corpus_q: torch.Tensor, corpus_scale: torch.Tensor,
+                   queries: torch.Tensor, k: int, metric: str = "cosine",
+                   mask: Optional[torch.Tensor] = None,
+                   block_rows: int = 512 * 1024,
+                   corpus_sqnorm: Optional[torch.Tensor] = None):
+    """Top-k over an int8 corpus with the query quantized per query, so
+    scores come from int8 x int8 -> int32 dots (kernel 4); both scales
+    rescale them afterwards. Blockwise over ``block_rows`` rows with a
+    running exact ``torch.topk`` merge (the JAX package's ``exact``
+    selection). Returns (scores [Q, k] f32, ids [Q, k] int32, -1 where
+    the score is -inf); euclidean scores are -distance."""
+    queries = _as2d(queries).float()
+    if queries.shape[-1] != corpus_q.shape[-1]:
+        raise ValueError(f"query dim {queries.shape[-1]} != corpus dim "
+                         f"{corpus_q.shape[-1]}")
+    qq, q_scale, q_norm2 = _quantize_queries(queries)
+    q_norm = torch.sqrt(q_norm2)
+    n = corpus_q.shape[0]
+    k = min(k, n)
+    if corpus_sqnorm is None and metric != "dot":
+        corpus_sqnorm = corpus_sqnorms(corpus_q, corpus_scale)
+    row_mult = (_row_multiplier(corpus_scale, corpus_sqnorm, metric)
+                if metric == "cosine" else None)
+    q = queries.shape[0]
+    dev = corpus_q.device
+    best_s = torch.full((q, 0), NEG_INF, device=dev)
+    best_i = torch.full((q, 0), -1, dtype=torch.int64, device=dev)
+    for r0 in range(0, n, block_rows):
+        r1 = min(n, r0 + block_rows)
+        s = _int8_block_scores(
+            qq, q_scale, q_norm, corpus_q[r0:r1], corpus_scale[r0:r1],
+            metric,
+            cn2=None if corpus_sqnorm is None else corpus_sqnorm[r0:r1],
+            row_mult=None if row_mult is None else row_mult[r0:r1])
+        if mask is not None:
+            s = s.masked_fill(~mask[None, r0:r1], NEG_INF)
+        bs, bi = torch.topk(s, min(k, r1 - r0), dim=1)
+        best_s, best_i = _merge_topk(best_s, best_i, bs, bi + r0, k)
+    best_i = best_i.masked_fill(torch.isneginf(best_s), -1).int()
+    if metric == "euclidean":
+        best_s = -torch.sqrt((-best_s).clamp_min(0.0))
+    return best_s, best_i
+
+
+# ---------------------------------------------------------------------------
+# pooled-bits cosine scans
+# ---------------------------------------------------------------------------
+
+def _pick_pool(n: int, k: int, pool: int) -> Optional[int]:
+    """Largest power-of-two pool in [8, `pool`] that divides n with
+    n / pool >= k, or None when no pooled layout fits. The JAX package's
+    ``_pick_pool_blocks`` also splits the rows into blocks for XLA; the
+    port scans the whole corpus in one launch and needs only the pool."""
+    p = 1 << (max(pool, 1).bit_length() - 1)   # round down to a power of 2
+    while p >= 8:
+        if n % p == 0 and n // p >= k:
+            return p
+        p //= 2
+    return None
+
+
+def _pooled_bits_select(allbits: torch.Tensor, pool: int, k: int):
+    """Final candidate cut over the packed [Q, N/pool] winner bits:
+    (scores [Q, k] f32, rows [Q, k] int32, -1 / -inf where dead).
+
+    An exact ``torch.topk`` (bit-pattern order is score order). The JAX
+    package can instead cut with ``lax.approx_max_k``
+    (``selector="approx[:target]"``), which torch does not have; the
+    exact cut keeps every candidate the approximate one would, so its
+    recall is at least as high."""
+    tb, pos = torch.topk(allbits, min(k, allbits.shape[1]), dim=1)
+    local = tb & (pool - 1)
+    score = (tb & ~(pool - 1)).view(torch.float32) - 2.0
+    rows = pos.int() * pool + local
+    # dead rows carry negative patterns (the -1e30 bias); any live score
+    # is >= 1.0, so its bits are a positive int
+    dead = tb <= 0
+    return (score.masked_fill(dead, NEG_INF),
+            rows.masked_fill(dead, -1).int())
+
+
+def _live_bias(n: int, mask, n_valid, device) -> torch.Tensor:
+    """Per-row additive shift: 2.0 live, -1e30 dead (mask False or row
+    >= n_valid), so dead rows bitcast negative and never win a pool."""
+    live = torch.ones(n, dtype=torch.bool, device=device)
+    if n_valid is not None:
+        live &= torch.arange(n, device=device) < int(n_valid)
+    if mask is not None:
+        live &= mask
+    return torch.where(live, torch.full((n,), 2.0, device=device),
+                       torch.full((n,), -1e30, device=device))
+
+
+def int8_pooled_topk(corpus_q: torch.Tensor, corpus_scale: torch.Tensor,
+                     queries: torch.Tensor, k: int, pool: int = 4096,
+                     mask: Optional[torch.Tensor] = None, n_valid=None,
+                     row_mult: Optional[torch.Tensor] = None):
+    """Cosine top-k over an int8 corpus via the pooled-bits scan.
+
+    Scores are shifted to [1, 3), bitcast to int32 and the low
+    log2(pool) mantissa bits replaced by the row's index in its pool of
+    ``pool`` consecutive rows, so one max per pool carries the
+    (truncated) score and its argmax (``int8_pooled_bits``, kernel 5);
+    the cut over the [Q, N / pool] winners recovers global rows. At most
+    one row per pool survives. Raises ValueError without a pooled layout
+    (``_pick_pool``: n % pool == 0, n / pool >= k). Cosine only."""
+    queries = _as2d(queries).float()
+    n = corpus_q.shape[0]
+    picked = _pick_pool(n, k, pool)
+    if picked is None:
+        raise ValueError(f"no pooled layout for n={n}, k={k}, pool<={pool}")
+    pool = picked
+    if row_mult is None:
+        row_mult = _row_multiplier(
+            corpus_scale, corpus_sqnorms(corpus_q, corpus_scale), "cosine")
+    qq, q_scale, q_norm2 = _quantize_queries(queries)
+    qmult = torch.where(q_norm2 > 0,
+                        q_scale * _inv_sqrt(q_norm2.clamp_min(1e-30)),
+                        torch.zeros_like(q_norm2))
+    bias = _live_bias(n, mask, n_valid, corpus_q.device)
+    allbits = kernels.int8_pooled_bits(corpus_q, row_mult.contiguous(), bias,
+                                       qq, qmult, pool)
+    return _pooled_bits_select(allbits, pool, k)
+
+
+def f32_pooled_topk(corpus: torch.Tensor, queries: torch.Tensor, k: int,
+                    pool: int = 4096, mask: Optional[torch.Tensor] = None,
+                    n_valid=None, row_mult: Optional[torch.Tensor] = None):
+    """Cosine top-k over an f32 corpus via the pooled-bits scan: as
+    ``int8_pooled_topk`` with full-f32 dots (``f32_pooled_bits``,
+    kernel 6). row_mult defaults to 1 / ||row|| (0 for a zero row)."""
+    queries = _as2d(queries).float()
+    n = corpus.shape[0]
+    picked = _pick_pool(n, k, pool)
+    if picked is None:
+        raise ValueError(f"no pooled layout for n={n}, k={k}, pool<={pool}")
+    pool = picked
+    if row_mult is None:
+        row_mult = f32_cosine_row_mult(corpus)
+    q_norm2 = (queries * queries).sum(dim=1)
+    qmult = torch.where(q_norm2 > 0, _inv_sqrt(q_norm2.clamp_min(1e-30)),
+                        torch.zeros_like(q_norm2))
+    bias = _live_bias(n, mask, n_valid, corpus.device)
+    allbits = kernels.f32_pooled_bits(corpus, row_mult.contiguous(), bias,
+                                      queries.contiguous(), qmult, pool)
+    return _pooled_bits_select(allbits, pool, k)
+
+
+# ---------------------------------------------------------------------------
+# binary (1-bit) quantization
+# ---------------------------------------------------------------------------
+
+def binary_quantize(x: torch.Tensor) -> torch.Tensor:
+    """Pack sign bits of [N, d] into int32 bit patterns [N, ceil(d/32)]:
+    bit j of word w is x[:, 32 w + j] > 0 (the JAX package's uint32
+    words, same bits)."""
+    n, d = x.shape
+    words = -(-d // 32)
+    bits = torch.zeros((n, words * 32), dtype=torch.int64, device=x.device)
+    bits[:, :d] = (x > 0).long()
+    weights = torch.bitwise_left_shift(
+        torch.ones(32, dtype=torch.int64, device=x.device),
+        torch.arange(32, device=x.device))
+    packed = (bits.reshape(n, words, 32) * weights).sum(dim=2)
+    # [0, 2^32) -> the same 32 bits as int32
+    return torch.where(packed >= 1 << 31, packed - (1 << 32),
+                       packed).to(torch.int32)
+
+
+def hamming_topk(corpus_bits: torch.Tensor, query_bits: torch.Tensor,
+                 k: int, mask: Optional[torch.Tensor] = None,
+                 block_rows: int = 128 * 1024):
+    """Top-k by smallest hamming distance, score = -distance (f32), ids
+    -1 where the score is -inf (masked rows), as the JAX package's
+    ``hamming_topk_pallas``: distances from ``hamming_scores`` (kernel 3)
+    per block of ``block_rows`` rows, exact ``torch.topk`` merge across
+    blocks."""
+    query_bits = _as2d(query_bits)
+    n = corpus_bits.shape[0]
+    q = query_bits.shape[0]
+    k = min(k, n)
+    dev = corpus_bits.device
+    best_s = torch.full((q, 0), NEG_INF, device=dev)
+    best_i = torch.full((q, 0), -1, dtype=torch.int64, device=dev)
+    for r0 in range(0, n, block_rows):
+        r1 = min(n, r0 + block_rows)
+        s = -kernels.hamming_scores(corpus_bits[r0:r1],
+                                    query_bits.contiguous()).float()
+        if mask is not None:
+            s = s.masked_fill(~mask[None, r0:r1], NEG_INF)
+        bs, bi = torch.topk(s, min(k, r1 - r0), dim=1)
+        best_s, best_i = _merge_topk(best_s, best_i, bs, bi + r0, k)
+    return best_s, best_i.masked_fill(torch.isneginf(best_s), -1).int()

@@ -1,5 +1,6 @@
 """Second-pass rerank: exact f32 rescoring of scan-selected candidates
-(port of ``neumann_tpu/ops/rerank.py``).
+(port of ``neumann_tpu/ops/rerank.py``), and the two pooled-bits routes
+that end in it (``int8_pooled_rerank_topk``, ``f32_pooled_rerank_topk``).
 
 The quantized first passes (int8 batched probe, bf16 windowed probe)
 select candidates well but order them imprecisely; this pass gathers
@@ -15,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from neumann_tpu_torch.ops.quant import f32_pooled_topk, int8_pooled_topk
 from neumann_tpu_torch.ops.scan import NEG_INF
 
 
@@ -135,9 +137,9 @@ def gather_rerank_topk_chunked(corpus_q, pos, queries, k, metric="cosine",
     package uses ``approx_max_k`` on wide lists). Requires first_scores.
 
     The JAX package's ``expand_pool`` / ``expand_window`` (pool-winner
-    expansion for the pooled-bits routes) come with those routes
-    (ROADMAP: entity embeddings and collections; int8 and pooled brute
-    routes)."""
+    expansion of the batched IVF core's pooled selections) come with the
+    non-fast batched IVF variants that call them (ROADMAP: non-fast
+    batched IVF variants)."""
     if (pre_select is not None and first_scores is not None
             and pos.shape[1] > pre_select):
         first_scores, ci = torch.topk(first_scores, pre_select, dim=1)
@@ -158,3 +160,42 @@ def gather_rerank_topk_chunked(corpus_q, pos, queries, k, metric="cosine",
                 torch.empty((0, kk), dtype=torch.int32,
                             device=queries.device))
     return torch.cat(parts_s), torch.cat(parts_p)
+
+
+def int8_pooled_rerank_topk(corpus_q: torch.Tensor,
+                            corpus_scale: torch.Tensor,
+                            queries: torch.Tensor, k: int,
+                            oversample: int = 8, pool: int = 4096,
+                            mask: Optional[torch.Tensor] = None,
+                            n_valid=None,
+                            row_mult: Optional[torch.Tensor] = None,
+                            residual_q: Optional[torch.Tensor] = None,
+                            residual_scale: Optional[torch.Tensor] = None):
+    """Pooled-bits selection + exact rerank. The int8 pooled scan
+    (kernel 5) selects C = max(oversample * k, 64) candidates, one per
+    pool, so distinct; their rows are rescored in f32 against the
+    unquantized queries (through the precomputed cosine multipliers
+    when there is no residual plane)."""
+    c = min(max(oversample * k, 64), corpus_q.shape[0])
+    s1, pos = int8_pooled_topk(corpus_q, corpus_scale, queries, c,
+                               pool=pool, mask=mask, n_valid=n_valid,
+                               row_mult=row_mult)
+    return gather_rerank_topk(
+        corpus_q, pos, queries, k, "cosine", corpus_scale, residual_q,
+        residual_scale, first_scores=s1, dedup=False,
+        row_mult=row_mult if residual_q is None else None)
+
+
+def f32_pooled_rerank_topk(corpus: torch.Tensor, queries: torch.Tensor,
+                           k: int, oversample: int = 8, pool: int = 4096,
+                           mask: Optional[torch.Tensor] = None,
+                           n_valid=None,
+                           row_mult: Optional[torch.Tensor] = None):
+    """f32 pooled-bits selection (kernel 6) + exact f32 rerank of the
+    C = max(oversample * k, 64) candidates, which removes the log2(pool)
+    truncated mantissa bits from the final scores."""
+    c = min(max(oversample * k, 64), corpus.shape[0])
+    s1, pos = f32_pooled_topk(corpus, queries, c, pool=pool, mask=mask,
+                              n_valid=n_valid, row_mult=row_mult)
+    return gather_rerank_topk(corpus, pos, queries, k, "cosine",
+                              first_scores=s1, dedup=False)

@@ -1,11 +1,12 @@
 """QueryRouter: parse + dispatch for the vector statements (the slice of
 ``neumann_tpu/router/router.py``).
 
-Executes EMBED STORE / GET / DELETE / BATCH, SIMILAR (vector or key,
-TOP, METRIC, WHERE), COUNT EMBEDDINGS and SHOW EMBEDDINGS against the
-port's vector engine, on the router's ``device`` (default "cuda"). Any
-other statement parses but raises ``NeumannError`` naming its ROADMAP
-item.
+Executes EMBED STORE / GET / DELETE / BATCH (default namespace or IN a
+collection), SIMILAR (vector or key, TOP, METRIC, WHERE, IN a
+collection), CREATE / DROP / SHOW COLLECTIONS, COUNT EMBEDDINGS and SHOW
+EMBEDDINGS against the port's vector engine, on the router's ``device``
+(default "cuda"). Any other statement parses but raises
+``NeumannError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -18,7 +19,11 @@ from neumann_tpu.store.tensor_store import TensorStore
 from neumann_tpu.utils.errors import NeumannError, VectorError
 from neumann_tpu.utils.observability import QueryMetrics
 from neumann_tpu_torch.engines.condition import Condition
-from neumann_tpu_torch.engines.vector import FilterCondition, VectorEngine
+from neumann_tpu_torch.engines.vector import (
+    FilterCondition,
+    VectorCollectionConfig,
+    VectorEngine,
+)
 from neumann_tpu_torch.lang import ast
 from neumann_tpu_torch.lang.parser import parse_cached
 
@@ -111,59 +116,88 @@ class QueryRouter:
                 f"EMBED/SIMILAR)")
         return handler(stmt)
 
-    @staticmethod
-    def _no_collections(s) -> None:
-        if getattr(s, "collection", None):
-            raise NeumannError("collections are not ported to the PyTorch "
-                               "router yet (ROADMAP: entity embeddings "
-                               "and collections)")
-
     # -- vector ---------------------------------------------------------------
     def _exec_embedstore(self, s: ast.EmbedStore) -> QueryResult:
-        self._no_collections(s)
-        self.vector.store_embedding(s.key, s.vector)
+        if s.collection:
+            if s.collection not in self.vector.list_collections():
+                self.vector.create_collection(s.collection)
+            self.vector.store_in_collection(s.collection, s.key, s.vector)
+        else:
+            self.vector.store_embedding(s.key, s.vector)
         return QueryResult.msg(f"embedding '{s.key}' stored")
 
     def _exec_embedget(self, s: ast.EmbedGet) -> QueryResult:
-        self._no_collections(s)
-        vec = self.vector.get_embedding(s.key)
+        if s.collection:
+            vec = self._collection_vector(s.collection, s.key)
+        else:
+            vec = self.vector.get_embedding(s.key)
         if vec is None:
             return QueryResult.msg(f"no embedding '{s.key}'")
         return QueryResult.of_value(vec.tolist())
 
     def _exec_embeddelete(self, s: ast.EmbedDelete) -> QueryResult:
-        self._no_collections(s)
-        ok = self.vector.delete_embedding(s.key)
+        if s.collection:
+            ok = self.vector.delete_from_collection(s.collection, s.key)
+        else:
+            ok = self.vector.delete_embedding(s.key)
         return QueryResult.msg(
             f"embedding '{s.key}' deleted" if ok else
             f"no embedding '{s.key}'")
 
     def _exec_embedbatch(self, s: ast.EmbedBatch) -> QueryResult:
-        self._no_collections(s)
-        self.vector.batch_store_embeddings(s.items)
+        if s.collection:
+            if s.collection not in self.vector.list_collections():
+                self.vector.create_collection(s.collection)
+            for key, vec in s.items:
+                self.vector.store_in_collection(s.collection, key, vec)
+        else:
+            self.vector.batch_store_embeddings(s.items)
         return QueryResult.msg(f"stored {len(s.items)} embeddings")
 
     def _exec_similar(self, s: ast.Similar) -> QueryResult:
-        self._no_collections(s)
         if s.connected_to is not None:
             raise NeumannError("SIMILAR ... CONNECTED TO is not ported to "
                                "the PyTorch router yet (ROADMAP: graph "
                                "ops)")
-        query = s.query_vector if s.query_vector is not None \
-            else s.query_key
+        q = self._resolve_query(s, s.query_vector if s.query_vector
+                                is not None else s.query_key)
+        filt = (_filter_from_condition(s.where) if s.where is not None
+                else None)
+        if s.collection is not None:
+            if filt is not None:
+                res = self.vector.search_filtered_in_collection(
+                    s.collection, q, s.limit, filt, s.metric)
+            else:
+                res = self.vector.search_in_collection(
+                    s.collection, q, s.limit, s.metric)
+        elif filt is not None:
+            res = self.vector.search_similar_filtered(q, s.limit, filt,
+                                                      s.metric)
+        else:
+            res = self.vector.search_similar_with_metric(
+                q, s.limit, s.metric or "cosine")
+        return QueryResult("similar", results=[
+            {"key": r.key, "score": r.score} for r in res])
+
+    def _collection_vector(self, name: str, key: str):
+        data = self.store.get(f"col:{name}:{key}")
+        if data is None or data.get("embedding") is None:
+            return None
+        return data.get("embedding").to_dense()
+
+    def _resolve_query(self, s: ast.Similar, query):
+        """A key names a stored embedding: the collection's row first
+        (SIMILAR ... IN c), then the default namespace."""
         if isinstance(query, str):
+            if s.collection is not None:
+                vec = self._collection_vector(s.collection, query)
+                if vec is not None:
+                    return vec
             vec = self.vector.get_embedding(query)
             if vec is None:
                 raise VectorError(f"no embedding for '{query}'")
-            query = vec
-        if s.where is not None:
-            res = self.vector.search_similar_filtered(
-                query, s.limit, _filter_from_condition(s.where), s.metric)
-        else:
-            res = self.vector.search_similar_with_metric(
-                query, s.limit, s.metric or "cosine")
-        return QueryResult("similar", results=[
-            {"key": r.key, "score": r.score} for r in res])
+            return vec
+        return query
 
     def _exec_showembeddings(self, s: ast.ShowEmbeddings) -> QueryResult:
         keys = self.vector.list_embeddings(s.limit)
@@ -171,6 +205,23 @@ class QueryRouter:
 
     def _exec_countembeddings(self, s) -> QueryResult:
         return QueryResult.of_count(self.vector.count_embeddings())
+
+    def _exec_showcollections(self, s) -> QueryResult:
+        return QueryResult.of_rows([
+            self.vector.collection_stats(n)
+            for n in self.vector.list_collections()])
+
+    def _exec_createcollection(self, s: ast.CreateCollection) -> QueryResult:
+        self.vector.create_collection(s.name, VectorCollectionConfig(
+            dimension=s.dimension, metric=s.metric,
+            quantization=s.quantization))
+        return QueryResult.msg(f"collection '{s.name}' created")
+
+    def _exec_dropcollection(self, s: ast.DropCollection) -> QueryResult:
+        ok = self.vector.drop_collection(s.name)
+        return QueryResult.msg(
+            f"collection '{s.name}' dropped" if ok else
+            f"no collection '{s.name}'")
 
     def _exec_empty(self, s) -> QueryResult:
         return QueryResult.msg("")

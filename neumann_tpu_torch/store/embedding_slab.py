@@ -10,10 +10,9 @@ tensors on the slab's device:
   rows, or by a full upload past 1/8 of the capacity;
 * ``host_int8`` (the IVF build's input) quantizes on the device and
   returns host planes bit-identical to the base class's numpy quantizer;
-* ``quantized_view`` ("int8" | "int8c" | "f32c") is recomputed on device
-  when the slab version moves, and cached by version.
-
-Binary mode is not ported yet (ROADMAP: binary collections).
+* ``quantized_view`` ("int8" | "int8c" | "f32c" | "binary") is
+  recomputed on device when the slab version moves, and cached by
+  version.
 """
 
 from __future__ import annotations
@@ -22,12 +21,20 @@ import numpy as np
 import torch
 
 from neumann_tpu.store import embedding_slab as _base
-from neumann_tpu_torch.ops.quant import int8_cosine_row_mult, scalar_quantize
+from neumann_tpu_torch.ops.quant import (
+    binary_quantize,
+    f32_cosine_row_mult,
+    int8_cosine_row_mult,
+    scalar_quantize,
+)
 from neumann_tpu_torch.ops.rerank import residual_quantize
 
 # rows per device quantization step: bounds the f32 temporaries of
 # scalar_quantize to a few hundred MB at 768d
 _QUANT_CHUNK_ROWS = 1 << 18
+# rows per binary packing step: its int64 temporaries are 8 bytes per
+# dimension per row
+_BINARY_CHUNK_ROWS = 1 << 16
 
 
 class EmbeddingSlab(_base.EmbeddingSlab):
@@ -100,6 +107,8 @@ class EmbeddingSlab(_base.EmbeddingSlab):
         "int8"  -> (values int8 [cap, dim_pad], scale f32 [cap], valid)
         "int8c" -> (values, scale, cosine row multiplier f32 [cap], valid)
         "f32c"  -> (embeddings f32, inverse row norm f32 [cap], valid)
+        "binary" -> (sign bits int32 [cap, dim_pad/32], valid): the JAX
+                   view's uint32 words as int32 bit patterns
         """
         with self._lock:
             cached = self._quant_cache.get(mode)
@@ -119,13 +128,14 @@ class EmbeddingSlab(_base.EmbeddingSlab):
             q, scale, valid = self.quantized_view("int8")
             out = (q, scale, int8_cosine_row_mult(q, scale), valid)
         elif mode == "f32c":
-            cn2 = (emb * emb).sum(1)
-            out = (emb, torch.where(cn2 > 0, torch.rsqrt(
-                cn2.clamp_min(1e-30)), torch.zeros_like(cn2)), valid)
+            out = (emb, f32_cosine_row_mult(emb), valid)
         elif mode == "binary":
-            raise NotImplementedError(
-                "binary slab views are not ported yet (ROADMAP: binary "
-                "collections and the hamming kernel)")
+            bits = torch.empty((emb.shape[0], -(-emb.shape[1] // 32)),
+                               dtype=torch.int32, device=emb.device)
+            for s in range(0, emb.shape[0], _BINARY_CHUNK_ROWS):
+                bits[s:s + _BINARY_CHUNK_ROWS] = binary_quantize(
+                    emb[s:s + _BINARY_CHUNK_ROWS])
+            out = (bits, valid)
         else:
             raise ValueError(f"unknown quantization mode: {mode}")
         with self._lock:

@@ -65,7 +65,7 @@ def routers():
     # searches the same layout from then on
     jr.execute(f"SIMILAR {_vec(vecs[0])} TOP 3")
     jcorpus = jr.vector._corpora[""][D]
-    tcorpus = tr.vector._corpora[D]
+    tcorpus = tr.vector._corpora[""][D]
     tcorpus.slab.watch("auto_ivf")
     tcorpus._auto_ivf = DeviceIVFInt8.from_state(
         ivf_state_from_jax(jcorpus._auto_ivf), "cpu")
@@ -151,10 +151,14 @@ def test_unported_statements_raise(routers):
     _, tr, _ = routers
     with pytest.raises(NeumannError, match="ROADMAP"):
         tr.execute("SELECT * FROM t")
-    with pytest.raises(NeumannError, match="ROADMAP"):
-        tr.execute("SIMILAR 'k1' TOP 3 IN docs")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.vector.create_collection("docs")
+    for quant in ("pq", "tt"):
+        tr.execute(f"CREATE COLLECTION u_{quant} DIM {D} QUANTIZATION "
+                   f"{quant}")
+        tr.execute(f"EMBED STORE 'a' [{', '.join(['1.0'] * D)}] IN "
+                   f"u_{quant}")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tr.execute(f"SIMILAR 'a' TOP 3 IN u_{quant}")
+        tr.execute(f"DROP COLLECTION u_{quant}")
 
 
 def test_port_builds_its_own_index():
@@ -166,7 +170,7 @@ def test_port_builds_its_own_index():
     tr.vector.batch_store_embeddings(
         [(f"k{i}", vecs[i]) for i in range(3, N)])
     hits = tr.execute(f"SIMILAR {_vec(vecs[7])} TOP 10").results
-    corpus = tr.vector._corpora[D]
+    corpus = tr.vector._corpora[""][D]
     assert isinstance(corpus._auto_ivf, DeviceIVFInt8)
     assert hits[0]["key"] == "k7" and hits[0]["score"] > 0.98
     recs = []
@@ -212,7 +216,7 @@ def test_ingest_matrix_adopts_only_identity_rows():
     mat = rng.standard_normal((n, 128)).astype(np.float32)
     keys = [f"m{i}" for i in range(n)]
     eng.ingest_matrix(keys, mat, copy=False)
-    corpus = eng._corpora[128]
+    corpus = eng._corpora[""][128]
     rows = np.array([corpus.index.lookup(k) for k in keys])
     assert rows[0] == 0 and rows[-1] == n - 1          # passes endpoints
     assert not np.array_equal(rows, np.arange(n))      # not the identity
@@ -224,7 +228,7 @@ def test_ingest_matrix_adopts_only_identity_rows():
     # the identity case still adopts zero-copy
     eng2 = VectorEngine(device="cpu")
     eng2.ingest_matrix(keys, mat, copy=False)
-    assert eng2._corpora[128].slab._host is mat
+    assert eng2._corpora[""][128].slab._host is mat
 
 
 def test_large_ingest_freezes_gc(monkeypatch):
@@ -250,12 +254,40 @@ def test_large_ingest_freezes_gc(monkeypatch):
         gc.unfreeze()
 
 
+def test_large_bulk_flush_freezes_gc(monkeypatch):
+    """A bulk_ingest flush of many per-row puts freezes the collector
+    too (after a 1M-row flush, the young collections of the next queries
+    took 30-48 ms without it)."""
+    import gc
+
+    from neumann_tpu_torch.engines import vector as tv
+
+    monkeypatch.setattr(tv, "_GC_FREEZE_MIN_ROWS", 16)
+    before = gc.get_freeze_count()
+    try:
+        eng = VectorEngine(device="cpu")
+        with eng.bulk_ingest():
+            for i in range(8):
+                eng.store_embedding(f"g{i}", np.ones(4, np.float32))
+        assert gc.get_freeze_count() == before
+        with eng.bulk_ingest():
+            for i in range(16):
+                eng.store_embedding(f"h{i}", np.ones(4, np.float32),
+                                    {"cat": i})
+        assert gc.get_freeze_count() > before
+        assert eng.count_embeddings() == 24
+    finally:
+        gc.unfreeze()
+
+
 def test_chip_smoke_rehearses_on_cpu(monkeypatch):
-    """chip_smoke.py's phases 3-6 (corpus, counted main path, recall
-    against the exact scan, delta rescan) at a toy size on the CPU; the
-    kernel phase and the launch check need the card. 8 mixture centres
+    """chip_smoke.py's phases 3-9 (corpus, counted auto-IVF path, recall
+    against the exact scan, delta rescan; then the pooled, int8 and
+    binary routes with their checks) at a toy size on the CPU; the
+    kernel phase and the launch checks need the card. 8 mixture centres
     instead of 4,096 so that 20,480 rows are clustered like the real
-    corpus (each row's neighbours come from its own centre)."""
+    corpus (each row's neighbours come from its own centre); the pooled
+    gate is lowered so that 4,096 rows take the pooled routes."""
     import types
 
     import torch
@@ -263,10 +295,20 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     import chip_smoke
 
     monkeypatch.setattr(chip_smoke, "N_CENTRES", 8)
+    monkeypatch.setenv("NEUMANN_POOLED_MIN_ROWS", "1024")
+    monkeypatch.setenv("NEUMANN_POOLED_MIN_POOLS", "64")
     cfg = TConfig(ivf_auto_threshold=10_000, ivf_auto_clusters=16,
                   ivf_auto_nprobe=8)
-    rep = chip_smoke.run(types.SimpleNamespace(seed=0, rows=20_480),
-                         torch.device("cpu"), config=cfg, on_card=False)
+    rep = chip_smoke.run(
+        types.SimpleNamespace(seed=0, rows=20_480, pooled_rows=4096),
+        torch.device("cpu"), config=cfg, on_card=False)
     assert rep["recall_single"] >= 0.95 and rep["recall_batch"] >= 0.95
     assert len(rep["single_ms"]) == chip_smoke.N_SINGLE - 1
     assert "kernels" not in rep and "profile" not in rep
+    for key in ("pooled_recall_single", "pooled_recall_batch",
+                "pooled_recall_filtered", "int8_recall_single",
+                "int8_recall_batch"):
+        assert rep[key] >= 0.95, key
+    assert rep["int8_euclid_mismatches"] == 0
+    assert len(rep["binary_single_ms"]) == chip_smoke.N_SINGLE - 1
+    assert set(rep["launches"]) == set(chip_smoke.KERNELS)

@@ -160,4 +160,5 @@ def test_wrappers_check_inputs(batched_inputs):
 def test_launch_counters_reset():
     tk.LAUNCHES["ivf_probe"] = 3
     tk.reset_launch_counts()
-    assert tk.LAUNCHES == {"ivf_probe": 0, "batched_probe": 0}
+    assert {"ivf_probe", "batched_probe"} <= set(tk.LAUNCHES)
+    assert set(tk.LAUNCHES.values()) == {0}

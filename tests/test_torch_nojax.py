@@ -3,7 +3,8 @@ its CUDA kernels agree with their plain PyTorch versions.
 
 The first test runs in a subprocess where ``import jax`` fails, imports
 every module of neumann_tpu_torch, and drives a tiny SIMILAR through
-the router on the CPU. The ``cuda`` tests need an NVIDIA card with
+the router on the CPU, then one collection per storage mode (none,
+int8, binary). The ``cuda`` tests need an NVIDIA card with
 ``nvcc`` (the kernels build from csrc/ at first use); they skip
 elsewhere. Run them on the card with
 ``python -m pytest tests/test_torch_nojax.py -m cuda``.
@@ -41,6 +42,15 @@ _NOJAX = textwrap.dedent("""
         r.execute(f"EMBED STORE 'k{i}' [{', '.join(map(str, v[i]))}]")
     hits = r.execute(f"SIMILAR [{', '.join(map(str, v[4]))}] TOP 3").results
     assert hits[0]["key"] == "k4", hits
+    for quant in ("none", "int8", "binary"):
+        r.execute(f"CREATE COLLECTION c_{quant} DIM 8 QUANTIZATION {quant}")
+        for i in range(20):
+            r.execute(f"EMBED STORE 'k{i}' [{', '.join(map(str, v[i]))}] "
+                      f"IN c_{quant}")
+        hits = r.execute(f"SIMILAR [{', '.join(map(str, v[6]))}] IN "
+                         f"c_{quant} TOP 3").results
+        assert hits[0]["key"] == "k6", (quant, hits)
+    assert len(r.execute("SHOW COLLECTIONS").rows) == 3
     bad = [m for m, mod in sys.modules.items()
            if mod is not None and (m == "jax" or m.startswith("jax.")
                or m.startswith(("neumann_tpu.ops", "neumann_tpu.engines",
@@ -124,3 +134,93 @@ def test_batched_kernel_bit_exact(cuda, top2):
     torch.cuda.synchronize()
     want = tk.batched_probe_plain(buf, rm, qsel, scm, window, top2=top2)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q", [(64 * 1024, 64), (5000, 37), (4096, 5)])
+def test_int8_scores_kernel_bit_exact(cuda, n, q):
+    """Ragged N (not a multiple of the 128-row tile) and ragged Q, both
+    query-tile widths."""
+    from neumann_tpu_torch.ops import kernels as tk
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    d = 768
+    cq = torch.randint(-127, 128, (n, d), generator=g, device=cuda,
+                       dtype=torch.int8)
+    qq = torch.randint(-127, 128, (q, d), generator=g, device=cuda,
+                       dtype=torch.int8)
+    rm = torch.rand(n, generator=g, device=cuda) * 1e-3
+    qm = torch.rand(q, generator=g, device=cuda) * 1e-2
+    before = tk.LAUNCHES["int8_dot_scores"]
+    got = tk.int8_dot_scores(cq, rm, qq, qm)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["int8_dot_scores"] == before + 1
+    assert torch.equal(got, tk.int8_dot_scores_plain(cq, rm, qq, qm))
+
+
+def _pooled_inputs(cuda, n, q, d, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(n, d, generator=g, device=cuda)
+    qs = x[torch.randint(0, n, (q,), generator=g, device=cuda)] \
+        + 0.1 * torch.randn(q, d, generator=g, device=cuda)
+    rm = torch.rsqrt((x * x).sum(1))
+    bias = torch.where(torch.rand(n, generator=g, device=cuda) < 0.9,
+                       torch.full((n,), 2.0, device=cuda),
+                       torch.full((n,), -1e30, device=cuda))
+    return x, qs, rm, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q,pool", [(8 * 1001, 40, 8), (1 << 18, 8, 512),
+                                      (1 << 16, 70, 4096)])
+def test_int8_pooled_kernel_bit_exact(cuda, n, q, pool):
+    from neumann_tpu_torch.ops import kernels as tk
+    from neumann_tpu_torch.ops.quant import scalar_quantize
+
+    x, qs, _, bias = _pooled_inputs(cuda, n, q, 768, 3)
+    cq, cs = scalar_quantize(x)
+    rm = cs * torch.rsqrt((cq.float() ** 2).sum(1) * cs ** 2)
+    qq, qsc = scalar_quantize(qs)
+    qm = qsc / torch.sqrt(((qq.float() * qsc[:, None]) ** 2).sum(1))
+    got = tk.int8_pooled_bits(cq, rm, bias, qq, qm, pool)
+    torch.cuda.synchronize()
+    want = tk.int8_pooled_bits_plain(cq, rm, bias, qq, qm, pool)
+    assert got.shape == (q, n // pool)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q,pool", [(8 * 1001, 40, 8), (1 << 18, 8, 512)])
+def test_f32_pooled_kernel_within_tolerance(cuda, n, q, pool):
+    """Dots summed in another order: decoded winner scores within one
+    packed-mantissa step (pool * 2^-22 in [1, 4)) plus 1e-6, winning
+    rows equal on 99 % of the pools, dead pools identical."""
+    from neumann_tpu_torch.ops import kernels as tk
+
+    x, qs, rm, bias = _pooled_inputs(cuda, n, q, 768, 4)
+    qm = torch.rsqrt((qs * qs).sum(1))
+    got = tk.f32_pooled_bits(x, rm, bias, qs, qm, pool)
+    torch.cuda.synchronize()
+    want = tk.f32_pooled_bits_plain(x, rm, bias, qs, qm, pool)
+    live = want > 0
+    assert torch.equal(got > 0, live)
+    dec = lambda b: (b & ~(pool - 1)).view(torch.float32).double()
+    err = (dec(got) - dec(want)).abs()[live].max().item()
+    assert err <= pool * 2.0 ** -22 + 1e-6
+    same = ((got & (pool - 1)) == (want & (pool - 1)))[live]
+    assert same.float().mean().item() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q,w", [(3001, 70, 24), (1 << 16, 5, 64)])
+def test_hamming_kernel_bit_exact(cuda, n, q, w):
+    from neumann_tpu_torch.ops import kernels as tk
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    cb = torch.randint(-(1 << 31), 1 << 31, (n, w), generator=g,
+                       device=cuda, dtype=torch.int64).int()
+    qb = torch.randint(-(1 << 31), 1 << 31, (q, w), generator=g,
+                       device=cuda, dtype=torch.int64).int()
+    got = tk.hamming_scores(cb, qb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tk.hamming_scores_plain(cb, qb))

@@ -362,8 +362,12 @@ def test_slab_views_match_jax():
     np.testing.assert_allclose(t.quantized_view("f32c")[1].numpy(),
                                np.asarray(j.quantized_view("f32c")[1]),
                                rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.quantized_view("binary")
+    bits, bvalid = t.quantized_view("binary")
+    bits_j, _ = j.quantized_view("binary")
+    assert bits.dtype == torch.int32
+    np.testing.assert_array_equal(bits.numpy().view(np.uint32),
+                                  np.asarray(bits_j))
+    np.testing.assert_array_equal(bvalid.numpy(), valid.numpy())
 
 
 @pytest.mark.parametrize("residual", [False, True])
