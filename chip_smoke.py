@@ -14,7 +14,8 @@ Phases (each raises on failure; exit code 0 only if all pass):
 2. hold each kernel against its plain PyTorch version on the card at
    its path's shapes, timing both with CUDA events (probe: 32 queries x
    81 probes x 1,024-row windows x 768; batched top-2: 4,096 windows x
-   64 slots; int8 scores: 64 x 1,048,576 x 768; int8 and f32 pooled
+   64 slots; int8 scores: 64 x 1,048,576 x 768, and 1 x 524,288 x 768,
+   one block of the int8 euclidean scan's single query; int8 and f32 pooled
    bits: 8 and 1,024 queries x 1,048,576 x 768 at pool 512; hamming:
    1,024 x 131,072 rows x 24 words);
 3. generate a 4,194,304 x 768 corpus from --seed with numpy (4,096
@@ -108,6 +109,26 @@ KERNELS = {
     "hamming_scores": dict(source="neumann_tpu_torch/csrc/hamming.cu",
                            replaces="neumann_tpu/ops/pallas_kernels.py:40"),
 }
+# published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
+# a kernel's bound is the larger of its bytes (each input read once, each
+# output written once) over HBM_BYTES_PER_S and its operations over the
+# peak of their type
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+F32_FLOPS_PER_S = 67e12
+# hamming's popcounts have no published peak: the issue rate of the CUDA
+# C++ Programming Guide's throughput table (16 POPC per SM per clock) at
+# 132 SMs and the 1,980 MHz boost clock, reported beside the bytes bound
+POPC_PER_S = 16 * 132 * 1.98e9
+# why a kernel has no one-call PyTorch yardstick (library_ms null)
+NO_LIBRARY = {
+    "ivf_probe": "no one PyTorch call scores windows gathered by probe "
+                 "lists (a gather, then a product)",
+    "batched_probe": "no one PyTorch call scores per-window query tables "
+                     "into packed top-2 winners",
+    "hamming_scores": "no PyTorch call takes packed sign bits (cdist p=0 "
+                      "needs them unpacked to floats)",
+}
 # the wrappers a route's reference swaps for their plain versions
 _PLAIN_SWAPPED = ("int8_dot_scores", "int8_pooled_bits", "f32_pooled_bits",
                   "hamming_scores")
@@ -163,6 +184,31 @@ def cuda_ms(fn, reps: int, warm: bool = True) -> float:
 # phase 2: each kernel against its plain version at the main path's shapes
 # ---------------------------------------------------------------------------
 
+def nbytes(*tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def bound(n_bytes: float, ops: float, ops_per_s: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over their peak, and which."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes_bound_ms=t_bytes, ops_bound_ms=t_ops)
+
+
+def turns(kernel, library, reps: int):
+    """Device times of a kernel and of a library call for the same
+    product, taken in turns on one card (kernel, library, library,
+    kernel); means of the two runs of each."""
+    k1 = cuda_ms(kernel, reps)
+    l1 = cuda_ms(library, reps)
+    l2 = cuda_ms(library, reps, warm=False)
+    k2 = cuda_ms(kernel, reps, warm=False)
+    return (k1 + k2) / 2, (l1 + l2) / 2
+
+
 def check_kernels(dev, rows: int, seed: int) -> dict:
     import torch
 
@@ -193,7 +239,15 @@ def check_kernels(dev, rows: int, seed: int) -> dict:
     if not err <= PROBE_ATOL:
         raise AssertionError(f"ivf_probe: max |kernel - plain| {err} > "
                              f"{PROBE_ATOL}")
+    # bytes: the distinct 128-row blocks the probe lists touch, read once
+    blocks = (sb.long()[:, :, None]
+              + torch.arange(window // 128, device=dev)).unique()
+    blocks = int((blocks < rows // 128).sum())
+    probe_bound = bound(blocks * 128 * (DIM + 4) + nbytes(sb, qs, got),
+                        2 * n_probe_q * nprobe * window * DIM,
+                        F32_FLOPS_PER_S)
     out["ivf_probe"] = dict(
+        **probe_bound, distinct_blocks=blocks,
         max_abs_err=err,
         ms=cuda_ms(lambda: tk.ivf_probe_scores(buf, rm, sb, qs, window), 20),
         plain_ms=cuda_ms(
@@ -226,7 +280,13 @@ def check_kernels(dev, rows: int, seed: int) -> dict:
     s_want, _ = tk.decode_strided_pool_bits(want, window)
     fin = torch.isfinite(s_want)
     err = float((s_got[fin] - s_want[fin]).abs().max()) if fin.any() else 0.0
+    # the filled query slots are the work: their table rows are read and
+    # scored against every row of their window
+    n_filled = int(filled.clamp(max=q_cap).sum())
     out["batched_probe"] = dict(
+        **bound(nbytes(b, rm2, scm, got) + n_filled * DIM,
+                2 * n_filled * window * DIM, INT8_OPS_PER_S),
+        filled_slots=n_filled,
         max_abs_err=err,
         ms=cuda_ms(lambda: tk.batched_probe(b, rm2, qsel, scm, window,
                                             top2=True), 10),
@@ -289,13 +349,38 @@ def check_new_kernels(dev, seed: int) -> dict:
         raise AssertionError(f"int8_dot_scores: {int((got != want).sum())} "
                              f"scores differ from plain (must be "
                              f"bit-exact)")
+    ms, lib_ms = turns(
+        lambda: tk.int8_dot_scores(cq, rm8, qq[:64], qm8[:64]),
+        lambda: torch._int_mm(qq[:64], cq.t()), 10)
     out["int8_dot_scores"] = dict(
+        **bound(nbytes(cq, rm8, qq[:64], qm8[:64], got),
+                2 * 64 * n * DIM, INT8_OPS_PER_S),
         max_abs_err=float((got - want).abs().max()),
-        ms=cuda_ms(lambda: tk.int8_dot_scores(cq, rm8, qq[:64], qm8[:64]),
-                   10),
+        ms=ms, library_ms=lib_ms,
+        library="torch._int_mm(qq, cq.t()), product only (int32, no "
+                "scaling)",
         plain_ms=cuda_ms(lambda: tk.int8_dot_scores_plain(
             cq, rm8, qq[:64], qm8[:64]), 3),
-        shape=f"Q=64 N={n} d={DIM}")
+        shape=f"Q=64 N={n} d={DIM}; Q=1 N={n // 2}")
+    del got, want
+    # the int8 route's own launch: one euclidean query against one
+    # 524,288-row block of int8_topk_scan, scale-only multipliers (the
+    # mma.sync kernel; Q=64 above runs the wgmma one)
+    a1 = (cq[:n // 2], cs[:n // 2], qq[:1], qsc[:1])
+    got = tk.int8_dot_scores(*a1)
+    want = tk.int8_dot_scores_plain(*a1)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"int8_dot_scores at Q=1: "
+                             f"{int((got != want).sum())} scores differ "
+                             f"from plain (must be bit-exact)")
+    rec = out["int8_dot_scores"]
+    for k, v in bound(nbytes(*a1, got), 2 * (n // 2) * DIM,
+                      INT8_OPS_PER_S).items():
+        rec[f"{k}_q1"] = v
+    rec.update(max_abs_err_q1=float((got - want).abs().max()),
+               ms_q1=cuda_ms(lambda: tk.int8_dot_scores(*a1), 20),
+               plain_ms_q1=cuda_ms(lambda: tk.int8_dot_scores_plain(*a1), 3))
     del got, want
 
     for name, fn, plain, args in (
@@ -336,7 +421,26 @@ def check_new_kernels(dev, seed: int) -> dict:
                         f"{F32_POOLED_MIN_AGREE})")
             key = "" if q == N_BATCH else f"_q{q}"
             rec[f"max_abs_err{key}"] = err
-            rec[f"ms{key}"] = cuda_ms(lambda: fn(*a, POOL), 5)
+            int8 = name == "int8_pooled_bits"
+            for k, v in bound(nbytes(*a, got), 2 * q * n * DIM,
+                              INT8_OPS_PER_S if int8
+                              else F32_FLOPS_PER_S).items():
+                rec[f"{k}{key}"] = v
+            if q == N_BATCH:
+                # the same product by one library call (TF32 off, stated
+                # here as well as by the package); no scaling, no pools
+                torch.backends.cuda.matmul.allow_tf32 = False
+                lib = ((lambda: torch._int_mm(a[3], a[0].t())) if int8
+                       else (lambda: torch.matmul(a[3], a[0].t())))
+                rec["ms"], rec["library_ms"] = turns(
+                    lambda: fn(*a, POOL), lib, 5)
+                rec["library"] = (
+                    "torch._int_mm(qq, cq.t()), product only (int32, no "
+                    "scaling or pooling)" if int8 else
+                    "torch.matmul(qs, x.t()) with allow_tf32 False, "
+                    "product only (no scaling or pooling)")
+            else:
+                rec[f"ms{key}"] = cuda_ms(lambda: fn(*a, POOL), 5)
             rec[f"plain_ms{key}"] = cuda_ms(lambda: plain(*a, POOL), 1,
                                             warm=False)
             del got, want, s_got, s_want, live
@@ -351,6 +455,8 @@ def check_new_kernels(dev, seed: int) -> dict:
         raise AssertionError(f"hamming_scores: {int((got != want).sum())} "
                              f"distances differ from plain")
     out["hamming_scores"] = dict(
+        **bound(nbytes(cb, qb, got), 0, INT8_OPS_PER_S),
+        popc_issue_bound_ms=qb.shape[0] * cb.numel() / POPC_PER_S * 1e3,
         max_abs_err=0.0, ms=cuda_ms(lambda: tk.hamming_scores(cb, qb), 10),
         plain_ms=cuda_ms(lambda: tk.hamming_scores_plain(cb, qb), 1,
                          warm=False),
@@ -358,9 +464,12 @@ def check_new_kernels(dev, seed: int) -> dict:
     for name, rec in out.items():
         say(f"[2] {name} kernel vs plain ({rec['shape']}): max_abs_err "
             f"{rec['max_abs_err']:.3g}; kernel {rec['ms']:.4f} ms, plain "
-            f"{rec['plain_ms']:.4f} ms"
-            + (f"; at Q=8 kernel {rec['ms_q8']:.4f} ms, plain "
-               f"{rec['plain_ms_q8']:.4f} ms" if "ms_q8" in rec else ""))
+            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}), library {rec.get('library_ms')}"
+            + "".join(f"; at Q={q} kernel {rec[f'ms_q{q}']:.4f} ms, plain "
+                      f"{rec[f'plain_ms_q{q}']:.4f} ms, bound "
+                      f"{rec[f'bound_ms_q{q}']:.4f} ms"
+                      for q in (1, 8) if f"ms_q{q}" in rec))
     return out
 
 
@@ -953,6 +1062,38 @@ def run_brute(args, dev, centres, s_corpus, s_queries,
     return report
 
 
+def kernels_line(report: dict) -> dict:
+    """The kernels JSON line: per kernel its time, its plain version's,
+    its bound and roofline share, the library call's time (or null and
+    why), and its launches in the counted phases, in all and by route."""
+    rows = []
+    for name, meta in KERNELS.items():
+        rec = report["kernels"][name]
+        row = dict(name=name, route="cuda", source=meta["source"],
+                   replaces=meta["replaces"],
+                   launches=int(report.get("launches", {}).get(name, 0)),
+                   max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+                   plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+                   bound_by=rec["bound_by"],
+                   roofline_share=rec["bound_ms"] / rec["ms"],
+                   library_ms=rec.get("library_ms"))
+        row["library"] = rec.get("library", NO_LIBRARY.get(name))
+        if "popc_issue_bound_ms" in rec:
+            row["popc_issue_bound_ms"] = rec["popc_issue_bound_ms"]
+        for sfx in ("_q1", "_q8"):   # the single-query kernels' shapes
+            if f"ms{sfx}" in rec:
+                row.update({f"{k}{sfx}": rec[f"{k}{sfx}"] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by")})
+                row[f"roofline_share{sfx}"] = (rec[f"bound_ms{sfx}"]
+                                               / rec[f"ms{sfx}"])
+        row["launches_by_route"] = {
+            ph: int(report[f"launches_{ph}"].get(name, 0))
+            for ph in ("ivf", "pooled", "int8", "binary")
+            if f"launches_{ph}" in report}
+        rows.append(row)
+    return {"kernels": rows}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -987,14 +1128,7 @@ def main() -> int:
     t_start = time.perf_counter()
     report = run(args, torch.device("cuda"))
     report["total_s"] = time.perf_counter() - t_start
-    kernels = {"kernels": [
-        dict(name=name, route="cuda", source=meta["source"],
-             replaces=meta["replaces"],
-             launches=int(report["launches"][name]),
-             max_abs_err=report["kernels"][name]["max_abs_err"],
-             ms=report["kernels"][name]["ms"],
-             plain_ms=report["kernels"][name]["plain_ms"])
-        for name, meta in KERNELS.items()]}
+    kernels = kernels_line(report)
     metrics = {k: report[k] for k in (
         "single_p50_ms", "single_p99_ms", "batch_qps",
         "first_query_incl_build_s", "recall_single", "recall_batch",

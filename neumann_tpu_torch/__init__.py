@@ -3,15 +3,17 @@
 The JAX package (``neumann_tpu``) is the reference; this package mirrors
 its layout (``ops/``, ``store/``, ``engines/``, ``router/``, ``lang/``,
 ``parallel/``, ``csrc/``) so each module's counterpart is easy to find.
-It imports ``torch`` and never ``jax``. It reuses the reference's
-JAX-free leaves by import (``neumann_tpu.store.tensor_store``,
-``store.entity_index``, ``store.embedding_slab``, ``utils.*``,
-``native``).
+It imports ``torch`` and never ``jax``, and nothing of the JAX package:
+the modules it needs that are free of JAX (the host store, the entity
+index, the codec, WAL and snapshots, the error types, the native
+loaders and their C++ sources) are the port's own copies, in the same
+places (``store/``, ``utils/``, ``native/``).
 
-What runs here today is the auto-IVF ``SIMILAR … TOP k`` path: the
-query language, the vector engine's storage and search surface, the
-exact scan, the int8 windowed IVF index, and the two CUDA kernels it
-runs (``csrc/ivf_probe.cu``, ``csrc/batched_probe.cu``).
+What runs here today is ``SIMILAR … TOP k`` end to end: the query
+language, the vector engine's storage, namespaces and collections
+(f32, int8 and binary), the exact scan, the brute-force pooled routes,
+the int8 windowed IVF index, and the six CUDA kernels they run
+(``csrc/``, built at first use; ``ops/kernels.py``).
 
 TF32 is switched off for float32 matrix products: the IVF build assigns
 rows to windows by an f32 argmax whose margins are correctness-coupled

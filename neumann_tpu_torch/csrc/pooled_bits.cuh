@@ -1,6 +1,7 @@
 // Shared pieces of the pooled-bits scans (csrc/int8_scores.cu, kernel
-// int8_pooled_bits; csrc/f32_pooled.cu): the tile geometry both dot
-// loops use, and the pack / per-pool max epilogue.
+// int8_pooled_bits; csrc/f32_pooled.cu): the pack epilogue, the per-block
+// table of pool maxima, and the cp.async helpers both mainloops stage
+// their tiles with.
 //
 // The epilogue is the XLA-fused step of neumann_tpu/ops/quant.py
 // (int8_pooled_topk :371-385, f32_pooled_topk :525-539). For query q and
@@ -20,12 +21,12 @@
 // __fmul_rn / __fmaf_rn and no compiler contraction choice can move a
 // bit.
 //
-// Tile geometry: 256 threads = 16 (tx, corpus rows) x 16 (ty, queries).
-// A block tile is kTQ * 16 queries x 128 rows; thread (tx, ty) owns rows
-// tx + 16 j (j < 8) and queries ty + 16 i (i < kTQ). K is staged through
-// shared memory 16 32-bit words at a time (64 int8 values or 16 floats),
-// rows padded to 17 words so that the 16 tx lanes of a warp hit 16
-// different banks.
+// Pools never cross blocks: a block owns a span of max(pool, BM)
+// consecutive rows (BM the block's corpus tile) and all its queries' maxima
+// over that span, in a shared [BN queries][span / pool] table
+// (`PoolTable`). A thread first folds the rows it holds of one pool, then
+// the lanes that hold one pool's rows fold with __shfl_xor, and one lane
+// per pool and query folds into the table with a shared atomicMax.
 
 #pragma once
 
@@ -37,14 +38,7 @@
 namespace neumann {
 
 constexpr int kThreads = 256;
-constexpr int kTX = 16;                  // threads along corpus rows
-constexpr int kTY = 16;                  // threads along queries
-constexpr int kBN = 128;                 // corpus rows per tile
-constexpr int kRowsPerThread = kBN / kTX;
-constexpr int kWords = 16;               // 32-bit words of K per stage
-constexpr int kPad = kWords + 1;
 constexpr int kMinPool = 8;
-constexpr int kMaxSlots = kBN / kMinPool;   // pools per tile when pool < 128
 
 __device__ __forceinline__ int pack_pool_bits(float a, float rm, float bias,
                                               long long row, int pool) {
@@ -53,59 +47,107 @@ __device__ __forceinline__ int pack_pool_bits(float a, float rm, float bias,
          static_cast<int>(row & (pool - 1));
 }
 
-// Per-block running maxima of the packed bits. A block owns a span of
-// max(pool, 128) consecutive rows: either one pool walked in 128-row
-// tiles (pool >= 128: one slot per query, the thread's running max is
-// kept in registers and folded in once at the end), or 128 / pool whole
-// pools of one tile (pool < 128: one slot per pool).
-template <int kTQ>
-struct PoolMax {
-  int* best;                 // shared [kTQ * kTY][kMaxSlots]
-  int pool;
-  int reg[kTQ];
+// max over the `width` lanes (a power of two <= 32) of an aligned lane
+// group; every lane of the warp must call it
+__device__ __forceinline__ int group_max(int v, int width) {
+  for (int off = 1; off < width; off <<= 1) {
+    v = max(v, __shfl_xor_sync(0xffffffffu, v, off));
+  }
+  return v;
+}
 
-  __device__ void init(int* smem, int pool_) {
+// Per-block maxima of the packed bits: best[q_local][slot] with
+// slot = (row - span0) / pool, signed int32 (dead rows bitcast negative).
+struct PoolTable {
+  int* best;
+  int slots;
+  long long span0;
+  int pool;
+  int shift;   // log2(pool): the slot of a row is a shift, not a division
+
+  __device__ void init(int* smem, int bn, int span, long long span0_,
+                       int pool_) {
     best = smem;
+    slots = span / pool_;
+    span0 = span0_;
     pool = pool_;
-    for (int i = threadIdx.x; i < kTQ * kTY * kMaxSlots; i += kThreads) {
+    shift = __ffs(pool_) - 1;
+    for (int i = threadIdx.x; i < bn * slots; i += blockDim.x) {
       best[i] = INT_MIN;
     }
-#pragma unroll
-    for (int i = 0; i < kTQ; ++i) reg[i] = INT_MIN;
   }
 
-  // bits of (query slot i, row n_local within the span)
-  __device__ __forceinline__ void add(int i, int n_local, int bits) {
-    if (pool >= kBN) {
-      reg[i] = max(reg[i], bits);
-    } else {
-      const int ty = threadIdx.x / kTX;
-      atomicMax(&best[(ty + kTY * i) * kMaxSlots + n_local / pool], bits);
-    }
+  __device__ __forceinline__ void add(int q_local, long long row, int bits) {
+    atomicMax(&best[q_local * slots +
+                    (static_cast<int>(row - span0) >> shift)],
+              bits);
   }
 
-  // write the span's pools: out [Q, N / pool]
-  __device__ void store(int32_t* out, int q0, int nq, long long span0,
-                        long long n_pools) {
-    const int ty = threadIdx.x / kTX;
-    if (pool >= kBN) {
-#pragma unroll
-      for (int i = 0; i < kTQ; ++i) {
-        atomicMax(&best[(ty + kTY * i) * kMaxSlots], reg[i]);
-      }
-    }
-    __syncthreads();
-    const int slots = pool >= kBN ? 1 : kBN / pool;
+  // out [Q, n_pools]: the table's pools of queries q0 .. q0 + nq - 1,
+  // written by threads first .. first + count - 1 (by default the block).
+  // Call after a barrier over them that follows the last add.
+  __device__ void store(int32_t* out, int q0, int nq, long long n_pools,
+                        int first = 0, int count = 0) const {
     const long long p0 = span0 / pool;
-    for (int idx = threadIdx.x; idx < kTQ * kTY * slots; idx += kThreads) {
+    const int step = count > 0 ? count : blockDim.x;
+    for (int idx = threadIdx.x - first; idx < nq * slots; idx += step) {
       const int qi = idx / slots;
       const int sl = idx % slots;
-      if (qi < nq && p0 + sl < n_pools) {
+      if (p0 + sl < n_pools) {
         out[static_cast<long long>(q0 + qi) * n_pools + p0 + sl] =
-            best[qi * kMaxSlots + sl];
+            best[qi * slots + sl];
       }
     }
   }
 };
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy past L1; `valid` false writes 16 zero
+// bytes and reads nothing (gmem must still be a mapped address)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Blocks walk (corpus span, query block) pairs with the query block
+// fastest, so the blocks that share a corpus span run together and
+// re-read it from L2 instead of device memory.
+struct BlockPos {
+  int q0;
+  long long span0;
+  long long span1;
+};
+
+__device__ __forceinline__ BlockPos block_pos(int n_qblocks, int bn,
+                                              long long span,
+                                              long long n_rows) {
+  const long long sb = blockIdx.x / n_qblocks;
+  BlockPos p;
+  p.q0 = static_cast<int>(blockIdx.x % n_qblocks) * bn;
+  p.span0 = sb * span;
+  p.span1 = min(p.span0 + span, n_rows);
+  return p;
+}
+
+inline unsigned grid_blocks(long long n_rows, long long span, int n_q,
+                            int bn) {
+  return static_cast<unsigned>(((n_rows + span - 1) / span) *
+                               ((n_q + bn - 1) / bn));
+}
 
 }  // namespace neumann

@@ -49,9 +49,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from neumann_tpu.store.entity_index import EntityIndex
-from neumann_tpu.store.tensor_store import TensorData, TensorStore, TensorValue
-from neumann_tpu.utils.errors import VectorError
 from neumann_tpu_torch.ops.quant import (
     _pick_pool,
     binary_quantize,
@@ -64,6 +61,13 @@ from neumann_tpu_torch.ops.rerank import (
 )
 from neumann_tpu_torch.ops.scan import METRICS, host_pull, topk_scan
 from neumann_tpu_torch.store.embedding_slab import EmbeddingSlab
+from neumann_tpu_torch.store.entity_index import EntityIndex
+from neumann_tpu_torch.store.tensor_store import (
+    TensorData,
+    TensorStore,
+    TensorValue,
+)
+from neumann_tpu_torch.utils.errors import VectorError
 
 EMB_PREFIX = "emb:"
 ENTITY_PREFIX = "entity:"
@@ -562,7 +566,7 @@ class VectorEngine:
         pend = store._pending_keys
         fast = None
         try:
-            from neumann_tpu.native import pycodec
+            from neumann_tpu_torch.native import pycodec
 
             fast = pycodec.load()
         except Exception:   # noqa: BLE001 — pure-Python fallback below

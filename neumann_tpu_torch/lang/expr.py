@@ -16,7 +16,7 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 from neumann_tpu_torch.engines.condition import Condition
-from neumann_tpu.utils.errors import NeumannError
+from neumann_tpu_torch.utils.errors import NeumannError
 
 
 class Expr:

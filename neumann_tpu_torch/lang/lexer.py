@@ -23,7 +23,7 @@ from __future__ import annotations
 import re
 from typing import List, NamedTuple
 
-from neumann_tpu.utils.errors import ParseError
+from neumann_tpu_torch.utils.errors import ParseError
 
 PUNCT = (
     "->", "<=", ">=", "!=", "<>", "(", ")", "[", "]", "{", "}", ",", ":",

@@ -23,7 +23,7 @@ from typing import Dict, List, Optional, Tuple
 from neumann_tpu_torch.engines.condition import Condition
 from neumann_tpu_torch.lang import ast
 from neumann_tpu_torch.lang.lexer import Token, tokenize
-from neumann_tpu.utils.errors import ParseError
+from neumann_tpu_torch.utils.errors import ParseError
 
 _TYPE_MAP = {
     "INT": "int", "INTEGER": "int", "BIGINT": "int", "SMALLINT": "int",

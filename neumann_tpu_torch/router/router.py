@@ -15,9 +15,6 @@ import time
 from dataclasses import dataclass, field
 from typing import List, Optional
 
-from neumann_tpu.store.tensor_store import TensorStore
-from neumann_tpu.utils.errors import NeumannError, VectorError
-from neumann_tpu.utils.observability import QueryMetrics
 from neumann_tpu_torch.engines.condition import Condition
 from neumann_tpu_torch.engines.vector import (
     FilterCondition,
@@ -26,6 +23,9 @@ from neumann_tpu_torch.engines.vector import (
 )
 from neumann_tpu_torch.lang import ast
 from neumann_tpu_torch.lang.parser import parse_cached
+from neumann_tpu_torch.store.tensor_store import TensorStore
+from neumann_tpu_torch.utils.errors import NeumannError, VectorError
+from neumann_tpu_torch.utils.observability import QueryMetrics
 
 
 @dataclass

@@ -1,2 +1,4 @@
-"""The embedding slab with torch device views (``embedding_slab.py``);
-the host store and entity index are the JAX package's, reused."""
+"""Storage of the port: the host store, entity index, codec, WAL and
+snapshots (copies of the JAX package's modules, import lines changed)
+and the embedding slab with torch device views
+(``embedding_slab.py``)."""

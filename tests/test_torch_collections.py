@@ -25,14 +25,15 @@ from neumann_tpu.engines.vector import VectorCollectionConfig as JColl
 from neumann_tpu.engines.vector import VectorEngine as JEngine
 from neumann_tpu.engines.vector import VectorEngineConfig as JConfig
 from neumann_tpu.router import QueryRouter as JRouter
-from neumann_tpu.store.tensor_store import TensorStore
-from neumann_tpu.utils.errors import VectorError
+from neumann_tpu.utils.errors import VectorError as JVectorError
 from neumann_tpu_torch.convert import collection_state_from_jax
 from neumann_tpu_torch.engines.vector import FilterCondition as TFilter
 from neumann_tpu_torch.engines.vector import VectorCollectionConfig as TColl
 from neumann_tpu_torch.engines.vector import VectorEngine as TEngine
 from neumann_tpu_torch.ops import kernels as tk
 from neumann_tpu_torch.router import QueryRouter as TRouter
+from neumann_tpu_torch.store.tensor_store import TensorStore
+from neumann_tpu_torch.utils.errors import VectorError as TVectorError
 
 N, D = 4096, 64
 QUANTS = ("none", "int8", "binary")
@@ -176,7 +177,7 @@ def test_batch_search_ns_matches_jax(engines, data, pooled_env, quant):
             _assert_binary_hits(g, w, v, q)
         else:
             _assert_hits_close(g, w)
-    with pytest.raises(VectorError):
+    with pytest.raises(TVectorError):
         te.batch_search_ns(qs[:, :32], 10, ns=f"col/{quant}")
 
 
@@ -267,7 +268,7 @@ def test_entity_embeddings_match_jax(data):
     mask[:100] = True
     hits = te.search_entities(qs[0], 5, mask_rows=mask)
     assert all(int(h.key[1:]) < 100 for h in hits)
-    with pytest.raises(VectorError):
+    with pytest.raises(TVectorError):
         te.ingest_matrix(["x"], v[:1], ns="col/x")
 
 
@@ -339,16 +340,17 @@ def test_snapshot_round_trip_both_ways(tmp_path, data):
 
 
 def test_collection_errors_match_jax():
-    for eng, coll in ((JEngine(config=JConfig(mesh_auto=False)), JColl),
-                      (TEngine(device="cpu"), TColl)):
+    for eng, coll, error in (
+            (JEngine(config=JConfig(mesh_auto=False)), JColl, JVectorError),
+            (TEngine(device="cpu"), TColl, TVectorError)):
         eng.create_collection("c", coll(dimension=4))
-        with pytest.raises(VectorError):
+        with pytest.raises(error):
             eng.create_collection("c")
-        with pytest.raises(VectorError):
+        with pytest.raises(error):
             eng.store_in_collection("c", "a", np.ones(5))
-        with pytest.raises(VectorError):
+        with pytest.raises(error):
             eng.search_in_collection("missing", np.ones(4), 3)
-        with pytest.raises(VectorError):
+        with pytest.raises(error):
             eng.create_collection("d", coll(quantization="fp4"))
         assert eng.search_in_collection("c", np.ones(4), 3) == []
         assert eng.drop_collection("c") and not eng.drop_collection("c")

@@ -21,12 +21,12 @@ import pytest
 
 from neumann_tpu.engines.vector import VectorEngineConfig as JConfig
 from neumann_tpu.router import QueryRouter as JRouter
-from neumann_tpu.utils.errors import NeumannError
 from neumann_tpu_torch.convert import ivf_state_from_jax
 from neumann_tpu_torch.engines.vector import VectorEngine
 from neumann_tpu_torch.engines.vector import VectorEngineConfig as TConfig
 from neumann_tpu_torch.ops.ivf import DeviceIVFInt8
 from neumann_tpu_torch.router import QueryRouter as TRouter
+from neumann_tpu_torch.utils.errors import NeumannError
 
 TOL = 1e-5
 N, D = 12_000, 64
