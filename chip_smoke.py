@@ -9,15 +9,18 @@ the CUDA toolkit (nvcc)::
 
 Phases (each raises on failure; exit code 0 only if all pass):
 
-1. print the card's name and power limit (nvidia-smi), build the six
-   CUDA kernels from neumann_tpu_torch/csrc and print the build time;
+1. print the card's name and power limit (nvidia-smi), build the CUDA
+   kernels from neumann_tpu_torch/csrc (six sources, seven entries) and
+   print the build time;
 2. hold each kernel against its plain PyTorch version on the card at
    its path's shapes, timing both with CUDA events (probe: 32 queries x
    81 probes x 1,024-row windows x 768; batched top-2: 4,096 windows x
    64 slots; int8 scores: 64 x 1,048,576 x 768, and 1 x 524,288 x 768,
    one block of the int8 euclidean scan's single query; int8 and f32 pooled
    bits: 8 and 1,024 queries x 1,048,576 x 768 at pool 512; hamming:
-   1,024 x 131,072 rows x 24 words);
+   1,024 x 131,072 rows x 24 words; hamming top-10: 1,024 and 1 queries x
+   1,048,576 rows x 24 words with 1 % dead rows, scores and ids equal,
+   bound by the card's 1-bit tensor-core rate, measured by a bare loop);
 3. generate a 4,194,304 x 768 corpus from --seed with numpy (4,096
    N(0,1) centres + sigma 0.25 noise) and load it with
    ``router.vector.ingest_matrix``;
@@ -43,14 +46,17 @@ Phases (each raises on failure; exit code 0 only if all pass):
    METRIC euclidean on the int8 scan (ids equal to the plain
    ``int8_topk_scan`` on the card, except at equal scores);
 9. a binary collection of the same rows; counted: 64 single SIMILARs
-   and a batch of 1,024, each query's 10 distances equal to the plain
-   hamming top-10's.
+   and a batch of 1,024 (the fused hamming top-k), and 4 SIMILARs TOP 65
+   (above its cap: hamming_scores); each query's ids and distances equal
+   to the plain hamming top-k's, in the same order; then the 64 single
+   SIMILARs again, parsed now (p50 without the parse).
 
 Every kernel must launch in the counted phases. After phase 4 it
 profiles 8 single SIMILARs and one batch (cProfile on the host,
 torch.profiler on the device) into chiprun_out/profile_*.txt, and the
 first SIMILAR (the build) into chiprun_out/profile_build_host.txt;
-phases 7-9 profile their single queries and batch the same way.
+phases 7 and 9 profile their single queries and batch the same way,
+phase 8 its batch.
 
 Prints the metrics JSON line, the kernels JSON line, the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``. Everything is also
@@ -108,6 +114,8 @@ KERNELS = {
                             replaces="neumann_tpu/ops/quant.py:525"),
     "hamming_scores": dict(source="neumann_tpu_torch/csrc/hamming.cu",
                            replaces="neumann_tpu/ops/pallas_kernels.py:40"),
+    "hamming_topk": dict(source="neumann_tpu_torch/csrc/hamming_topk.cu",
+                         replaces="neumann_tpu/ops/pallas_kernels.py:90"),
 }
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
 # a kernel's bound is the larger of its bytes (each input read once, each
@@ -128,10 +136,12 @@ NO_LIBRARY = {
                      "into packed top-2 winners",
     "hamming_scores": "no PyTorch call takes packed sign bits (cdist p=0 "
                       "needs them unpacked to floats)",
+    "hamming_topk": "no PyTorch call takes packed sign bits, and none "
+                    "selects a top-k without the [Q, N] distances",
 }
 # the wrappers a route's reference swaps for their plain versions
 _PLAIN_SWAPPED = ("int8_dot_scores", "int8_pooled_bits", "f32_pooled_bits",
-                  "hamming_scores")
+                  "hamming_scores", "hamming_topk")
 
 
 def say(msg: str) -> None:
@@ -461,6 +471,8 @@ def check_new_kernels(dev, seed: int) -> dict:
         plain_ms=cuda_ms(lambda: tk.hamming_scores_plain(cb, qb), 1,
                          warm=False),
         shape=f"Q={N_BATCH} N=131072 W={cb.shape[1]}")
+    del cb, got, want
+    out["hamming_topk"] = check_hamming_topk(x, qs, bias > 0)
     for name, rec in out.items():
         say(f"[2] {name} kernel vs plain ({rec['shape']}): max_abs_err "
             f"{rec['max_abs_err']:.3g}; kernel {rec['ms']:.4f} ms, plain "
@@ -471,6 +483,84 @@ def check_new_kernels(dev, seed: int) -> dict:
                       f"{rec[f'bound_ms_q{q}']:.4f} ms"
                       for q in (1, 8) if f"ms_q{q}" in rec))
     return out
+
+
+def b1_ops_per_s(lib) -> float:
+    """The card's rate of 1-bit tensor-core products (mma.sync
+    m16n8k256.b1.and.popc), measured: a bare loop of independent products
+    on registers, 4 blocks of 8 warps a SM, each product 2 x 16 x 8 x 256
+    operations (AND + POPC-accumulate a bit pair, as int8's multiply-add)."""
+    import torch
+
+    from neumann_tpu_torch.ops import kernels as tk
+
+    blocks, iters = 4 * torch.cuda.get_device_properties(
+        0).multi_processor_count, 8192   # about 3 ms a launch
+    sink = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
+    ms = cuda_ms(lambda: tk._raise_on(lib.neumann_b1_mma_rate(
+        blocks, iters, sink.data_ptr(), tk._stream()), "b1_mma_rate"), 5)
+    return blocks * 8 * iters * 8 * 2 * 16 * 8 * 256 / (ms * 1e-3)
+
+
+def check_hamming_topk(x, qs, mask) -> dict:
+    """Phase 2, the fused hamming top-k at the binary route's shapes: a
+    batch of 1,024 and one query against all 1,048,576 rows of 24 words,
+    k 10, 1 % dead rows. Scores and ids must equal the plain version's.
+
+    Its bound is the larger of the bytes (corpus, queries, mask, the top-k
+    written) and the bit products (2 Q N d) at the 1-bit tensor-core rate
+    that ``b1_ops_per_s`` measures in this run (the data sheet gives no
+    1-bit rate). Beside it: the popcount issue time of an XOR + POPC loop
+    and the products' time at the int8 rate. ``ms`` times the wrapper (the
+    launch, the final torch.topk over the groups' keys, the decode),
+    ``kernel_ms`` the launch alone, ``unselected_ms`` the launch with
+    nothing selected (loads, products and the per-distance compare, no
+    appends or merges), so kernel_ms - unselected_ms is what the
+    selection's appends and merges cost."""
+    import torch
+
+    from neumann_tpu_torch.ops import kernels as tk
+    from neumann_tpu_torch.ops.quant import binary_quantize
+
+    cb = binary_quantize(x)
+    (n, w), lib = cb.shape, tk.build_kernels()
+    rate = b1_ops_per_s(lib)
+    rec = {"shape": f"Q={N_BATCH} and Q=1, N={n} W={w} k={TOP_K}, "
+                    f"{int((~mask).sum())} dead rows", "b1_ops_per_s": rate}
+    for q in (N_BATCH, 1):
+        qb = binary_quantize(qs[:q])
+        got = tk.hamming_topk(cb, qb, mask, TOP_K)
+        want = tk.hamming_topk_plain(cb, qb, mask, TOP_K)
+        torch.cuda.synchronize()
+        for a, b, what in zip(got, want, ("scores", "ids")):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"hamming_topk at Q={q}: {int((a != b).sum())} {what} "
+                    f"differ from plain")
+        key = "" if q == N_BATCH else "_q1"
+        ops = 2 * q * n * 32 * w
+        for k, v in bound(nbytes(cb, qb, mask, *got), ops, rate).items():
+            rec[f"{k}{key}"] = v
+        rec[f"int8_rate_ms{key}"] = ops / INT8_OPS_PER_S * 1e3
+        rec[f"popc_issue_bound_ms{key}"] = q * cb.numel() / POPC_PER_S * 1e3
+        rec[f"max_abs_err{key}"] = 0.0
+        reps = 10 if q > 1 else 50
+        rec[f"ms{key}"] = cuda_ms(lambda: tk.hamming_topk(cb, qb, mask, TOP_K),
+                                  reps)
+        groups, span = tk._hamming_groups(n, q, cb.device)
+        keys = torch.empty((q, groups * TOP_K), dtype=torch.int64,
+                           device=cb.device)
+        for name, entry in (("kernel_ms", lib.neumann_hamming_topk),
+                            ("unselected_ms",
+                             lib.neumann_hamming_topk_unselected)):
+            rec[f"{name}{key}"] = cuda_ms(
+                lambda: tk._raise_on(entry(
+                    cb.data_ptr(), qb.data_ptr(), mask.data_ptr(),
+                    keys.data_ptr(), n, q, w, TOP_K, span, groups,
+                    tk._stream()), "hamming_topk"), reps)
+        rec[f"plain_ms{key}"] = cuda_ms(
+            lambda: tk.hamming_topk_plain(cb, qb, mask, TOP_K), 1, warm=False)
+    return rec
 
 
 @contextlib.contextmanager
@@ -1018,12 +1108,21 @@ def run_brute(args, dev, centres, s_corpus, s_queries,
             eng.store_in_collection("bits", f"k{i}", corpus[i])
     report["binary_ingest_s"] = time.perf_counter() - t0
     stmts = [f"SIMILAR {vec_literal(q)} IN bits TOP {TOP_K}" for q in single]
+    # above the fused kernel's k cap the route takes hamming_scores
+    top_wide = tk.HAMMING_TOPK_CAP + 1
     with gc_pauses_ms() as (pauses, young):
         tk.reset_launch_counts()
         lat, rows_s, sc_s = similar_series(router, stmts, cosine=False)
         qps, times, rows_b, sc_b = batch_series(
             lambda: eng.batch_search_ns(batch, TOP_K, ns="col/bits"))
+        wide = [router.execute(f"SIMILAR {vec_literal(q)} IN bits TOP "
+                               f"{top_wide}").results for q in extra[:4]]
         launches = dict(tk.LAUNCHES)
+    # the same statements again, parsed now: the route without the parse
+    # of a 768-float literal, which dominates the p50 above
+    lat_parsed, _, _ = similar_series(router, stmts, cosine=False)
+    report["binary_single_parsed_p50_ms"] = float(np.percentile(lat_parsed,
+                                                                50))
     report["gc_gen2_pauses_ms_binary"] = pauses
     report["gc_young_pauses_ms_binary"] = young
     report["launches_binary"] = launches
@@ -1033,29 +1132,49 @@ def run_brute(args, dev, centres, s_corpus, s_queries,
     # recall of 1-bit codes against the f32 scan: recorded, not a limit
     report["binary_recall_vs_f32"] = recall(rows_s + rows_b,
                                             oracle[:N_SINGLE + N_BATCH])
+    # the reference: the plain hamming top-k on the card, ids and
+    # distances in the same order (equal distances by row)
+    bits_c = eng._corpora["col/bits"][DIM]
     with plain_kernels():
-        bits, valid = eng._corpora["col/bits"][DIM].slab.quantized_view(
-            "binary")
-        ref_s, _ = hamming_topk(bits, binary_quantize(qd[:N_SINGLE +
-                                                         N_BATCH]),
-                                TOP_K, valid)
-    ref_s = ref_s.cpu().numpy()
-    bad = [r for r, got in enumerate(sc_s + sc_b)
-           if got != ref_s[r].tolist()]
+        bits, valid = bits_c.slab.quantized_view("binary")
+        ref = hamming_topk(bits, binary_quantize(qd[:N_SINGLE + N_BATCH]),
+                           TOP_K, valid)
+        ref_w = hamming_topk(bits, binary_quantize(
+            qd[N_SINGLE + N_BATCH:][:4]), top_wide, valid)
+
+    def mismatches(rows, scores, ref_pair):
+        ref_s, ref_i = (t.cpu().numpy() for t in ref_pair)
+        bad = []
+        for r, (got_rows, got_s) in enumerate(zip(rows, scores)):
+            want = [int(k[1:]) for k in bits_c.index.keys_of(
+                ref_i[r].tolist())]
+            if got_rows != want or got_s != ref_s[r].tolist():
+                bad.append(r)
+        return bad
+
+    bad = mismatches(rows_s + rows_b, sc_s + sc_b, ref)
+    bad_w = mismatches([[int(h["key"][1:]) for h in res] for res in wide],
+                       [[h["score"] for h in res] for res in wide], ref_w)
+    report["binary_mismatches"] = len(bad) + len(bad_w)
     say(f"[9] binary collection (stored in {report['binary_ingest_s']:.1f} "
         f"s): single p50 {report['binary_single_p50_ms']:.3f} ms p99 "
-        f"{report['binary_single_p99_ms']:.3f} ms; batch of {N_BATCH}: "
-        f"{qps:.0f} QPS; distances vs plain hamming top-{TOP_K}: "
-        f"{len(bad)} queries differ; recall vs f32 "
-        f"{report['binary_recall_vs_f32']:.4f}; launches {launches}")
-    if bad:
-        raise AssertionError(f"binary distances differ from the plain "
-                             f"hamming top-{TOP_K} for queries {bad[:5]}")
+        f"{report['binary_single_p99_ms']:.3f} ms (parsed statements: p50 "
+        f"{report['binary_single_parsed_p50_ms']:.3f} ms); batch of "
+        f"{N_BATCH}: "
+        f"{qps:.0f} QPS; ids and distances vs the plain hamming top-"
+        f"{TOP_K}: {len(bad)} queries differ, top-{top_wide}: {len(bad_w)} "
+        f"of 4 differ; recall vs f32 {report['binary_recall_vs_f32']:.4f}; "
+        f"launches {launches}")
+    if bad or bad_w:
+        raise AssertionError(f"binary ids or distances differ from the "
+                             f"plain hamming top-k for queries {bad[:5]}, "
+                             f"top-{top_wide} {bad_w}")
     if on_card:
-        require_launches(launches, ("hamming_scores",), "9")
+        require_launches(launches, ("hamming_topk", "hamming_scores"), "9")
         report["profile_quantized"] = profile_calls(
             {"int8_batch": lambda: eng.batch_search_ns(batch, TOP_K,
                                                        ns="col/q8"),
+             "binary_single": lambda: [router.execute(s) for s in stmts[:8]],
              "binary_batch": lambda: eng.batch_search_ns(batch, TOP_K,
                                                          ns="col/bits")},
             "chiprun_out")
@@ -1078,8 +1197,11 @@ def kernels_line(report: dict) -> dict:
                    roofline_share=rec["bound_ms"] / rec["ms"],
                    library_ms=rec.get("library_ms"))
         row["library"] = rec.get("library", NO_LIBRARY.get(name))
-        if "popc_issue_bound_ms" in rec:
-            row["popc_issue_bound_ms"] = rec["popc_issue_bound_ms"]
+        for extra in ("popc_issue_bound_ms", "int8_rate_ms", "b1_ops_per_s",
+                      "kernel_ms", "kernel_ms_q1", "unselected_ms",
+                      "unselected_ms_q1"):
+            if extra in rec:
+                row[extra] = rec[extra]
         for sfx in ("_q1", "_q8"):   # the single-query kernels' shapes
             if f"ms{sfx}" in rec:
                 row.update({f"{k}{sfx}": rec[f"{k}{sfx}"] for k in (
@@ -1140,7 +1262,8 @@ def main() -> int:
         "int8_single_p50_ms", "int8_single_p99_ms", "int8_batch_qps",
         "int8_recall_single", "int8_recall_batch", "int8_euclid_p50_ms",
         "int8_euclid_p99_ms", "binary_single_p50_ms", "binary_single_p99_ms",
-        "binary_batch_qps", "binary_recall_vs_f32",
+        "binary_single_parsed_p50_ms",
+        "binary_batch_qps", "binary_recall_vs_f32", "binary_mismatches",
         "peak_device_mem_gb_brute", "total_s")}
     metrics["parse_ms_median"] = float(np.median(
         report["profile"]["parse_ms"]))

@@ -62,6 +62,7 @@
 #include <climits>
 #include <cstdint>
 
+#include "mma_s8.cuh"
 #include "pooled_bits.cuh"
 
 namespace {
@@ -70,6 +71,9 @@ using neumann::cp_async16;
 using neumann::cp_async_commit;
 using neumann::cp_async_wait;
 using neumann::kThreads;
+using neumann::ldsm_x2;
+using neumann::ldsm_x4;
+using neumann::mma_s8;
 using neumann::smem_u32;
 
 // The mma.sync tile: 8 warps, each on 16 corpus rows x one 8-query
@@ -83,36 +87,11 @@ struct Tile {
   static constexpr int kMaxSlots = kBM / neumann::kMinPool;
 
   // byte offset of 16-byte chunk c of row r in a [rows][128] tile, the
-  // 128-byte swizzle: the chunk is XORed with the row's low bits, so 8
-  // consecutive rows at one logical chunk land in 8 different 16-byte
-  // bank groups
+  // 128-byte swizzle (mma_s8.cuh)
   static __device__ __forceinline__ int swz(int r, int c) {
-    return r * kBK + ((c ^ (r & 7)) << 4);
+    return neumann::swz128(r, c);
   }
 };
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_u32(p)));
-}
-
-// c += a (16 x 32 s8, row) * b (32 x 8 s8, col), exact int32
-__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
-                                       const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // c += a (64 x 32 s8, K-major, shared) * b (32 x 128 s8, K-major,
 // shared) for the 4 warps of a warpgroup, asynchronous; `accumulate` 0

@@ -8,7 +8,8 @@ that XLA fuses on the TPU.
   ``ivf_windowed_topk_pallas``): the latency path's first pass.
 * ``batched_probe`` (``csrc/batched_probe.cu``) replaces the Pallas
   top-2 kernel ``_batched_probe_kernel`` (``batched_probe_pallas``): the
-  throughput path's first pass, packed strided-pool winners.
+  throughput path's first pass on the int8 tensor cores, packed
+  strided-pool winners.
 * ``int8_dot_scores`` (``csrc/int8_scores.cu``) replaces the Pallas
   ``_int8_kernel`` (``int8_dot_scores``): the int8 scan's block scores.
 * ``int8_pooled_bits`` (``csrc/int8_scores.cu``) and ``f32_pooled_bits``
@@ -16,7 +17,10 @@ that XLA fuses on the TPU.
   ``ops/quant.int8_pooled_topk`` / ``f32_pooled_topk``: consecutive
   pools, packed winner bits, scores never in device memory.
 * ``hamming_scores`` (``csrc/hamming.cu``) replaces the Pallas
-  ``_hamming_kernel`` (``hamming_scores`` / ``hamming_topk_pallas``).
+  ``_hamming_kernel`` (``hamming_scores``), and ``hamming_topk``
+  (``csrc/hamming_topk.cu``) replaces ``hamming_topk_pallas``: 1-bit
+  tensor-core products with the top-k fused in, no [Q, N] distances in
+  device memory.
 
 Every wrapper takes its plain version only for tensors on the CPU; for
 a CUDA tensor it launches the kernel or raises — there is no fallback.
@@ -50,12 +54,13 @@ from typing import Optional
 import torch
 
 LAUNCHES = {"ivf_probe": 0, "batched_probe": 0, "int8_dot_scores": 0,
-            "int8_pooled_bits": 0, "f32_pooled_bits": 0, "hamming_scores": 0}
+            "int8_pooled_bits": 0, "f32_pooled_bits": 0, "hamming_scores": 0,
+            "hamming_topk": 0}
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("ivf_probe.cu", "batched_probe.cu", "int8_scores.cu",
-           "f32_pooled.cu", "hamming.cu")
-HEADERS = ("pooled_bits.cuh",)
+           "f32_pooled.cu", "hamming.cu", "hamming_topk.cu")
+HEADERS = ("pooled_bits.cuh", "mma_s8.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "neumann_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -65,8 +70,8 @@ _lib_lock = threading.Lock()
 
 # strided pools per window in the batched kernel's packed output
 _POOL_LANES = 128
-# batched kernel: query slots staged per block (csrc kTile) x d bytes of
-# shared memory must stay under the 48 KB static launch limit
+# batched kernel: the widest query rows it stages (32 slots x d bytes a
+# pass in 96 KB of shared memory above d 1,536)
 _MAX_BATCHED_DIM = 3072
 
 
@@ -142,7 +147,12 @@ def build_kernels(verbose: bool = False) -> ctypes.CDLL:
                  [vp, vp, vp, vp, vp, vp, i32, i64, i32, i32, vp]),
                 ("neumann_f32_pooled_bits",
                  [vp, vp, vp, vp, vp, vp, i32, i64, i32, i32, vp]),
-                ("neumann_hamming_scores", [vp, vp, vp, i64, i32, i32, vp])):
+                ("neumann_hamming_scores", [vp, vp, vp, i64, i32, i32, vp]),
+                ("neumann_hamming_topk",
+                 [vp, vp, vp, vp, i64, i32, i32, i32, i64, i32, vp]),
+                ("neumann_hamming_topk_unselected",
+                 [vp, vp, vp, vp, i64, i32, i32, i32, i64, i32, vp]),
+                ("neumann_b1_mma_rate", [i32, i32, vp, vp])):
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = i32
         _lib = lib
@@ -633,29 +643,40 @@ def hamming_scores_plain(corpus_bits, query_bits):
     return out
 
 
+def _check_hamming(corpus_bits, query_bits):
+    dev = corpus_bits.device
+    _check("corpus_bits", corpus_bits, torch.int32, 2, dev)
+    _check("query_bits", query_bits, torch.int32, 2, dev)
+    if query_bits.shape[1] != corpus_bits.shape[1]:
+        raise ValueError(f"hamming shapes: corpus {tuple(corpus_bits.shape)}"
+                         f", queries {tuple(query_bits.shape)}")
+
+
+def _hamming_cuda_ready(name: str, corpus_bits, query_bits, q_limit: int):
+    dev = corpus_bits.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    w, q = corpus_bits.shape[1], query_bits.shape[0]
+    if w % 4 or w > _MAX_HAMMING_WORDS or q > q_limit:
+        raise ValueError(f"{name} kernel needs W % 4 == 0, W <= "
+                         f"{_MAX_HAMMING_WORDS} and Q <= {q_limit} "
+                         f"(W={w}, Q={q})")
+    for tname, t in (("corpus_bits", corpus_bits), ("query_bits", query_bits)):
+        _launch_ready(tname, t)
+
+
 def hamming_scores(corpus_bits, query_bits):
     """[Q, N] int32 hamming distances (the Pallas ``hamming_scores``).
 
     corpus_bits [N, W] and query_bits [Q, W] int32 bit patterns (the
     JAX package's uint32 words, same bits). No row padding and no
     word-major transpose: the kernel reads rows as stored."""
+    _check_hamming(corpus_bits, query_bits)
     dev = corpus_bits.device
-    _check("corpus_bits", corpus_bits, torch.int32, 2, dev)
-    _check("query_bits", query_bits, torch.int32, 2, dev)
     (n, w), q = corpus_bits.shape, query_bits.shape[0]
-    if query_bits.shape[1] != w:
-        raise ValueError(f"hamming shapes: corpus {tuple(corpus_bits.shape)}"
-                         f", queries {tuple(query_bits.shape)}")
     if dev.type == "cpu":
         return hamming_scores_plain(corpus_bits, query_bits)
-    if dev.type != "cuda":
-        raise ValueError(f"hamming_scores: unsupported device {dev}")
-    if w % 4 or w > _MAX_HAMMING_WORDS or q > 65535 * 64:
-        raise ValueError(f"hamming kernel needs W % 4 == 0, W <= "
-                         f"{_MAX_HAMMING_WORDS} and Q <= {65535 * 64} "
-                         f"(W={w}, Q={q})")
-    for name, t in (("corpus_bits", corpus_bits), ("query_bits", query_bits)):
-        _launch_ready(name, t)
+    _hamming_cuda_ready("hamming_scores", corpus_bits, query_bits, 65535 * 64)
     lib = build_kernels()
     out = torch.empty((q, n), dtype=torch.int32, device=dev)
     if q and n:
@@ -666,3 +687,144 @@ def hamming_scores(corpus_bits, query_bits):
         _raise_on(err, "hamming_scores")
         LAUNCHES["hamming_scores"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# kernel 7: hamming top-k, fused
+# ---------------------------------------------------------------------------
+
+# the fused kernel's largest k (it keeps k keys a query in shared
+# memory); ops/quant.hamming_topk takes hamming_scores above it
+HAMMING_TOPK_CAP = 64
+# csrc/hamming_topk.cu: queries a block, rows a pass, and the most rows
+# one block spans (its keys keep 20 bits of row)
+_HT_QBLOCK = 64
+_HT_PASS = 128
+_HT_MAX_SPAN = 1 << 20
+# row groups a query (each writes its k best keys), unless more are
+# needed to give the card 4 blocks a SM
+_HT_GROUPS = 64
+# selection keys, int64, distinct for distinct rows, so a smallest-k (or
+# greatest-k) over them is exact and ordered as lax.top_k orders equal
+# scores (by ascending row): hamming keys distance * 2^32 + row, ascending
+# key order (distance ascending, row ascending), _DEAD_KEY for rows that
+# cannot be selected; f32 score keys the score's bits made
+# order-preserving as an int32 (-0.0 counted as +0.0) above the row's
+# complement, descending key order (score descending, row ascending)
+_KEY_SHIFT = 1 << 32
+_DEAD_KEY = torch.iinfo(torch.int64).max
+
+
+def hamming_keys(dist: torch.Tensor, r0: int, mask=None) -> torch.Tensor:
+    """Selection keys [Q, B] int64 of a [Q, B] int32 distance block of
+    rows r0 .. r0 + B - 1; rows where ``mask`` [N] is False get
+    _DEAD_KEY."""
+    b = dist.shape[1]
+    keys = dist.long() * _KEY_SHIFT + torch.arange(r0, r0 + b,
+                                                   device=dist.device)
+    if mask is not None:
+        keys = keys.masked_fill(~mask[None, r0:r0 + b], _DEAD_KEY)
+    return keys
+
+
+def merge_keys(best, keys: torch.Tensor, k: int,
+               largest: bool = False) -> torch.Tensor:
+    """The k smallest (``largest``: greatest) of ``best`` and ``keys``
+    along dim 1, sorted. Keys of live rows are distinct, so the result
+    does not depend on the selection's order among equal values."""
+    if best is not None:
+        keys = torch.cat([best, keys], dim=1)
+    return torch.topk(keys, min(k, keys.shape[1]), dim=1,
+                      largest=largest).values
+
+
+def decode_hamming_keys(keys: torch.Tensor):
+    """(scores [Q, k] f32 = -distance, ids [Q, k] int32) of sorted
+    selection keys; -inf / -1 for _DEAD_KEY."""
+    dead = keys == _DEAD_KEY
+    scores = -torch.div(keys, _KEY_SHIFT, rounding_mode="floor").float()
+    return (scores.masked_fill(dead, float("-inf")),
+            (keys % _KEY_SHIFT).int().masked_fill(dead, -1))
+
+
+def score_keys(s: torch.Tensor, r0: int) -> torch.Tensor:
+    """Selection keys [Q, B] int64 of f32 scores [Q, B] of rows r0 ..."""
+    b = (s + 0.0).view(torch.int32)
+    b = torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+    rows = torch.arange(r0, r0 + s.shape[1], device=s.device)
+    return b.long() * _KEY_SHIFT + (_KEY_SHIFT - 1 - rows)
+
+
+def decode_score_keys(keys: torch.Tensor):
+    """(scores f32, rows int64) of ``score_keys`` keys."""
+    hi = torch.div(keys, _KEY_SHIFT, rounding_mode="floor")
+    b = hi.int()
+    b = torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+    return b.view(torch.float32), _KEY_SHIFT - 1 - (keys - hi * _KEY_SHIFT)
+
+
+def hamming_topk_plain(corpus_bits, query_bits, mask, k: int):
+    """Plain PyTorch version of ``hamming_topk``: distances in row steps,
+    a keyed merge after each."""
+    (n, w), q = corpus_bits.shape, query_bits.shape[0]
+    best = torch.empty((q, 0), dtype=torch.int64, device=corpus_bits.device)
+    for r0, r1 in _row_steps(n, q * w):
+        best = merge_keys(best, hamming_keys(
+            hamming_scores_plain(corpus_bits[r0:r1], query_bits), r0, mask),
+            k)
+    return decode_hamming_keys(best)
+
+
+def _hamming_groups(n: int, q: int, dev) -> tuple:
+    """(row groups, rows a group) of the fused kernel's grid."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_qblocks = -(-q // _HT_QBLOCK)
+    passes = -(-n // _HT_PASS)
+    groups = min(passes, max(_HT_GROUPS, -(-4 * sms // n_qblocks)))
+    span = min(_HT_MAX_SPAN, -(-passes // groups) * _HT_PASS)
+    return -(-n // span), span
+
+
+def hamming_topk(corpus_bits, query_bits, mask, k: int):
+    """Top-k rows by hamming distance in one launch over the whole corpus,
+    the distances on the 1-bit tensor cores and never in device memory
+    (the JAX package's ``hamming_topk_pallas``, whose Pallas kernel writes
+    the [Q, N] distances and leaves the top-k to XLA).
+
+    corpus_bits [N, W] / query_bits [Q, W] int32 bit patterns, mask [N]
+    bool or None, 1 <= k <= HAMMING_TOPK_CAP. Returns (scores [Q, k'] f32
+    = -distance, ids [Q, k'] int32), k' = min(k, N): the k' best rows by
+    (distance ascending, row ascending), -inf / -1 past the live rows.
+    The kernel writes each row group's k best keys; one ``torch.topk``
+    over [Q, groups * k] finishes the job, as ``lax.top_k`` sits outside
+    the Pallas kernel."""
+    _check_hamming(corpus_bits, query_bits)
+    dev = corpus_bits.device
+    (n, w), q = corpus_bits.shape, query_bits.shape[0]
+    if mask is not None:
+        _check("mask", mask, torch.bool, 1, dev)
+        if mask.shape[0] != n:
+            raise ValueError(f"mask {tuple(mask.shape)} for {n} rows")
+    if not 1 <= k <= HAMMING_TOPK_CAP:
+        raise ValueError(f"hamming_topk takes 1 <= k <= {HAMMING_TOPK_CAP} "
+                         f"(k={k})")
+    if dev.type == "cpu":
+        return hamming_topk_plain(corpus_bits, query_bits, mask, k)
+    _hamming_cuda_ready("hamming_topk", corpus_bits, query_bits,
+                        65535 * _HT_QBLOCK)
+    if mask is not None and not mask.is_contiguous():
+        raise ValueError("mask must be contiguous for the kernel")
+    lib = build_kernels()
+    if not (q and n):
+        return (torch.full((q, min(k, n)), float("-inf"), device=dev),
+                torch.full((q, min(k, n)), -1, dtype=torch.int32, device=dev))
+    groups, span = _hamming_groups(n, q, dev)
+    out = torch.empty((q, groups * k), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.neumann_hamming_topk(
+            corpus_bits.data_ptr(), query_bits.data_ptr(),
+            0 if mask is None else mask.data_ptr(), out.data_ptr(), n, q, w,
+            k, span, groups, _stream())
+    _raise_on(err, "hamming_topk")
+    LAUNCHES["hamming_topk"] += 1
+    return decode_hamming_keys(merge_keys(None, out, min(k, n)))

@@ -8,7 +8,7 @@ the same way and score int8 x int8 -> int32 through the hand kernels of
 ``ops/kernels.py``:
 
 * ``int8_topk_scan``: block scores by ``int8_dot_scores`` (kernel 4),
-  a running ``torch.topk`` merge across row blocks;
+  a running keyed merge across row blocks (equal scores in row order);
 * ``int8_pooled_topk`` / ``f32_pooled_topk``: the pooled-bits cosine
   scans, one ``int8_pooled_bits`` / ``f32_pooled_bits`` launch over the
   whole corpus (the JAX package's row blocks exist for XLA's sake), then
@@ -16,8 +16,9 @@ the same way and score int8 x int8 -> int32 through the hand kernels of
 
 binary: sign bits packed 32 per word; the JAX package's uint32 words
 are int32 bit patterns here (torch's uint32 lacks most bitwise ops).
-``hamming_topk`` scores by ``hamming_scores`` (kernel 3) with the
-semantics of ``hamming_topk_pallas``.
+``hamming_topk`` selects by the fused ``hamming_topk`` (kernel 7), or
+``hamming_scores`` (kernel 3) above its k cap, with the semantics of
+``hamming_topk_pallas``.
 
 Scalars where the JAX package writes ``lax.rsqrt`` are ``1 / sqrt``
 here: two correctly rounded steps, which is what XLA computes on the
@@ -117,11 +118,8 @@ def _int8_block_scores(qq, q_scale, q_norm, block_q, block_scale,
     raise ValueError(f"unsupported int8 metric: {metric}")
 
 
-def _merge_topk(best_s, best_i, s, ids, k: int):
-    cand_s = torch.cat([best_s, s], dim=1)
-    cand_i = torch.cat([best_i, ids], dim=1)
-    top_s, pos = torch.topk(cand_s, min(k, cand_s.shape[1]), dim=1)
-    return top_s, torch.gather(cand_i, 1, pos)
+# the keyed selection builds its int64 keys this many at a time
+_KEY_STEP_ELEMS = 1 << 24
 
 
 def int8_topk_scan(corpus_q: torch.Tensor, corpus_scale: torch.Tensor,
@@ -132,9 +130,10 @@ def int8_topk_scan(corpus_q: torch.Tensor, corpus_scale: torch.Tensor,
     """Top-k over an int8 corpus with the query quantized per query, so
     scores come from int8 x int8 -> int32 dots (kernel 4); both scales
     rescale them afterwards. Blockwise over ``block_rows`` rows with a
-    running exact ``torch.topk`` merge (the JAX package's ``exact``
-    selection). Returns (scores [Q, k] f32, ids [Q, k] int32, -1 where
-    the score is -inf); euclidean scores are -distance."""
+    running exact merge on keys that order equal scores by row, as
+    ``lax.top_k`` does (the JAX package's ``exact`` selection). Returns
+    (scores [Q, k] f32, ids [Q, k] int32, -1 where the score is -inf);
+    euclidean scores are -distance."""
     queries = _as2d(queries).float()
     if queries.shape[-1] != corpus_q.shape[-1]:
         raise ValueError(f"query dim {queries.shape[-1]} != corpus dim "
@@ -148,9 +147,8 @@ def int8_topk_scan(corpus_q: torch.Tensor, corpus_scale: torch.Tensor,
     row_mult = (_row_multiplier(corpus_scale, corpus_sqnorm, metric)
                 if metric == "cosine" else None)
     q = queries.shape[0]
-    dev = corpus_q.device
-    best_s = torch.full((q, 0), NEG_INF, device=dev)
-    best_i = torch.full((q, 0), -1, dtype=torch.int64, device=dev)
+    step = max(1, _KEY_STEP_ELEMS // max(q, 1))
+    best = torch.empty((q, 0), dtype=torch.int64, device=corpus_q.device)
     for r0 in range(0, n, block_rows):
         r1 = min(n, r0 + block_rows)
         s = _int8_block_scores(
@@ -160,8 +158,11 @@ def int8_topk_scan(corpus_q: torch.Tensor, corpus_scale: torch.Tensor,
             row_mult=None if row_mult is None else row_mult[r0:r1])
         if mask is not None:
             s = s.masked_fill(~mask[None, r0:r1], NEG_INF)
-        bs, bi = torch.topk(s, min(k, r1 - r0), dim=1)
-        best_s, best_i = _merge_topk(best_s, best_i, bs, bi + r0, k)
+        for c0 in range(0, r1 - r0, step):
+            best = kernels.merge_keys(
+                best, kernels.score_keys(s[:, c0:c0 + step], r0 + c0), k,
+                largest=True)
+    best_s, best_i = kernels.decode_score_keys(best)
     best_i = best_i.masked_fill(torch.isneginf(best_s), -1).int()
     if metric == "euclidean":
         best_s = -torch.sqrt((-best_s).clamp_min(0.0))
@@ -296,24 +297,26 @@ def binary_quantize(x: torch.Tensor) -> torch.Tensor:
 def hamming_topk(corpus_bits: torch.Tensor, query_bits: torch.Tensor,
                  k: int, mask: Optional[torch.Tensor] = None,
                  block_rows: int = 128 * 1024):
-    """Top-k by smallest hamming distance, score = -distance (f32), ids
-    -1 where the score is -inf (masked rows), as the JAX package's
-    ``hamming_topk_pallas``: distances from ``hamming_scores`` (kernel 3)
-    per block of ``block_rows`` rows, exact ``torch.topk`` merge across
-    blocks."""
-    query_bits = _as2d(query_bits)
-    n = corpus_bits.shape[0]
-    q = query_bits.shape[0]
-    k = min(k, n)
-    dev = corpus_bits.device
-    best_s = torch.full((q, 0), NEG_INF, device=dev)
-    best_i = torch.full((q, 0), -1, dtype=torch.int64, device=dev)
+    """Top-k by smallest hamming distance, as the JAX package's
+    ``hamming_topk`` / ``hamming_topk_pallas``: the k best rows by
+    (distance ascending, row ascending), ``lax.top_k``'s order among
+    equal distances; score = -distance (f32), -inf / -1 for masked rows
+    and past the live rows.
+
+    Up to ``kernels.HAMMING_TOPK_CAP`` one fused ``hamming_topk`` launch
+    (kernel 7) over the whole corpus. Above it (the fused kernel keeps k
+    keys a query in shared memory) ``hamming_scores`` (kernel 3) per
+    block of ``block_rows`` rows and the same keyed merge: a dispatch on
+    k, like the f32 / int8 kernels' switches on Q. Results do not depend
+    on ``block_rows``."""
+    query_bits = _as2d(query_bits).contiguous()
+    if k <= kernels.HAMMING_TOPK_CAP:
+        return kernels.hamming_topk(corpus_bits, query_bits, mask, k)
+    n, q = corpus_bits.shape[0], query_bits.shape[0]
+    best = torch.empty((q, 0), dtype=torch.int64, device=corpus_bits.device)
     for r0 in range(0, n, block_rows):
-        r1 = min(n, r0 + block_rows)
-        s = -kernels.hamming_scores(corpus_bits[r0:r1],
-                                    query_bits.contiguous()).float()
-        if mask is not None:
-            s = s.masked_fill(~mask[None, r0:r1], NEG_INF)
-        bs, bi = torch.topk(s, min(k, r1 - r0), dim=1)
-        best_s, best_i = _merge_topk(best_s, best_i, bs, bi + r0, k)
-    return best_s, best_i.masked_fill(torch.isneginf(best_s), -1).int()
+        dist = kernels.hamming_scores(corpus_bits[r0:r0 + block_rows],
+                                      query_bits)
+        best = kernels.merge_keys(best, kernels.hamming_keys(dist, r0, mask),
+                                  k)
+    return kernels.decode_hamming_keys(best)

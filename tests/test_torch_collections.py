@@ -13,8 +13,9 @@ devices.
 
 Tolerances: scores within 1e-5 (1e-4 for euclidean's 1/(1+d)), keys
 equal wherever the scores are more than that apart. Binary scores are
--hamming distances: equal exactly, and every returned key is at its
-reported distance (ties leave the keys open).
+-hamming distances: equal exactly, and the keys equal in the same order
+(equal distances by row, as the JAX package's ``lax.top_k`` orders
+them), each at its reported distance.
 """
 
 import numpy as np
@@ -90,8 +91,10 @@ def _assert_hits_close(got, want, tol=1e-5):
 
 
 def _assert_binary_hits(got, want, v, q):
-    """Equal -hamming distances, each key at its reported distance."""
+    """The JAX engine's keys in its order (equal distances by row) and
+    -hamming distances, each key at its reported distance."""
     assert [h.score for h in got] == [h.score for h in want]
+    assert [h.key for h in got] == [h.key for h in want]
     qb = (q > 0)
     for h in got:
         row = int(h.key[1:])
@@ -130,7 +133,7 @@ def test_routes_taken(engines, data, pooled_env, monkeypatch):
     _, qs = data
     called = []
     for name in ("int8_dot_scores", "int8_pooled_bits", "f32_pooled_bits",
-                 "hamming_scores"):
+                 "hamming_scores", "hamming_topk"):
         orig = getattr(tk, name)
 
         def spy(*a, _name=name, _orig=orig, **kw):
@@ -143,11 +146,15 @@ def test_routes_taken(engines, data, pooled_env, monkeypatch):
              ("int8", "cosine", ["int8_pooled_bits"]),
              ("int8", "euclidean", ["int8_dot_scores"]),
              ("int8", "dot", ["int8_dot_scores"]),
-             ("binary", "cosine", ["hamming_scores"]))
+             ("binary", "cosine", ["hamming_topk"]))
     for quant, metric, want in cases:
         called.clear()
         te.search_in_collection(quant, qs[0], 10, metric)
         assert called == want, (quant, metric, called)
+    # above the fused kernel's k cap, one hamming_scores call per block
+    called.clear()
+    te.search_in_collection("binary", qs[0], tk.HAMMING_TOPK_CAP + 1)
+    assert called == ["hamming_scores"]
     # without the lowered gate a 4,096-row corpus takes no pooled route
     monkeypatch.delenv("NEUMANN_POOLED_MIN_ROWS")
     called.clear()
@@ -231,10 +238,11 @@ def test_router_collection_statements_match_jax(data, pooled_env):
                                    atol=1e-4)
     hits = tr.execute(f"SIMILAR {_vec(qs[1])} TOP 10 IN q8 WHERE cat = 3")
     assert all(int(h["key"][1:]) % 4 == 3 for h in hits.results)
-    bits = tr.execute(f"SIMILAR {_vec(qs[4])} IN bits TOP 7").results
-    assert [h["score"] for h in bits] == [
-        h["score"] for h in jr.execute(
-            f"SIMILAR {_vec(qs[4])} IN bits TOP 7").results]
+    for top in (7, tk.HAMMING_TOPK_CAP + 1):
+        stmt = f"SIMILAR {_vec(qs[4])} IN bits TOP {top}"
+        bits = tr.execute(stmt).results
+        assert [(h["key"], h["score"]) for h in bits] == [
+            (h["key"], h["score"]) for h in jr.execute(stmt).results]
     for stmt in ("SHOW COLLECTIONS", "EMBED GET 'k5' IN q8",
                  "EMBED GET 'nope' IN q8", "EMBED DELETE 'k5' IN q8",
                  "EMBED GET 'k5' IN q8", "DROP COLLECTION bits",

@@ -311,4 +311,5 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
         assert rep[key] >= 0.95, key
     assert rep["int8_euclid_mismatches"] == 0
     assert len(rep["binary_single_ms"]) == chip_smoke.N_SINGLE - 1
+    assert rep["binary_mismatches"] == 0
     assert set(rep["launches"]) == set(chip_smoke.KERNELS)

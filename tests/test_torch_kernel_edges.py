@@ -1,5 +1,6 @@
-"""Edge shapes of the tensor-core int8 kernels and the f32 pooled-bits
-kernel against their plain PyTorch versions, on an NVIDIA card.
+"""Edge shapes of the tensor-core int8 kernels, the f32 pooled-bits
+kernel, the fused hamming top-k and the batched top-2 probe against
+their plain PyTorch versions, on an NVIDIA card.
 
 Every test here needs a card and ``nvcc`` (the kernels build from
 ``neumann_tpu_torch/csrc`` at first use) and skips elsewhere; the plain
@@ -18,6 +19,11 @@ steps 32 floats of K at a time, so d = 80 ends inside a step). The int8
 outputs must be bit-identical; the f32 pooled
 winners must decode within one packed-mantissa step of the plain
 version's, with the winning rows equal on >= 99 % of the live pools.
+Hamming top-k: Q 1, 5, 70 and 1,025, N 3,001 and 2^20, W 4, 24 and 64,
+k 1, 10, the cap and the cap + 1, all rows masked and one live row;
+scores and ids equal. Batched probe: q_cap 8 to 200, windows of 128 to
+4,096 rows, d 64, 768 and 784 (d % 32 = 16), top-2 on and off; bit for
+bit.
 """
 
 import pytest
@@ -135,3 +141,101 @@ def test_f32_pooled_edges_within_tolerance(cuda, q, pool, d):
     assert err <= pool * 2.0 ** -22 + 1e-6
     same = ((got & (pool - 1)) == (want & (pool - 1)))[live]
     assert same.float().mean().item() >= MIN_AGREE
+
+
+# hamming top-k (kernel 7): every shape through quant.hamming_topk, which
+# takes the fused kernel up to its k cap and hamming_scores above it
+HAMMING_QS = (1, 5, 70, 1025)
+HAMMING_NS = (3001, 1 << 20)
+HAMMING_WS = (4, 24, 64)
+
+
+def _bits(g, dev, rows, w):
+    return torch.randint(-(1 << 31), 1 << 31, (rows, w), generator=g,
+                         device=dev, dtype=torch.int64).int()
+
+
+def _hamming_case(dev, n, q, w, seed):
+    """Random bits with every fourth row a copy of an earlier one (equal
+    distances everywhere), queries near stored rows, 10 % dead rows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cb = _bits(g, dev, n, w)
+    cb[3::4] = cb[torch.randint(0, n, (n,), generator=g, device=dev)[3::4]]
+    qb = cb[torch.randint(0, n, (q,), generator=g, device=dev)] ^ (
+        _bits(g, dev, q, w) & _bits(g, dev, q, w) & _bits(g, dev, q, w))
+    mask = torch.rand(n, generator=g, device=dev) > 0.1
+    return cb, qb.contiguous(), mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", HAMMING_WS)
+@pytest.mark.parametrize("n", HAMMING_NS)
+@pytest.mark.parametrize("q", HAMMING_QS)
+def test_hamming_topk_edges_equal_plain(cuda, q, n, w):
+    """Scores and ids equal to the plain version, k 1, 10, the cap and
+    the cap + 1 (the hamming_scores route)."""
+    from neumann_tpu_torch.ops import kernels as tk
+    from neumann_tpu_torch.ops.quant import hamming_topk
+
+    cb, qb, mask = _hamming_case(cuda, n, q, w, 40 + q + w)
+    for k in (1, 10, tk.HAMMING_TOPK_CAP, tk.HAMMING_TOPK_CAP + 1):
+        fused = k <= tk.HAMMING_TOPK_CAP
+        before = dict(tk.LAUNCHES)
+        s, i = hamming_topk(cb, qb, k, mask)
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES["hamming_topk"] == before["hamming_topk"] + fused
+        assert (tk.LAUNCHES["hamming_scores"] > before["hamming_scores"]) \
+            == (not fused)
+        ws, wi = tk.hamming_topk_plain(cb, qb, mask, k)
+        assert s.shape == ws.shape == (q, min(k, n))
+        assert torch.equal(s, ws) and torch.equal(i, wi), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", [0, 1])
+def test_hamming_topk_masked_edges(cuda, live):
+    """All rows masked (every slot -inf / -1) and one valid row."""
+    from neumann_tpu_torch.ops import kernels as tk
+
+    cb, qb, _ = _hamming_case(cuda, 3001, 70, 24, 7)
+    mask = torch.zeros(3001, dtype=torch.bool, device=cuda)
+    mask[1234] = bool(live)
+    s, i = tk.hamming_topk(cb, qb, mask, 10)
+    torch.cuda.synchronize()
+    ws, wi = tk.hamming_topk_plain(cb, qb, mask, 10)
+    assert torch.equal(s, ws) and torch.equal(i, wi)
+    assert int(torch.isfinite(s).sum()) == 70 * live
+    if live:
+        assert (i[:, 0] == 1234).all() and (i[:, 1:] == -1).all()
+
+
+# batched top-2 probe (kernel 2): live slots 0 .. count - 1 per window,
+# with a window of no live slot, one of all slots live, and one zero
+# scale inside the live range
+@pytest.mark.cuda
+@pytest.mark.parametrize("top2", [False, True])
+@pytest.mark.parametrize("d", (64, 768, 784))
+@pytest.mark.parametrize("window", (128, 1024, 4096))
+@pytest.mark.parametrize("q_cap", (8, 40, 64, 128, 200))
+def test_batched_probe_edges_bit_exact(cuda, q_cap, window, d, top2):
+    from neumann_tpu_torch.ops import kernels as tk
+
+    g = torch.Generator(device=cuda).manual_seed(q_cap + window + d)
+    n_win = max(4, (1 << 16) // window)
+    buf = torch.randint(-127, 128, (n_win * window, d), generator=g,
+                        device=cuda, dtype=torch.int8)
+    qsel = torch.randint(-127, 128, (n_win, q_cap, d), generator=g,
+                         device=cuda, dtype=torch.int8)
+    rm = torch.rand(n_win, window, generator=g, device=cuda) * 1e-3
+    rm[:, ::41] = 0.0
+    count = torch.randint(0, q_cap + 1, (n_win, 1), generator=g, device=cuda)
+    count[0], count[1] = 0, q_cap
+    scm = (torch.rand(n_win, q_cap, generator=g, device=cuda) * 1e-2 + 1e-3
+           ) * (torch.arange(q_cap, device=cuda) < count)
+    scm[1, q_cap // 2] = 0.0
+    before = tk.LAUNCHES["batched_probe"]
+    got = tk.batched_probe(buf, rm, qsel, scm, window, top2=top2)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["batched_probe"] == before + 1
+    want = tk.batched_probe_plain(buf, rm, qsel, scm, window, top2=top2)
+    assert torch.equal(got, want)

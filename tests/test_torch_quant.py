@@ -7,6 +7,9 @@ tests run them.
 Tolerances:
 * int8 dots, int8 scores (kernel 4), hamming distances (kernel 3),
   binary codes and the int8 pooled winner bits (kernel 5): bit for bit.
+* hamming top-k (kernel 7 and the route above its k cap) and the int8
+  scan's ids: the JAX package's ids in its order, equal scores by
+  ascending row as ``lax.top_k`` returns them.
   The pooled bits match only with XLA's contraction of
   ``dots * qmult * rm + shift`` into fma(dots * qmult, rm, shift), which
   the port computes exactly rounded.
@@ -284,7 +287,8 @@ def test_hamming_scores_plain_matches_pallas(corpus):
 @pytest.mark.parametrize("masked", [False, True])
 def test_hamming_topk_matches_pallas(corpus, masked):
     """A ragged corpus (3,000 rows: not a tile or block multiple), blocks
-    of 1,024 rows, and the row mask: distances exact, ids modulo ties."""
+    of 1,024 rows, and the row mask: distances and ids equal, in the
+    same order."""
     C = corpus
     cb = np.asarray(jq.binary_quantize(jnp.asarray(C["v"][:3000])))
     qb = np.asarray(jq.binary_quantize(jnp.asarray(C["qs"])))
@@ -296,14 +300,94 @@ def test_hamming_topk_matches_pallas(corpus, masked):
     got = tq.hamming_topk(_t(cb.view(np.int32)), _t(qb.view(np.int32)), 9,
                           None if mask is None else _t(mask),
                           block_rows=1024)
-    _assert_topk_close(got, _np(want), tol=0)
-    s, i = (x.numpy() for x in got)
-    dist = tk.hamming_scores_plain(_t(cb.view(np.int32)),
-                                   _t(qb.view(np.int32))).numpy()
-    for r in range(i.shape[0]):
-        np.testing.assert_array_equal(-dist[r, i[r]], s[r])
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     if masked:
-        assert mask[i.ravel()].all()
+        assert mask[got[1].numpy().ravel()].all()
+
+
+# tie-heavy binary cases: (k, live rows); 64 is the fused kernel's cap
+HAMMING_TIE_CASES = {"k10_masked": (10, None), "k_above_live": (9, 6),
+                     "k_above_cap": (tk.HAMMING_TOPK_CAP + 1, None)}
+
+
+@pytest.fixture(scope="module")
+def hamming_ties():
+    """Per (d, case): sign bits of 3,000 rows (d 128 and 768; every
+    third row repeats an earlier one, so equal distances are everywhere),
+    6 queries, a row mask (80 % live, or only a few live rows), k, and
+    the JAX package's top-k by ``ops/quant.hamming_topk`` and by
+    ``hamming_topk_pallas`` (interpret mode)."""
+    out = {}
+    for d in (128, 768):
+        rng = np.random.default_rng(d)
+        x = rng.standard_normal((3000, d)).astype(np.float32)
+        x[2::3] = x[rng.integers(0, 1000, 1000)]
+        qs = (x[rng.choice(3000, 6)]
+              + 0.5 * rng.standard_normal((6, d))).astype(np.float32)
+        cb = np.asarray(jq.binary_quantize(jnp.asarray(x)))
+        qb = np.asarray(jq.binary_quantize(jnp.asarray(qs)))
+        for case, (k, live) in HAMMING_TIE_CASES.items():
+            mask = rng.random(3000) > 0.2
+            if live is not None:
+                mask[:] = False
+                mask[rng.choice(3000, live, replace=False)] = True
+            args = (jnp.asarray(cb), jnp.asarray(qb), k, jnp.asarray(mask))
+            out[d, case] = dict(
+                cb=cb.view(np.int32), qb=qb.view(np.int32), mask=mask, k=k,
+                xla=_np(jq.hamming_topk(*args, block_rows=1024)),
+                pallas=_np(pk.hamming_topk_pallas(*args, block_rows=1024,
+                                                  tile=512)))
+    return out
+
+
+@pytest.mark.parametrize("route", ["plain", "quant"])
+@pytest.mark.parametrize("case", list(HAMMING_TIE_CASES))
+@pytest.mark.parametrize("d", [128, 768])
+def test_hamming_topk_tie_order_matches_jax(hamming_ties, d, case, route):
+    """The JAX package's ids in its order, (distance, row), wherever
+    distances tie: through the fused kernel's plain version and through
+    ``quant.hamming_topk`` (which takes ``hamming_scores`` above the
+    cap), against both JAX routes."""
+    T = hamming_ties[d, case]
+    args = (_t(T["cb"]), _t(T["qb"]))
+    if route == "plain":
+        got = tk.hamming_topk_plain(*args, _t(T["mask"]), T["k"])
+    else:
+        got = tq.hamming_topk(*args, T["k"], _t(T["mask"]), block_rows=700)
+    s, i = (x.numpy() for x in got)
+    for want in (T["xla"], T["pallas"]):
+        np.testing.assert_array_equal(s, want[0])
+        np.testing.assert_array_equal(i, want[1])
+    fin = np.isfinite(s)
+    if case == "k_above_live":
+        assert (fin.sum(1) == 6).all() and (i[~fin] == -1).all()
+    else:   # the data is tie-heavy: equal distances inside every top-k
+        assert all(len(set(r)) < len(r) for r in s)
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+@pytest.mark.parametrize("metric", ["cosine", "dot", "euclidean"])
+def test_int8_topk_scan_tie_order_matches_jax(metric, blocked):
+    """Duplicated rows score exactly equal: the scan returns the JAX
+    package's ids in its order (equal scores by ascending row)."""
+    rng = np.random.default_rng(5)
+    base = rng.standard_normal((300, 128)).astype(np.float32)
+    v = base[rng.integers(0, 300, 3000)]
+    qs = (v[rng.choice(3000, 8)]
+          + 0.3 * rng.standard_normal((8, 128))).astype(np.float32)
+    mask = rng.random(3000) > 0.2
+    cq, cs = _np(jq.scalar_quantize(jnp.asarray(v)))
+    rows = 1024 if blocked else 512 * 1024
+    want = _np(jq.int8_topk_scan(jnp.asarray(cq), jnp.asarray(cs),
+                                 jnp.asarray(qs), 10, metric,
+                                 jnp.asarray(mask), block_rows=rows))
+    got = tq.int8_topk_scan(_t(cq), _t(cs), _t(qs), 10, metric, _t(mask),
+                            block_rows=rows)
+    np.testing.assert_allclose(got[0].numpy(), want[0], rtol=0, atol=TOL)
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+    assert all(len(set(r)) < 10 for r in want[0])      # ties in every row
 
 
 def test_wrappers_check_inputs(corpus):
@@ -325,4 +409,5 @@ def test_wrappers_check_inputs(corpus):
 def test_launch_counters_cover_every_kernel():
     assert set(tk.LAUNCHES) == {"ivf_probe", "batched_probe",
                                 "int8_dot_scores", "int8_pooled_bits",
-                                "f32_pooled_bits", "hamming_scores"}
+                                "f32_pooled_bits", "hamming_scores",
+                                "hamming_topk"}
