@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SIMILAR paths once on one NVIDIA GPU: the
-auto-IVF path, then the brute-force pooled, int8 and binary routes.
+auto-IVF path, then the brute-force pooled, int8 and binary routes, then a
+3,072-d binary collection.
 
 Usage, from the root of a checkout, on a machine with one CUDA card and
 the CUDA toolkit (nvcc)::
@@ -18,9 +19,15 @@ Phases (each raises on failure; exit code 0 only if all pass):
    64 slots; int8 scores: 64 x 1,048,576 x 768, and 1 x 524,288 x 768,
    one block of the int8 euclidean scan's single query; int8 and f32 pooled
    bits: 8 and 1,024 queries x 1,048,576 x 768 at pool 512; hamming:
-   1,024 x 131,072 rows x 24 words; hamming top-10: 1,024 and 1 queries x
-   1,048,576 rows x 24 words with 1 % dead rows, scores and ids equal,
-   bound by the card's 1-bit tensor-core rate, measured by a bare loop);
+   1,024 and 1 queries x 131,072 rows x 24 words, the TOP 65 route's
+   launch, bit-exact; hamming top-10: 1,024 and 1 queries x 1,048,576
+   rows x 24 words with 1 % dead rows, scores and ids equal; both hamming
+   kernels bound by the card's 1-bit tensor-core rate, measured by a bare
+   loop, and again at 96 words (3,072-d): both at 64 queries x 131,072
+   rows, the distances at 1 query x 131,072 rows (phase 10's TOP 65
+   launch), the top-10 at 1 and 256 queries x 262,144 rows (phase 10's
+   single and batch launches); the batched top-2 probe again at d 4,096,
+   512 windows);
 3. generate a 4,194,304 x 768 corpus from --seed with numpy (4,096
    N(0,1) centres + sigma 0.25 noise) and load it with
    ``router.vector.ingest_matrix``;
@@ -46,17 +53,26 @@ Phases (each raises on failure; exit code 0 only if all pass):
    METRIC euclidean on the int8 scan (ids equal to the plain
    ``int8_topk_scan`` on the card, except at equal scores);
 9. a binary collection of the same rows; counted: 64 single SIMILARs
-   and a batch of 1,024 (the fused hamming top-k), and 4 SIMILARs TOP 65
-   (above its cap: hamming_scores); each query's ids and distances equal
-   to the plain hamming top-k's, in the same order; then the 64 single
-   SIMILARs again, parsed now (p50 without the parse).
+   and a batch of 1,024 (the fused hamming top-k), 4 SIMILARs TOP 65 and
+   a ``batch_search_ns`` of 1,024 at TOP 65 (above its cap:
+   hamming_scores, 8 launches of 1,024 x 131,072 a batch, and a keyed
+   merge); each query's ids and distances equal to the plain hamming
+   top-k's, in the same order (for the TOP 65 batch on a fixed sample of
+   64 queries); then the 64 single SIMILARs again, parsed now (p50
+   without the parse);
+10. a 3,072-d binary collection (W 96): 262,144 rows of the same recipe
+    in 3,072-d, ``store_in_collection`` under ``bulk_ingest()``; counted:
+    8 single SIMILARs TOP 10, 2 TOP 65 and a batch of 256 at TOP 10 (four
+    calls, QPS over the median of the last three, as every batch), ids
+    and distances equal to the plain hamming top-k's, in order.
 
 Every kernel must launch in the counted phases. After phase 4 it
 profiles 8 single SIMILARs and one batch (cProfile on the host,
 torch.profiler on the device) into chiprun_out/profile_*.txt, and the
 first SIMILAR (the build) into chiprun_out/profile_build_host.txt;
 phases 7 and 9 profile their single queries and batch the same way,
-phase 8 its batch.
+phase 8 its batch, phase 9 also its TOP 65 batch (device time of the
+hamming distances against the keyed merge's).
 
 Prints the metrics JSON line, the kernels JSON line, the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``. Everything is also
@@ -139,6 +155,23 @@ NO_LIBRARY = {
     "hamming_topk": "no PyTorch call takes packed sign bits, and none "
                     "selects a top-k without the [Q, N] distances",
 }
+# phase 2: rows of one hamming_scores launch on the binary route above the
+# fused kernel's k cap (ops/quant.hamming_topk's block); phase 9: queries
+# of the TOP 65 batch held against the plain top-k
+HAMMING_BLOCK = 131_072
+N_WIDE_SAMPLE = 64
+# phase 10: a 3,072-d binary collection (text-embedding-3-large's width),
+# 3.2 GB of f32 rows on the card
+WIDE_DIM = 3072
+WIDE_ROWS = 1 << 18
+N_WIDE_SINGLE = 8
+N_WIDE_TOP65 = 2
+N_WIDE_BATCH = 256
+# the counted phases' launch counts: A-D and phase 10's wide collection
+ROUTES = ("ivf", "pooled", "int8", "binary", "wide")
+# phase 2's records: the main shape's keys bare, the other shapes' with a
+# suffix
+SHAPE_SUFFIXES = ("_q1", "_q8", "_w96", "_w96q1", "_w96q256", "_d4096")
 # the wrappers a route's reference swaps for their plain versions
 _PLAIN_SWAPPED = ("int8_dot_scores", "int8_pooled_bits", "f32_pooled_bits",
                   "hamming_scores", "hamming_topk")
@@ -188,6 +221,24 @@ def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of the CUDA kernels fn launches, from
+    torch.profiler's kernel records: without the gaps a host-bound call
+    (one query) leaves between launches, which cuda_ms counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as tp:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in tp.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / reps
 
 
 # ---------------------------------------------------------------------------
@@ -306,7 +357,53 @@ def check_kernels(dev, rows: int, seed: int) -> dict:
     say(f"[2] batched_probe kernel vs plain: bit-exact, max_abs_err "
         f"{err:.3g}; kernel {out['batched_probe']['ms']:.4f} ms, plain "
         f"{out['batched_probe']['plain_ms']:.4f} ms")
+    del got, want, qsel, scm, b, rm2, buf, rm
+    out["batched_probe"].update(check_batched_probe_wide(dev, seed, window))
     return out
+
+
+def check_batched_probe_wide(dev, seed: int, window: int) -> dict:
+    """Row 2 at d 4,096 (past the 3,072 up to which the queries stay in
+    shared memory; above, they ride in the ring with the rows): 512
+    windows, 64 slots, a third filled, bit-exact against plain."""
+    import torch
+
+    from neumann_tpu_torch.ops import kernels as tk
+
+    d, n_win, q_cap = 4096, 512, 64
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    buf = torch.randint(-127, 128, (n_win * window, d), generator=g,
+                        device=dev, dtype=torch.int8)
+    qsel = torch.randint(-127, 128, (n_win, q_cap, d), generator=g,
+                         device=dev, dtype=torch.int8)
+    rm2 = torch.rand(n_win, window, generator=g, device=dev) * 2e-3
+    rm2[:, ::97] = 0.0
+    filled = torch.randint(0, 2 * q_cap // 3, (n_win, 1), generator=g,
+                           device=dev)
+    scm = (torch.rand(n_win, q_cap, generator=g, device=dev) * 0.004
+           + 0.004) * (torch.arange(q_cap, device=dev) < filled)
+    got = tk.batched_probe(buf, rm2, qsel, scm, window, top2=True)
+    want = tk.batched_probe_plain(buf, rm2, qsel, scm, window, top2=True)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"batched_probe at d {d}: "
+                             f"{int((got != want).sum())} packed words "
+                             f"differ from plain (must be bit-exact)")
+    n_filled = int(filled.sum())
+    rec = {f"{k}_d4096": v for k, v in bound(
+        nbytes(buf, rm2, scm, got) + n_filled * d,
+        2 * n_filled * window * d, INT8_OPS_PER_S).items()}
+    rec.update(max_abs_err_d4096=0.0, filled_slots_d4096=n_filled,
+               ms_d4096=cuda_ms(lambda: tk.batched_probe(
+                   buf, rm2, qsel, scm, window, top2=True), 10),
+               plain_ms_d4096=cuda_ms(lambda: tk.batched_probe_plain(
+                   buf, rm2, qsel, scm, window, top2=True), 1, warm=False),
+               shape_d4096=f"C={n_win} q_cap={q_cap} window={window} d={d} "
+                           f"top2")
+    say(f"[2] batched_probe at d {d}: bit-exact; kernel "
+        f"{rec['ms_d4096']:.4f} ms, plain {rec['plain_ms_d4096']:.4f} ms, "
+        f"bound {rec['bound_ms_d4096']:.4f} ms")
+    return rec
 
 
 def _decode(bits, pool: int):
@@ -320,7 +417,7 @@ def _decode(bits, pool: int):
 
 def check_new_kernels(dev, seed: int) -> dict:
     """Phase 2, the brute-force routes' kernels: each against its plain
-    version at the shapes phases 7-9 give it, on random rows."""
+    version at the shapes phases 7-10 give it, on random rows."""
     import torch
 
     from neumann_tpu_torch.ops import kernels as tk
@@ -456,33 +553,157 @@ def check_new_kernels(dev, seed: int) -> dict:
             del got, want, s_got, s_want, live
         out[name] = rec
 
-    cb = binary_quantize(x[:131_072])
-    qb = binary_quantize(qs)
-    got = tk.hamming_scores(cb, qb)
-    want = tk.hamming_scores_plain(cb, qb)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(f"hamming_scores: {int((got != want).sum())} "
-                             f"distances differ from plain")
-    out["hamming_scores"] = dict(
-        **bound(nbytes(cb, qb, got), 0, INT8_OPS_PER_S),
-        popc_issue_bound_ms=qb.shape[0] * cb.numel() / POPC_PER_S * 1e3,
-        max_abs_err=0.0, ms=cuda_ms(lambda: tk.hamming_scores(cb, qb), 10),
-        plain_ms=cuda_ms(lambda: tk.hamming_scores_plain(cb, qb), 1,
-                         warm=False),
-        shape=f"Q={N_BATCH} N=131072 W={cb.shape[1]}")
-    del cb, got, want
-    out["hamming_topk"] = check_hamming_topk(x, qs, bias > 0)
+    rate = b1_ops_per_s(tk.build_kernels())
+    out["hamming_scores"] = check_hamming_scores(
+        binary_quantize(x[:HAMMING_BLOCK]), binary_quantize(qs), rate)
+    out["hamming_topk"] = check_hamming_topk(x, qs, bias > 0, rate)
+    wide3, wide7 = check_hamming_wide(dev, seed, rate)
+    out["hamming_scores"].update(wide3)
+    out["hamming_topk"].update(wide7)
     for name, rec in out.items():
         say(f"[2] {name} kernel vs plain ({rec['shape']}): max_abs_err "
             f"{rec['max_abs_err']:.3g}; kernel {rec['ms']:.4f} ms, plain "
             f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}), library {rec.get('library_ms')}"
-            + "".join(f"; at Q={q} kernel {rec[f'ms_q{q}']:.4f} ms, plain "
-                      f"{rec[f'plain_ms_q{q}']:.4f} ms, bound "
-                      f"{rec[f'bound_ms_q{q}']:.4f} ms"
-                      for q in (1, 8) if f"ms_q{q}" in rec))
+            + "".join(f"; at {sfx[1:]} kernel {rec[f'ms{sfx}']:.4f} ms, "
+                      f"plain {rec[f'plain_ms{sfx}']:.4f} ms, bound "
+                      f"{rec[f'bound_ms{sfx}']:.4f} ms"
+                      for sfx in SHAPE_SUFFIXES if f"ms{sfx}" in rec))
     return out
+
+
+def check_hamming_scores(cb, qb, rate: float) -> dict:
+    """Phase 2, row 3 at the launch of the binary route above the fused
+    kernel's k cap (one 131,072-row block of 24 words): 1,024 queries, as
+    D's TOP 65 batch, and 1, as D's TOP 65 single; bit-exact.
+
+    Bound: the larger of the bytes (corpus, queries, the [Q, N] int32
+    distances) and the bit products (2 Q N d) at the 1-bit rate measured
+    in this run; beside it the POPC issue time of an XOR + POPC loop.
+    ``ms`` times back-to-back wrapper calls with CUDA events (at one query
+    that is the host's rate of wrapper calls), ``kernel_ms`` back-to-back
+    calls of the C entry point into one output, ``device_ms`` the kernel
+    alone (torch.profiler)."""
+    import torch
+
+    from neumann_tpu_torch.ops import kernels as tk
+
+    n, w = cb.shape
+    lib = tk.build_kernels()
+    rec = {"shape": f"Q={qb.shape[0]} and Q=1, N={n} W={w}"}
+    for q in (qb.shape[0], 1):
+        qq = qb[:q].contiguous()
+        key = "" if q > 1 else "_q1"
+        got = tk.hamming_scores(cb, qq)
+        want = tk.hamming_scores_plain(cb, qq)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"hamming_scores at Q={q}: "
+                                 f"{int((got != want).sum())} distances "
+                                 f"differ from plain")
+        for k, v in bound(nbytes(cb, qq, got), 2 * q * n * 32 * w,
+                          rate).items():
+            rec[f"{k}{key}"] = v
+        rec[f"popc_issue_bound_ms{key}"] = q * cb.numel() / POPC_PER_S * 1e3
+        rec[f"max_abs_err{key}"] = 0.0
+        reps = 10 if q > 1 else 200
+        rec[f"ms{key}"] = cuda_ms(lambda: tk.hamming_scores(cb, qq), reps)
+        entry = (lambda: tk._raise_on(lib.neumann_hamming_scores(
+            cb.data_ptr(), qq.data_ptr(), got.data_ptr(), n, q, w,
+            tk._stream()), "hamming_scores"))
+        rec[f"kernel_ms{key}"] = cuda_ms(entry, reps)
+        rec[f"device_ms{key}"] = device_ms(entry, reps)
+        rec[f"plain_ms{key}"] = cuda_ms(
+            lambda: tk.hamming_scores_plain(cb, qq), 1, warm=False)
+        del got, want
+    return rec
+
+
+def check_hamming_wide(dev, seed: int, rate: float):
+    """Phase 2, rows 3 and 7 at 3,072-d rows (W 96, past the 64 words both
+    kernels once took), on random bits with every fourth row a copy of an
+    earlier one (equal distances everywhere) and 1 % dead rows, queries
+    near stored rows: both at 64 queries x 131,072 rows (``_w96``); the
+    distances at 1 query x 131,072 rows, phase 10's TOP 65 launch
+    (``_w96q1``); the top-10 at 1 and 256 queries x WIDE_ROWS rows, phase
+    10's single and batch launches (``_w96q1``, ``_w96q256``). Distances
+    bit-exact, top-10 scores and ids equal to the plain versions'.
+    ``kernel_ms`` and ``device_ms`` (torch.profiler) time the C entry
+    point alone, ``ms`` the wrapper (host-bound at one query). Returns the
+    two records' entries."""
+    import torch
+
+    from neumann_tpu_torch.ops import kernels as tk
+
+    w, lib = WIDE_DIM // 32, tk.build_kernels()
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+
+    def bits(rows):
+        return torch.randint(-(1 << 31), 1 << 31, (rows, w), generator=g,
+                             device=dev, dtype=torch.int64).int()
+
+    cb = bits(WIDE_ROWS)
+    cb[3::4] = cb[torch.randint(0, WIDE_ROWS, (WIDE_ROWS // 4,), generator=g,
+                                device=dev)]
+    qb = (cb[torch.randint(0, HAMMING_BLOCK, (N_WIDE_BATCH,), generator=g,
+                           device=dev)]
+          ^ (bits(N_WIDE_BATCH) & bits(N_WIDE_BATCH) & bits(N_WIDE_BATCH)))
+    mask = torch.rand(WIDE_ROWS, generator=g, device=dev) > 0.01
+    r3, r7 = {}, {}
+
+    def record(rec, sfx, q, shape, got, want, fn, entry, plain, n_bytes,
+               ops):
+        for a, b in zip(got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{shape}: {int((a != b).sum())} values "
+                                     f"differ from plain")
+        reps = 200 if q == 1 else 20
+        rec.update({f"{k}{sfx}": v for k, v in bound(n_bytes, ops,
+                                                     rate).items()})
+        rec.update({f"shape{sfx}": shape, f"max_abs_err{sfx}": 0.0,
+                    f"ms{sfx}": cuda_ms(fn, reps),
+                    f"kernel_ms{sfx}": cuda_ms(entry, reps),
+                    f"device_ms{sfx}": device_ms(entry, reps),
+                    f"plain_ms{sfx}": cuda_ms(plain, 1, warm=False)})
+
+    for sfx, q in (("_w96", 64), ("_w96q1", 1)):
+        c, qq = cb[:HAMMING_BLOCK], qb[:q].contiguous()
+        got = tk.hamming_scores(c, qq)
+        want = tk.hamming_scores_plain(c, qq)
+        torch.cuda.synchronize()
+        record(r3, sfx, q, f"Q={q} N={HAMMING_BLOCK} W={w}", (got,), (want,),
+               lambda: tk.hamming_scores(c, qq),
+               lambda: tk._raise_on(lib.neumann_hamming_scores(
+                   c.data_ptr(), qq.data_ptr(), got.data_ptr(),
+                   HAMMING_BLOCK, q, w, tk._stream()), "hamming_scores"),
+               lambda: tk.hamming_scores_plain(c, qq), nbytes(c, qq, got),
+               2 * q * HAMMING_BLOCK * 32 * w)
+        del got, want
+    for sfx, q, n in (("_w96", 64, HAMMING_BLOCK), ("_w96q1", 1, WIDE_ROWS),
+                      ("_w96q256", N_WIDE_BATCH, WIDE_ROWS)):
+        c, qq, m = cb[:n], qb[:q].contiguous(), mask[:n]
+        got = tk.hamming_topk(c, qq, m, TOP_K)
+        want = tk.hamming_topk_plain(c, qq, m, TOP_K)
+        torch.cuda.synchronize()
+        groups, span = tk._hamming_groups(n, q, w, dev)
+        keys = torch.empty((q, groups * TOP_K), dtype=torch.int64,
+                           device=dev)
+        record(r7, sfx, q, f"Q={q} N={n} W={w} k={TOP_K}", got, want,
+               lambda: tk.hamming_topk(c, qq, m, TOP_K),
+               lambda: tk._raise_on(lib.neumann_hamming_topk(
+                   c.data_ptr(), qq.data_ptr(), m.data_ptr(), keys.data_ptr(),
+                   n, q, w, TOP_K, span, groups, tk._stream()),
+                   "hamming_topk"),
+               lambda: tk.hamming_topk_plain(c, qq, m, TOP_K),
+               nbytes(c, qq, m, *got), 2 * q * n * 32 * w)
+        del got, want, keys
+    say(f"[2] hamming at W={w}: distances bit-exact (kernel "
+        f"{r3['ms_w96']:.4f} ms, bound {r3['bound_ms_w96']:.4f}; Q 1 device "
+        f"{r3['device_ms_w96q1']:.4f} ms, bound {r3['bound_ms_w96q1']:.4f}), "
+        f"top-{TOP_K} equal (kernel {r7['ms_w96']:.4f} ms; at {WIDE_ROWS} "
+        f"rows Q 1 device {r7['device_ms_w96q1']:.4f} ms, Q {N_WIDE_BATCH} "
+        f"{r7['ms_w96q256']:.4f} ms)")
+    return r3, r7
 
 
 def b1_ops_per_s(lib) -> float:
@@ -502,7 +723,7 @@ def b1_ops_per_s(lib) -> float:
     return blocks * 8 * iters * 8 * 2 * 16 * 8 * 256 / (ms * 1e-3)
 
 
-def check_hamming_topk(x, qs, mask) -> dict:
+def check_hamming_topk(x, qs, mask, rate: float) -> dict:
     """Phase 2, the fused hamming top-k at the binary route's shapes: a
     batch of 1,024 and one query against all 1,048,576 rows of 24 words,
     k 10, 1 % dead rows. Scores and ids must equal the plain version's.
@@ -524,7 +745,6 @@ def check_hamming_topk(x, qs, mask) -> dict:
 
     cb = binary_quantize(x)
     (n, w), lib = cb.shape, tk.build_kernels()
-    rate = b1_ops_per_s(lib)
     rec = {"shape": f"Q={N_BATCH} and Q=1, N={n} W={w} k={TOP_K}, "
                     f"{int((~mask).sum())} dead rows", "b1_ops_per_s": rate}
     for q in (N_BATCH, 1):
@@ -547,7 +767,7 @@ def check_hamming_topk(x, qs, mask) -> dict:
         reps = 10 if q > 1 else 50
         rec[f"ms{key}"] = cuda_ms(lambda: tk.hamming_topk(cb, qb, mask, TOP_K),
                                   reps)
-        groups, span = tk._hamming_groups(n, q, cb.device)
+        groups, span = tk._hamming_groups(n, q, w, cb.device)
         keys = torch.empty((q, groups * TOP_K), dtype=torch.int64,
                            device=cb.device)
         for name, entry in (("kernel_ms", lib.neumann_hamming_topk),
@@ -668,7 +888,7 @@ def profile_calls(calls: dict, out_dir: str) -> dict:
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
         out[name] = dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms,
                          device_busy_share=busy_ms / (wall * 1e3),
-                         top_kernels_ms=top)
+                         top_kernels_ms=top, kernels_ms=kernels)
         with open(os.path.join(out_dir, f"profile_{name}_device.txt"),
                   "w") as f:
             f.write(tp.key_averages().table(
@@ -754,9 +974,12 @@ def run(args, dev, config=None, on_card: bool = True) -> dict:
     s_corpus7, s_queries7 = root.spawn(2)
     report.update(run_brute(args, dev, centres, s_corpus7, s_queries7,
                             on_card))
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    report.update(run_wide(args, dev, *root.spawn(3), on_card))
     report["launches"] = {
-        name: sum(report[f"launches_{ph}"].get(name, 0)
-                  for ph in ("ivf", "pooled", "int8", "binary"))
+        name: sum(report[f"launches_{ph}"].get(name, 0) for ph in ROUTES)
         for name in tk.LAUNCHES}
     if on_card:
         missing = [n for n, c in report["launches"].items() if c <= 0]
@@ -918,10 +1141,10 @@ def similar_series(router, stmts, cosine: bool = True):
     return lat, rows, scores
 
 
-def batch_series(fn):
+def batch_series(fn, k: int = TOP_K):
     """Four calls of a batch search (the first warms up): QPS over the
     median of the last three, the call times, and the last result's
-    (row ids, scores) per query."""
+    (row ids, scores) per query; each query must get k finite hits."""
     times = []
     for _ in range(4):
         t0 = time.perf_counter()
@@ -929,11 +1152,11 @@ def batch_series(fn):
         times.append(time.perf_counter() - t0)
     rows, scores = [], []
     for hits in res:
-        if len(hits) != TOP_K or not all(np.isfinite(h.score) for h in hits):
+        if len(hits) != k or not all(np.isfinite(h.score) for h in hits):
             raise AssertionError(f"bad batch result: {hits}")
         rows.append([int(h.key[1:]) for h in hits])
         scores.append([h.score for h in hits])
-    return N_BATCH / float(np.median(times[1:])), times, rows, scores
+    return len(res) / float(np.median(times[1:])), times, rows, scores
 
 
 def latency_stats(report: dict, prefix: str, lat) -> None:
@@ -1117,6 +1340,9 @@ def run_brute(args, dev, centres, s_corpus, s_queries,
             lambda: eng.batch_search_ns(batch, TOP_K, ns="col/bits"))
         wide = [router.execute(f"SIMILAR {vec_literal(q)} IN bits TOP "
                                f"{top_wide}").results for q in extra[:4]]
+        qps_w, times_w, rows_bw, sc_bw = batch_series(
+            lambda: eng.batch_search_ns(batch, top_wide, ns="col/bits"),
+            top_wide)
         launches = dict(tk.LAUNCHES)
     # the same statements again, parsed now: the route without the parse
     # of a 768-float literal, which dominates the p50 above
@@ -1129,6 +1355,8 @@ def run_brute(args, dev, centres, s_corpus, s_queries,
     latency_stats(report, "binary_single", lat)
     report["binary_batch_s"] = times
     report["binary_batch_qps"] = qps
+    report["binary_top65_batch_s"] = times_w
+    report["binary_top65_batch_qps"] = qps_w
     # recall of 1-bit codes against the f32 scan: recorded, not a limit
     report["binary_recall_vs_f32"] = recall(rows_s + rows_b,
                                             oracle[:N_SINGLE + N_BATCH])
@@ -1141,6 +1369,9 @@ def run_brute(args, dev, centres, s_corpus, s_queries,
                            TOP_K, valid)
         ref_w = hamming_topk(bits, binary_quantize(
             qd[N_SINGLE + N_BATCH:][:4]), top_wide, valid)
+        sample = list(range(0, N_BATCH, N_BATCH // N_WIDE_SAMPLE))
+        ref_bw = hamming_topk(bits, binary_quantize(
+            qd[N_SINGLE:N_SINGLE + N_BATCH][sample]), top_wide, valid)
 
     def mismatches(rows, scores, ref_pair):
         ref_s, ref_i = (t.cpu().numpy() for t in ref_pair)
@@ -1155,29 +1386,137 @@ def run_brute(args, dev, centres, s_corpus, s_queries,
     bad = mismatches(rows_s + rows_b, sc_s + sc_b, ref)
     bad_w = mismatches([[int(h["key"][1:]) for h in res] for res in wide],
                        [[h["score"] for h in res] for res in wide], ref_w)
-    report["binary_mismatches"] = len(bad) + len(bad_w)
+    bad_bw = mismatches([rows_bw[i] for i in sample],
+                        [sc_bw[i] for i in sample], ref_bw)
+    report["binary_mismatches"] = len(bad) + len(bad_w) + len(bad_bw)
     say(f"[9] binary collection (stored in {report['binary_ingest_s']:.1f} "
         f"s): single p50 {report['binary_single_p50_ms']:.3f} ms p99 "
         f"{report['binary_single_p99_ms']:.3f} ms (parsed statements: p50 "
         f"{report['binary_single_parsed_p50_ms']:.3f} ms); batch of "
         f"{N_BATCH}: "
-        f"{qps:.0f} QPS; ids and distances vs the plain hamming top-"
-        f"{TOP_K}: {len(bad)} queries differ, top-{top_wide}: {len(bad_w)} "
-        f"of 4 differ; recall vs f32 {report['binary_recall_vs_f32']:.4f}; "
-        f"launches {launches}")
-    if bad or bad_w:
+        f"{qps:.0f} QPS, at TOP {top_wide} {qps_w:.0f} QPS; ids and "
+        f"distances vs the plain hamming top-{TOP_K}: {len(bad)} queries "
+        f"differ, top-{top_wide}: {len(bad_w)} of 4 singles and "
+        f"{len(bad_bw)} of {len(sample)} batch queries differ; recall vs "
+        f"f32 {report['binary_recall_vs_f32']:.4f}; launches {launches}")
+    if bad or bad_w or bad_bw:
         raise AssertionError(f"binary ids or distances differ from the "
                              f"plain hamming top-k for queries {bad[:5]}, "
-                             f"top-{top_wide} {bad_w}")
+                             f"top-{top_wide} {bad_w}, batch {bad_bw[:5]}")
     if on_card:
         require_launches(launches, ("hamming_topk", "hamming_scores"), "9")
-        report["profile_quantized"] = profile_calls(
+        report["profile_quantized"] = prof = profile_calls(
             {"int8_batch": lambda: eng.batch_search_ns(batch, TOP_K,
                                                        ns="col/q8"),
              "binary_single": lambda: [router.execute(s) for s in stmts[:8]],
              "binary_batch": lambda: eng.batch_search_ns(batch, TOP_K,
-                                                         ns="col/bits")},
+                                                         ns="col/bits"),
+             "binary_top65_batch": lambda: eng.batch_search_ns(
+                 batch, top_wide, ns="col/bits")},
             "chiprun_out")
+        # the TOP 65 batch's device time: the hamming distances (row 3)
+        # against the keyed merge (hamming_keys, merge_keys' topk and cat)
+        top65 = prof["binary_top65_batch"]
+        row3 = sum(v for k, v in top65["kernels_ms"].items()
+                   if "hamming" in k)
+        report["binary_top65_split_ms"] = dict(
+            hamming_scores=row3,
+            keyed_merge_and_rest=top65["device_busy_ms"] - row3,
+            wall=top65["wall_ms"])
+        say(f"[9] TOP {top_wide} batch device time: hamming_scores "
+            f"{row3:.3f} ms, keyed merge and the rest "
+            f"{top65['device_busy_ms'] - row3:.3f} ms, of "
+            f"{top65['wall_ms']:.1f} ms")
+    return report
+
+
+def run_wide(args, dev, s_centres, s_corpus, s_queries,
+             on_card: bool) -> dict:
+    """Phase 10: a 3,072-d QUANTIZATION binary collection (96 words a row,
+    the width past which the hamming kernels once refused), WIDE_ROWS rows
+    of the same recipe in 3,072-d, counted: N_WIDE_SINGLE single SIMILARs
+    TOP 10, N_WIDE_TOP65 TOP 65 (hamming_scores) and a batch of
+    N_WIDE_BATCH at TOP 10 (the fused top-k); ids and distances equal to
+    the plain hamming top-k's, in order."""
+    import torch
+
+    from neumann_tpu_torch.ops import kernels as tk
+    from neumann_tpu_torch.ops.quant import binary_quantize, hamming_topk
+    from neumann_tpu_torch.router import QueryRouter
+
+    n = args.wide_rows
+    report = {}
+    t0 = time.perf_counter()
+    centres = np.random.default_rng(s_centres).standard_normal(
+        (N_CENTRES, WIDE_DIM)).astype(np.float32)
+    corpus = mixture(n, centres, s_corpus)
+    queries = mixture(N_WIDE_SINGLE + N_WIDE_TOP65 + N_WIDE_BATCH, centres,
+                      s_queries)
+    report["wide_generate_s"] = time.perf_counter() - t0
+    single = queries[:N_WIDE_SINGLE]
+    top65 = queries[N_WIDE_SINGLE:N_WIDE_SINGLE + N_WIDE_TOP65]
+    batch = queries[N_WIDE_SINGLE + N_WIDE_TOP65:]
+    router = QueryRouter(device=dev)
+    eng = router.vector
+    router.execute(f"CREATE COLLECTION wide DIM {WIDE_DIM} QUANTIZATION "
+                   f"binary")
+    t0 = time.perf_counter()
+    with eng.bulk_ingest():
+        for i in range(n):
+            eng.store_in_collection("wide", f"k{i}", corpus[i])
+    report["wide_ingest_s"] = time.perf_counter() - t0
+    del corpus
+    top_wide = tk.HAMMING_TOPK_CAP + 1
+    with gc_pauses_ms() as (pauses, young):
+        tk.reset_launch_counts()
+        lat, rows_s, sc_s = similar_series(router, [
+            f"SIMILAR {vec_literal(q)} IN wide TOP {TOP_K}" for q in single],
+            cosine=False)
+        wide = [router.execute(f"SIMILAR {vec_literal(q)} IN wide TOP "
+                               f"{top_wide}").results for q in top65]
+        qps, times, rows_b, sc_b = batch_series(
+            lambda: eng.batch_search_ns(batch, TOP_K, ns="col/wide"))
+        launches = dict(tk.LAUNCHES)
+    report["gc_gen2_pauses_ms_wide"] = pauses
+    report["gc_young_pauses_ms_wide"] = young
+    report["launches_wide"] = launches
+    latency_stats(report, "wide_single", lat)
+    report["wide_batch_s"] = times
+    report["wide_batch_qps"] = qps
+    coll = eng._corpora["col/wide"][WIDE_DIM]
+    qd = torch.from_numpy(queries).to(dev)
+    with plain_kernels():
+        bits, valid = coll.slab.quantized_view("binary")
+        ref = hamming_topk(bits, binary_quantize(torch.cat(
+            [qd[:N_WIDE_SINGLE], qd[N_WIDE_SINGLE + N_WIDE_TOP65:]])),
+            TOP_K, valid)
+        ref_w = hamming_topk(bits, binary_quantize(
+            qd[N_WIDE_SINGLE:N_WIDE_SINGLE + N_WIDE_TOP65]), top_wide, valid)
+    bad = []
+    for k, got_rows, got_s, ref_pair in (
+            (TOP_K, rows_s + rows_b, sc_s + sc_b, ref),
+            (top_wide, [[int(h["key"][1:]) for h in r] for r in wide],
+             [[h["score"] for h in r] for r in wide], ref_w)):
+        ref_s, ref_i = (t.cpu().numpy() for t in ref_pair)
+        for r, (gr, gs) in enumerate(zip(got_rows, got_s)):
+            want = [int(key[1:]) for key in coll.index.keys_of(
+                ref_i[r].tolist())]
+            if gr != want or gs != ref_s[r].tolist():
+                bad.append((k, r))
+    report["wide_mismatches"] = len(bad)
+    say(f"[10] {WIDE_DIM}-d binary collection, {n} rows (generated in "
+        f"{report['wide_generate_s']:.1f} s, stored in "
+        f"{report['wide_ingest_s']:.1f} s): single p50 "
+        f"{report['wide_single_p50_ms']:.3f} ms; batch of {len(batch)}: "
+        f"{report['wide_batch_qps']:.0f} QPS; ids and distances vs the "
+        f"plain hamming top-k: {len(bad)} of "
+        f"{len(rows_s) + len(rows_b) + len(wide)} queries differ; launches "
+        f"{launches}")
+    if bad:
+        raise AssertionError(f"{WIDE_DIM}-d binary ids or distances differ "
+                             f"from the plain hamming top-k: {bad[:5]}")
+    if on_card:
+        require_launches(launches, ("hamming_topk", "hamming_scores"), "10")
     return report
 
 
@@ -1197,21 +1536,26 @@ def kernels_line(report: dict) -> dict:
                    roofline_share=rec["bound_ms"] / rec["ms"],
                    library_ms=rec.get("library_ms"))
         row["library"] = rec.get("library", NO_LIBRARY.get(name))
-        for extra in ("popc_issue_bound_ms", "int8_rate_ms", "b1_ops_per_s",
-                      "kernel_ms", "kernel_ms_q1", "unselected_ms",
-                      "unselected_ms_q1"):
+        for extra in ("bytes_bound_ms", "ops_bound_ms",
+                      "popc_issue_bound_ms", "int8_rate_ms", "b1_ops_per_s",
+                      "kernel_ms", "unselected_ms", "device_ms"):
             if extra in rec:
                 row[extra] = rec[extra]
-        for sfx in ("_q1", "_q8"):   # the single-query kernels' shapes
+        for sfx in SHAPE_SUFFIXES:   # the other shapes a kernel serves
             if f"ms{sfx}" in rec:
                 row.update({f"{k}{sfx}": rec[f"{k}{sfx}"] for k in (
-                    "ms", "plain_ms", "bound_ms", "bound_by")})
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "bytes_bound_ms", "ops_bound_ms", "kernel_ms",
+                    "unselected_ms", "device_ms")
+                    if f"{k}{sfx}" in rec})
                 row[f"roofline_share{sfx}"] = (rec[f"bound_ms{sfx}"]
                                                / rec[f"ms{sfx}"])
+                if f"device_ms{sfx}" in rec:
+                    row[f"device_roofline_share{sfx}"] = (
+                        rec[f"bound_ms{sfx}"] / rec[f"device_ms{sfx}"])
         row["launches_by_route"] = {
             ph: int(report[f"launches_{ph}"].get(name, 0))
-            for ph in ("ivf", "pooled", "int8", "binary")
-            if f"launches_{ph}" in report}
+            for ph in ROUTES if f"launches_{ph}" in report}
         rows.append(row)
     return {"kernels": rows}
 
@@ -1221,6 +1565,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=4_194_304)
     ap.add_argument("--pooled-rows", type=int, default=POOLED_ROWS)
+    ap.add_argument("--wide-rows", type=int, default=WIDE_ROWS)
     args = ap.parse_args()
     try:
         import torch
@@ -1264,7 +1609,10 @@ def main() -> int:
         "int8_euclid_p99_ms", "binary_single_p50_ms", "binary_single_p99_ms",
         "binary_single_parsed_p50_ms",
         "binary_batch_qps", "binary_recall_vs_f32", "binary_mismatches",
-        "peak_device_mem_gb_brute", "total_s")}
+        "binary_top65_batch_qps", "binary_top65_split_ms",
+        "peak_device_mem_gb_brute", "wide_single_p50_ms",
+        "wide_single_p99_ms", "wide_batch_qps", "wide_mismatches",
+        "wide_ingest_s", "total_s")}
     metrics["parse_ms_median"] = float(np.median(
         report["profile"]["parse_ms"]))
     os.makedirs("chiprun_out", exist_ok=True)

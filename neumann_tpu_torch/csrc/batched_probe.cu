@@ -35,8 +35,12 @@
 //     running max / top-2 across member tiles, in the accumulator's own
 //     registers, with no shuffles;
 //   * corpus rows stream through a 3-stage cp.async ring of 128 rows x
-//     128 K bytes (128-byte swizzle, ldmatrix); the live slots' queries
-//     are staged in shared memory once per window, zero past d;
+//     128 K bytes (128-byte swizzle, ldmatrix); up to d 3,072 the live
+//     slots' queries are staged in shared memory once per window, zero
+//     past d (64 slots a pass, 32 above d 1,536). Wider rows would not fit
+//     there: above d 3,072 each ring stage also carries its K stage of the
+//     pass's 64 queries, re-read from L2 for every member tile, so any d
+//     runs in 72 KB;
 //   * only live slots are computed: the query tables fill slots
 //     0 .. count - 1 in order, so the block finds count from scmult and
 //     runs ceil(count / 8) n8 tiles (64 slots a pass; q_cap beyond 64
@@ -71,19 +75,23 @@ constexpr int kStageBytes = kLanes * kBK;
 constexpr int kMaxSlots = 64;   // slots a pass: 8 n8 tiles
 constexpr int kNT = kMaxSlots / 8;
 constexpr int kHeader = 512;    // slot scales and the live count
+constexpr int kMaxResidentDim = 3072;   // widest d with resident queries
 
 template <bool kTop2>
 __global__ void __launch_bounds__(kThreads, 2) batched_probe_kernel(
     const int8_t* __restrict__ qsel, const int8_t* __restrict__ buf,
     const float* __restrict__ scmult, const float* __restrict__ rmult,
-    int32_t* __restrict__ out, int q_cap, int d, int window, int pass_slots) {
+    int32_t* __restrict__ out, int q_cap, int d, int window, int pass_slots,
+    bool stream_q) {
   constexpr int kOut = kTop2 ? 2 * kLanes : kLanes;
   constexpr int kOutStride = kOut + 4;   // staged rows: 4 t lanes apart in bank
   extern __shared__ __align__(128) uint8_t smem[];
   float* sc_s = reinterpret_cast<float*>(smem);          // [kMaxSlots]
   int* count_s = reinterpret_cast<int*>(sc_s + kMaxSlots);
+  // a ring stage: 128 corpus rows, then (stream_q) the pass's queries
+  const int stage_bytes = kStageBytes + (stream_q ? pass_slots * kBK : 0);
   uint8_t* ring = smem + kHeader;
-  uint8_t* qtile = ring + kStages * kStageBytes;   // [k_stage][slot][128]
+  uint8_t* qtile = ring + kStages * stage_bytes;   // [k_stage][slot][128]
   int* stage_out = reinterpret_cast<int*>(ring);    // after the last stage
 
   const long long c = blockIdx.x;
@@ -135,15 +143,17 @@ __global__ void __launch_bounds__(kThreads, 2) batched_probe_kernel(
     __syncthreads();   // the last pass's shared memory is free
     // the pass's queries, zero past d and past q_cap
     const int8_t* qb = qsel + (c * q_cap + s0) * static_cast<long long>(d);
-    const int row_chunks = k_stages * (kBK / 16);
-    for (int i = threadIdx.x; i < n_nt * 8 * row_chunks; i += kThreads) {
-      const int r = i / row_chunks;
-      const int cc = i % row_chunks;
-      const bool ok = r < q_rows && cc * 16 < d;
-      cp_async16(qtile + (cc >> 3) * pass_slots * kBK + swz128(r, cc & 7),
-                 ok ? qb + static_cast<long long>(r) * d + cc * 16 : qb, ok);
+    if (!stream_q) {
+      const int row_chunks = k_stages * (kBK / 16);
+      for (int i = threadIdx.x; i < n_nt * 8 * row_chunks; i += kThreads) {
+        const int r = i / row_chunks;
+        const int cc = i % row_chunks;
+        const bool ok = r < q_rows && cc * 16 < d;
+        cp_async16(qtile + (cc >> 3) * pass_slots * kBK + swz128(r, cc & 7),
+                   ok ? qb + static_cast<long long>(r) * d + cc * 16 : qb, ok);
+      }
+      cp_async_commit();
     }
-    cp_async_commit();
     for (int i = threadIdx.x; i < n_nt * 8; i += kThreads) {
       sc_s[i] = s0 + i < q_cap ? sc[s0 + i] : 0.f;
     }
@@ -153,7 +163,7 @@ __global__ void __launch_bounds__(kThreads, 2) batched_probe_kernel(
       if (it < iters) {
         const int a = it / k_stages;
         const int k0 = (it % k_stages) * kBK;
-        uint8_t* dst = ring + (it % kStages) * kStageBytes;
+        uint8_t* dst = ring + (it % kStages) * stage_bytes;
         const int8_t* src = buf + (c * window + a * kLanes) * d;
         for (int i = threadIdx.x; i < kLanes * (kBK / 16); i += kThreads) {
           const int r = i >> 3;
@@ -163,6 +173,18 @@ __global__ void __launch_bounds__(kThreads, 2) batched_probe_kernel(
                      ok ? src + static_cast<long long>(r) * d + k0 + 16 * ch
                         : src,
                      ok);
+        }
+        if (stream_q) {   // this K stage of the pass's queries
+          for (int i = threadIdx.x; i < n_nt * 8 * (kBK / 16);
+               i += kThreads) {
+            const int r = i >> 3;
+            const int ch = i & 7;
+            const bool ok = r < q_rows && k0 + 16 * ch < d;
+            cp_async16(dst + kStageBytes + swz128(r, ch),
+                       ok ? qb + static_cast<long long>(r) * d + k0 + 16 * ch
+                          : qb,
+                       ok);
+          }
         }
       }
       cp_async_commit();   // an empty group keeps the wait counts aligned
@@ -199,8 +221,9 @@ __global__ void __launch_bounds__(kThreads, 2) batched_probe_kernel(
           for (int v = 0; v < 4; ++v) acc[nt][v] = 0;
         }
       }
-      const uint8_t* sa = ring + (it % kStages) * kStageBytes;
-      const uint8_t* sb = qtile + kt * pass_slots * kBK;
+      const uint8_t* sa = ring + (it % kStages) * stage_bytes;
+      const uint8_t* sb =
+          stream_q ? sa + kStageBytes : qtile + kt * pass_slots * kBK;
       const int ksteps = min(kBK / 32, (d - kt * kBK + 31) / 32);
 #pragma unroll
       for (int ks = 0; ks < kBK / 32; ++ks) {
@@ -280,13 +303,16 @@ int launch(const void* qsel, const void* buf, const void* scmult,
            const void* rmult, void* out, int n_windows, int q_cap, int d,
            int window, cudaStream_t stream) {
   const int k_stages = (d + kBK - 1) / kBK;
-  // 64 slots a pass while their queries fit 96 KB of shared memory, else
-  // 32 (d above 1,536; the B loads read n8 tiles in pairs, so at least 16)
+  // resident queries: 64 slots a pass while they fit 96 KB of shared
+  // memory, else 32 (d above 1,536); streamed: 64 slots in every stage
+  const bool stream_q = d > kMaxResidentDim;
   int pass_slots = kMaxSlots;
-  while (pass_slots > 16 && k_stages * pass_slots * kBK > 96 * 1024) {
+  while (!stream_q && k_stages * pass_slots * kBK > 96 * 1024) {
     pass_slots /= 2;
   }
-  const int body = kStages * kStageBytes + k_stages * pass_slots * kBK;
+  const int body =
+      stream_q ? kStages * (kStageBytes + pass_slots * kBK)
+               : kStages * kStageBytes + k_stages * pass_slots * kBK;
   const int staged = pass_slots * ((kTop2 ? 2 : 1) * kLanes + 4) * 4;
   const int smem = kHeader + (body > staged ? body : staged);
   auto kernel = batched_probe_kernel<kTop2>;
@@ -296,7 +322,7 @@ int launch(const void* qsel, const void* buf, const void* scmult,
   kernel<<<static_cast<unsigned>(n_windows), kThreads, smem, stream>>>(
       static_cast<const int8_t*>(qsel), static_cast<const int8_t*>(buf),
       static_cast<const float*>(scmult), static_cast<const float*>(rmult),
-      static_cast<int32_t*>(out), q_cap, d, window, pass_slots);
+      static_cast<int32_t*>(out), q_cap, d, window, pass_slots, stream_q);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -304,7 +330,7 @@ int launch(const void* qsel, const void* buf, const void* scmult,
 
 // qsel [C, q_cap, d] int8, buf [C * window, d] int8, scmult [C, q_cap]
 // f32, rmult [C, window] f32 -> out [C, q_cap, top2 ? 256 : 128] int32.
-// d % 16 == 0, d <= 3072, window a power-of-two multiple of 128, all
+// d % 16 == 0, window a power-of-two multiple of 128, all
 // pointers 16-byte aligned (the wrapper checks). Returns
 // cudaGetLastError() after the launch.
 extern "C" int neumann_batched_probe(

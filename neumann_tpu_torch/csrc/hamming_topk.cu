@@ -42,16 +42,26 @@
 //     time, so a pass reads its thresholds into registers once and tests
 //     each distance with one multiply-add and one compare into a hit
 //     mask; only a thread with a hit takes the append path;
-//   * keys inside a block are 32 bits, distance << 20 | row in the group
-//     (distance <= 2,048 for W <= 64, groups of <= 2^20 rows), so merges
-//     and compares are 32-bit.
+//   * keys inside a block are 32 bits, distance << b | row in the group,
+//     b = 20 row bits up to W 64 and clz(32 W) above (18 at W 256:
+//     distances reach 32 W; the wrapper's groups span at most 2^b rows),
+//     so merges and compares are 32-bit;
+//   * up to 8 K steps (W <= 64, D's 768-d rows) one instantiation a step
+//     count keeps a pass's rows in registers and the queries' fragments
+//     in shared memory; wider rows take one instantiation that loops the
+//     steps at run time, 4 at a time, both operands read by 8-byte loads
+//     (the queries' from L1), so no W is too wide for shared memory.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
 
+#include "mma_b1.cuh"
+
 namespace {
+
+using neumann::mma_b1;
 
 constexpr int kThreads = 256;        // 8 warps x 16 rows
 constexpr int kRows = 128;           // rows a pass
@@ -60,22 +70,10 @@ constexpr int kQBlock = 8 * kNT;     // queries a block
 constexpr int kMaxK = 64;            // the wrapper's cap on k
 constexpr int kBuf = 256;            // candidates buffered a query
 constexpr int kMergeAbove = kBuf - kRows;   // a pass adds <= kRows
-constexpr int kRowBits = 20;         // row-in-group bits of a block key
 constexpr unsigned kNone = 0xFFFFFFFFu;
 constexpr int kPerLane = (kMaxK + kBuf) / 32;
-
-// c += popc(a AND b) over 256 bits: a 16 rows x 256 (row), b 256 x 8
-// (col); fragments as m16n8k256.b1 lays them out (a[0] / a[1] rows g /
-// g + 8 at K bits 32 t.., a[2] / a[3] the same rows at 128 + 32 t..; b[0]
-// column g at 32 t.., b[1] at 128 + 32 t..)
-__device__ __forceinline__ void mma_b1(int (&c)[4], const unsigned (&a)[4],
-                                       const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+constexpr int kLoopSteps = 4;        // K steps a round of the looped variant
+constexpr int kStepsRowBits = 20;    // W <= 64: distances <= 2,048
 
 // One warp: the k smallest of the query's best keys and its buffered
 // candidates become its best keys (sorted), the threshold its k-th.
@@ -113,10 +111,11 @@ __device__ __forceinline__ void merge(unsigned* best, unsigned* buf,
 // A thread's rows of one pass: rows g and g + 8 of its warp's 16, the
 // words 8 s + 2 t, 8 s + 2 t + 1 of each K step s (zero past W and past
 // the group). The words do not wait for the mask: a masked row is loaded
-// and then never selected.
+// and then never selected. kSteps 0 (rows wider than 8 steps) holds only
+// the rows' positions; the product loop loads their words.
 template <int kSteps>
 struct PassRows {
-  uint2 x[2][kSteps];
+  uint2 x[2][kSteps > 0 ? kSteps : 1];
   long long row[2];
   bool live[2];
 
@@ -142,13 +141,15 @@ struct PassRows {
   }
 };
 
-// one instantiation a 256-bit K step count, the word count at run time;
-// three blocks a SM where the rows' registers allow (W <= 32). With
-// `select` false no (row, query) passes its threshold: the launch loads,
-// multiplies and compares but never appends or merges, and writes only
-// empty keys (chip_smoke.py times it to split the kernel's time).
+// one instantiation a 256-bit K step count up to 8, the word count at run
+// time, and kSteps 0 for any wider row; three blocks a SM where the rows'
+// registers allow (W <= 32). With `select` false no (row, query) passes
+// its threshold: the launch loads, multiplies and compares but never
+// appends or merges, and writes only empty keys (chip_smoke.py times it to
+// split the kernel's time).
 template <int kSteps>
-__global__ void __launch_bounds__(kThreads, kSteps <= 4 ? 3 : 2)
+__global__ void __launch_bounds__(kThreads,
+                                  kSteps >= 1 && kSteps <= 4 ? 3 : 2)
     hamming_topk_kernel(
     const int32_t* __restrict__ corpus, const int32_t* __restrict__ queries,
     const uint8_t* __restrict__ mask, long long* __restrict__ out,
@@ -156,6 +157,9 @@ __global__ void __launch_bounds__(kThreads, kSteps <= 4 ? 3 : 2)
     bool select) {
   extern __shared__ uint2 smem[];
   uint2* qf = smem;                          // [kSteps][kNT][32] B fragments
+  // row bits of a block key: distances reach 32 W (20 bits of row up
+  // to 8 steps, as the wrapper's span allows)
+  const int row_bits = kSteps > 0 ? kStepsRowBits : __clz(32 * words);
   int* pq = reinterpret_cast<int*>(qf + kSteps * kNT * 32);   // popc(q)
   unsigned* thr = reinterpret_cast<unsigned*>(pq + kQBlock);
   int* cnt = reinterpret_cast<int*>(thr + kQBlock);
@@ -209,7 +213,7 @@ __global__ void __launch_bounds__(kThreads, kSteps <= 4 ? 3 : 2)
       for (int e = 0; e < 2; ++e) {
         const int qi = 8 * j + 2 * t + e;
         lim[j][e] = select && qi < nq
-                        ? static_cast<int>(thr[qi] >> kRowBits) - pq[qi]
+                        ? static_cast<int>(thr[qi] >> row_bits) - pq[qi]
                         : INT_MIN;
       }
     }
@@ -220,21 +224,64 @@ __global__ void __launch_bounds__(kThreads, kSteps <= 4 ? 3 : 2)
       for (int v = 0; v < 4; ++v) acc[j][v] = 0;
     }
     int pa[2] = {0, 0};   // popc of the rows
+    if constexpr (kSteps > 0) {
 #pragma unroll
-    for (int s = 0; s < kSteps; ++s) {
-      const unsigned a[4] = {rows.x[0][s].x, rows.x[1][s].x, rows.x[0][s].y,
-                             rows.x[1][s].y};
+      for (int s = 0; s < kSteps; ++s) {
+        const unsigned a[4] = {rows.x[0][s].x, rows.x[1][s].x,
+                               rows.x[0][s].y, rows.x[1][s].y};
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        pa[h] += __popc(rows.x[h][s].x) + __popc(rows.x[h][s].y);
+        for (int h = 0; h < 2; ++h) {
+          pa[h] += __popc(rows.x[h][s].x) + __popc(rows.x[h][s].y);
+        }
+        const uint2* f = qf + s * kNT * 32 + lane;
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          if (j < n_nt) {
+            const uint2 bb = f[j * 32];
+            const unsigned b[2] = {bb.x, bb.y};
+            mma_b1(acc[j], a, b);
+          }
+        }
       }
-      const uint2* f = qf + s * kNT * 32 + lane;
+    } else {   // any W: the steps at run time, kLoopSteps loads at a time
+      const int steps = (words + 7) / 8;
+      const int g = lane >> 2;
+      for (int s0 = 0; s0 < steps; s0 += kLoopSteps) {
+        uint2 x[2][kLoopSteps];
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        if (j < n_nt) {
-          const uint2 bb = f[j * 32];
-          const unsigned b[2] = {bb.x, bb.y};
-          mma_b1(acc[j], a, b);
+        for (int s = 0; s < kLoopSteps; ++s) {
+          const int w0 = 8 * (s0 + s) + 2 * t;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            x[h][s] = rows.row[h] < span1 && w0 < words
+                          ? *reinterpret_cast<const uint2*>(
+                                corpus + rows.row[h] * words + w0)
+                          : make_uint2(0u, 0u);
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < kLoopSteps; ++s) {
+          const int w0 = 8 * (s0 + s) + 2 * t;
+          if (s0 + s >= steps) break;
+          const unsigned a[4] = {x[0][s].x, x[1][s].x, x[0][s].y, x[1][s].y};
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            pa[h] += __popc(x[h][s].x) + __popc(x[h][s].y);
+          }
+#pragma unroll
+          for (int j = 0; j < kNT; ++j) {
+            const int qi = 8 * j + g;
+            if (j < n_nt) {
+              const uint2 bb =
+                  qi < nq && w0 < words
+                      ? __ldg(reinterpret_cast<const uint2*>(
+                            queries + static_cast<long long>(q0 + qi) * words +
+                            w0))
+                      : make_uint2(0u, 0u);
+              const unsigned b[2] = {bb.x, bb.y};
+              mma_b1(acc[j], a, b);
+            }
+          }
         }
       }
     }
@@ -277,7 +324,7 @@ __global__ void __launch_bounds__(kThreads, kSteps <= 4 ? 3 : 2)
               const int qi = 8 * j + 2 * t + e;
               const int dist = pa[h] + pq[qi] - 2 * acc[j][2 * h + e];
               buf[qi * kBuf + atomicAdd(&cnt[qi], 1)] =
-                  (static_cast<unsigned>(dist) << kRowBits) | local[h];
+                  (static_cast<unsigned>(dist) << row_bits) | local[h];
             }
           }
         }
@@ -299,8 +346,8 @@ __global__ void __launch_bounds__(kThreads, kSteps <= 4 ? 3 : 2)
     const unsigned key = best[i];
     long long g = LLONG_MAX;
     if (key != kNone) {
-      g = (static_cast<long long>(key >> kRowBits) << 32) |
-          (span0 + (key & ((1u << kRowBits) - 1)));
+      g = (static_cast<long long>(key >> row_bits) << 32) |
+          (span0 + (key & ((1u << row_bits) - 1)));
     }
     out[(static_cast<long long>(q0 + qi) * groups + group) * k + i % k] = g;
   }
@@ -328,18 +375,24 @@ int launch(const void* corpus, const void* queries, const void* mask,
 using Launch = int (*)(const void*, const void*, const void*, void*,
                        long long, int, int, int, long long, int, bool,
                        cudaStream_t);
-constexpr Launch kLaunch[] = {launch<1>, launch<2>, launch<3>, launch<4>,
-                              launch<5>, launch<6>, launch<7>, launch<8>};
+constexpr Launch kLaunch[] = {launch<0>, launch<1>, launch<2>,
+                              launch<3>, launch<4>, launch<5>,
+                              launch<6>, launch<7>, launch<8>};
 
 int dispatch(const void* corpus, const void* queries, const void* mask,
              void* out, long long n_rows, int n_q, int w, int k,
              long long span, int groups, bool select, void* stream) {
-  if (w % 4 || w < 4 || w > 64 || k < 1 || k > kMaxK) {
+  if (w % 4 || w < 4 || w > (1 << 20) || k < 1 || k > kMaxK || span < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return kLaunch[(w + 7) / 8 - 1](corpus, queries, mask, out, n_rows, n_q, w,
-                                  k, span, groups, select,
-                                  static_cast<cudaStream_t>(stream));
+  // a group's rows must fit the keys' row bits
+  const int row_bits = w <= 8 * 8 ? kStepsRowBits
+                                  : __builtin_clz(32u * static_cast<unsigned>(w));
+  if (span > (1LL << row_bits)) return static_cast<int>(cudaErrorInvalidValue);
+  const int steps = (w + 7) / 8;
+  return kLaunch[steps <= 8 ? steps : 0](
+      corpus, queries, mask, out, n_rows, n_q, w, k, span, groups, select,
+      static_cast<cudaStream_t>(stream));
 }
 
 // The card's rate of m16n8k256.b1.and.popc: each warp issues `iters`
@@ -366,8 +419,9 @@ __global__ void __launch_bounds__(kThreads) b1_rate_kernel(int iters,
 // corpus [N, W] int32 bit patterns, queries [Q, W] int32, mask [N] bool
 // (nullptr: every row live) -> out [Q, groups, k] int64 keys
 // distance << 32 | row, ascending in each group, LLONG_MAX past the
-// group's live rows. W % 4 == 0 and W <= 64, 1 <= k <= 64, span a
-// multiple of 128 and at most 2^20 with groups * span >= N, pointers
+// group's live rows. W % 4 == 0, 1 <= k <= 64, span a multiple of 128
+// and at most 2^20 (W <= 64) or 2^clz(32 W) with groups * span >= N,
+// pointers
 // 16-byte aligned (the wrapper checks). Returns cudaGetLastError() after
 // the launch.
 extern "C" int neumann_hamming_topk(const void* corpus, const void* queries,

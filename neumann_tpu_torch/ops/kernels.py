@@ -18,9 +18,9 @@ that XLA fuses on the TPU.
   pools, packed winner bits, scores never in device memory.
 * ``hamming_scores`` (``csrc/hamming.cu``) replaces the Pallas
   ``_hamming_kernel`` (``hamming_scores``), and ``hamming_topk``
-  (``csrc/hamming_topk.cu``) replaces ``hamming_topk_pallas``: 1-bit
-  tensor-core products with the top-k fused in, no [Q, N] distances in
-  device memory.
+  (``csrc/hamming_topk.cu``) replaces ``hamming_topk_pallas`` with the
+  top-k fused in, no [Q, N] distances in device memory; both on the 1-bit
+  tensor cores (``csrc/mma_b1.cuh``), for any row width.
 
 Every wrapper takes its plain version only for tensors on the CPU; for
 a CUDA tensor it launches the kernel or raises — there is no fallback.
@@ -60,7 +60,7 @@ LAUNCHES = {"ivf_probe": 0, "batched_probe": 0, "int8_dot_scores": 0,
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("ivf_probe.cu", "batched_probe.cu", "int8_scores.cu",
            "f32_pooled.cu", "hamming.cu", "hamming_topk.cu")
-HEADERS = ("pooled_bits.cuh", "mma_s8.cuh")
+HEADERS = ("pooled_bits.cuh", "mma_s8.cuh", "mma_b1.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "neumann_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -70,9 +70,6 @@ _lib_lock = threading.Lock()
 
 # strided pools per window in the batched kernel's packed output
 _POOL_LANES = 128
-# batched kernel: the widest query rows it stages (32 slots x d bytes a
-# pass in 96 KB of shared memory above d 1,536)
-_MAX_BATCHED_DIM = 3072
 
 
 def reset_launch_counts() -> None:
@@ -366,9 +363,8 @@ def batched_probe(buf, rmult2d, qsel, scmult, window: int,
         return batched_probe_plain(buf, rmult2d, qsel, scmult, window, top2)
     if dev.type != "cuda":
         raise ValueError(f"batched_probe: unsupported device {dev}")
-    if d % 16 or d > _MAX_BATCHED_DIM:
-        raise ValueError(f"batched kernel needs d % 16 == 0 and d <= "
-                         f"{_MAX_BATCHED_DIM} (d={d})")
+    if d % 16:
+        raise ValueError(f"batched kernel needs d % 16 == 0 (d={d})")
     for name, t in (("buf", buf), ("rmult2d", rmult2d), ("qsel", qsel),
                     ("scmult", scmult)):
         _launch_ready(name, t)
@@ -620,10 +616,6 @@ def f32_pooled_bits(corpus, row_mult, bias, queries, q_mult, pool: int):
 # kernel 3: hamming distances
 # ---------------------------------------------------------------------------
 
-# 16-byte chunks of a packed row the kernel keeps in registers
-_MAX_HAMMING_WORDS = 64
-
-
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
     """Set bits of each int32 bit pattern (SWAR; every mask clears the
     sign bits an arithmetic shift brings in)."""
@@ -652,15 +644,13 @@ def _check_hamming(corpus_bits, query_bits):
                          f", queries {tuple(query_bits.shape)}")
 
 
-def _hamming_cuda_ready(name: str, corpus_bits, query_bits, q_limit: int):
+def _hamming_cuda_ready(name: str, corpus_bits, query_bits):
     dev = corpus_bits.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
-    w, q = corpus_bits.shape[1], query_bits.shape[0]
-    if w % 4 or w > _MAX_HAMMING_WORDS or q > q_limit:
-        raise ValueError(f"{name} kernel needs W % 4 == 0, W <= "
-                         f"{_MAX_HAMMING_WORDS} and Q <= {q_limit} "
-                         f"(W={w}, Q={q})")
+    if corpus_bits.shape[1] % 4:
+        raise ValueError(f"{name} kernel needs W % 4 == 0 "
+                         f"(W={corpus_bits.shape[1]})")
     for tname, t in (("corpus_bits", corpus_bits), ("query_bits", query_bits)):
         _launch_ready(tname, t)
 
@@ -676,7 +666,7 @@ def hamming_scores(corpus_bits, query_bits):
     (n, w), q = corpus_bits.shape, query_bits.shape[0]
     if dev.type == "cpu":
         return hamming_scores_plain(corpus_bits, query_bits)
-    _hamming_cuda_ready("hamming_scores", corpus_bits, query_bits, 65535 * 64)
+    _hamming_cuda_ready("hamming_scores", corpus_bits, query_bits)
     lib = build_kernels()
     out = torch.empty((q, n), dtype=torch.int32, device=dev)
     if q and n:
@@ -696,11 +686,9 @@ def hamming_scores(corpus_bits, query_bits):
 # the fused kernel's largest k (it keeps k keys a query in shared
 # memory); ops/quant.hamming_topk takes hamming_scores above it
 HAMMING_TOPK_CAP = 64
-# csrc/hamming_topk.cu: queries a block, rows a pass, and the most rows
-# one block spans (its keys keep 20 bits of row)
+# csrc/hamming_topk.cu: queries a block, rows a pass
 _HT_QBLOCK = 64
 _HT_PASS = 128
-_HT_MAX_SPAN = 1 << 20
 # row groups a query (each writes its k best keys), unless more are
 # needed to give the card 4 blocks a SM
 _HT_GROUPS = 64
@@ -775,13 +763,21 @@ def hamming_topk_plain(corpus_bits, query_bits, mask, k: int):
     return decode_hamming_keys(best)
 
 
-def _hamming_groups(n: int, q: int, dev) -> tuple:
+def _ht_max_span(w: int) -> int:
+    """The most rows one block of the fused kernel spans: its 32-bit keys
+    keep a distance (up to 32 W) above the row in the group, 20 bits of
+    row up to W 64 (as csrc/hamming_topk.cu), clz(32 W) above: 2^20 rows
+    up to W 127, 2^18 at W 256."""
+    return 1 << min(20, 32 - (32 * w).bit_length())
+
+
+def _hamming_groups(n: int, q: int, w: int, dev) -> tuple:
     """(row groups, rows a group) of the fused kernel's grid."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n_qblocks = -(-q // _HT_QBLOCK)
     passes = -(-n // _HT_PASS)
     groups = min(passes, max(_HT_GROUPS, -(-4 * sms // n_qblocks)))
-    span = min(_HT_MAX_SPAN, -(-passes // groups) * _HT_PASS)
+    span = min(_ht_max_span(w), -(-passes // groups) * _HT_PASS)
     return -(-n // span), span
 
 
@@ -810,15 +806,17 @@ def hamming_topk(corpus_bits, query_bits, mask, k: int):
                          f"(k={k})")
     if dev.type == "cpu":
         return hamming_topk_plain(corpus_bits, query_bits, mask, k)
-    _hamming_cuda_ready("hamming_topk", corpus_bits, query_bits,
-                        65535 * _HT_QBLOCK)
+    _hamming_cuda_ready("hamming_topk", corpus_bits, query_bits)
+    if q > 65535 * _HT_QBLOCK:   # query blocks on grid.y
+        raise ValueError(f"hamming_topk kernel needs Q <= "
+                         f"{65535 * _HT_QBLOCK} (Q={q})")
     if mask is not None and not mask.is_contiguous():
         raise ValueError("mask must be contiguous for the kernel")
     lib = build_kernels()
     if not (q and n):
         return (torch.full((q, min(k, n)), float("-inf"), device=dev),
                 torch.full((q, min(k, n)), -1, dtype=torch.int32, device=dev))
-    groups, span = _hamming_groups(n, q, dev)
+    groups, span = _hamming_groups(n, q, w, dev)
     out = torch.empty((q, groups * k), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         err = lib.neumann_hamming_topk(

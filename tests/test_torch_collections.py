@@ -256,6 +256,36 @@ def test_router_collection_statements_match_jax(data, pooled_env):
         f"SIMILAR {_vec(v[5])} IN q8 TOP 3").results]
 
 
+def test_wide_binary_collection_matches_jax():
+    """A 3,072-d ``QUANTIZATION binary`` collection (W 96, as sign bits
+    of text-embedding-3-large rows) through both routers: the same keys in
+    the same order and the same -hamming scores, below and above the fused
+    kernel's k cap."""
+    d, n = 3072, 300
+    rng = np.random.default_rng(d)
+    base = rng.standard_normal((40, d)).astype(np.float32)
+    v = base[rng.integers(0, 40, n)]
+    qs = (v[rng.choice(n, 2)]
+          + 0.5 * rng.standard_normal((2, d))).astype(np.float32)
+    jr = JRouter()
+    jr.vector.config = JConfig(mesh_auto=False)
+    tr = TRouter(device="cpu")
+    for r in (jr, tr):
+        stmt = f"CREATE COLLECTION wide DIM {d} QUANTIZATION binary"
+        assert r.execute(stmt).kind == "message"
+        with r.vector.bulk_ingest():
+            for i in range(n):
+                r.vector.store_in_collection("wide", f"k{i}", v[i])
+    for q in qs:
+        for top in (10, tk.HAMMING_TOPK_CAP + 1):
+            stmt = f"SIMILAR {_vec(q)} IN wide TOP {top}"
+            got, want = tr.execute(stmt), jr.execute(stmt)
+            assert got.kind == want.kind == "similar"
+            g = [(h["key"], h["score"]) for h in got.results]
+            assert len(g) == top
+            assert g == [(h["key"], h["score"]) for h in want.results]
+
+
 def test_entity_embeddings_match_jax(data):
     v, qs = data
     je = JEngine(config=JConfig(mesh_auto=False))

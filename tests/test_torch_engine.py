@@ -281,9 +281,10 @@ def test_large_bulk_flush_freezes_gc(monkeypatch):
 
 
 def test_chip_smoke_rehearses_on_cpu(monkeypatch):
-    """chip_smoke.py's phases 3-9 (corpus, counted auto-IVF path, recall
+    """chip_smoke.py's phases 3-10 (corpus, counted auto-IVF path, recall
     against the exact scan, delta rescan; then the pooled, int8 and
-    binary routes with their checks) at a toy size on the CPU; the
+    binary routes and the 3,072-d binary collection with their checks)
+    at a toy size on the CPU; the
     kernel phase and the launch checks need the card. 8 mixture centres
     instead of 4,096 so that 20,480 rows are clustered like the real
     corpus (each row's neighbours come from its own centre); the pooled
@@ -300,7 +301,8 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     cfg = TConfig(ivf_auto_threshold=10_000, ivf_auto_clusters=16,
                   ivf_auto_nprobe=8)
     rep = chip_smoke.run(
-        types.SimpleNamespace(seed=0, rows=20_480, pooled_rows=4096),
+        types.SimpleNamespace(seed=0, rows=20_480, pooled_rows=4096,
+                              wide_rows=2048),
         torch.device("cpu"), config=cfg, on_card=False)
     assert rep["recall_single"] >= 0.95 and rep["recall_batch"] >= 0.95
     assert len(rep["single_ms"]) == chip_smoke.N_SINGLE - 1
@@ -312,4 +314,6 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     assert rep["int8_euclid_mismatches"] == 0
     assert len(rep["binary_single_ms"]) == chip_smoke.N_SINGLE - 1
     assert rep["binary_mismatches"] == 0
+    assert rep["wide_mismatches"] == 0
+    assert len(rep["wide_single_ms"]) == chip_smoke.N_WIDE_SINGLE - 1
     assert set(rep["launches"]) == set(chip_smoke.KERNELS)

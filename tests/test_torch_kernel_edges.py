@@ -19,11 +19,12 @@ steps 32 floats of K at a time, so d = 80 ends inside a step). The int8
 outputs must be bit-identical; the f32 pooled
 winners must decode within one packed-mantissa step of the plain
 version's, with the winning rows equal on >= 99 % of the live pools.
-Hamming top-k: Q 1, 5, 70 and 1,025, N 3,001 and 2^20, W 4, 24 and 64,
-k 1, 10, the cap and the cap + 1, all rows masked and one live row;
-scores and ids equal. Batched probe: q_cap 8 to 200, windows of 128 to
-4,096 rows, d 64, 768 and 784 (d % 32 = 16), top-2 on and off; bit for
-bit.
+Hamming top-k: Q 1, 5, 70 and 1,025, N 3,001 and 2^20, W 4 to 256 (d up
+to 8,192: the fused kernel's unrolled step counts, its looped one above
+W 64, and the hamming_scores route), k 1, 10, the cap and the cap + 1, all
+rows masked and one live row; scores and ids equal. Batched probe: q_cap
+8 to 200, windows of 128 to 4,096 rows, d 64, 768, 784 (d % 32 = 16) and
+4,096 (queries streamed with the rows), top-2 on and off; bit for bit.
 """
 
 import pytest
@@ -147,7 +148,7 @@ def test_f32_pooled_edges_within_tolerance(cuda, q, pool, d):
 # takes the fused kernel up to its k cap and hamming_scores above it
 HAMMING_QS = (1, 5, 70, 1025)
 HAMMING_NS = (3001, 1 << 20)
-HAMMING_WS = (4, 24, 64)
+HAMMING_WS = (4, 8, 12, 24, 64, 96, 128, 256)
 
 
 def _bits(g, dev, rows, w):
@@ -173,11 +174,15 @@ def _hamming_case(dev, n, q, w, seed):
 @pytest.mark.parametrize("q", HAMMING_QS)
 def test_hamming_topk_edges_equal_plain(cuda, q, n, w):
     """Scores and ids equal to the plain version, k 1, 10, the cap and
-    the cap + 1 (the hamming_scores route)."""
+    the cap + 1 (the hamming_scores route). The plain top-k is computed
+    once, at the cap + 1: its keys are distinct and sorted, so the top-k
+    for a smaller k is its first k columns."""
     from neumann_tpu_torch.ops import kernels as tk
     from neumann_tpu_torch.ops.quant import hamming_topk
 
     cb, qb, mask = _hamming_case(cuda, n, q, w, 40 + q + w)
+    ws_all, wi_all = tk.hamming_topk_plain(cb, qb, mask,
+                                           tk.HAMMING_TOPK_CAP + 1)
     for k in (1, 10, tk.HAMMING_TOPK_CAP, tk.HAMMING_TOPK_CAP + 1):
         fused = k <= tk.HAMMING_TOPK_CAP
         before = dict(tk.LAUNCHES)
@@ -186,7 +191,7 @@ def test_hamming_topk_edges_equal_plain(cuda, q, n, w):
         assert tk.LAUNCHES["hamming_topk"] == before["hamming_topk"] + fused
         assert (tk.LAUNCHES["hamming_scores"] > before["hamming_scores"]) \
             == (not fused)
-        ws, wi = tk.hamming_topk_plain(cb, qb, mask, k)
+        ws, wi = ws_all[:, :k], wi_all[:, :k]
         assert s.shape == ws.shape == (q, min(k, n))
         assert torch.equal(s, ws) and torch.equal(i, wi), k
 
@@ -214,7 +219,7 @@ def test_hamming_topk_masked_edges(cuda, live):
 # scale inside the live range
 @pytest.mark.cuda
 @pytest.mark.parametrize("top2", [False, True])
-@pytest.mark.parametrize("d", (64, 768, 784))
+@pytest.mark.parametrize("d", (64, 768, 784, 4096))
 @pytest.mark.parametrize("window", (128, 1024, 4096))
 @pytest.mark.parametrize("q_cap", (8, 40, 64, 128, 200))
 def test_batched_probe_edges_bit_exact(cuda, q_cap, window, d, top2):

@@ -279,7 +279,10 @@ def test_f32_pooled_kernel_within_tolerance(cuda, n, q, pool):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,q,w", [(3001, 70, 24), (1 << 16, 5, 64)])
+@pytest.mark.parametrize("n,q,w", [
+    (3001, 70, 24), (1 << 16, 5, 64), (3001, 1, 8), (1 << 16, 1, 96),
+    (1 << 16, 1025, 8), (4099, 1025, 96), (1 << 16, 33, 256),
+    (3001, 1025, 256)])
 def test_hamming_kernel_bit_exact(cuda, n, q, w):
     from neumann_tpu_torch.ops import kernels as tk
 

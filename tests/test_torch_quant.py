@@ -367,6 +367,57 @@ def test_hamming_topk_tie_order_matches_jax(hamming_ties, d, case, route):
         assert all(len(set(r)) < len(r) for r in s)
 
 
+# wide binary rows: W 96 (3,072-d, as text-embedding-3-large) and W 128,
+# past the 2,048-d rows the hamming kernels once took
+WIDE_DIMS = (3072, 4096)
+
+
+@pytest.fixture(scope="module")
+def wide_bits():
+    """Per d: sign bits of 512 rows drawn from 64 base rows (so equal
+    distances fill every top-k), 5 queries near stored rows, an 80 % row
+    mask."""
+    out = {}
+    for d in WIDE_DIMS:
+        rng = np.random.default_rng(d)
+        base = rng.standard_normal((64, d)).astype(np.float32)
+        x = base[rng.integers(0, 64, 512)]
+        qs = (x[rng.choice(512, 5)]
+              + 0.5 * rng.standard_normal((5, d))).astype(np.float32)
+        out[d] = dict(cb=np.asarray(jq.binary_quantize(jnp.asarray(x))),
+                      qb=np.asarray(jq.binary_quantize(jnp.asarray(qs))),
+                      mask=rng.random(512) > 0.2)
+    return out
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_hamming_scores_plain_matches_pallas_wide(wide_bits, d):
+    B = wide_bits[d]
+    assert B["cb"].shape == (512, d // 32)
+    want = np.asarray(pk.hamming_scores(jnp.asarray(B["cb"]),
+                                        jnp.asarray(B["qb"]), tile=256))
+    got = tk.hamming_scores(_t(B["cb"].view(np.int32)),
+                            _t(B["qb"].view(np.int32)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("k", [10, tk.HAMMING_TOPK_CAP + 1])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_hamming_topk_wide_matches_jax(wide_bits, d, k):
+    """``quant.hamming_topk`` on wide tie-heavy rows, below the fused
+    kernel's k cap and above it (``hamming_scores`` in blocks): the JAX
+    package's distances and ids, in its order."""
+    B = wide_bits[d]
+    want = _np(jq.hamming_topk(jnp.asarray(B["cb"]), jnp.asarray(B["qb"]), k,
+                               jnp.asarray(B["mask"]), block_rows=200))
+    got = tq.hamming_topk(_t(B["cb"].view(np.int32)),
+                          _t(B["qb"].view(np.int32)), k, _t(B["mask"]),
+                          block_rows=200)
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+    assert all(len(set(r)) < len(r) for r in want[0])   # ties in every row
+
+
 @pytest.mark.parametrize("blocked", [False, True])
 @pytest.mark.parametrize("metric", ["cosine", "dot", "euclidean"])
 def test_int8_topk_scan_tie_order_matches_jax(metric, blocked):
