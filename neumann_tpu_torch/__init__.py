@@ -9,11 +9,13 @@ index, the codec, WAL and snapshots, the error types, the native
 loaders and their C++ sources) are the port's own copies, in the same
 places (``store/``, ``utils/``, ``native/``).
 
-What runs here today is ``SIMILAR … TOP k`` end to end: the query
-language, the vector engine's storage, namespaces and collections
-(f32, int8 and binary), the exact scan, the brute-force pooled routes,
-the int8 windowed IVF index, and the six CUDA kernels they run
-(``csrc/``, built at first use; ``ops/kernels.py``).
+What runs here today: the query language; the relational, graph and
+unified engines (SQL, graph statements and analytics, Cypher, the
+hybrid ``SIMILAR … CONNECTED TO`` / FIND queries); the vector engine's
+storage, namespaces and collections (f32, int8 and binary), the exact
+scan, the brute-force pooled routes, the int8 windowed IVF index, and
+the CUDA kernels they run (``csrc/``, built at first use;
+``ops/kernels.py``).
 
 TF32 is switched off for float32 matrix products: the IVF build assigns
 rows to windows by an f32 argmax whose margins are correctness-coupled

@@ -15,6 +15,13 @@ values, for the port's ``create_collection`` / ``store_in_collection``.
 Collection snapshots need no converter: both packages write and read
 the same ``.npz`` format (``snapshot_collection`` /
 ``load_collection_snapshot``).
+
+``router_from_files(wal_path, snapshot_path, device)`` gives a port
+``QueryRouter`` over a store that the JAX package's router wrote (its
+``checkpoint`` snapshot and the WAL after it; both packages write the
+same bytes): the engines rebuild tables, nodes, edges and entity
+embeddings through their store hooks, and ``QueryRouter.recover``
+rebuilds the unified engine's key -> node map from the recovered graph.
 """
 
 from __future__ import annotations
@@ -68,3 +75,12 @@ def collection_state_from_jax(engine, name: str) -> dict:
                         else np.zeros((0, dim), np.float32)),
             "metadata": metas}
 
+
+
+def router_from_files(wal_path, snapshot_path=None, device="cuda"):
+    """A port ``QueryRouter`` over the state in a snapshot + WAL."""
+    from neumann_tpu_torch.router import QueryRouter
+
+    router = QueryRouter(device=device)
+    router.recover(wal_path, snapshot_path=snapshot_path)
+    return router

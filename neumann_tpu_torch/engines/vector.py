@@ -29,8 +29,8 @@ rebuilds the device state. Search routes, in the JAX engine's order:
 Metadata filters are a host-evaluated row mask fused into each route.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): PQ and tensor-train storage, mesh placement, and the HNSW /
-legacy IVF / saved-index APIs.
+item): PQ and tensor-train storage, the HNSW / legacy IVF / saved-index
+APIs and the scan limits. One card places no corpus on a mesh.
 
 Every tensor lives on the engine's ``device`` (default "cuda"); nothing
 switches to the CPU on its own.
@@ -206,13 +206,29 @@ class FilterCondition:
 
 @dataclass
 class VectorEngineConfig:
-    """The JAX package's VectorEngineConfig fields that the port reads
-    (same names and defaults)."""
+    """The JAX package's VectorEngineConfig: every field, with the same
+    names and defaults, and its two presets.
+
+    On one card some fields have one meaning only:
+
+    * ``pooled_selector``: every value takes the exact cut (torch has
+      no ``approx_max_k``), so "approx" and "approx:<target>" give the
+      "topk" results;
+    * ``mesh_auto`` / ``mesh_threshold``: one card is no mesh, so no
+      corpus is ever placed on one (the mesh is ROADMAP item 12).
+
+    ``max_keys_per_scan`` and ``search_timeout_s`` are accepted here,
+    but the JAX engine reads neither and the port defines no limit yet:
+    an engine built with either set raises ``NotImplementedError``
+    (ROADMAP item 14, scan limits) instead of ignoring it.
+    """
 
     default_dimension: Optional[int] = None
     sparse_threshold: float = 0.5
     default_metric: str = "cosine"
     max_dimension: Optional[int] = None
+    max_keys_per_scan: Optional[int] = None
+    search_timeout_s: Optional[float] = None
     # auto IVF routing: cosine corpora of at least this many rows
     # search through the windowed int8 IVF index
     ivf_auto: bool = True
@@ -227,6 +243,19 @@ class VectorEngineConfig:
     # fidelity), unless the plane would exceed the byte cap
     ivf_auto_residual: bool = True
     ivf_auto_residual_max_bytes: int = 4 << 30
+    pooled_selector: str = "topk"
+    mesh_auto: bool = True
+    mesh_threshold: int = 262_144
+
+    @staticmethod
+    def high_throughput() -> "VectorEngineConfig":
+        return VectorEngineConfig()
+
+    @staticmethod
+    def low_memory() -> "VectorEngineConfig":
+        return VectorEngineConfig(
+            sparse_threshold=0.3, max_dimension=4096,
+            max_keys_per_scan=10_000, search_timeout_s=30.0)
 
     def validate(self) -> None:
         if self.default_metric not in METRICS:
@@ -235,6 +264,10 @@ class VectorEngineConfig:
             raise VectorError("sparse_threshold must be in [0,1]")
         if self.max_dimension is not None and self.max_dimension <= 0:
             raise VectorError("max_dimension must be positive")
+        if self.max_keys_per_scan is not None:
+            _not_ported("max_keys_per_scan", "14, scan limits")
+        if self.search_timeout_s is not None:
+            _not_ported("search_timeout_s", "14, scan limits")
 
 
 @dataclass
@@ -623,7 +656,9 @@ class VectorEngine:
     def _results(self, corpus: _Corpus, scores: np.ndarray, ids: np.ndarray,
                  top_k: int, map_score) -> List[List[SearchResult]]:
         """Host (scores, row ids) -> per-query hits; one index lock for
-        the whole key lookup, -1 / -inf / deleted rows skipped."""
+        the whole key lookup. As in the JAX engine, only ids below 0 and
+        rows whose key is gone are skipped: a row scoring NaN or +-inf
+        is a hit."""
         flat_ids = ids.reshape(-1).tolist()
         flat_keys = corpus.index.keys_of(flat_ids)
         width = ids.shape[1]
@@ -632,7 +667,7 @@ class VectorEngine:
             row: List[SearchResult] = []
             base = qi * width
             for j, s in enumerate(scores[qi].tolist()):
-                if len(row) >= top_k or not np.isfinite(s):
+                if len(row) >= top_k:
                     break
                 key = flat_keys[base + j]
                 if flat_ids[base + j] >= 0 and key is not None:
@@ -1094,6 +1129,9 @@ class VectorEngine:
         _not_ported("the legacy IVF index API", "HNSW and legacy IVF APIs")
 
     def search_with_hnsw(self, *args, **kwargs):
+        _not_ported("HNSW", "HNSW and legacy IVF APIs")
+
+    def search_with_hnsw_ef(self, *args, **kwargs):
         _not_ported("HNSW", "HNSW and legacy IVF APIs")
 
     def save_index(self, *args, **kwargs):

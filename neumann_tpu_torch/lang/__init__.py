@@ -3,8 +3,10 @@
 Copy of ``neumann_tpu.lang`` (see ``parser.py`` for why it is copied):
 SQL + graph + vector (EMBED/SIMILAR with TOP|LIMIT, METRIC, IN
 collection, WHERE, CONNECTED TO) + unified + VAULT/CACHE/BLOB/
-CHECKPOINT/CHAIN/CLUSTER statements. The port's router executes the
-vector statements; the rest parse and are refused at execution.
+CHECKPOINT/CHAIN/CLUSTER statements, and Cypher (``cypher.py``). The
+port's router executes the SQL, graph, vector, unified and Cypher
+statements; VAULT, CACHE, BLOB, CHECKPOINT, CHAIN, CLUSTER and EXPLAIN
+parse and are refused at execution.
 """
 
 from neumann_tpu_torch.lang.lexer import Token, tokenize  # noqa: F401

@@ -8,7 +8,7 @@ package docstring). This is the exact route and the recall oracle.
 Two strategies, both exact:
 
 * **flat**: one product giving the full ``[Q, N]`` score matrix, then
-  ``torch.topk``;
+  a top-k in ``lax.top_k``'s order of values (``_topk``);
 * **blockwise**: a loop over row blocks with a running top-k carry and
   an exact merge, never holding more than ``[Q, block]`` scores.
 
@@ -125,6 +125,18 @@ def _composite_scores(queries, corpus_block, q_sqnorm, c_sqnorm_block,
     return (w_cos * cos01 + w_struct * jac + w_mag * mag) / total
 
 
+def _topk(scores: torch.Tensor, k: int):
+    """(values, indices) of the k largest along dim 1 in the IEEE total
+    order that ``lax.top_k`` ranks by: a NaN with the sign bit set (what
+    inf / inf and 0 * inf give) ranks below -inf, a positive NaN above
+    +inf, where ``torch.topk`` puts every NaN first. Selects on the
+    bits' order-preserving int32 image; the scores are float32."""
+    assert scores.dtype == torch.float32, scores.dtype
+    b = scores.contiguous().view(torch.int32)
+    _, idx = torch.topk(torch.where(b < 0, b ^ 0x7FFFFFFF, b), k, dim=1)
+    return torch.gather(scores, 1, idx), idx
+
+
 def _finalize(scores, metric):
     """Convert internal ordering scores to reportable scores."""
     if metric == "euclidean":
@@ -177,7 +189,7 @@ def topk_scan(corpus: torch.Tensor, queries: torch.Tensor, k: int,
             or (block_rows >= _DEFAULT_BLOCK_ROWS and n <= _FLAT_MAX_ROWS))
     if flat:
         scores = score_all(corpus, queries, metric, mask, weights)
-        top_s, top_i = torch.topk(scores, k, dim=1)
+        top_s, top_i = _topk(scores, k)
         top_i = top_i.masked_fill(torch.isneginf(top_s), -1)
         return _finalize(top_s, metric), top_i.int()
     return _blockwise_topk(corpus, queries, k, metric, mask, block_rows,
@@ -200,10 +212,10 @@ def _blockwise_topk(corpus, queries, k, metric, mask, block_rows,
         if mask is not None:
             s = s.masked_fill(~mask[None, start:start + block_rows],
                               NEG_INF)
-        bs, bi = torch.topk(s, min(k, s.shape[1]), dim=1)
+        bs, bi = _topk(s, min(k, s.shape[1]))
         cand_s = torch.cat([best_s, bs], dim=1)
         cand_i = torch.cat([best_i, bi + start], dim=1)
-        best_s, pos = torch.topk(cand_s, k, dim=1)
+        best_s, pos = _topk(cand_s, k)
         best_i = torch.gather(cand_i, 1, pos)
     best_i = best_i.masked_fill(torch.isneginf(best_s), -1)
     return _finalize(best_s, metric), best_i.int()

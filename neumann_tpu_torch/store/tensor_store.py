@@ -8,8 +8,11 @@ DashMap and prefix-routes to columnar slabs; here the hot numeric paths
 (embeddings, columns, adjacency) live in device-backed slabs owned by the
 engines, and this store holds the authoritative host view plus all metadata.
 
-The port's copy of ``neumann_tpu/store/tensor_store.py``:
-only its import lines differ.
+The port's copy of ``neumann_tpu/store/tensor_store.py``: its import
+lines differ, and ``recover`` with put hooks registered also runs the
+delete hooks for every key the WAL deletes after the snapshot loaded it
+(the original drops such keys from the map only, so engines rebuilt
+from the snapshot kept them).
 """
 
 from __future__ import annotations
@@ -520,16 +523,23 @@ class TensorStore:
                 final, n = ext.wal_apply(buf, LazyTensorData)
             except ValueError as e:
                 raise StoreError(f"malformed WAL record: {e}") from None
-            puts = []
+            puts, dels = [], []
             with self._lock:
                 for key, val in final.items():
                     if val is None:
                         if self._map.pop(key, None) is not None:
                             self._index.remove(key)
+                            dels.append(key)
                     else:
                         self._map[key] = val
                         puts.append(key)
                 self._index.insert_many(puts)
+            # a logged delete of a key the snapshot loaded: the engines
+            # saw the snapshot's put, so they must see the delete (the
+            # JAX package's store drops the key without telling them)
+            for key in dels:
+                for hook in self._delete_hooks:
+                    hook(key)
             for key in puts:
                 data = self._map.get(key)
                 if data is not None:

@@ -149,8 +149,14 @@ def test_storage_statements_match_jax(routers):
 
 def test_unported_statements_raise(routers):
     _, tr, _ = routers
-    with pytest.raises(NeumannError, match="ROADMAP"):
-        tr.execute("SELECT * FROM t")
+    for stmt in ("VAULT GET 'x'", "CHECKPOINTS", "CACHE STATS",
+                 "CHAIN HEIGHT", "EXPLAIN SELECT * FROM t"):
+        with pytest.raises(NeumannError, match="ROADMAP"):
+            tr.execute(stmt)
+    for call in (tr.warmup, tr.enable_batched_serving, tr.attach_planner,
+                 tr.init_checkpoints):
+        with pytest.raises(NeumannError, match="ROADMAP"):
+            call()
     for quant in ("pq", "tt"):
         tr.execute(f"CREATE COLLECTION u_{quant} DIM {D} QUANTIZATION "
                    f"{quant}")
@@ -159,6 +165,78 @@ def test_unported_statements_raise(routers):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tr.execute(f"SIMILAR 'a' TOP 3 IN u_{quant}")
         tr.execute(f"DROP COLLECTION u_{quant}")
+
+
+def test_config_takes_the_jax_fields_and_presets():
+    """Every field of the JAX package's config constructs; on one card
+    the mesh fields change nothing and every selector cuts exactly; the
+    scan limits, which the JAX engine accepts and never reads, raise
+    instead of being ignored."""
+    fields = dict(mesh_auto=False, mesh_threshold=1024,
+                  pooled_selector="approx:0.95")
+    assert TConfig(**fields) == TConfig(**fields)
+    VectorEngine(config=TConfig(**fields), device="cpu")
+    assert TConfig.high_throughput() == TConfig()
+    low = TConfig.low_memory()
+    assert (low.max_keys_per_scan, low.search_timeout_s) == (10_000, 30.0)
+    assert low == TConfig(**{k: getattr(JConfig.low_memory(), k)
+                             for k in TConfig.__dataclass_fields__})
+    for cfg in (low, TConfig(search_timeout_s=1.0)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            VectorEngine(config=cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        VectorEngine(device="cpu").search_with_hnsw_ef([1.0], 1, 16)
+
+
+@pytest.fixture(scope="module")
+def nonfinite():
+    """4,096 x 768 rows through both engines; row 5 is +inf everywhere,
+    row 9 -inf."""
+    from neumann_tpu.engines.vector import VectorEngine as JEngine
+
+    v = np.random.default_rng(3).standard_normal((4096, 768)).astype(
+        np.float32)
+    v[5], v[9] = np.inf, -np.inf
+    je = JEngine(config=JConfig(mesh_auto=False))
+    te = VectorEngine(device="cpu")
+    for eng in (je, te):
+        with eng.bulk_ingest():
+            for i in range(len(v)):
+                eng.store_embedding(f"k{i}", v[i])
+    return je, te
+
+
+def test_nan_query_returns_the_jax_hits(nonfinite):
+    """A NaN query scores NaN on every row: both packages return k hits
+    (the port once stopped at the first non-finite score)."""
+    je, te = nonfinite
+    q = np.full(768, np.nan, np.float32)
+    want, got = je.search_similar(q, 3), te.search_similar(q, 3)
+    assert len(got) == len(want) == 3
+    assert [h.key for h in got] == [h.key for h in want]
+    assert all(np.isnan(h.score) for h in got)
+
+
+@pytest.mark.parametrize("metric", ["dot", "cosine", "euclidean",
+                                    "manhattan"])
+@pytest.mark.parametrize("sign", [1, -1])
+def test_rows_scoring_inf_or_nan_match_jax(nonfinite, metric, sign):
+    """Rows of +-inf score +-inf (dot), NaN (cosine: inf / inf;
+    euclidean: inf - inf) or -inf (manhattan) against a query of one
+    sign. The hits, in order, are the JAX package's: +inf and positive
+    NaN rank first, a NaN with the sign bit set last, as in lax.top_k."""
+    je, te = nonfinite
+    q = sign * np.abs(np.random.default_rng(4).standard_normal(768)
+                      ).astype(np.float32)
+    want = je.search_similar_with_metric(q, 3, metric)
+    got = te.search_similar_with_metric(q, 3, metric)
+    assert [h.key for h in got] == [h.key for h in want]
+    for g, w in zip(got, want):
+        assert (np.isnan(g.score) and np.isnan(w.score)) or \
+            g.score == pytest.approx(w.score, rel=1e-5)
+    if metric == "dot":
+        assert got[0].key == ("k5" if sign > 0 else "k9")
+        assert got[0].score == np.inf
 
 
 def test_port_builds_its_own_index():
@@ -281,10 +359,10 @@ def test_large_bulk_flush_freezes_gc(monkeypatch):
 
 
 def test_chip_smoke_rehearses_on_cpu(monkeypatch):
-    """chip_smoke.py's phases 3-10 (corpus, counted auto-IVF path, recall
+    """chip_smoke.py's phases 3-11 (corpus, counted auto-IVF path, recall
     against the exact scan, delta rescan; then the pooled, int8 and
-    binary routes and the 3,072-d binary collection with their checks)
-    at a toy size on the CPU; the
+    binary routes, the 3,072-d binary collection and the hybrid query
+    with their checks) at a toy size on the CPU; the
     kernel phase and the launch checks need the card. 8 mixture centres
     instead of 4,096 so that 20,480 rows are clustered like the real
     corpus (each row's neighbours come from its own centre); the pooled
@@ -296,6 +374,9 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     import chip_smoke
 
     monkeypatch.setattr(chip_smoke, "N_CENTRES", 8)
+    monkeypatch.setattr(chip_smoke, "HUB_DEGREE", 40)
+    monkeypatch.setattr(chip_smoke, "HYBRID_ROWS", 8192)
+    monkeypatch.setattr(chip_smoke, "HYBRID_EDGES", 32_768)
     monkeypatch.setenv("NEUMANN_POOLED_MIN_ROWS", "1024")
     monkeypatch.setenv("NEUMANN_POOLED_MIN_POOLS", "64")
     cfg = TConfig(ivf_auto_threshold=10_000, ivf_auto_clusters=16,
@@ -317,3 +398,10 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     assert rep["wide_mismatches"] == 0
     assert len(rep["wide_single_ms"]) == chip_smoke.N_WIDE_SINGLE - 1
     assert set(rep["launches"]) == set(chip_smoke.KERNELS)
+    # phase 11 at 8,192 entities: FIND's tier mask opens the pooled gate
+    # (pool 16, one tier-3 row in each), the hubs' masks do not
+    assert rep["hybrid_find_pool"] == 16
+    assert rep["hybrid_find_recall"] >= 0.95
+    assert len(rep["hybrid_ms"]) == chip_smoke.N_HYBRID - 1
+    assert rep["hybrid_bfs_reached"] > 1
+    assert rep["hybrid_pagerank_max_rel_err"] <= chip_smoke.PAGERANK_RTOL

@@ -5,8 +5,9 @@ agree with their plain PyTorch versions.
 The first test runs in a subprocess where ``import jax`` fails and the
 JAX package (``neumann_tpu``) is on the path: it imports every module of
 neumann_tpu_torch, drives EMBED and SIMILAR through the router on the
-CPU, a WAL-backed ``ingest_matrix`` replayed into a new store, and one
-collection per storage mode (none, int8, binary), and fails if any
+CPU, a WAL-backed ``ingest_matrix`` replayed into a new store, one
+collection per storage mode (none, int8, binary), SQL, graph and Cypher
+statements, ``SIMILAR … CONNECTED TO`` and FIND, and fails if any
 module named ``neumann_tpu`` or ``neumann_tpu.*`` was loaded. A scan of
 the sources checks the same statically. The ``cuda`` tests need an
 NVIDIA card with ``nvcc`` (the kernels build from csrc/ at first use);
@@ -57,6 +58,27 @@ _NOJAX = textwrap.dedent("""
                          f"c_{quant} TOP 3").results
         assert hits[0]["key"] == "k6", (quant, hits)
     assert len(r.execute("SHOW COLLECTIONS").rows) == 3
+    r.execute("CREATE TABLE t (id INT PRIMARY KEY, v INT)")
+    r.execute("INSERT INTO t VALUES (1, 10), (2, 20), (3, 30)")
+    assert r.execute("SELECT id FROM t WHERE v > 15").rows == [
+        {"id": 2}, {"id": 3}]
+    for i in range(6):
+        r.execute(f"ENTITY CREATE 'e{i}' {{ tier: {i % 2} }} EMBEDDING "
+                  f"[{', '.join(map(str, v[i]))}]")
+    for i in (1, 2, 4):
+        r.execute(f"ENTITY CONNECT 'e0' -> 'e{i}' : rel")
+    assert r.execute("NEIGHBORS 0 OUTGOING : rel").rows == [
+        {"id": 1}, {"id": 2}, {"id": 4}]
+    assert r.execute("PATH SHORTEST 0 TO 4").value == [0, 4]
+    assert r.graph.pagerank() and r.graph.connected_components()[4] == 0
+    hits = r.execute(f"SIMILAR [{', '.join(map(str, v[2]))}] TOP 2 "
+                     f"CONNECTED TO 'e0'").results
+    assert [h["key"] for h in hits][0] == "e2", hits
+    rows = r.execute(f"FIND NODE entity WHERE tier = 0 SIMILAR TO "
+                     f"[{', '.join(map(str, v[4]))}] LIMIT 2").rows
+    assert rows[0]["key"] == "e4", rows
+    assert r.execute("MATCH (a)-[:rel]->(b) RETURN COUNT(*) AS n").rows \
+        == [{"n": 3}]
     import tempfile
     from pathlib import Path
     from neumann_tpu_torch.engines.vector import VectorEngine
