@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SIMILAR paths once on one NVIDIA GPU: the
 auto-IVF path, then the brute-force pooled, int8 and binary routes, then a
-3,072-d binary collection, then the hybrid graph + vector query.
+3,072-d binary collection, then the hybrid graph + vector query; serve
+the auto-IVF and brute-force corpora over HTTP to concurrent clients;
+run the shell.
 
 Usage, from the root of a checkout, on a machine with one CUDA card and
 the CUDA toolkit (nvcc)::
@@ -13,7 +15,10 @@ Phases (each raises on failure; exit code 0 only if all pass):
 
 1. print the card's name and power limit (nvidia-smi), build the CUDA
    kernels from neumann_tpu_torch/csrc (six sources, seven entries) and
-   print the build time;
+   print the build time; build and load the native lexer and parser
+   (neumann_tpu_torch/native/*.cpp), fail if either is missing, and time
+   the parse of 64 unseen SIMILARs of 768 and of 3,072 floats through the
+   native entry and the pure-Python parser (medians, equal ASTs);
 2. hold each kernel against its plain PyTorch version on the card at
    its path's shapes, timing both with CUDA events (probe: 32 queries x
    81 probes x 1,024-row windows x 768; batched top-2: 4,096 windows x
@@ -85,6 +90,22 @@ Phases (each raises on failure; exit code 0 only if all pass):
     unweighted shortest paths, PageRank within rtol 1e-4 of a float64
     power iteration. Then CREATE TABLE, 65,536 rows INSERTed in 16
     statements, a ``SELECT ... WHERE`` equal to numpy, ``FIND ROWS``.
+12. serving (at the end of phases 4-6 and 7-9, on their routers):
+    a. A: ``router.warmup()`` (seconds, calls), batched serving on, a
+       ``RestServer`` on 127.0.0.1:0, and 1,024 ``SIMILAR [...] TOP 10``
+       POSTed to /query from 32 client threads (a connection per
+       request); served p50 / p99, QPS, batches and mean cohort size;
+       every response 200, recall@10 >= 0.95, mean cohort above 1;
+    b. B-D: the same run on the default namespace (f32 pooled), ``IN
+       q8`` (int8) and ``IN bits`` (binary: the plain hamming top-k's
+       ids and distances in order), 16 served ``WHERE cat = 3`` (every
+       hit in cat 3), a cohort with an ``in`` filter on a list submitted
+       straight to a ``QueryBatcher`` and then a plain query, and 64 REST
+       Points queries on q8 (no batcher), with their p50. Each served
+       kernel (rows 2, 5, 6, 7) must launch.
+13. samples/knowledge-base.nql through the port's shell (plain theme) on
+    a CUDA router and on a CPU router: equal text; ``doctor`` reports the
+    CUDA device.
 
 Every kernel must launch in the counted phases. After phase 4 it
 profiles 8 single SIMILARs and one batch (cProfile on the host,
@@ -93,7 +114,10 @@ first SIMILAR (the build) into chiprun_out/profile_build_host.txt;
 phases 7 and 9 profile their single queries and batch the same way,
 phase 8 its batch, phase 9 also its TOP 65 batch (device time of the
 hamming distances against the keyed merge's), phase 11 8 hybrid
-queries, one FIND and the three graph analytics.
+queries, one FIND and the three graph analytics; phases 12a and 12b
+profile a served run of A and of B (one client under cProfile,
+profile_served_*_host.txt; 32 clients under torch.profiler: the device
+idle share of serving).
 
 Prints the metrics JSON line, the kernels JSON line, the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``. Everything is also
@@ -108,6 +132,7 @@ import contextlib
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -210,9 +235,29 @@ HYBRID_ATOL = 1e-5
 # two hits may trade places when their exact scores are this close
 SWAP_TOL = 1e-6
 PAGERANK_RTOL = 1e-4
-# the counted phases' launch counts: A-D, phase 10's wide collection and
-# phase 11's hybrid queries (F)
-ROUTES = ("ivf", "pooled", "int8", "binary", "wide", "hybrid")
+# phase 1: unseen SIMILAR statements timed through the native parse and
+# the pure-Python parse, at 768 and 3,072 floats
+N_PARSE = 64
+# phases 12a-12b: statements served over HTTP (batched serving on) from
+# N_CLIENTS client threads, each request on a connection of its own (the
+# REST handler speaks HTTP/1.0); N_POINTS REST Points queries; a served
+# run under cProfile from one client and one under torch.profiler
+N_SERVED = 1024
+N_CLIENTS = 32
+N_POINTS = 64
+N_PROFILED = 64
+IN_CATS = (1, 3)
+# phase 13: the sample script the shell runs, and how far a printed
+# float may move between the card and the CPU (f32 sums in another
+# order: a few ulps, which 6-digit output can show as one digit)
+SHELL_RTOL = 1e-5
+SAMPLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "samples",
+                      "knowledge-base.nql")
+# the counted phases' launch counts: A-D, phase 10's wide collection,
+# phase 11's hybrid queries (F) and the served phases 12a (A) and 12b
+# (B-D)
+ROUTES = ("ivf", "pooled", "int8", "binary", "wide", "hybrid",
+          "served_ivf", "served_brute")
 # phase 2's records: the main shape's keys bare, the other shapes' with a
 # suffix
 SHAPE_SUFFIXES = ("_q1", "_q8", "_w96", "_w96q1", "_w96q256", "_d4096",
@@ -1056,6 +1101,8 @@ def run(args, dev, config=None, on_card: bool = True) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
+    report.update(check_native_parse(args.seed))
+
     root = np.random.SeedSequence(args.seed)
     s_centres, s_corpus, s_queries = root.spawn(3)
     centres = np.random.default_rng(s_centres).standard_normal(
@@ -1082,6 +1129,8 @@ def run(args, dev, config=None, on_card: bool = True) -> dict:
     if on_card:
         torch.cuda.empty_cache()
     report.update(run_hybrid(args, dev, centres, *root.spawn(3), on_card))
+    gc.collect()
+    report.update(run_shell(dev))
     report["launches"] = {
         name: sum(report[f"launches_{ph}"].get(name, 0) for ph in ROUTES)
         for name in tk.LAUNCHES}
@@ -1215,6 +1264,8 @@ def run_ivf(args, dev, centres, s_corpus, s_queries, config,
         f"(score {hits[0]['score']:.6f})")
 
     report["launches_ivf"] = launches
+    # ---- phase 12a: served auto-IVF --------------------------------------
+    report.update(serve_ivf(router, batch, oracle[N_SINGLE:], on_card))
     return report
 
 
@@ -1531,6 +1582,11 @@ def run_brute(args, dev, centres, s_corpus, s_queries,
             f"{row3:.3f} ms, keyed merge and the rest "
             f"{top65['device_busy_ms'] - row3:.3f} ms, of "
             f"{top65['wall_ms']:.1f} ms")
+
+    # ---- phase 12b: the brute-force routes served ------------------------
+    report.update(serve_brute(
+        router, batch, extra, oracle[N_SINGLE:N_SINGLE + N_BATCH], oracle_f,
+        (ref[0][N_SINGLE:], ref[1][N_SINGLE:]), bits_c.index, on_card))
     return report
 
 
@@ -1903,6 +1959,427 @@ def run_hybrid(args, dev, centres, s_corpus, s_queries, s_graph,
     return report
 
 
+def check_native_parse(seed: int) -> dict:
+    """Phase 1's parse check: the port's native lexer and parser build
+    from neumann_tpu_torch/native/*.cpp and load, ``lang.parser.parse``
+    is the native entry, and on N_PARSE unseen ``SIMILAR [...] TOP 10``
+    statements of 768 and of 3,072 floats its AST equals the pure-Python
+    parser's (regex tokenizer, recursive descent). Medians of three
+    parses of each statement in this call: the native entry, the Python
+    parser over the native tokenizer (where a statement past the C
+    parser's 4,096 tokens falls through to) and the pure-Python path."""
+    from neumann_tpu_torch.lang import lexer as lx
+    from neumann_tpu_torch.lang import parser as lp
+    from neumann_tpu_torch.native import pylexer, pyparser
+
+    t0 = time.perf_counter()
+    if pylexer.load() is None or pyparser.load() is None:
+        raise AssertionError("the native lexer or parser did not build")
+    out = {"build_native_parser_s": time.perf_counter() - t0}
+    lp._native()
+    if lp.parse.__name__ != "parse_full":
+        raise AssertionError("lang.parser.parse is not the native entry")
+    ext = pyparser.load()
+    rng = np.random.default_rng(seed)
+    for d in (DIM, WIDE_DIM):
+        native, native_lex, python = [], [], []
+        for v in rng.standard_normal((N_PARSE, d)).astype(np.float32):
+            stmt = f"SIMILAR {vec_literal(v)} TOP {TOP_K}"
+            t0 = time.perf_counter()
+            got = lp.parse(stmt)
+            t1 = time.perf_counter()
+            lp._parse_python(stmt)
+            t2 = time.perf_counter()
+            saved = lx._EXT, lx._EXT_TRIED
+            lx._EXT, lx._EXT_TRIED = None, True    # the regex tokenizer
+            try:
+                t3 = time.perf_counter()
+                want = lp._parse_python(stmt)
+                t4 = time.perf_counter()
+            finally:
+                lx._EXT, lx._EXT_TRIED = saved
+            native.append((t1 - t0) * 1e3)
+            native_lex.append((t2 - t1) * 1e3)
+            python.append((t4 - t3) * 1e3)
+            if got != want or len(got.query_vector) != d:
+                raise AssertionError(f"native AST differs at {d} floats")
+        sfx = "" if d == DIM else f"_{d}"
+        out[f"parse_native_ms{sfx}"] = float(np.median(native))
+        out[f"parse_python_native_lex_ms{sfx}"] = float(np.median(native_lex))
+        out[f"parse_python_ms{sfx}"] = float(np.median(python))
+        # the C parser takes at most 4,096 tokens (MAX_TOKS): longer
+        # statements fall through to the Python parser
+        out[f"parse_native_covers{sfx}"] = ext.parse(stmt) is not None
+        say(f"[1] parse of an unseen {d}-float SIMILAR, median of "
+            f"{N_PARSE}: native entry {out[f'parse_native_ms{sfx}']:.3f} "
+            f"ms, Python parser on native tokens "
+            f"{out[f'parse_python_native_lex_ms{sfx}']:.3f} ms, pure "
+            f"Python {out[f'parse_python_ms{sfx}']:.3f} ms (ASTs "
+            f"equal; the C fast path "
+            f"{'covers' if out[f'parse_native_covers{sfx}'] else 'falls through at'}"
+            f" {d} floats)")
+    if not out["parse_native_covers"]:
+        raise AssertionError("the native parser does not cover a 768-float "
+                             "SIMILAR")
+    return out
+
+
+@contextlib.contextmanager
+def serving(router):
+    """Batched serving on and a RestServer on 127.0.0.1:0; yields the
+    port. Stops the server and the batchers' threads on the way out."""
+    from neumann_tpu_torch.server import RestServer
+
+    router.enable_batched_serving()
+    srv = RestServer(router)
+    try:
+        yield srv.serve()
+    finally:
+        srv.stop()
+        router.disable_batched_serving()
+
+
+def post(port: int, path: str, body: bytes):
+    """One request on a connection of its own: (ms, status, JSON)."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", path, body,
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    return (time.perf_counter() - t0) * 1e3, resp.status, json.loads(data)
+
+
+def served_run(port: int, stmts, clients: int = N_CLIENTS):
+    """POST each statement to /query from ``clients`` threads. Returns the
+    latencies (ms), the hits per statement and the wall seconds; fails
+    unless every response is 200 with TOP_K finite hits."""
+    bodies = [json.dumps({"query": s}).encode() for s in stmts]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as ex:
+        got = list(ex.map(lambda b: post(port, "/query", b), bodies))
+    wall = time.perf_counter() - t0
+    bad = [(i, st, body) for i, (_, st, body) in enumerate(got)
+           if st != 200 or len(body["hits"]) != TOP_K or not all(
+               np.isfinite(h["score"]) for h in body["hits"])]
+    if bad:
+        raise AssertionError(f"{len(bad)} served statements failed: "
+                             f"{bad[:3]}")
+    return [g[0] for g in got], [g[2]["hits"] for g in got], wall
+
+
+def batcher_counts(router):
+    bs = list((router._batchers or {}).values())
+    return (sum(b.batches_run for b in bs),
+            sum(b.queries_served for b in bs))
+
+
+def served_part(report: dict, prefix: str, router, port: int, stmts):
+    """A served run with its p50 / p99, QPS, the batches the router's
+    batchers ran and their mean cohort size; fails unless the mean cohort
+    is above 1 (concurrent statements were coalesced). Returns the row
+    ids per statement and the hits."""
+    b0, s0 = batcher_counts(router)
+    lat, hits, wall = served_run(port, stmts)
+    b1, s1 = batcher_counts(router)
+    report[f"{prefix}_p50_ms"] = float(np.percentile(lat, 50))
+    report[f"{prefix}_p99_ms"] = float(np.percentile(lat, 99))
+    report[f"{prefix}_qps"] = len(stmts) / wall
+    report[f"{prefix}_batches"] = b1 - b0
+    report[f"{prefix}_mean_cohort"] = (s1 - s0) / max(b1 - b0, 1)
+    if report[f"{prefix}_mean_cohort"] <= 1:
+        raise AssertionError(f"{prefix}: no coalescing ({b1 - b0} batches "
+                             f"for {s1 - s0} queries)")
+    return [[int(h["key"][1:]) for h in hh] for hh in hits], hits
+
+
+def profile_served(port: int, stmts, tag: str) -> dict:
+    """Where a served query's time goes: one client's run under cProfile
+    (one profiler sees every thread: client, HTTP handler, batcher
+    worker; profile_served_<tag>_host.txt by own time), then a run from
+    N_CLIENTS threads under torch.profiler (device kernel time against
+    the wall: the device busy share of serving)."""
+    import cProfile
+    import io
+    import pstats
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = cProfile.Profile()
+    prof.enable()
+    served_run(port, stmts[:N_PROFILED], clients=1)
+    prof.disable()
+    txt = io.StringIO()
+    st = pstats.Stats(prof, stream=txt).sort_stats("tottime")
+    st.print_stats(40)
+    with open(os.path.join("chiprun_out", f"profile_served_{tag}_host.txt"),
+              "w") as f:
+        f.write(txt.getvalue())
+    top = sorted(((v[2] * 1e3, f"{k[0].rsplit('/', 1)[-1]}:{k[1]}({k[2]})")
+                  for k, v in st.stats.items()), reverse=True)[:10]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as tp:
+        t0 = time.perf_counter()
+        served_run(port, stmts)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.time_range.elapsed_us() / 1e3 for e in tp.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    out = dict(host_top_own_ms=top, served_wall_ms=wall,
+               device_busy_ms=busy, device_idle_share=1 - busy / wall)
+    say(f"[profile] served {tag}: {len(stmts)} statements from {N_CLIENTS} "
+        f"clients in {wall:.1f} ms, device busy {busy:.2f} ms (idle share "
+        f"{100 * out['device_idle_share']:.1f}%); one client's host top by "
+        f"own time: {[(n, round(ms, 1)) for ms, n in top[:5]]}")
+    return out
+
+
+def serve_ivf(router, qs, truth, on_card: bool) -> dict:
+    """Phase 12a: served auto-IVF on A's router. ``router.warmup()``,
+    then batched serving and a RestServer: N_SERVED ``SIMILAR [...] TOP
+    10`` of the batch queries (their exact top-10 known) from N_CLIENTS
+    threads; every response 200, recall@10 >= MIN_RECALL, mean cohort
+    above 1. Launches counted from the warm-up on: served cohorts of at
+    most N_CLIENTS queries take the probe kernel (the latency path up to
+    ivf_auto_max_batch), the warm-up's 64 and 256 buckets the batched
+    top-2 kernel."""
+    from neumann_tpu_torch.ops import kernels as tk
+
+    report = {}
+    stmts = [f"SIMILAR {vec_literal(q)} TOP {TOP_K}" for q in qs[:N_SERVED]]
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    report["warmup_calls"] = router.warmup()
+    report["warmup_s"] = time.perf_counter() - t0
+    warm = dict(tk.LAUNCHES)
+    with serving(router) as port:
+        rows, _ = served_part(report, "served_ivf", router, port, stmts)
+        launches = dict(tk.LAUNCHES)
+        if on_card:
+            report["profile_served_ivf"] = profile_served(port, stmts, "ivf")
+    report["served_ivf_recall"] = recall(rows, truth[:N_SERVED])
+    report["launches_served_ivf"] = launches
+    report["launches_served_ivf_http"] = {
+        k: v - warm.get(k, 0) for k, v in launches.items()}
+    say(f"[12a] warm-up: {report['warmup_calls']} calls in "
+        f"{report['warmup_s']:.3f} s; served {len(stmts)} SIMILARs over "
+        f"HTTP from {N_CLIENTS} clients: p50 "
+        f"{report['served_ivf_p50_ms']:.3f} ms p99 "
+        f"{report['served_ivf_p99_ms']:.3f} ms, "
+        f"{report['served_ivf_qps']:.0f} QPS, "
+        f"{report['served_ivf_batches']} batches (mean cohort "
+        f"{report['served_ivf_mean_cohort']:.2f}), recall@{TOP_K} "
+        f"{report['served_ivf_recall']:.4f}; launches {launches} (HTTP "
+        f"part {report['launches_served_ivf_http']})")
+    if report["served_ivf_recall"] < MIN_RECALL:
+        raise AssertionError("served auto-IVF recall below the limit")
+    if on_card:
+        require_launches(launches, ("ivf_probe", "batched_probe"), "12a")
+    return report
+
+
+def serve_brute(router, batch, extra, truth, truth_f, ref_bits, bits_index,
+                on_card: bool) -> dict:
+    """Phase 12b: served brute-force routes on B's router. Over HTTP with
+    batching on, N_SERVED statements each on the default namespace (f32
+    pooled), ``IN q8`` (int8) and ``IN bits`` (binary): recall@10 >=
+    MIN_RECALL on the first two, the plain hamming top-k's ids and
+    distances in order on the third; N_FILTERED ``WHERE cat = 3`` (every
+    hit in cat 3, recall against the masked scan); one cohort with an
+    ``in`` filter built on a list (not hashable) submitted straight to
+    the default batcher, then a plain query that must be answered; and
+    N_POINTS REST Points queries on q8 (no batcher), one client."""
+    from neumann_tpu_torch.engines.vector import FilterCondition
+    from neumann_tpu_torch.ops import kernels as tk
+
+    report = {}
+    qs = batch[:N_SERVED]
+    tk.reset_launch_counts()
+    with serving(router) as port:
+        for name, suffix, kernel in (
+                ("pooled", "", "f32_pooled_bits"),
+                ("int8", " IN q8", "int8_pooled_bits"),
+                ("binary", " IN bits", "hamming_topk")):
+            stmts = [f"SIMILAR {vec_literal(q)}{suffix} TOP {TOP_K}"
+                     for q in qs]
+            before = dict(tk.LAUNCHES)
+            rows, hits = served_part(report, f"served_{name}", router, port,
+                                     stmts)
+            part = {k: v - before.get(k, 0) for k, v in tk.LAUNCHES.items()}
+            report[f"launches_served_{name}"] = part
+            if on_card:
+                require_launches(part, (kernel,), f"12b {name}")
+                if name == "pooled":
+                    report["profile_served_pooled"] = profile_served(
+                        port, stmts, "pooled")
+            if name == "binary":
+                ref_s, ref_i = (t.cpu().numpy() for t in ref_bits)
+                bad = [r for r, hh in enumerate(hits)
+                       if rows[r] != [int(k[1:]) for k in bits_index.keys_of(
+                           ref_i[r].tolist())]
+                       or [h["score"] for h in hh] != ref_s[r].tolist()]
+                report["served_binary_mismatches"] = len(bad)
+                detail = f"{len(bad)} differ from the plain top-k"
+                if bad:
+                    raise AssertionError(f"served binary hits differ from "
+                                         f"the plain hamming top-k: "
+                                         f"{bad[:5]}")
+            else:
+                report[f"served_{name}_recall"] = recall(rows,
+                                                         truth[:N_SERVED])
+                detail = f"recall@{TOP_K} {report[f'served_{name}_recall']:.4f}"
+                if report[f"served_{name}_recall"] < MIN_RECALL:
+                    raise AssertionError(f"served {name} recall below the "
+                                         f"limit")
+            say(f"[12b] served {name}: p50 "
+                f"{report[f'served_{name}_p50_ms']:.3f} ms p99 "
+                f"{report[f'served_{name}_p99_ms']:.3f} ms, "
+                f"{report[f'served_{name}_qps']:.0f} QPS, "
+                f"{report[f'served_{name}_batches']} batches (mean cohort "
+                f"{report[f'served_{name}_mean_cohort']:.2f}), {detail}; "
+                f"launches {part}")
+        # filtered statements: coalesced by filter
+        lat, hits, _ = served_run(port, [
+            f"SIMILAR {vec_literal(q)} WHERE cat = {FILTER_CAT} TOP {TOP_K}"
+            for q in extra])
+        rows_f = [[int(h["key"][1:]) for h in hh] for hh in hits]
+        report["served_filtered_p50_ms"] = float(np.percentile(lat, 50))
+        report["served_filtered_recall"] = recall(rows_f, truth_f)
+        off = [r for rr in rows_f for r in rr if r % N_CATS != FILTER_CAT]
+        if off or report["served_filtered_recall"] < MIN_RECALL:
+            raise AssertionError(f"served filtered SIMILAR: hits outside cat "
+                                 f"{FILTER_CAT} {off[:5]} or recall "
+                                 f"{report['served_filtered_recall']:.4f}")
+        # an `in` filter on a list: the cohort is keyed and served, and
+        # the batcher's workers live on
+        b = router._batcher_for(DIM)
+        reqs = [b.submit(q, TOP_K, FilterCondition("in", "cat",
+                                                   list(IN_CATS)))
+                for q in extra[:8]]
+        for req in reqs:
+            if not req.event.wait(300) or req.error is not None:
+                raise AssertionError(f"the 'in' cohort failed: {req.error}")
+        off = [h.key for req in reqs for h in req.result
+               if int(h.key[1:]) % N_CATS not in IN_CATS]
+        plain = b.search(qs[0], TOP_K, timeout_s=300)
+        if off or len(plain) != TOP_K:
+            raise AssertionError(f"'in' cohort hits outside {IN_CATS}: "
+                                 f"{off[:5]}, or the next query was not "
+                                 f"answered ({plain})")
+        report["served_in_filter_ok"] = True
+        # REST Points queries: no batcher on this path; the hits are the
+        # engine's own for the same query
+        lat, rows_p, bad = [], [], []
+        for i, q in enumerate(qs[:N_POINTS]):
+            ms, status, body = post(port, "/collections/q8/points/query",
+                                    json.dumps({"vector": q.tolist(),
+                                                "limit": TOP_K}).encode())
+            if status != 200 or len(body["result"]) != TOP_K:
+                raise AssertionError(f"points query failed: {body}")
+            lat.append(ms)
+            rows_p.append([int(h["id"][1:]) for h in body["result"]])
+            want = router.vector.search_in_collection("q8", q, TOP_K)
+            if [(h["id"], h["score"]) for h in body["result"]] != \
+                    [(h.key, h.score) for h in want]:
+                bad.append(i)
+        report["points_query_p50_ms"] = float(np.percentile(lat, 50))
+        report["points_query_recall"] = recall(rows_p, truth[:N_POINTS])
+        report["points_query_mismatches"] = len(bad)
+    report["launches_served_brute"] = dict(tk.LAUNCHES)
+    say(f"[12b] served {len(extra)} WHERE cat = {FILTER_CAT}: p50 "
+        f"{report['served_filtered_p50_ms']:.3f} ms, recall@{TOP_K} "
+        f"{report['served_filtered_recall']:.4f}, every hit in cat "
+        f"{FILTER_CAT}; an 'in' {list(IN_CATS)} cohort served, then a plain "
+        f"query; {N_POINTS} REST Points queries on q8: p50 "
+        f"{report['points_query_p50_ms']:.3f} ms, recall@{TOP_K} "
+        f"{report['points_query_recall']:.4f}, {len(bad)} differ from the "
+        f"engine's own hits")
+    if bad:
+        raise AssertionError(f"REST Points hits differ from "
+                             f"search_in_collection for queries {bad[:5]}")
+    return report
+
+
+_NUMERAL = re.compile(r"(-?\d+\.\d+(?:[eE][-+]?\d+)?)")
+
+
+def text_rel_diff(a: str, b: str) -> float:
+    """0 for equal text; for text equal but for its decimal numerals, the
+    largest relative difference between them; inf otherwise. Table
+    borders and runs of blanks are dropped first: a numeral printed one
+    digit shorter pads its column by one blank."""
+    def cells(text):
+        rows = [ln for ln in text.splitlines() if set(ln) - set("+-")]
+        return re.sub(r"\s+", " ", "\n".join(rows))
+
+    if a == b:
+        return 0.0
+    pa, pb = _NUMERAL.split(cells(a)), _NUMERAL.split(cells(b))
+    if len(pa) != len(pb) or pa[::2] != pb[::2]:
+        return float("inf")
+    return max([abs(float(x) - float(y)) / max(abs(float(y)), 1e-30)
+                for x, y in zip(pa[1::2], pb[1::2])] + [0.0])
+
+
+def run_shell(dev) -> dict:
+    """Phase 13: samples/knowledge-base.nql statement by statement through
+    the port's Shell (plain theme) on a router on ``dev`` and on a CPU
+    router: equal text, but that a printed float (6 significant digits)
+    may differ within SHELL_RTOL, since the card sums in another order
+    (PageRank's scatter adds are atomic); ``doctor`` reports ``dev``'s
+    device."""
+    import io
+
+    import torch
+
+    from neumann_tpu_torch.router import QueryRouter
+    from neumann_tpu_torch.shell import Shell
+    from neumann_tpu_torch.shell.shell import _split_script
+
+    with open(SAMPLE, encoding="utf-8") as f:
+        stmts = _split_script(f.read())
+    report, outs = {}, {}
+    for name, d in (("dev", dev), ("cpu", "cpu")):
+        sh = Shell(router=QueryRouter(device=d), stdout=io.StringIO(),
+                   theme="plain")
+        t0 = time.perf_counter()
+        outs[name] = [sh.execute(s) for s in stmts]
+        report[f"shell_{name}_s"] = time.perf_counter() - t0
+        if name == "dev":
+            doctor = sh.doctor()
+    rel = [text_rel_diff(a, b) for a, b in zip(outs["dev"], outs["cpu"])]
+    differ = [(stmts[i], outs["dev"][i], outs["cpu"][i])
+              for i in range(len(stmts)) if rel[i] > SHELL_RTOL]
+    devices = [ln.strip() for ln in doctor.splitlines() if "devices" in ln]
+    kind = torch.device(dev).type
+    n = torch.cuda.device_count() if kind == "cuda" else 1
+    report["shell_statements"] = len(stmts)
+    report["shell_exact_differ"] = sum(r > 0 for r in rel)
+    report["shell_max_rel_diff"] = max(rel)
+    report["shell_refused"] = sum(o.startswith("error:") for o in outs["dev"])
+    report["shell_doctor_devices"] = devices
+    say(f"[13] shell: {len(stmts)} statements of the sample on {kind} "
+        f"({report['shell_dev_s']:.2f} s) and on the CPU "
+        f"({report['shell_cpu_s']:.2f} s): {report['shell_exact_differ']} "
+        f"outputs differ in text, {len(differ)} beyond a relative "
+        f"{SHELL_RTOL} in their numerals (largest "
+        f"{report['shell_max_rel_diff']:.2e}); "
+        f"{report['shell_refused']} refused by name (CACHE / CHECKPOINT); "
+        f"doctor: {devices}")
+    if differ:
+        raise AssertionError(f"shell outputs differ: {differ[:3]}")
+    if devices != [f"[OK ] devices         {n} x {kind}"]:
+        raise AssertionError(f"doctor does not report {n} x {kind}: "
+                             f"{devices}")
+    return report
+
+
 def kernels_line(report: dict) -> dict:
     """The kernels JSON line: per kernel its time, its plain version's,
     its bound and roofline share, the library call's time (or null and
@@ -2001,7 +2478,23 @@ def main() -> int:
         "hybrid_find_p50_ms", "hybrid_find_recall", "hybrid_swaps",
         "hybrid_graph_ms", "hybrid_graph_events_ms", "hybrid_device_ms",
         "hybrid_edge_tensors_ms", "sql_insert_s", "sql_select_ms",
+        "build_native_parser_s", "parse_native_ms", "parse_python_ms",
+        "parse_native_ms_3072", "parse_python_ms_3072", "warmup_calls",
+        "warmup_s", "served_filtered_p50_ms", "served_filtered_recall",
+        "served_binary_mismatches", "points_query_p50_ms",
+        "points_query_recall", "points_query_mismatches",
+        "parse_native_covers", "parse_native_covers_3072",
+        "parse_python_native_lex_ms", "parse_python_native_lex_ms_3072",
+        "shell_exact_differ", "shell_max_rel_diff", "shell_dev_s", "shell_cpu_s",
         "total_s")}
+    for part in ("ivf", "pooled", "int8", "binary"):
+        for k in ("p50_ms", "p99_ms", "qps", "batches", "mean_cohort",
+                  "recall"):
+            if f"served_{part}_{k}" in report:
+                metrics[f"served_{part}_{k}"] = report[f"served_{part}_{k}"]
+    for part in ("ivf", "pooled"):
+        metrics[f"served_{part}_device_idle_share"] = \
+            report[f"profile_served_{part}"]["device_idle_share"]
     metrics["hybrid_mask_ms_median"] = float(np.median(
         report["hybrid_mask_ms"]))
     metrics["parse_ms_median"] = float(np.median(

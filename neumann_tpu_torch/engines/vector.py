@@ -969,6 +969,38 @@ class VectorEngine:
         return self._device_search(corpus, q, top_k, metric, extra,
                                    quantization)
 
+    def warmup(self, buckets: Sequence[int] = (1, 4, 16, 64, 256),
+               top_ks: Sequence[int] = (10,)) -> int:
+        """The JAX engine's warm-up, call for call: one synthetic
+        search per (default-namespace dim, bucket, k) through
+        batch_search, then each collection once per k through its
+        configured metric and quantization. Returns the number of warm
+        calls. On the card there is no executable to compile, but the
+        first call builds the CUDA kernels, and every corpus its device
+        view (and, past the threshold, its auto-IVF index), so the
+        first served query pays for none of these."""
+        rng = np.random.default_rng(0)
+        warmed = 0
+        with self._lock:
+            dims = list(self._corpora.get("", {}))
+            cols = list(self._collections)
+        for dim in dims:
+            for b in buckets:
+                q = rng.standard_normal((b, dim)).astype(np.float32)
+                for k in top_ks:
+                    self.batch_search(q, k)
+                    warmed += 1
+        for name in cols:
+            cfg = self.collection_config(name)
+            dim = cfg.dimension
+            if dim is None:
+                continue
+            q1 = rng.standard_normal(dim).astype(np.float32)
+            for k in top_ks:
+                self.search_in_collection(name, q1, k)
+                warmed += 1
+        return warmed
+
     # ------------------------------------------------------------------
     # entity embeddings
     # ------------------------------------------------------------------

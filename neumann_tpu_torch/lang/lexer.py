@@ -11,11 +11,11 @@ char-at-a-time loop — the lexer was 60% of parse time); tokens are a
 NamedTuple because frozen-dataclass construction goes through
 object.__setattr__ and measurably drags the hot loop.
 
-Copy of ``neumann_tpu.lang.lexer`` with the native tokenizer fast path
-left out (its loader imports ``neumann_tpu.lang``, whose import chain
-reaches the JAX-backed vector engine); the regex path is the
-specification either way. See ``neumann_tpu_torch.lang.parser`` for why
-the language modules are copied.
+Copy of ``neumann_tpu.lang.lexer`` with only its import lines changed:
+the native tokenizer is the port's own build of the same source
+(``neumann_tpu_torch/native/pylexer.py``), initialised with this
+module's ``Token``. See ``neumann_tpu_torch.lang.parser`` for why the
+language modules are copied.
 """
 
 from __future__ import annotations
@@ -58,7 +58,31 @@ _MASTER = re.compile(
 )
 
 
+_EXT = None
+_EXT_TRIED = False
+
+
+def _ext():
+    global _EXT, _EXT_TRIED
+    if not _EXT_TRIED:
+        _EXT_TRIED = True
+        from neumann_tpu_torch.native import pylexer
+
+        _EXT = pylexer.load()
+    return _EXT
+
+
 def tokenize(src: str) -> List[Token]:
+    # ASCII sources take the native tokenizer (~10x); non-ASCII input
+    # keeps the regex path so unicode identifier semantics are exact
+    if src.isascii():
+        ext = _EXT if _EXT_TRIED else _ext()
+        if ext is not None:
+            try:
+                return ext.tokenize(src)
+            except ValueError as e:
+                msg, line, col = e.args
+                raise ParseError(msg, line, col) from None
     toks: List[Token] = []
     append = toks.append
     match = _MASTER.match

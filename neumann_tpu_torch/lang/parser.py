@@ -5,13 +5,13 @@ One statement per `parse()` call (semicolon-separated lists via
 docs/book/src/reference/query-language.md in the reference for the
 statement grammar this mirrors (parser structure itself is original).
 
-Copy of ``neumann_tpu.lang.parser`` with only its import lines changed
-and the native C fast path left out (the native parser builds
-``neumann_tpu.lang.ast`` objects, and importing ``neumann_tpu.lang``
-pulls in ``neumann_tpu.engines``, whose ``__init__`` imports the
-JAX-backed vector engine). The copy is the price of that eager
-``engines/__init__``: the PyTorch port must import on a machine
-without JAX.
+Copy of ``neumann_tpu.lang.parser`` with only its import lines changed:
+the native C fast path is the port's own build of the same source
+(``neumann_tpu_torch/native/pyparser.py``), registered with the port's
+``lang.ast`` classes and ``Condition``. The copy is the price of the
+JAX package's eager ``engines/__init__`` (importing ``neumann_tpu.lang``
+pulls in the JAX-backed vector engine): the PyTorch port must import on
+a machine without JAX.
 """
 
 from __future__ import annotations
@@ -1821,8 +1821,14 @@ class _Parser:
         return stmt
 
 
+_NP = None          # bound _neumann_parser.parse, or None
+_NATIVE_TRIED = False
+
+
 def _parse_python(src: str) -> ast.Statement:
-    """The pure-Python recursive-descent path."""
+    """The pure-Python recursive-descent path (also the native
+    parser's registered fallback for uncovered grammar and every
+    syntax error)."""
     p = _Parser(src)
     stmt = p.statement()
     while p.accept_punct(";"):
@@ -1834,8 +1840,38 @@ def _parse_python(src: str) -> ast.Statement:
     return stmt
 
 
+def _native():
+    global _NP, _NATIVE_TRIED, parse
+    if not _NATIVE_TRIED:
+        _NATIVE_TRIED = True
+        from neumann_tpu_torch.native import pyparser
+
+        mod = pyparser.load()
+        _NP = mod.parse if mod is not None else None
+        if mod is not None:
+            # upgrade the module-level entry to the zero-frame C path
+            # for importers that bind after this point
+            mod.set_fallback(_parse_python)
+            parse = mod.parse_full
+    return _NP
+
+
 def parse(src: str) -> ast.Statement:
-    """Parse a single statement (trailing semicolon allowed)."""
+    """Parse a single statement (trailing semicolon allowed).
+
+    Hot statement shapes (SELECT / INSERT…VALUES / SIMILAR / NODE
+    CREATE / FIND over plain conditions) go through the native parser
+    (native/parser_ext.cpp), which builds identical AST objects ~15x
+    faster; anything it does not cover — including every syntax
+    error — falls through to the Python recursive-descent parser.
+    When the extension is already built, module import rebinds this
+    name to the C entry point (parse_full) so the hot path has no
+    Python wrapper frame at all."""
+    np = _NP if _NATIVE_TRIED else _native()
+    if np is not None:
+        stmt = np(src)
+        if stmt is not None:
+            return stmt
     return _parse_python(src)
 
 
@@ -1973,22 +2009,47 @@ _LITKINDS = frozenset(("number", "string"))
 
 def parse_param(src: str) -> ast.Statement:
     """parse() with the parameterized-template fast path. The hit path
-    is one tokenize pass plus a spine rebuild; template compilation
-    only happens on a shape miss."""
-    toks = tokenize(src)
-    key = tuple(
-        (t.text if t.kind not in _LITKINDS
-         else (_KS if t.kind == "string"
-               else (_KI if type(t.value) is int else _KF)))
-        for t in toks)
-    vals = [t.value for t in toks if t.kind in _LITKINDS]
-    if not vals:
-        return _parse_tokens(toks)
-    entry = _template_cache.get(key)
-    if entry is not None:
-        if entry is _UNPARAM:
+    is one native shape() pass (key + literal values, no Token objects)
+    plus a spine rebuild; tokens and template compilation only happen
+    on a shape miss. Statements the native parser covers skip the
+    template machinery entirely — a direct parse is faster than the
+    rebuild."""
+    np = _NP if _NATIVE_TRIED else _native()
+    if np is not None:
+        stmt = np(src)
+        if stmt is not None:
+            return stmt
+    from neumann_tpu_torch.lang import lexer as _lx
+
+    ext = _lx._EXT if _lx._EXT_TRIED else _lx._ext()
+    if ext is not None and src.isascii():
+        try:
+            key, vals = ext.shape(src)
+        except ValueError:
+            return _parse_tokens(tokenize(src))  # full ParseError path
+        if not vals:
+            return _parse_tokens(tokenize(src))
+        entry = _template_cache.get(key)
+        if entry is not None:
+            if entry is _UNPARAM:
+                return _parse_tokens(tokenize(src))
+            return entry(vals)
+        toks = tokenize(src)
+    else:
+        toks = tokenize(src)
+        key = tuple(
+            (t.text if t.kind not in _LITKINDS
+             else (_KS if t.kind == "string"
+                   else (_KI if type(t.value) is int else _KF)))
+            for t in toks)
+        vals = [t.value for t in toks if t.kind in _LITKINDS]
+        if not vals:
             return _parse_tokens(toks)
-        return entry(vals)
+        entry = _template_cache.get(key)
+        if entry is not None:
+            if entry is _UNPARAM:
+                return _parse_tokens(toks)
+            return entry(vals)
 
     # template miss: parse once with value-preserving markers
     marked = []
@@ -2090,3 +2151,21 @@ def _rewrite_aliases(stmt: "ast.Select", aliases: Dict[str, str]) -> None:
     stmt.having = fix_cond(stmt.having)
     stmt.group_by = [fix_name(g) for g in stmt.group_by]
     stmt.order_by = [(fix_name(sp[0]), *sp[1:]) for sp in stmt.order_by]
+
+
+# Eagerly bind the native entry point when the extension is already
+# built (a plain import — no compile subprocess), so every importer of
+# `parse` gets the zero-frame C path. First-ever runs stay lazy: the
+# wrapper above builds the extension on first parse and upgrades the
+# binding for later importers.
+def _eager_native() -> None:
+    try:
+        from neumann_tpu_torch.native import pyparser as _pp
+
+        if _pp.built():
+            _native()
+    except Exception:       # noqa: BLE001 — never block import on this
+        pass
+
+
+_eager_native()

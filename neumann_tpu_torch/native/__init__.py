@@ -27,15 +27,22 @@ BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
 _FLAGS = ("-O3", "-fno-math-errno", "-shared", "-fPIC")
 
 
-def build_shared(src: Path, stem: str, suffix: str, flags, libs=(),
-                 salt: str = "") -> Path:
-    """Compile ``src`` with g++ into ``BUILD_DIR/<stem>-<hash><suffix>``
-    unless that file exists, and return its path. The hash covers the
-    source, the flags and ``salt`` (what else the build depends on); the
-    output is written under a per-process name and renamed into place."""
+def built_path(src: Path, stem: str, suffix: str, flags,
+               salt: str = "") -> Path:
+    """``BUILD_DIR/<stem>-<hash><suffix>``: where ``build_shared`` puts
+    ``src``. The hash covers the source, the flags and ``salt`` (what
+    else the build depends on)."""
     tag = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
                          + salt.encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{stem}-{tag}{suffix}"
+    return BUILD_DIR / f"{stem}-{tag}{suffix}"
+
+
+def build_shared(src: Path, stem: str, suffix: str, flags, libs=(),
+                 salt: str = "") -> Path:
+    """Compile ``src`` with g++ into ``built_path(...)`` unless that file
+    exists, and return its path. The output is written under a
+    per-process name and renamed into place."""
+    out = built_path(src, stem, suffix, flags, salt)
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")

@@ -13,14 +13,15 @@ Executes, against the port's engines on the router's ``device``
   ``CONNECTED TO``), CREATE / DROP / SHOW COLLECTIONS, COUNT and SHOW
   EMBEDDINGS;
 * unified: ENTITY CREATE / GET / DELETE / CONNECT / BATCH CREATE, FIND;
-* ``execute_many`` and cursor pagination (``execute_paginated``).
+* ``execute_many`` and cursor pagination (``execute_paginated``);
+* serving: ``warmup`` and, once a caller enables it, batched serving
+  (``server/batcher.QueryBatcher`` coalesces concurrent SIMILARs).
 
 The handlers are the JAX router's, with the auto-checkpoint hook left
 out (no checkpoint manager is ported, and the JAX router's hook does
 nothing without one). VAULT, CACHE, BLOB(S), CHECKPOINT(S), ROLLBACK,
 CHAIN, CLUSTER and EXPLAIN parse but raise ``NeumannError`` naming their
-ROADMAP item, and so do the planner, batcher, warm-up and module
-attachments.
+ROADMAP item, and so do the planner and the module attachments.
 """
 
 from __future__ import annotations
@@ -192,6 +193,11 @@ class QueryRouter:
         self.cursor_store = CursorStore()
         self._lock = threading.RLock()
         self.metrics = QueryMetrics()
+        # serving-side query coalescing (server/batcher.py): off for
+        # embedded use (adds max_wait_ms to single-caller latency),
+        # enabled by a server before it takes traffic
+        self._batchers = None
+        self._batcher_wait_ms = 2.0
 
     def recover(self, wal_path, snapshot_path=None) -> int:
         """Recover the store from a snapshot + WAL (``TensorStore.
@@ -202,13 +208,58 @@ class QueryRouter:
         self.unified.rebuild_index()
         return n
 
+    # -- serving ----------------------------------------------------------------
+    def enable_batched_serving(self, max_wait_ms: float = 2.0) -> None:
+        """Coalesce concurrent SIMILAR queries into one device call per
+        cohort (server/batcher.QueryBatcher). Under concurrent load
+        callers share one batch_search instead of one device call each;
+        a lone caller pays at most ``max_wait_ms`` extra. Idempotent."""
+        with self._lock:
+            if self._batchers is None:
+                self._batchers = {}
+            self._batcher_wait_ms = max_wait_ms
+
+    def disable_batched_serving(self) -> None:
+        # swap-out under the lock so a concurrent _batcher_for either
+        # sees the live dict or None — never a half-closed batcher
+        with self._lock:
+            batchers, self._batchers = self._batchers, None
+        if batchers:
+            for b in batchers.values():
+                b.close()
+
+    def _batcher_for(self, dim: int, metric: str = "cosine",
+                     ns: str = ""):
+        """Serving batcher for a (namespace, dim, metric) bucket;
+        filters ride as cohort keys inside the batcher."""
+        batchers = self._batchers   # snapshot: disable may race us
+        if batchers is None:
+            return None
+        key = (ns, dim, metric)
+        b = batchers.get(key)
+        if b is None:
+            from neumann_tpu_torch.server.batcher import QueryBatcher
+
+            with self._lock:
+                if self._batchers is not batchers:
+                    return None     # disabled (or swapped) concurrently
+                b = batchers.get(key)
+                if b is None:
+                    b = batchers[key] = QueryBatcher(
+                        self.vector, dim, ns=ns, metric=metric,
+                        max_wait_ms=self._batcher_wait_ms)
+        return b
+
+    def warmup(self, buckets=(1, 4, 16, 64, 256),
+               top_ks=(5, 10)) -> int:
+        """Warm every loaded corpus at every query bucket and k
+        (``VectorEngine.warmup``): servers call this before taking
+        traffic, so the first SIMILAR pays neither the kernels' build
+        nor a device view's or auto-IVF index's. Returns the number of
+        warm calls."""
+        return self.vector.warmup(buckets=buckets, top_ks=top_ks)
+
     # -- not ported yet ------------------------------------------------------
-    def enable_batched_serving(self, *args, **kwargs):
-        _not_ported("batched serving", "3, batcher and warm-up")
-
-    def warmup(self, *args, **kwargs):
-        _not_ported("warm-up", "3, batcher and warm-up")
-
     def attach_planner(self, *args, **kwargs):
         _not_ported("distributed planning", "12, mesh")
 
@@ -1075,6 +1126,14 @@ class QueryRouter:
         filt = (_filter_from_condition(s.where) if s.where is not None
                 else None)
         if s.collection is not None:
+            batcher = self._batcher_for(
+                len(q), s.metric or self.vector.collection_config(
+                    s.collection).metric, f"col/{s.collection}")
+        else:
+            batcher = self._batcher_for(len(q), s.metric or "cosine")
+        if batcher is not None:
+            res = batcher.search(q, s.limit, filter_cond=filt)
+        elif s.collection is not None:
             if filt is not None:
                 res = self.vector.search_filtered_in_collection(
                     s.collection, q, s.limit, filt, s.metric)

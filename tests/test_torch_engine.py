@@ -153,8 +153,8 @@ def test_unported_statements_raise(routers):
                  "CHAIN HEIGHT", "EXPLAIN SELECT * FROM t"):
         with pytest.raises(NeumannError, match="ROADMAP"):
             tr.execute(stmt)
-    for call in (tr.warmup, tr.enable_batched_serving, tr.attach_planner,
-                 tr.init_checkpoints):
+    for call in (tr.attach_planner, tr.init_checkpoints, tr.init_vault,
+                 tr.init_cache, tr.init_blob, tr.init_chain):
         with pytest.raises(NeumannError, match="ROADMAP"):
             call()
     for quant in ("pq", "tt"):
@@ -358,12 +358,33 @@ def test_large_bulk_flush_freezes_gc(monkeypatch):
         gc.unfreeze()
 
 
+def test_chip_smoke_shell_text_tolerance():
+    """Phase 13 compares the shell's text on the card and the CPU: equal
+    but for numerals within a relative SHELL_RTOL, a shorter numeral's
+    padding included; a changed word or row is never within it."""
+    import chip_smoke
+
+    card = ("+----+----------+\n| id | rank     |\n+----+----------+\n"
+            "| 1  | 0.52087  |\n| 2  | 0.281551 |\n+----+----------+")
+    cpu = card.replace("0.52087  ", "0.520869 ")
+    assert chip_smoke.text_rel_diff(card, card) == 0
+    assert 0 < chip_smoke.text_rel_diff(card, cpu) < chip_smoke.SHELL_RTOL
+    assert chip_smoke.text_rel_diff(card, cpu.replace("0.28", "0.29")) > \
+        chip_smoke.SHELL_RTOL
+    assert chip_smoke.text_rel_diff(card, cpu.replace("rank", "rang")) == \
+        float("inf")
+    assert chip_smoke.text_rel_diff(card, cpu + "\n| 3  | 0.1 |") == \
+        float("inf")
+
+
 def test_chip_smoke_rehearses_on_cpu(monkeypatch):
-    """chip_smoke.py's phases 3-11 (corpus, counted auto-IVF path, recall
-    against the exact scan, delta rescan; then the pooled, int8 and
-    binary routes, the 3,072-d binary collection and the hybrid query
-    with their checks) at a toy size on the CPU; the
-    kernel phase and the launch checks need the card. 8 mixture centres
+    """chip_smoke.py's phases 1 and 3-13 (the native parse check, corpus,
+    counted auto-IVF path, recall against the exact scan, delta rescan;
+    then the pooled, int8 and binary routes, the 3,072-d binary
+    collection and the hybrid query with their checks; the served
+    auto-IVF and brute-force routes over HTTP; the shell) at a toy size
+    on the CPU; the kernel phase, the launch checks and the profiles need
+    the card. 8 mixture centres
     instead of 4,096 so that 20,480 rows are clustered like the real
     corpus (each row's neighbours come from its own centre); the pooled
     gate is lowered so that 4,096 rows take the pooled routes."""
@@ -377,6 +398,7 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "HUB_DEGREE", 40)
     monkeypatch.setattr(chip_smoke, "HYBRID_ROWS", 8192)
     monkeypatch.setattr(chip_smoke, "HYBRID_EDGES", 32_768)
+    monkeypatch.setattr(chip_smoke, "N_SERVED", 256)
     monkeypatch.setenv("NEUMANN_POOLED_MIN_ROWS", "1024")
     monkeypatch.setenv("NEUMANN_POOLED_MIN_POOLS", "64")
     cfg = TConfig(ivf_auto_threshold=10_000, ivf_auto_clusters=16,
@@ -405,3 +427,16 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     assert len(rep["hybrid_ms"]) == chip_smoke.N_HYBRID - 1
     assert rep["hybrid_bfs_reached"] > 1
     assert rep["hybrid_pagerank_max_rel_err"] <= chip_smoke.PAGERANK_RTOL
+    # phase 1: the native parse; phases 12a-12b: served over HTTP with
+    # batching on; phase 13: the shell on two routers
+    assert 0 < rep["parse_native_ms"] < rep["parse_python_ms"]
+    assert rep["warmup_calls"] == 5 * 2
+    for part in ("ivf", "pooled", "int8"):
+        assert rep[f"served_{part}_recall"] >= 0.95, part
+    for part in ("ivf", "pooled", "int8", "binary"):
+        assert rep[f"served_{part}_mean_cohort"] > 1, part
+    assert rep["served_binary_mismatches"] == 0
+    assert rep["served_filtered_recall"] >= 0.95
+    assert rep["served_in_filter_ok"] and rep["points_query_mismatches"] == 0
+    assert rep["shell_refused"] == 4 and rep["shell_max_rel_diff"] == 0
+    assert rep["shell_doctor_devices"] == ["[OK ] devices         1 x cpu"]

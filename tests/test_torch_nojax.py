@@ -7,9 +7,12 @@ JAX package (``neumann_tpu``) is on the path: it imports every module of
 neumann_tpu_torch, drives EMBED and SIMILAR through the router on the
 CPU, a WAL-backed ``ingest_matrix`` replayed into a new store, one
 collection per storage mode (none, int8, binary), SQL, graph and Cypher
-statements, ``SIMILAR … CONNECTED TO`` and FIND, and fails if any
-module named ``neumann_tpu`` or ``neumann_tpu.*`` was loaded. A scan of
-the sources checks the same statically. The ``cuda`` tests need an
+statements, ``SIMILAR … CONNECTED TO`` and FIND, one REST ``/query``
+through ``neumann_tpu_torch.server.RestServer`` (batched serving on)
+and one shell statement, with the native lexer and parser loaded, and
+fails if any module named ``neumann_tpu`` or ``neumann_tpu.*`` was
+loaded. A scan of the sources (the server, the shell and the native
+loaders included) checks the same statically. The ``cuda`` tests need an
 NVIDIA card with ``nvcc`` (the kernels build from csrc/ at first use);
 they skip elsewhere. Run them on the card with
 ``python -m pytest --noconftest tests/test_torch_nojax.py
@@ -96,8 +99,30 @@ _NOJAX = textwrap.dedent("""
         fresh.recover(wal)
         assert eng2.search_similar(v[9], 1)[0].key == "w9"
     import neumann_tpu_torch.native as native
-    from neumann_tpu_torch.native import pycodec
+    from neumann_tpu_torch.native import pycodec, pylexer, pyparser
     assert native.available() and pycodec.load() is not None
+    assert pylexer.load() is not None and pyparser.load() is not None
+    from neumann_tpu_torch.lang import parser as lang_parser
+    lang_parser._native()
+    assert lang_parser.parse.__name__ == "parse_full"
+    import http.client, io, json
+    from neumann_tpu_torch.server import RestServer
+    from neumann_tpu_torch.shell import Shell
+    r.warmup(buckets=(1, 4), top_ks=(3,))
+    r.enable_batched_serving(max_wait_ms=1.0)
+    srv = RestServer(r)
+    conn = http.client.HTTPConnection("127.0.0.1", srv.serve())
+    conn.request("POST", "/query", json.dumps({"query": (
+        f"SIMILAR [{', '.join(map(str, v[5]))}] TOP 3")}))
+    resp = conn.getresponse()
+    hits = json.loads(resp.read())["hits"]
+    assert resp.status == 200 and hits[0]["key"] == "k5", hits
+    assert r._batchers[("", 8, "cosine")].queries_served == 1
+    srv.stop()
+    r.disable_batched_serving()
+    sh = Shell(router=r, stdout=io.StringIO(), theme="plain")
+    assert "(3 row(s))" in sh.execute("SELECT * FROM t"), sh.execute(
+        "SELECT * FROM t")
     bad = [m for m, mod in sys.modules.items()
            if mod is not None and (m == "jax" or m.startswith("jax.")
                or m == "neumann_tpu" or m.startswith("neumann_tpu."))]
@@ -130,7 +155,12 @@ def _imported_roots(path: Path) -> set:
 def _port_sources() -> list:
     srcs = list((ROOT / "neumann_tpu_torch").rglob("*.py"))
     srcs.append(ROOT / "chip_smoke.py")
-    assert len(srcs) > 20
+    names = {str(p.relative_to(ROOT)) for p in srcs}
+    assert {"neumann_tpu_torch/native/pylexer.py",
+            "neumann_tpu_torch/native/pyparser.py",
+            "neumann_tpu_torch/server/rest.py",
+            "neumann_tpu_torch/server/batcher.py",
+            "neumann_tpu_torch/shell/shell.py"} <= names
     return srcs
 
 
