@@ -260,8 +260,17 @@ ROUTES = ("ivf", "pooled", "int8", "binary", "wide", "hybrid",
           "served_ivf", "served_brute")
 # phase 2's records: the main shape's keys bare, the other shapes' with a
 # suffix
-SHAPE_SUFFIXES = ("_q1", "_q8", "_w96", "_w96q1", "_w96q256", "_d4096",
-                  "_hyb")
+SHAPE_SUFFIXES = ("_q1", "_q8", "_q32", "_w96", "_w96q1", "_w96q256",
+                  "_d4096", "_hyb")
+# row 7's design, named in its kernels-line entry beside each shape's
+# plan (ops/kernels._hamming_groups)
+HT_DESIGN = ("queries on M (16 a warp, up to 8 warps a block), rows on N "
+             "from a 3-16 stage cp.async.bulk ring filled by a producer "
+             "warp (full / ready / empty mbarriers; row popcounts by 4 "
+             "helper warps, or by the one reader at one query tile), "
+             "warp-local selection with no block barrier, row slices for "
+             "blocks of fewer query tiles, k-th keys shared across blocks "
+             "by 64-bit atomicMin")
 # the wrappers a route's reference swaps for their plain versions
 _PLAIN_SWAPPED = ("int8_dot_scores", "int8_pooled_bits", "f32_pooled_bits",
                   "hamming_scores", "hamming_topk")
@@ -773,9 +782,10 @@ def check_hamming_wide(dev, seed: int, rate: float):
     (``_w96q1``); the top-10 at 1 and 256 queries x WIDE_ROWS rows, phase
     10's single and batch launches (``_w96q1``, ``_w96q256``). Distances
     bit-exact, top-10 scores and ids equal to the plain versions'.
-    ``kernel_ms`` and ``device_ms`` (torch.profiler) time the C entry
-    point alone, ``ms`` the wrapper (host-bound at one query). Returns the
-    two records' entries."""
+    Row 3's ``kernel_ms`` and ``device_ms`` (torch.profiler) time the C
+    entry point alone, row 7's launch as ``_topk_launches`` says (with
+    ``unselected_ms``), ``ms`` the wrapper (host-bound at one query).
+    Returns the two records' entries."""
     import torch
 
     from neumann_tpu_torch.ops import kernels as tk
@@ -830,18 +840,23 @@ def check_hamming_wide(dev, seed: int, rate: float):
         got = tk.hamming_topk(c, qq, m, TOP_K)
         want = tk.hamming_topk_plain(c, qq, m, TOP_K)
         torch.cuda.synchronize()
-        groups, span = tk._hamming_groups(n, q, w, dev)
-        keys = torch.empty((q, groups * TOP_K), dtype=torch.int64,
-                           device=dev)
-        record(r7, sfx, q, f"Q={q} N={n} W={w} k={TOP_K}", got, want,
-               lambda: tk.hamming_topk(c, qq, m, TOP_K),
-               lambda: tk._raise_on(lib.neumann_hamming_topk(
-                   c.data_ptr(), qq.data_ptr(), m.data_ptr(), keys.data_ptr(),
-                   n, q, w, TOP_K, span, groups, tk._stream()),
-                   "hamming_topk"),
-               lambda: tk.hamming_topk_plain(c, qq, m, TOP_K),
-               nbytes(c, qq, m, *got), 2 * q * n * 32 * w)
-        del got, want, keys
+        for a, b in zip(got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"hamming_topk Q={q} N={n} W={w}: "
+                                     f"{int((a != b).sum())} values differ "
+                                     f"from plain")
+        reps = 200 if q == 1 else 20
+        r7.update({f"{k}{sfx}": v for k, v in bound(
+            nbytes(c, qq, m, *got), 2 * q * n * 32 * w, rate).items()})
+        r7.update({f"shape{sfx}": f"Q={q} N={n} W={w} k={TOP_K}",
+                   f"max_abs_err{sfx}": 0.0,
+                   f"ms{sfx}": cuda_ms(lambda: tk.hamming_topk(c, qq, m,
+                                                               TOP_K), reps),
+                   f"plain_ms{sfx}": cuda_ms(
+                       lambda: tk.hamming_topk_plain(c, qq, m, TOP_K), 1,
+                       warm=False)})
+        _topk_launches(c, qq, m, r7, sfx, reps)
+        del got, want
     say(f"[2] hamming at W={w}: distances bit-exact (kernel "
         f"{r3['ms_w96']:.4f} ms, bound {r3['bound_ms_w96']:.4f}; Q 1 device "
         f"{r3['device_ms_w96q1']:.4f} ms, bound {r3['bound_ms_w96q1']:.4f}), "
@@ -868,31 +883,61 @@ def b1_ops_per_s(lib) -> float:
     return blocks * 8 * iters * 8 * 2 * 16 * 8 * 256 / (ms * 1e-3)
 
 
+def _topk_launches(cb, qb, mask, rec: dict, key: str, reps: int) -> None:
+    """Row 7's launch alone at one shape: its plan, ``kernel_ms`` (CUDA
+    events over back-to-back launches), ``unselected_ms`` (the same launch
+    with nothing selected: copies, row counts, products and compares, no
+    appends, merges or shared thresholds) and ``device_ms`` (the launch's
+    own device time, its threshold memset included, from
+    torch.profiler)."""
+    import torch
+
+    from neumann_tpu_torch.ops import kernels as tk
+
+    (n, w), q = cb.shape, qb.shape[0]
+    plan = tk._hamming_groups(n, q, w, TOP_K, torch.cuda.get_device_properties(
+        cb.device).multi_processor_count)
+    keys = torch.empty((q, plan[4] * plan[1] * TOP_K), dtype=torch.int64,
+                       device=cb.device)
+    gthr = torch.empty(q, dtype=torch.int64, device=cb.device)
+
+    def launch(select):
+        return lambda: tk._hamming_topk_launch(cb, qb, mask, TOP_K, plan,
+                                               keys, gthr, select)
+
+    rec[f"plan{key}"] = dict(zip(("query_tiles", "row_slices",
+                                  "rows_per_warp", "stages", "groups",
+                                  "span"), plan))
+    rec[f"kernel_ms{key}"] = cuda_ms(launch(True), reps)
+    rec[f"unselected_ms{key}"] = cuda_ms(launch(False), reps)
+    rec[f"device_ms{key}"] = device_ms(launch(True), reps)
+
+
 def check_hamming_topk(x, qs, mask, rate: float) -> dict:
-    """Phase 2, the fused hamming top-k at the binary route's shapes: a
-    batch of 1,024 and one query against all 1,048,576 rows of 24 words,
-    k 10, 1 % dead rows. Scores and ids must equal the plain version's.
+    """Phase 2, the fused hamming top-k at D's shapes: all 1,048,576 rows
+    of 24 words, k 10, 1 % dead rows, against a batch of 1,024 (the
+    counted batch), 32 and 8 (served cohorts) and 1 query. Scores and ids
+    must equal the plain version's.
 
     Its bound is the larger of the bytes (corpus, queries, mask, the top-k
     written) and the bit products (2 Q N d) at the 1-bit tensor-core rate
     that ``b1_ops_per_s`` measures in this run (the data sheet gives no
     1-bit rate). Beside it: the popcount issue time of an XOR + POPC loop
     and the products' time at the int8 rate. ``ms`` times the wrapper (the
-    launch, the final torch.topk over the groups' keys, the decode),
-    ``kernel_ms`` the launch alone, ``unselected_ms`` the launch with
-    nothing selected (loads, products and the per-distance compare, no
-    appends or merges), so kernel_ms - unselected_ms is what the
-    selection's appends and merges cost."""
+    launch, the final torch.topk over the warps' keys, the decode); the
+    launch alone as ``_topk_launches`` says, so kernel_ms - unselected_ms
+    is what the selection's appends, merges and shared thresholds cost."""
     import torch
 
     from neumann_tpu_torch.ops import kernels as tk
     from neumann_tpu_torch.ops.quant import binary_quantize
 
     cb = binary_quantize(x)
-    (n, w), lib = cb.shape, tk.build_kernels()
-    rec = {"shape": f"Q={N_BATCH} and Q=1, N={n} W={w} k={TOP_K}, "
-                    f"{int((~mask).sum())} dead rows", "b1_ops_per_s": rate}
-    for q in (N_BATCH, 1):
+    n, w = cb.shape
+    rec = {"shape": f"Q={N_BATCH}, 32, 8 and 1, N={n} W={w} k={TOP_K}, "
+                    f"{int((~mask).sum())} dead rows", "b1_ops_per_s": rate,
+           "design": HT_DESIGN}
+    for q in (N_BATCH, 32, 8, 1):
         qb = binary_quantize(qs[:q])
         got = tk.hamming_topk(cb, qb, mask, TOP_K)
         want = tk.hamming_topk_plain(cb, qb, mask, TOP_K)
@@ -902,27 +947,17 @@ def check_hamming_topk(x, qs, mask, rate: float) -> dict:
                 raise AssertionError(
                     f"hamming_topk at Q={q}: {int((a != b).sum())} {what} "
                     f"differ from plain")
-        key = "" if q == N_BATCH else "_q1"
+        key = "" if q == N_BATCH else f"_q{q}"
         ops = 2 * q * n * 32 * w
         for k, v in bound(nbytes(cb, qb, mask, *got), ops, rate).items():
             rec[f"{k}{key}"] = v
         rec[f"int8_rate_ms{key}"] = ops / INT8_OPS_PER_S * 1e3
         rec[f"popc_issue_bound_ms{key}"] = q * cb.numel() / POPC_PER_S * 1e3
         rec[f"max_abs_err{key}"] = 0.0
-        reps = 10 if q > 1 else 50
+        reps = 10 if q == N_BATCH else 100
         rec[f"ms{key}"] = cuda_ms(lambda: tk.hamming_topk(cb, qb, mask, TOP_K),
                                   reps)
-        groups, span = tk._hamming_groups(n, q, w, cb.device)
-        keys = torch.empty((q, groups * TOP_K), dtype=torch.int64,
-                           device=cb.device)
-        for name, entry in (("kernel_ms", lib.neumann_hamming_topk),
-                            ("unselected_ms",
-                             lib.neumann_hamming_topk_unselected)):
-            rec[f"{name}{key}"] = cuda_ms(
-                lambda: tk._raise_on(entry(
-                    cb.data_ptr(), qb.data_ptr(), mask.data_ptr(),
-                    keys.data_ptr(), n, q, w, TOP_K, span, groups,
-                    tk._stream()), "hamming_topk"), reps)
+        _topk_launches(cb, qb, mask, rec, key, reps)
         rec[f"plain_ms{key}"] = cuda_ms(
             lambda: tk.hamming_topk_plain(cb, qb, mask, TOP_K), 1, warm=False)
     return rec
@@ -2398,7 +2433,8 @@ def kernels_line(report: dict) -> dict:
         row["library"] = rec.get("library", NO_LIBRARY.get(name))
         for extra in ("bytes_bound_ms", "ops_bound_ms",
                       "popc_issue_bound_ms", "int8_rate_ms", "b1_ops_per_s",
-                      "kernel_ms", "unselected_ms", "device_ms"):
+                      "kernel_ms", "unselected_ms", "device_ms", "design",
+                      "plan"):
             if extra in rec:
                 row[extra] = rec[extra]
         for sfx in SHAPE_SUFFIXES:   # the other shapes a kernel serves
@@ -2407,7 +2443,7 @@ def kernels_line(report: dict) -> dict:
                     "ms", "plain_ms", "bound_ms", "bound_by",
                     "bytes_bound_ms", "ops_bound_ms", "kernel_ms",
                     "unselected_ms", "device_ms", "library_ms",
-                    "library_device_ms", "library")
+                    "library_device_ms", "library", "plan")
                     if f"{k}{sfx}" in rec})
                 row[f"roofline_share{sfx}"] = (rec[f"bound_ms{sfx}"]
                                                / rec[f"ms{sfx}"])

@@ -1,59 +1,81 @@
 // Hamming top-k over packed sign bits, the top-k fused into the distance
 // loop, the distances on the 1-bit tensor cores.
 //
-// Replaces `hamming_topk_pallas` (neumann_tpu/ops/pallas_kernels.py)
-// around the Pallas TPU kernel `_hamming_kernel`: that design writes the
-// [Q, N] int32 distances of each row block to device memory and leaves
-// the top-k to XLA. Here no distance reaches device memory. For each
-// query the function is the k best rows by (distance ascending, row
-// ascending) — lax.top_k's order among equal distances. Each block
-// writes the k smallest keys distance << 32 | row of its row group; one
-// torch.topk over [Q, groups * k] keys (ops/kernels.py) finishes, as
-// lax.top_k sits outside the Pallas kernel.
+// Replaces `hamming_topk_pallas` (neumann_tpu/ops/pallas_kernels.py:90)
+// around the Pallas TPU kernel `_hamming_kernel` (:40): that design
+// writes the [Q, N] int32 distances of each row block to device memory
+// and leaves the top-k to XLA (lax.top_k, :147). Here no distance reaches
+// device memory. For each query the function is the k best rows by
+// (distance ascending, row ascending), lax.top_k's order among equal
+// distances. Each warp writes the k smallest keys distance << 32 | row of
+// its rows; one torch.topk over [Q, groups * slices * k] keys
+// (ops/kernels.py) finishes, as lax.top_k sits outside the Pallas kernel.
 //
-// What bounds it on an H100. D's batch, 1,024 queries x 1,048,576 rows x
-// 24 words, is 8e11 bit products against 0.1 GB of corpus. As XOR +
-// POPC (csrc/hamming.cu's loop) it is 2.6e10 POPC, 6.2 ms at 16 a SM a
-// clock; as the same product in +-1 int8 on the tensor cores, 0.83 ms at
-// 1,979 TOP/s. The 1-bit mma.sync.m16n8k256.b1.and.popc computes it
-// exactly from the packed words themselves, at a rate the data sheet
-// does not give (chip_smoke.py measures it with b1_rate_kernel below):
+// What bounds it on an H100. One query reads the corpus once: 100.7 MB
+// at D's 1,048,576 rows x 24 words, 0.030 ms at 3.35 TB/s. A batch is
+// bound by its bit products: D's 1,024 queries are 1.6e15 operations, 0.16
+// ms at the 1-bit mma.sync rate that chip_smoke.py measures with
+// b1_rate_kernel below (1.025e16 ops/s; the data sheet gives none):
 //   hamming(r, q) = popc(r) + popc(q) - 2 popc(r AND q).
-// One query is bound by the corpus bytes (0.03 ms).
 //
 // The design:
-//   * corpus rows on the M side (8 warps x 16 rows = 128 rows a pass),
-//     the block's 64 queries on N (8 n8 tiles, only those holding a
-//     query run). Each 256-bit K step takes two words of a row a thread,
-//     read as one 8-byte load straight into the A fragment (the K order
-//     inside a step is any permutation shared by A and B, so a thread
-//     takes words 8 s + 2 t and 8 s + 2 t + 1); the queries' B fragments
-//     are laid out once per block in shared memory (one 8-byte load a
-//     product). The next pass's rows are loaded while this pass's
-//     distances are selected;
-//   * selection in shared memory, per query: the current k best keys
-//     (sorted), their k-th as a threshold, and a candidate buffer. A
-//     (row, query) whose key is below the threshold is appended with a
-//     shared atomic; after a pass, any buffer that a further pass could
-//     overflow is merged by one warp (k rounds of a warp-wide minimum,
-//     __reduce_min_sync) and the threshold falls. The top k of a million
-//     rows lie far in the tail, so after the first passes almost nothing
-//     is appended. The selection, not the products, set the kernel's
-//     time, so a pass reads its thresholds into registers once and tests
-//     each distance with one multiply-add and one compare into a hit
-//     mask; only a thread with a hit takes the append path;
-//   * keys inside a block are 32 bits, distance << b | row in the group,
-//     b = 20 row bits up to W 64 and clz(32 W) above (18 at W 256:
-//     distances reach 32 W; the wrapper's groups span at most 2^b rows),
-//     so merges and compares are 32-bit;
-//   * up to 8 K steps (W <= 64, D's 768-d rows) one instantiation a step
-//     count keeps a pass's rows in registers and the queries' fragments
-//     in shared memory; wider rows take one instantiation that loops the
-//     steps at run time, 4 at a time, both operands read by 8-byte loads
-//     (the queries' from L1), so no W is too wide for shared memory.
+//   * queries on the M side of mma.sync.m16n8k256.b1.and.popc, corpus rows
+//     on N: each consumer warp owns a tile of 16 queries (A, laid out once
+//     a block in shared memory, one 16-byte load a K step a stage) and
+//     runs it over its rows of each stage (B, n8 tiles, one 8-byte load a
+//     product). A thread's accumulators hold queries g and g + 8 x rows
+//     2 t and 2 t + 1 of each n8 tile, so it tests against two limits.
+//     The K order inside a 256-bit step is any permutation shared by A
+//     and B: a thread takes words 8 s + 2 t and 8 s + 2 t + 1;
+//   * a query's candidates and best list belong to one warp, so appends
+//     take warp-local counters and merges __syncwarp only: the pass loop
+//     has no block barrier;
+//   * rows stream through a ring of 3-16 stages in shared memory, filled
+//     by a producer warp with cp.async.bulk (one copy a stage where the
+//     rows are unpadded, else one a row into a stride padded to 8 mod 16
+//     words; the mask bytes by cp.async), each stage with a full (bytes
+//     and mask copies), a ready and an empty mbarrier. With several query
+//     tiles four helper warps count each stage's row popcounts once as it
+//     lands and arrive on ready; with one tile each row has one reader,
+//     which counts it from its own B words. Dead and out-of-range rows get
+//     a popcount no limit passes. A consumer warp arrives on empty once it
+//     has read the stage, and the producer refills it: the producer waits
+//     on empty alone and the helpers on full alone, so both run as far
+//     ahead of the consumers as the ring;
+//   * up to 8 query tiles a block (128 queries), so the corpus crosses
+//     from L2 once per 128 queries; a block of fewer tiles gives its spare
+//     warps the same tiles on other rows of each stage (row slices), each
+//     slice writing its own k keys;
+//   * thresholds shared across blocks: after a merge a warp publishes its
+//     k-th key made global with a 64-bit atomicMin into gthr [Q] (set to
+//     0x7F.. by the entry point before the launch), and reads it one stage
+//     ahead of its use. A block's k-th key is at least the global k-th, so
+//     a (row, query) of a larger distance cannot be in the result; equal
+//     distances pass (a lower row may win the tie), and a stale read only
+//     loosens the limit;
+//   * keys inside a warp are 32 bits, distance << b | row in the group,
+//     b = min(20, clz(32 W)) (distances reach 32 W; the wrapper's groups
+//     span at most 2^b rows), so merges and compares are 32-bit. A warp
+//     meets its rows in ascending order, so a row tied with its own k-th
+//     loses.
+// The wrapper (ops/kernels._hamming_groups) picks query tiles, slices,
+// rows a warp a stage and stages so that everything fits 227 KB of
+// shared memory.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; scripts/torch_hamming_topk_ab.py
+// and scripts/torch_hamming_topk_probe.py, k 10): D's batch 1.32-1.33 ms
+// (the design this replaced: 1.75), of which the launch with nothing
+// selected takes 0.89-0.93 ms, without the products 0.55 and the copy
+// pipeline alone 0.39; its consumer warps wait 115 of 1,632 clocks a
+// stage, so their own work a stage (products, compares, mbarrier
+// round trips at 2 warps a scheduler) holds it, not the copies or the
+// tensor cores (0.16 ms). One query on D: 0.059 ms (0.093), the pipeline
+// alone 0.039 (2.6 TB/s). E's batch (256 x 262,144 x 96 words): 0.223 ms
+// (0.94); one query on E: 0.042 ms (0.070).
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 
@@ -63,17 +85,144 @@ namespace {
 
 using neumann::mma_b1;
 
-constexpr int kThreads = 256;        // 8 warps x 16 rows
-constexpr int kRows = 128;           // rows a pass
-constexpr int kNT = 8;               // n8 query tiles
-constexpr int kQBlock = 8 * kNT;     // queries a block
+constexpr int kConsumers = 8;        // warps that multiply and select
+constexpr int kHelpers = 4;          // warps that count rows
+constexpr int kThreads = 32 * (kConsumers + kHelpers + 1);   // + producer
+constexpr int kTileQ = 16;           // queries a consumer warp (M)
+constexpr int kMaxRowTiles = 8;      // n8 row tiles a warp a stage, most
+constexpr int kMaxStageRows = 128;
+constexpr int kMinStages = 3;
+constexpr int kMaxStages = 16;
 constexpr int kMaxK = 64;            // the wrapper's cap on k
-constexpr int kBuf = 256;            // candidates buffered a query
-constexpr int kMergeAbove = kBuf - kRows;   // a pass adds <= kRows
+constexpr int kBufBase = 64;         // a buffer merges once it holds more
+constexpr int kPerLane = (kMaxK + kBufBase + 8 * kMaxRowTiles) / 32;
+constexpr int kMaxWords = 1 << 16;
+constexpr int kSmemMax = 232448;     // a block's shared memory on sm_90
 constexpr unsigned kNone = 0xFFFFFFFFu;
-constexpr int kPerLane = (kMaxK + kBuf) / 32;
-constexpr int kLoopSteps = 4;        // K steps a round of the looped variant
-constexpr int kStepsRowBits = 20;    // W <= 64: distances <= 2,048
+constexpr int kDead = 1 << 28;       // a dead row's popcount
+constexpr int kNever = -(1 << 28);   // a limit nothing passes
+constexpr int kRateThreads = 256;
+
+// words a ring row. With more than one query tile the B loads set the
+// pace: the least >= W that is 8 mod 16, so the 8-byte loads of rows g =
+// 0..3 (a half warp) fall in distinct banks, one bulk copy a row. One
+// tile reads each B fragment once and is bound by the copies: W, the
+// stage one bulk copy.
+__host__ __device__ inline int stride_of(int w, int tiles) {
+  return tiles > 1 ? w + (24 - w % 16) % 16 : w;
+}
+
+// byte offsets of the shared memory: mbarriers, the queries' A fragments
+// [tiles][steps][32] uint4, the ring [stages][rows][stride] and the rows'
+// popcounts [stages][rows], popc(q), per consumer warp and query the
+// threshold, the candidate count, the best keys [k] and the buffer, and
+// the rows' mask bytes [stages][rows]
+struct Layout {
+  int qf, ring, pr, pq, thr, cnt, best, buf, mk, bytes;
+};
+
+__host__ __device__ inline Layout layout(int w, int k, int tiles,
+                                         int slices, int rw, int stages) {
+  const int steps = (w + 7) / 8, rows = slices * rw;
+  const int warps = tiles * slices;
+  Layout l;
+  l.qf = 3 * kMaxStages * 8;
+  l.ring = l.qf + tiles * steps * 32 * 16;
+  l.pr = l.ring + stages * rows * stride_of(w, tiles) * 4;
+  l.pq = l.pr + stages * rows * 4;
+  l.thr = l.pq + tiles * kTileQ * 4;
+  l.cnt = l.thr + warps * kTileQ * 4;
+  l.best = l.cnt + warps * kTileQ * 4;
+  l.buf = l.best + warps * kTileQ * k * 4;
+  l.mk = l.buf + warps * kTileQ * (kBufBase + rw) * 4;
+  l.bytes = l.mk + stages * rows;
+  return l;
+}
+
+struct Args {
+  const int32_t* corpus;
+  const int32_t* queries;
+  const uint8_t* mask;   // nullptr: every row live
+  long long* out;
+  long long* gthr;
+  long long n_rows, span;
+  int n_q, words, k, groups, tiles, slices, rw, stages;
+  bool select;
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(b)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* b) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\t"
+      "mbarrier.arrive.shared::cta.b64 st, [%0];\n\t}" ::"r"(smem_addr(b))
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* b, unsigned parity) {
+  unsigned ok;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(ok)
+        : "r"(smem_addr(b)), "r"(parity)
+        : "memory");
+  } while (!ok);
+}
+
+__device__ __forceinline__ void bar_arrive_expect(uint64_t* b,
+                                                  unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(b)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* b) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(b))
+      : "memory");
+}
+
+// 4 mask bytes into shared memory by cp.async, zero past `got` (only
+// `got` bytes are read)
+__device__ __forceinline__ void copy4(void* dst, const void* src, int got) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(got)
+               : "memory");
+}
+
+// an arrival on b once this thread's cp.async copies have landed; b's
+// pending count rises by one now, so its phase waits for them
+__device__ __forceinline__ void copies_arrive(uint64_t* b) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(b))
+               : "memory");
+}
+
+__device__ __forceinline__ long long load_relaxed(const long long* p) {
+  long long v;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
 
 // One warp: the k smallest of the query's best keys and its buffered
 // candidates become its best keys (sorted), the threshold its k-th.
@@ -108,298 +257,401 @@ __device__ __forceinline__ void merge(unsigned* best, unsigned* buf,
   }
 }
 
-// A thread's rows of one pass: rows g and g + 8 of its warp's 16, the
-// words 8 s + 2 t, 8 s + 2 t + 1 of each K step s (zero past W and past
-// the group). The words do not wait for the mask: a masked row is loaded
-// and then never selected. kSteps 0 (rows wider than 8 steps) holds only
-// the rows' positions; the product loop loads their words.
-template <int kSteps>
-struct PassRows {
-  uint2 x[2][kSteps > 0 ? kSteps : 1];
-  long long row[2];
-  bool live[2];
+// One instantiation a count of n8 row tiles a warp a stage (kRowTiles =
+// rw / 8: 1, 2, 4 or 8), so the products and compares carry no guards,
+// and a switch kOwnCounts for blocks of one query tile: each row is then
+// read by one consumer warp alone, which counts its popcount from the B
+// words it loads (two POPC a product), and the helpers stay idle; with
+// more tiles the helpers count each row once for all of them.
+// With `select` false no (row, query) passes its limit: the launch
+// copies, counts, multiplies and compares but never appends or merges,
+// and writes only empty keys (chip_smoke.py times it to split the
+// kernel's time).
+template <int kRowTiles, bool kOwnCounts>
+__global__ void __launch_bounds__(kThreads, 1)
+    hamming_topk_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout l = layout(a.words, a.k, a.tiles, a.slices, a.rw, a.stages);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* ready = full + kMaxStages;
+  uint64_t* empty = ready + kMaxStages;
+  uint4* qf = reinterpret_cast<uint4*>(smem + l.qf);
+  int32_t* ring = reinterpret_cast<int32_t*>(smem + l.ring);
+  int* pr = reinterpret_cast<int*>(smem + l.pr);
+  int* pq = reinterpret_cast<int*>(smem + l.pq);
+  unsigned* thr = reinterpret_cast<unsigned*>(smem + l.thr);
+  int* cnt = reinterpret_cast<int*>(smem + l.cnt);
+  unsigned* best = reinterpret_cast<unsigned*>(smem + l.best);
+  unsigned* buf = reinterpret_cast<unsigned*>(smem + l.buf);
+  uint8_t* mk = smem + l.mk;
 
-  __device__ __forceinline__ void load(const int32_t* __restrict__ corpus,
-                                       const uint8_t* __restrict__ mask,
-                                       long long base, long long span1,
-                                       int words) {
-    const int lane = threadIdx.x % 32;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      row[h] = base + threadIdx.x / 32 * 16 + 8 * h + (lane >> 2);
-      const bool in = row[h] < span1;
-      live[h] = in && (mask == nullptr || mask[row[h]] != 0);
-      const int32_t* src = corpus + row[h] * words;
-#pragma unroll
-      for (int s = 0; s < kSteps; ++s) {
-        const int w0 = 8 * s + 2 * (lane & 3);   // only the last step
-        x[h][s] = in && (s + 1 < kSteps || w0 < words)   // may pass W
-                      ? *reinterpret_cast<const uint2*>(src + w0)
-                      : make_uint2(0u, 0u);
-      }
-    }
-  }
-};
-
-// one instantiation a 256-bit K step count up to 8, the word count at run
-// time, and kSteps 0 for any wider row; three blocks a SM where the rows'
-// registers allow (W <= 32). With `select` false no (row, query) passes
-// its threshold: the launch loads, multiplies and compares but never
-// appends or merges, and writes only empty keys (chip_smoke.py times it to
-// split the kernel's time).
-template <int kSteps>
-__global__ void __launch_bounds__(kThreads,
-                                  kSteps >= 1 && kSteps <= 4 ? 3 : 2)
-    hamming_topk_kernel(
-    const int32_t* __restrict__ corpus, const int32_t* __restrict__ queries,
-    const uint8_t* __restrict__ mask, long long* __restrict__ out,
-    long long n_rows, int n_q, int words, int k, long long span, int groups,
-    bool select) {
-  extern __shared__ uint2 smem[];
-  uint2* qf = smem;                          // [kSteps][kNT][32] B fragments
-  // row bits of a block key: distances reach 32 W (20 bits of row up
-  // to 8 steps, as the wrapper's span allows)
-  const int row_bits = kSteps > 0 ? kStepsRowBits : __clz(32 * words);
-  int* pq = reinterpret_cast<int*>(qf + kSteps * kNT * 32);   // popc(q)
-  unsigned* thr = reinterpret_cast<unsigned*>(pq + kQBlock);
-  int* cnt = reinterpret_cast<int*>(thr + kQBlock);
-  unsigned* best = reinterpret_cast<unsigned*>(cnt + kQBlock);  // [64][k]
-  unsigned* buf = best + kQBlock * k;                          // [64][kBuf]
-
+  const int w = a.words, steps = (w + 7) / 8;
+  const int stride = stride_of(w, a.tiles);
+  const int rows = a.slices * a.rw, warps = a.tiles * a.slices;
+  const int kbuf = kBufBase + a.rw;
+  const int row_bits = min(20, __clz(32 * w));
   const int group = blockIdx.x;
-  const int q0 = blockIdx.y * kQBlock;
-  const int nq = min(kQBlock, n_q - q0);
-  const int n_nt = (nq + 7) / 8;
-  const long long span0 = group * span;
-  const long long span1 = min(span0 + span, n_rows);
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int t = lane & 3;
+  const int q0 = blockIdx.y * a.tiles * kTileQ;
+  const int nq = min(a.tiles * kTileQ, a.n_q - q0);
+  const long long span0 = group * a.span;
+  const long long span1 = min(span0 + a.span, a.n_rows);
+  const int n_it = static_cast<int>((span1 - span0 + rows - 1) / rows);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
 
-  auto qword = [&](int qi, int w) -> unsigned {
-    return qi < nq && w < words
+  auto qword = [&](int qi, int wd) -> unsigned {
+    return qi < nq && wd < w
                ? static_cast<unsigned>(
-                     queries[static_cast<long long>(q0 + qi) * words + w])
+                     a.queries[static_cast<long long>(q0 + qi) * w + wd])
                : 0u;
   };
-  for (int i = threadIdx.x; i < kSteps * kNT * 32; i += kThreads) {
-    const int l = i % 32;
-    const int qi = 8 * ((i / 32) % kNT) + l / 4;
-    const int w0 = 8 * (i / (32 * kNT)) + 2 * (l % 4);
-    qf[i] = make_uint2(qword(qi, w0), qword(qi, w0 + 1));
+  for (int i = threadIdx.x; i < a.tiles * kTileQ; i += kThreads) pq[i] = 0;
+  __syncthreads();
+  // A fragments {a0, a1, a2, a3}: queries g, g + 8 at word 8 s + 2 t, then
+  // the same at 8 s + 2 t + 1 (zero past W and past the queries); popc(q)
+  // summed from them, all loads in flight at once
+  for (int i = threadIdx.x; i < a.tiles * steps * 32; i += kThreads) {
+    const int li = i % 32, s = (i / 32) % steps, tile = i / (32 * steps);
+    const int qa = tile * kTileQ + li / 4, w0 = 8 * s + 2 * (li % 4);
+    const uint4 f = make_uint4(qword(qa, w0), qword(qa + 8, w0),
+                               qword(qa, w0 + 1), qword(qa + 8, w0 + 1));
+    qf[i] = f;
+    atomicAdd(pq + qa, __popc(f.x) + __popc(f.z));
+    atomicAdd(pq + qa + 8, __popc(f.y) + __popc(f.w));
   }
-  for (int i = threadIdx.x; i < kQBlock; i += kThreads) {
-    int p = 0;
-    for (int w = 0; w < words; ++w) p += __popc(qword(i, w));
-    pq[i] = p;
+  for (int i = threadIdx.x; i < warps * kTileQ; i += kThreads) {
     thr[i] = kNone;
     cnt[i] = 0;
   }
-  for (int i = threadIdx.x; i < kQBlock * k; i += kThreads) best[i] = kNone;
+  for (int i = threadIdx.x; i < warps * kTileQ * a.k; i += kThreads) {
+    best[i] = kNone;
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      bar_init(full + s, 1);
+      bar_init(ready + s, kHelpers);
+      bar_init(empty + s, warps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
   __syncthreads();
 
-  PassRows<kSteps> rows;
-  rows.load(corpus, mask, span0, span1, words);
-  for (long long base = span0; base < span1; base += kRows) {
-    // the pass selects (row, q) iff its distance is below the threshold's:
-    // every row of this pass follows the rows of the best keys, so a tie
-    // loses. As pa - 2 dot < lim = thr distance - popc(q), 32-bit: no
-    // query (past nq) never, the threshold of an empty list always
-    // (unless `select` is false).
-    int lim[kNT][2];
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int qi = 8 * j + 2 * t + e;
-        lim[j][e] = select && qi < nq
-                        ? static_cast<int>(thr[qi] >> row_bits) - pq[qi]
-                        : INT_MIN;
+  if (warp == kConsumers + kHelpers) {
+    // the producer: a copy into each stage once every consumer warp has
+    // read it; it waits on nothing else, so the ring stays full
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % a.stages;
+      if (it >= a.stages) bar_wait(empty + st, (it / a.stages - 1) & 1);
+      const long long r0 = span0 + static_cast<long long>(it) * rows;
+      const int nr = static_cast<int>(min(static_cast<long long>(rows),
+                                          span1 - r0));
+      int32_t* dst = ring + st * rows * stride;
+      const int32_t* src = a.corpus + r0 * w;
+      // the stage's mask bytes, 4 rows a lane (zero past the group),
+      // their arrival counted on the stage's full barrier before the
+      // rows' bytes are expected
+      if (a.mask != nullptr && 4 * lane < rows) {
+        const int got = max(0, min(4, nr - 4 * lane));
+        copy4(mk + st * rows + 4 * lane,
+              a.mask + r0 + (got > 0 ? 4 * lane : 0), got);
+        copies_arrive(full + st);
+      }
+      __syncwarp();
+      if (lane == 0) bar_arrive_expect(full + st, nr * w * 4);
+      __syncwarp();
+      if (stride == w) {
+        if (lane == 0) bulk_copy(dst, src, nr * w * 4, full + st);
+      } else {
+        for (int r = lane; r < nr; r += 32) {
+          bulk_copy(dst + r * stride, src + static_cast<long long>(r) * w,
+                    w * 4, full + st);
+        }
       }
     }
-    int acc[kNT][4];
+    return;
+  }
+  if (warp >= kConsumers) {
+    if (kOwnCounts) return;   // one tile: the consumers count their rows
+    // helpers: each counts rows / 4 rows of every stage as it lands, as
+    // far ahead of the consumers as the ring. Rows of 8 or more 16-byte
+    // chunks take 8 lanes a row, 4 rows at a time (a quarter warp reads
+    // 128 consecutive bytes, whatever the stride); narrower rows all of
+    // the helper's rows at once, 32 / (rows / 4) lanes a row
+    const int hw = warp - kConsumers, rh = rows / kHelpers;
+    const int lpr = w / 4 >= 8 ? 8 : 32 / rh, per_pass = 32 / lpr;
+    const int sub = lane / lpr, c0 = lane % lpr;
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % a.stages;
+      bar_wait(full + st, (it / a.stages) & 1);
+      for (int r4 = 0; r4 < rh; r4 += per_pass) {
+        const int r = hw * rh + r4 + sub;
+        const bool mine = r4 + sub < rh;
+        int p = 0;
+        if (mine) {
+          const uint4* row =
+              reinterpret_cast<const uint4*>(ring + (st * rows + r) * stride);
+          for (int c = c0; c < w / 4; c += lpr) {
+            const uint4 v = row[c];
+            p += __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+          }
+        }
+        for (int o = 1; o < lpr; o <<= 1) {
+          p += __shfl_xor_sync(0xffffffffu, p, o);
+        }
+        if (mine && c0 == 0) {
+          const long long gr = span0 + static_cast<long long>(it) * rows + r;
+          const bool live =
+              gr < span1 && (a.mask == nullptr || mk[st * rows + r] != 0);
+          pr[st * rows + r] = live ? p : kDead;
+        }
+      }
+      __syncwarp();   // one arrival a warp (lanes arriving on one
+      if (lane == 0) bar_arrive(ready + st);   // word serialize)
+    }
+    return;
+  }
+  if (warp >= warps) return;   // a block of fewer tiles x slices
+
+  // consumers: tile `tile` of the block's queries over slice `slice` of
+  // each stage's rows
+  const int tile = warp % a.tiles, slice = warp / a.tiles;
+  const int qb = tile * kTileQ;
+  unsigned* my_thr = thr + warp * kTileQ;
+  int* my_cnt = cnt + warp * kTileQ;
+  unsigned* my_best = best + warp * kTileQ * a.k;
+  unsigned* my_buf = buf + warp * kTileQ * kbuf;
+  const uint4* af = qf + tile * steps * 32 + lane;
+  bool has[2];
+  int pqv[2];
+  const long long* gq[2];
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
+  for (int h = 0; h < 2; ++h) {
+    const int qi = qb + g + 8 * h;
+    has[h] = a.select && qi < nq;
+    pqv[h] = pq[qi];
+    gq[h] = a.gthr + q0 + (has[h] ? qi : 0);
+  }
+  // the shared thresholds are read one stage ahead of their use, so the
+  // L2 round trip hides behind a stage's products
+  long long gv[2], gnext[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) gnext[h] = has[h] ? load_relaxed(gq[h]) : 0;
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % a.stages;
+    const unsigned parity = (it / a.stages) & 1;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      gv[h] = gnext[h];
+      gnext[h] = has[h] ? load_relaxed(gq[h]) : 0;
+    }
+    // after the helpers saw it full, or full itself with no helpers
+    bar_wait(kOwnCounts ? full + st : ready + st, parity);
+    int acc[kRowTiles][4];
+#pragma unroll
+    for (int j = 0; j < kRowTiles; ++j) {
 #pragma unroll
       for (int v = 0; v < 4; ++v) acc[j][v] = 0;
     }
-    int pa[2] = {0, 0};   // popc of the rows
-    if constexpr (kSteps > 0) {
+    const int32_t* sr =
+        ring + (st * rows + slice * a.rw + g) * stride + 2 * t;
+    int own[kRowTiles] = {};   // kOwnCounts: this lane's words of row g
+    for (int s = 0; s < steps; ++s) {
+      const uint4 av = af[s * 32];
+      const unsigned am[4] = {av.x, av.y, av.z, av.w};
 #pragma unroll
-      for (int s = 0; s < kSteps; ++s) {
-        const unsigned a[4] = {rows.x[0][s].x, rows.x[1][s].x,
-                               rows.x[0][s].y, rows.x[1][s].y};
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          pa[h] += __popc(rows.x[h][s].x) + __popc(rows.x[h][s].y);
-        }
-        const uint2* f = qf + s * kNT * 32 + lane;
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-          if (j < n_nt) {
-            const uint2 bb = f[j * 32];
-            const unsigned b[2] = {bb.x, bb.y};
-            mma_b1(acc[j], a, b);
-          }
-        }
-      }
-    } else {   // any W: the steps at run time, kLoopSteps loads at a time
-      const int steps = (words + 7) / 8;
-      const int g = lane >> 2;
-      for (int s0 = 0; s0 < steps; s0 += kLoopSteps) {
-        uint2 x[2][kLoopSteps];
-#pragma unroll
-        for (int s = 0; s < kLoopSteps; ++s) {
-          const int w0 = 8 * (s0 + s) + 2 * t;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            x[h][s] = rows.row[h] < span1 && w0 < words
-                          ? *reinterpret_cast<const uint2*>(
-                                corpus + rows.row[h] * words + w0)
-                          : make_uint2(0u, 0u);
-          }
-        }
-#pragma unroll
-        for (int s = 0; s < kLoopSteps; ++s) {
-          const int w0 = 8 * (s0 + s) + 2 * t;
-          if (s0 + s >= steps) break;
-          const unsigned a[4] = {x[0][s].x, x[1][s].x, x[0][s].y, x[1][s].y};
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            pa[h] += __popc(x[h][s].x) + __popc(x[h][s].y);
-          }
-#pragma unroll
-          for (int j = 0; j < kNT; ++j) {
-            const int qi = 8 * j + g;
-            if (j < n_nt) {
-              const uint2 bb =
-                  qi < nq && w0 < words
-                      ? __ldg(reinterpret_cast<const uint2*>(
-                            queries + static_cast<long long>(q0 + qi) * words +
-                            w0))
-                      : make_uint2(0u, 0u);
-              const unsigned b[2] = {bb.x, bb.y};
-              mma_b1(acc[j], a, b);
-            }
-          }
+      for (int j = 0; j < kRowTiles; ++j) {
+        const uint2 bv =
+            *reinterpret_cast<const uint2*>(sr + 8 * j * stride + 8 * s);
+        const unsigned bm[2] = {bv.x, bv.y};
+        mma_b1(acc[j], am, bm);
+        if (kOwnCounts && 8 * s + 2 * t < w) {   // not the next row's
+          own[j] += __popc(bv.x) + __popc(bv.y);
         }
       }
     }
+    int2 prs[kRowTiles];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {   // over the 4 lanes t that share a row
-      pa[h] += __shfl_xor_sync(0xffffffffu, pa[h], 1);
-      pa[h] += __shfl_xor_sync(0xffffffffu, pa[h], 2);
-    }
-    const unsigned local[2] = {static_cast<unsigned>(rows.row[0] - span0),
-                               static_cast<unsigned>(rows.row[1] - span0)};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {   // a masked row is never selected
-      if (!rows.live[h]) pa[h] = 1 << 30;
-    }
-    if (base + kRows < span1) {   // the next pass's rows, during selection
-      rows.load(corpus, mask, base + kRows, span1, words);
-    }
-    unsigned hits = 0;   // bit 4 j + 2 h + e: (row h, query 8 j + 2 t + e)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      if (j >= n_nt) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
+    for (int j = 0; j < kRowTiles; ++j) {
+      const int r0 = st * rows + slice * a.rw + 8 * j;
+      if (kOwnCounts) {   // row g's count over its 4 lanes, then rows 2 t
+        int p = own[j];   // and 2 t + 1 from the lanes that hold them
+        p += __shfl_xor_sync(0xffffffffu, p, 1);
+        p += __shfl_xor_sync(0xffffffffu, p, 2);
+        int q[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          hits |= static_cast<unsigned>(pa[h] - 2 * acc[j][2 * h + e] <
-                                        lim[j][e])
-                  << (4 * j + 2 * h + e);
+          q[e] = __shfl_sync(0xffffffffu, p, 4 * (2 * t + e));
+          const long long gr = span0 + static_cast<long long>(it) * rows +
+                               slice * a.rw + 8 * j + 2 * t + e;
+          const bool live = gr < span1 &&
+                            (a.mask == nullptr || mk[r0 + 2 * t + e] != 0);
+          q[e] = live ? q[e] : kDead;
         }
+        prs[j] = make_int2(q[0], q[1]);
+      } else {
+        prs[j] = *reinterpret_cast<const int2*>(pr + r0 + 2 * t);
       }
     }
-    if (hits != 0) {   // rare once the thresholds have settled
+    __syncwarp();
+    if (lane == 0) bar_arrive(empty + st);   // the warp has read the stage
+
+    // (row, query) passes iff pr - 2 dot < lim = limit - popc(q), the
+    // limit the least of the warp's own k-th distance (strict: its rows
+    // come in ascending order) and the published one + 1 (ties pass)
+    int lim[2];
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) {
+    for (int h = 0; h < 2; ++h) {
+      if (has[h]) {
+        const long long own = my_thr[g + 8 * h] >> row_bits;
+        lim[h] = static_cast<int>(min(own, (gv[h] >> 32) + 1)) - pqv[h];
+      } else {
+        lim[h] = kNever;
+      }
+    }
+    int low[2] = {INT_MAX, INT_MAX};   // least pr - 2 dot a query
+#pragma unroll
+    for (int j = 0; j < kRowTiles; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        low[h] = min(low[h], min(prs[j].x - 2 * acc[j][2 * h],
+                                 prs[j].y - 2 * acc[j][2 * h + 1]));
+      }
+    }
+    if (low[0] < lim[0] || low[1] < lim[1]) {   // rare once settled
+      const unsigned local0 = static_cast<unsigned>(
+          static_cast<long long>(it) * rows + slice * a.rw + 2 * t);
+#pragma unroll
+      for (int j = 0; j < kRowTiles; ++j) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            if (hits & (1u << (4 * j + 2 * h + e))) {
-              const int qi = 8 * j + 2 * t + e;
-              const int dist = pa[h] + pq[qi] - 2 * acc[j][2 * h + e];
-              buf[qi * kBuf + atomicAdd(&cnt[qi], 1)] =
-                  (static_cast<unsigned>(dist) << row_bits) | local[h];
+            const int p = e ? prs[j].y : prs[j].x;
+            if (p - 2 * acc[j][2 * h + e] < lim[h]) {
+              const int qi = g + 8 * h;
+              const unsigned dist =
+                  static_cast<unsigned>(p + pqv[h] - 2 * acc[j][2 * h + e]);
+              my_buf[qi * kbuf + atomicAdd(my_cnt + qi, 1)] =
+                  (dist << row_bits) | (local0 + 8 * j + e);
             }
           }
         }
       }
     }
-    __syncthreads();
-    const bool last = base + kRows >= span1;
-    for (int qi = warp; qi < nq; qi += kThreads / 32) {
-      const int c = cnt[qi];
-      if (c > kMergeAbove || (last && c > 0)) {
-        merge(best + qi * k, buf + qi * kBuf, thr + qi, cnt + qi, k);
+    __syncwarp();
+    const bool last = it + 1 == n_it;
+    const int c = lane < kTileQ ? my_cnt[lane] : 0;
+    unsigned need = __ballot_sync(0xffffffffu, c > kbuf - a.rw ||
+                                                   (last && c > 0));
+    while (need != 0) {
+      const int qi = __ffs(need) - 1;
+      need &= need - 1;
+      merge(my_best + qi * a.k, my_buf + qi * kbuf, my_thr + qi, my_cnt + qi,
+            a.k);
+      const unsigned kth = my_best[qi * a.k + a.k - 1];
+      if (lane == 0 && kth != kNone) {   // publish the k-th, made global
+        atomicMin(reinterpret_cast<unsigned long long*>(a.gthr) + q0 + qb +
+                      qi,
+                  (static_cast<unsigned long long>(kth >> row_bits) << 32) |
+                      static_cast<unsigned long long>(
+                          span0 + (kth & ((1u << row_bits) - 1))));
       }
     }
-    __syncthreads();
+    __syncwarp();
   }
 
-  for (int i = threadIdx.x; i < nq * k; i += kThreads) {
-    const int qi = i / k;
-    const unsigned key = best[i];
-    long long g = LLONG_MAX;
+  for (int i = lane; i < kTileQ * a.k; i += 32) {
+    const int qi = i / a.k;
+    if (qb + qi >= nq) break;
+    const unsigned key = my_best[i];
+    long long gk = LLONG_MAX;
     if (key != kNone) {
-      g = (static_cast<long long>(key >> row_bits) << 32) |
-          (span0 + (key & ((1u << row_bits) - 1)));
+      gk = (static_cast<long long>(key >> row_bits) << 32) |
+           (span0 + (key & ((1u << row_bits) - 1)));
     }
-    out[(static_cast<long long>(q0 + qi) * groups + group) * k + i % k] = g;
+    a.out[((static_cast<long long>(q0 + qb + qi) * a.groups + group) *
+               a.slices +
+           slice) *
+              a.k +
+          i % a.k] = gk;
   }
 }
 
-template <int kSteps>
-int launch(const void* corpus, const void* queries, const void* mask,
-           void* out, long long n_rows, int n_q, int words, int k,
-           long long span, int groups, bool select, cudaStream_t stream) {
-  const int smem = kSteps * kNT * 32 * 8 + 3 * kQBlock * 4 +
-                   kQBlock * (k + kBuf) * 4;
-  auto kernel = hamming_topk_kernel<kSteps>;
+bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
+
+int dispatch(Args a, void* stream) {
+  const int w = a.words, rows = a.slices * a.rw;
+  if (w % 4 || w < 4 || w > kMaxWords || a.k < 1 || a.k > kMaxK ||
+      a.span < 1 || a.n_q < 1 || a.n_rows < 1 || !pow2(a.tiles) ||
+      a.tiles > 8 || !pow2(a.slices) || a.tiles * a.slices > kConsumers ||
+      !pow2(a.rw) || a.rw < 8 || a.rw > 8 * kMaxRowTiles ||
+      rows > kMaxStageRows || a.stages < kMinStages ||
+      a.stages > kMaxStages || a.span % rows ||
+      a.span > (1LL << std::min(20, __builtin_clz(32u * w))) ||
+      a.groups * a.span < a.n_rows ||
+      (a.groups - 1) * a.span >= a.n_rows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int smem = layout(w, a.k, a.tiles, a.slices, a.rw, a.stages).bytes;
+  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  const int per_block = a.tiles * kTileQ;
+  const long long qblocks = (a.n_q + per_block - 1) / per_block;
+  if (qblocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.select) {   // no threshold yet: 0x7F7F... is above every key
+    const cudaError_t set = cudaMemsetAsync(
+        a.gthr, 0x7F, static_cast<size_t>(a.n_q) * sizeof(long long), s);
+    if (set != cudaSuccess) return static_cast<int>(set);
+  }
+  const bool own = a.tiles == 1;
+  const auto kernel =
+      a.rw == 8    ? (own ? hamming_topk_kernel<1, true>
+                          : hamming_topk_kernel<1, false>)
+      : a.rw == 16 ? (own ? hamming_topk_kernel<2, true>
+                          : hamming_topk_kernel<2, false>)
+      : a.rw == 32 ? (own ? hamming_topk_kernel<4, true>
+                          : hamming_topk_kernel<4, false>)
+                   : (own ? hamming_topk_kernel<8, true>
+                          : hamming_topk_kernel<8, false>);
   const cudaError_t set = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid(static_cast<unsigned>(groups),
-                  static_cast<unsigned>((n_q + kQBlock - 1) / kQBlock));
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const int32_t*>(corpus), static_cast<const int32_t*>(queries),
-      static_cast<const uint8_t*>(mask), static_cast<long long*>(out), n_rows,
-      n_q, words, k, span, groups, select);
+  const dim3 grid(static_cast<unsigned>(a.groups),
+                  static_cast<unsigned>(qblocks));
+  kernel<<<grid, kThreads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-using Launch = int (*)(const void*, const void*, const void*, void*,
-                       long long, int, int, int, long long, int, bool,
-                       cudaStream_t);
-constexpr Launch kLaunch[] = {launch<0>, launch<1>, launch<2>,
-                              launch<3>, launch<4>, launch<5>,
-                              launch<6>, launch<7>, launch<8>};
-
-int dispatch(const void* corpus, const void* queries, const void* mask,
-             void* out, long long n_rows, int n_q, int w, int k,
-             long long span, int groups, bool select, void* stream) {
-  if (w % 4 || w < 4 || w > (1 << 20) || k < 1 || k > kMaxK || span < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  // a group's rows must fit the keys' row bits
-  const int row_bits = w <= 8 * 8 ? kStepsRowBits
-                                  : __builtin_clz(32u * static_cast<unsigned>(w));
-  if (span > (1LL << row_bits)) return static_cast<int>(cudaErrorInvalidValue);
-  const int steps = (w + 7) / 8;
-  return kLaunch[steps <= 8 ? steps : 0](
-      corpus, queries, mask, out, n_rows, n_q, w, k, span, groups, select,
-      static_cast<cudaStream_t>(stream));
+Args make_args(const void* corpus, const void* queries, const void* mask,
+               void* out, void* gthr, long long n_rows, int n_q, int w, int k,
+               long long span, int groups, int tiles, int slices, int rw,
+               int stages, bool select) {
+  Args a;
+  a.corpus = static_cast<const int32_t*>(corpus);
+  a.queries = static_cast<const int32_t*>(queries);
+  a.mask = static_cast<const uint8_t*>(mask);
+  a.out = static_cast<long long*>(out);
+  a.gthr = static_cast<long long*>(gthr);
+  a.n_rows = n_rows;
+  a.span = span;
+  a.n_q = n_q;
+  a.words = w;
+  a.k = k;
+  a.groups = groups;
+  a.tiles = tiles;
+  a.slices = slices;
+  a.rw = rw;
+  a.stages = stages;
+  a.select = select;
+  return a;
 }
 
 // The card's rate of m16n8k256.b1.and.popc: each warp issues `iters`
 // rounds of 8 independent products on register fragments, no memory in
 // the loop. One int a thread is written so nothing is dropped.
-__global__ void __launch_bounds__(kThreads) b1_rate_kernel(int iters,
-                                                           int* out) {
+__global__ void __launch_bounds__(kRateThreads) b1_rate_kernel(int iters,
+                                                               int* out) {
   const unsigned x = threadIdx.x * 0x9E3779B9u + blockIdx.x;
   const unsigned a[4] = {x, x ^ 0x55555555u, ~x, x * 3u};
   const unsigned b[2] = {x ^ 0x0F0F0F0Fu, x * 5u};
@@ -411,37 +663,42 @@ __global__ void __launch_bounds__(kThreads) b1_rate_kernel(int iters,
   int s = 0;
 #pragma unroll
   for (int j = 0; j < 8; ++j) s += c[j][0] + c[j][1] + c[j][2] + c[j][3];
-  out[blockIdx.x * kThreads + threadIdx.x] = s;
+  out[blockIdx.x * kRateThreads + threadIdx.x] = s;
 }
 
 }  // namespace
 
 // corpus [N, W] int32 bit patterns, queries [Q, W] int32, mask [N] bool
-// (nullptr: every row live) -> out [Q, groups, k] int64 keys
-// distance << 32 | row, ascending in each group, LLONG_MAX past the
-// group's live rows. W % 4 == 0, 1 <= k <= 64, span a multiple of 128
-// and at most 2^20 (W <= 64) or 2^clz(32 W) with groups * span >= N,
-// pointers
-// 16-byte aligned (the wrapper checks). Returns cudaGetLastError() after
-// the launch.
+// (nullptr: every row live), gthr [Q] int64 scratch (set here) -> out
+// [Q, groups, slices, k] int64 keys distance << 32 | row, ascending in
+// each (group, slice), LLONG_MAX past its live rows. The plan (tiles of
+// 16 queries a block, row slices, rows a warp a stage, stages, groups of
+// span rows) is ops/kernels._hamming_groups's; W % 4 == 0, 1 <= k <= 64,
+// pointers 16-byte aligned (the wrapper checks). Returns the first CUDA
+// error of the memset, the attribute or the launch.
 extern "C" int neumann_hamming_topk(const void* corpus, const void* queries,
-                                    const void* mask, void* out,
+                                    const void* mask, void* out, void* gthr,
                                     long long n_rows, int n_q, int w, int k,
-                                    long long span, int groups,
+                                    long long span, int groups, int tiles,
+                                    int slices, int rw, int stages,
                                     void* stream) {
-  return dispatch(corpus, queries, mask, out, n_rows, n_q, w, k, span, groups,
-                  true, stream);
+  return dispatch(make_args(corpus, queries, mask, out, gthr, n_rows, n_q, w,
+                            k, span, groups, tiles, slices, rw, stages, true),
+                  stream);
 }
 
 // For measurement only: the same launch with nothing selected (out gets
-// only LLONG_MAX), so its time is that of the loads, the products and
-// the per-distance compare, without the appends and merges.
+// only LLONG_MAX, gthr is neither set nor read), so its time is that of
+// the copies, the row counts, the products and the compares, without the
+// appends, merges and shared thresholds.
 extern "C" int neumann_hamming_topk_unselected(
     const void* corpus, const void* queries, const void* mask, void* out,
-    long long n_rows, int n_q, int w, int k, long long span, int groups,
-    void* stream) {
-  return dispatch(corpus, queries, mask, out, n_rows, n_q, w, k, span, groups,
-                  false, stream);
+    void* gthr, long long n_rows, int n_q, int w, int k, long long span,
+    int groups, int tiles, int slices, int rw, int stages, void* stream) {
+  return dispatch(make_args(corpus, queries, mask, out, gthr, n_rows, n_q, w,
+                            k, span, groups, tiles, slices, rw, stages,
+                            false),
+                  stream);
 }
 
 // For measurement only: `blocks` x 256 threads of b1_rate_kernel into out
@@ -449,7 +706,8 @@ extern "C" int neumann_hamming_topk_unselected(
 // 16 x 8 x 256 bits.
 extern "C" int neumann_b1_mma_rate(int blocks, int iters, void* out,
                                    void* stream) {
-  b1_rate_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  b1_rate_kernel<<<blocks, kRateThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
       iters, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -146,9 +146,11 @@ def build_kernels(verbose: bool = False) -> ctypes.CDLL:
                  [vp, vp, vp, vp, vp, vp, i32, i64, i32, i32, vp]),
                 ("neumann_hamming_scores", [vp, vp, vp, i64, i32, i32, vp]),
                 ("neumann_hamming_topk",
-                 [vp, vp, vp, vp, i64, i32, i32, i32, i64, i32, vp]),
+                 [vp, vp, vp, vp, vp, i64, i32, i32, i32, i64, i32, i32,
+                  i32, i32, i32, vp]),
                 ("neumann_hamming_topk_unselected",
-                 [vp, vp, vp, vp, i64, i32, i32, i32, i64, i32, vp]),
+                 [vp, vp, vp, vp, vp, i64, i32, i32, i32, i64, i32, i32,
+                  i32, i32, i32, vp]),
                 ("neumann_b1_mma_rate", [i32, i32, vp, vp])):
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = i32
@@ -686,12 +688,20 @@ def hamming_scores(corpus_bits, query_bits):
 # the fused kernel's largest k (it keeps k keys a query in shared
 # memory); ops/quant.hamming_topk takes hamming_scores above it
 HAMMING_TOPK_CAP = 64
-# csrc/hamming_topk.cu: queries a block, rows a pass
-_HT_QBLOCK = 64
-_HT_PASS = 128
-# row groups a query (each writes its k best keys), unless more are
-# needed to give the card 4 blocks a SM
-_HT_GROUPS = 64
+# csrc/hamming_topk.cu's limits: queries a consumer warp (the M tile),
+# consumer warps, rows a warp a stage and a stage, ring stages, the
+# candidate buffer's base, the widest row and a block's shared memory
+_HT_TILE = 16
+_HT_WARPS = 8
+_HT_ROWS_PER_WARP = (64, 32, 16, 8)
+_HT_MAX_STAGE_ROWS = 128
+_HT_STAGES = (3, 16)
+_HT_BUF_BASE = 64
+_HT_MAX_WORDS = 1 << 16
+_HT_SMEM = 232448
+# rows a hamming_scores launch of the route for rows too wide for the
+# fused kernel's stages (about 1,390 words at k 64)
+_HT_WIDE_BLOCK = 1 << 17
 # selection keys, int64, distinct for distinct rows, so a smallest-k (or
 # greatest-k) over them is exact and ordered as lax.top_k orders equal
 # scores (by ascending row): hamming keys distance * 2^32 + row, ascending
@@ -771,14 +781,84 @@ def _ht_max_span(w: int) -> int:
     return 1 << min(20, 32 - (32 * w).bit_length())
 
 
-def _hamming_groups(n: int, q: int, w: int, dev) -> tuple:
-    """(row groups, rows a group) of the fused kernel's grid."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_qblocks = -(-q // _HT_QBLOCK)
-    passes = -(-n // _HT_PASS)
-    groups = min(passes, max(_HT_GROUPS, -(-4 * sms // n_qblocks)))
-    span = min(_ht_max_span(w), -(-passes // groups) * _HT_PASS)
-    return -(-n // span), span
+def _ht_stride(w: int, tiles: int) -> int:
+    """Words a row of the kernel's ring: with more than one query tile the
+    least >= W that is 8 mod 16, so a half warp's 8-byte loads of four
+    rows hit distinct banks; with one, W (a stage is one bulk copy)."""
+    return w + (24 - w % 16) % 16 if tiles > 1 else w
+
+
+def _ht_smem(w: int, k: int, tiles: int, slices: int, rw: int,
+             stages: int) -> int:
+    """Shared-memory bytes of one block (csrc/hamming_topk.cu ``layout``):
+    mbarriers, the A fragments, the ring and its row popcounts, popc(q),
+    each consumer warp's thresholds, counts, best keys and buffer, and the
+    rows' mask bytes."""
+    steps, rows, warps = -(-w // 8), slices * rw, tiles * slices
+    return (3 * _HT_STAGES[1] * 8 + tiles * steps * 32 * 16
+            + stages * rows * (_ht_stride(w, tiles) + 1) * 4
+            + tiles * _HT_TILE * 4
+            + warps * _HT_TILE * (2 + k + _HT_BUF_BASE + rw) * 4
+            + stages * rows)
+
+
+def _hamming_groups(n: int, q: int, w: int, k: int, sms: int):
+    """The fused kernel's plan: (tiles, slices, rows a warp a stage,
+    stages, groups, span), or None where no plan fits shared memory.
+
+    A block holds ``tiles`` tiles of 16 queries (up to 8: the corpus
+    crosses from L2 once per 128 queries) and runs each over ``slices``
+    row slices (8 // tiles where shared memory allows, so small cohorts
+    keep all 8 consumer warps busy); a stage holds slices * rw <= 128
+    rows. Each is cut, in that order of preference, until 3 stages fit;
+    the ring then takes up to 16. Row groups: one block a SM over the
+    query blocks, each spanning a multiple of a stage's rows and at most
+    ``_ht_max_span(w)`` rows, so keys inside a warp stay 32 bits."""
+    if w > _HT_MAX_WORDS:
+        return None
+    top = 1
+    while top < min(_HT_WARPS, -(-q // _HT_TILE)):
+        top *= 2
+    tiles = top
+    while tiles >= 1:
+        slices = _HT_WARPS // tiles
+        while slices >= 1:
+            for rw in _HT_ROWS_PER_WARP:
+                if slices * rw > _HT_MAX_STAGE_ROWS:
+                    continue
+                fits = [s for s in range(_HT_STAGES[0], _HT_STAGES[1] + 1)
+                        if _ht_smem(w, k, tiles, slices, rw, s) <= _HT_SMEM]
+                if fits:
+                    rows = slices * rw
+                    qblocks = -(-q // (_HT_TILE * tiles))
+                    passes = -(-n // rows)
+                    groups = min(passes, max(1, sms // qblocks))
+                    span = min(_ht_max_span(w),
+                               -(-passes // groups) * rows)
+                    return (tiles, slices, rw, fits[-1], -(-n // span),
+                            span)
+            slices //= 2
+        tiles //= 2
+    return None
+
+
+def _hamming_topk_launch(corpus_bits, query_bits, mask, k: int, plan,
+                         out, gthr, select: bool = True) -> None:
+    """One launch of the fused kernel with ``plan`` into ``out`` [Q,
+    groups * slices * k] int64, ``gthr`` [Q] int64 its shared thresholds
+    (set by the entry point); ``select`` False is the measurement launch
+    with nothing selected. Raises on a CUDA error."""
+    tiles, slices, rw, stages, groups, span = plan
+    (n, w), q = corpus_bits.shape, query_bits.shape[0]
+    lib = build_kernels()
+    entry = (lib.neumann_hamming_topk if select
+             else lib.neumann_hamming_topk_unselected)
+    with torch.cuda.device(corpus_bits.device):
+        err = entry(corpus_bits.data_ptr(), query_bits.data_ptr(),
+                    0 if mask is None else mask.data_ptr(), out.data_ptr(),
+                    gthr.data_ptr(), n, q, w, k, span, groups, tiles, slices,
+                    rw, stages, _stream())
+    _raise_on(err, "hamming_topk")
 
 
 def hamming_topk(corpus_bits, query_bits, mask, k: int):
@@ -791,9 +871,11 @@ def hamming_topk(corpus_bits, query_bits, mask, k: int):
     bool or None, 1 <= k <= HAMMING_TOPK_CAP. Returns (scores [Q, k'] f32
     = -distance, ids [Q, k'] int32), k' = min(k, N): the k' best rows by
     (distance ascending, row ascending), -inf / -1 past the live rows.
-    The kernel writes each row group's k best keys; one ``torch.topk``
-    over [Q, groups * k] finishes the job, as ``lax.top_k`` sits outside
-    the Pallas kernel."""
+    The kernel writes each (row group, row slice)'s k best keys; one
+    ``torch.topk`` over [Q, groups * slices * k] finishes the job, as
+    ``lax.top_k`` sits outside the Pallas kernel. Rows too wide for the
+    kernel's stages (no plan fits shared memory: about 1,390 words at k
+    64) take ``hamming_scores`` and the same keyed merge."""
     _check_hamming(corpus_bits, query_bits)
     dev = corpus_bits.device
     (n, w), q = corpus_bits.shape, query_bits.shape[0]
@@ -807,22 +889,29 @@ def hamming_topk(corpus_bits, query_bits, mask, k: int):
     if dev.type == "cpu":
         return hamming_topk_plain(corpus_bits, query_bits, mask, k)
     _hamming_cuda_ready("hamming_topk", corpus_bits, query_bits)
-    if q > 65535 * _HT_QBLOCK:   # query blocks on grid.y
-        raise ValueError(f"hamming_topk kernel needs Q <= "
-                         f"{65535 * _HT_QBLOCK} (Q={q})")
     if mask is not None and not mask.is_contiguous():
         raise ValueError("mask must be contiguous for the kernel")
-    lib = build_kernels()
+    if mask is not None and mask.data_ptr() % 4:   # read 4 bytes at a time
+        mask = mask.clone()
     if not (q and n):
         return (torch.full((q, min(k, n)), float("-inf"), device=dev),
                 torch.full((q, min(k, n)), -1, dtype=torch.int32, device=dev))
-    groups, span = _hamming_groups(n, q, w, dev)
-    out = torch.empty((q, groups * k), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.neumann_hamming_topk(
-            corpus_bits.data_ptr(), query_bits.data_ptr(),
-            0 if mask is None else mask.data_ptr(), out.data_ptr(), n, q, w,
-            k, span, groups, _stream())
-    _raise_on(err, "hamming_topk")
+    plan = _hamming_groups(
+        n, q, w, k, torch.cuda.get_device_properties(dev)
+        .multi_processor_count)
+    if plan is None:   # rows too wide for a stage: the distances kernel
+        best = None
+        for r0 in range(0, n, _HT_WIDE_BLOCK):
+            best = merge_keys(best, hamming_keys(hamming_scores(
+                corpus_bits[r0:r0 + _HT_WIDE_BLOCK], query_bits), r0, mask),
+                min(k, n))
+        return decode_hamming_keys(best)
+    if -(-q // (_HT_TILE * plan[0])) > 65535:   # query blocks on grid.y
+        raise ValueError(f"hamming_topk kernel needs Q <= "
+                         f"{65535 * _HT_TILE * plan[0]} (Q={q})")
+    out = torch.empty((q, plan[4] * plan[1] * k), dtype=torch.int64,
+                      device=dev)
+    gthr = torch.empty(q, dtype=torch.int64, device=dev)
+    _hamming_topk_launch(corpus_bits, query_bits, mask, k, plan, out, gthr)
     LAUNCHES["hamming_topk"] += 1
     return decode_hamming_keys(merge_keys(None, out, min(k, n)))

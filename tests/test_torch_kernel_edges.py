@@ -19,10 +19,15 @@ steps 32 floats of K at a time, so d = 80 ends inside a step). The int8
 outputs must be bit-identical; the f32 pooled
 winners must decode within one packed-mantissa step of the plain
 version's, with the winning rows equal on >= 99 % of the live pools.
-Hamming top-k: Q 1, 5, 70 and 1,025, N 3,001 and 2^20, W 4 to 256 (d up
-to 8,192: the fused kernel's unrolled step counts, its looped one above
-W 64, and the hamming_scores route), k 1, 10, the cap and the cap + 1, all
-rows masked and one live row; scores and ids equal. Batched probe: q_cap
+Hamming top-k: Q 1, 5, 70 and 1,025 and both sides of the fused kernel's
+16-query warp tile and 128-query block (15-17, 127-129), N 3,001 and
+2^20, W 4 to 256 (d up to 8,192; every plan of query tiles, row slices
+and stages the wrapper picks there, and the hamming_scores route), k 1,
+10, the cap and the cap + 1; all rows masked and one live row; rows
+copied across distant row groups, so the k-th distance ties across
+blocks at the shared threshold; whole row groups dead; rows too wide for
+the kernel's stages (W 1,408, the distances kernel); scores and ids
+equal. Batched probe: q_cap
 8 to 200, windows of 128 to 4,096 rows, d 64, 768, 784 (d % 32 = 16) and
 4,096 (queries streamed with the rows), top-2 on and off; bit for bit.
 """
@@ -146,7 +151,7 @@ def test_f32_pooled_edges_within_tolerance(cuda, q, pool, d):
 
 # hamming top-k (kernel 7): every shape through quant.hamming_topk, which
 # takes the fused kernel up to its k cap and hamming_scores above it
-HAMMING_QS = (1, 5, 70, 1025)
+HAMMING_QS = (1, 5, 15, 16, 17, 70, 127, 128, 129, 1025)
 HAMMING_NS = (3001, 1 << 20)
 HAMMING_WS = (4, 8, 12, 24, 64, 96, 128, 256)
 
@@ -212,6 +217,77 @@ def test_hamming_topk_masked_edges(cuda, live):
     assert int(torch.isfinite(s).sum()) == 70 * live
     if live:
         assert (i[:, 0] == 1234).all() and (i[:, 1:] == -1).all()
+
+
+def _assert_topk_equal(tk, cb, qb, mask, ks=(1, 10, 64)):
+    """The fused kernel (one launch each) against the plain top-k."""
+    ws_all, wi_all = tk.hamming_topk_plain(cb, qb, mask, max(ks))
+    for k in ks:
+        before = tk.LAUNCHES["hamming_topk"]
+        s, i = tk.hamming_topk(cb, qb, mask, k)
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES["hamming_topk"] == before + 1
+        assert torch.equal(s, ws_all[:, :k]), k
+        assert torch.equal(i, wi_all[:, :k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 17, 129])
+@pytest.mark.parametrize("w", [24, 96])
+def test_hamming_topk_ties_across_groups(cuda, q, w):
+    """64 base rows copied to 15 distant places of a 2^20-row corpus (one
+    per row group or more apart), queries a few bits from a base row: a
+    query's k best rows are copies at equal distances in many blocks,
+    so the k-th distance ties across blocks at the shared threshold and
+    the lower rows must win."""
+    from neumann_tpu_torch.ops import kernels as tk
+
+    n = 1 << 20
+    g = torch.Generator(device=cuda).manual_seed(60 + q + w)
+    cb = _bits(g, cuda, n, w)
+    base = cb[:64].clone()
+    for c in range(1, 16):
+        r0 = c * (n // 16) + 37 * c
+        cb[r0:r0 + 64] = base
+    pick = torch.randint(0, 64, (q,), generator=g, device=cuda)
+    qb = base[pick] ^ (_bits(g, cuda, q, w) & _bits(g, cuda, q, w)
+                       & _bits(g, cuda, q, w) & _bits(g, cuda, q, w))
+    mask = torch.rand(n, generator=g, device=cuda) > 0.01
+    _assert_topk_equal(tk, cb, qb.contiguous(), mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 17, 129])
+def test_hamming_topk_dead_groups(cuda, q):
+    """Whole row groups dead: the first half of a 2^20-row corpus and a
+    run in the middle of the second, and a live run too short for k 64
+    in a dead stretch; the rest 10 % dead."""
+    from neumann_tpu_torch.ops import kernels as tk
+
+    n = 1 << 20
+    cb, qb, mask = _hamming_case(cuda, n, q, 24, 80 + q)
+    mask[: n // 2] = False
+    mask[n // 2 + 100_000: n // 2 + 300_000] = False
+    mask[200_000:200_040] = True
+    _assert_topk_equal(tk, cb, qb, mask)
+
+
+@pytest.mark.cuda
+def test_hamming_topk_too_wide_for_stages(cuda):
+    """Rows of 1,408 words (45,056 bits) leave no plan that fits shared
+    memory at k 64: the wrapper takes the distances kernel and the keyed
+    merge, results equal."""
+    from neumann_tpu_torch.ops import kernels as tk
+
+    cb, qb, mask = _hamming_case(cuda, 3001, 5, 1408, 90)
+    assert tk._hamming_groups(3001, 5, 1408, 64, 132) is None
+    ws, wi = tk.hamming_topk_plain(cb, qb, mask, 64)
+    before = dict(tk.LAUNCHES)
+    s, i = tk.hamming_topk(cb, qb, mask, 64)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["hamming_topk"] == before["hamming_topk"]
+    assert tk.LAUNCHES["hamming_scores"] > before["hamming_scores"]
+    assert torch.equal(s, ws) and torch.equal(i, wi)
 
 
 # batched top-2 probe (kernel 2): live slots 0 .. count - 1 per window,
