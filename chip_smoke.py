@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SIMILAR paths once on one NVIDIA GPU: the
-auto-IVF path, then the brute-force pooled, int8 and binary routes, then a
+auto-IVF path, then the brute-force pooled, int8 and binary routes, PQ and
+TT collections and the ANN index APIs (IVF, HNSW, saved indexes), then a
 3,072-d binary collection, then the hybrid graph + vector query; serve
 the auto-IVF and brute-force corpora over HTTP to concurrent clients;
 run the shell.
@@ -14,7 +15,7 @@ the CUDA toolkit (nvcc)::
 Phases (each raises on failure; exit code 0 only if all pass):
 
 1. print the card's name and power limit (nvidia-smi), build the CUDA
-   kernels from neumann_tpu_torch/csrc (six sources, seven entries) and
+   kernels from neumann_tpu_torch/csrc (seven sources, eight entries) and
    print the build time; build and load the native lexer and parser
    (neumann_tpu_torch/native/*.cpp), fail if either is missing, and time
    the parse of 64 unseen SIMILARs of 768 and of 3,072 floats through the
@@ -34,7 +35,11 @@ Phases (each raises on failure; exit code 0 only if all pass):
    launch), the top-10 at 1 and 256 queries x 262,144 rows (phase 10's
    single and batch launches); the batched top-2 probe again at d 4,096,
    512 windows; the f32 pooled bits again at phase 11's FIND launch, 1
-   query x 262,144 rows at pool 128);
+   query x 262,144 rows at pool 128; the ADC scan (row 8) bit for bit at
+   1,024, 8 and 1 queries x 1,048,576 rows x 96 subspaces, in its gathered
+   mode at 64 queries x 16 blocks of 2,048, and at 64 x 262,144 x 384,
+   each beside one ``F.embedding_bag`` call for the same sums; phases 14
+   and 15 add the shapes their batches launch);
 3. generate a 4,194,304 x 768 corpus from --seed with numpy (4,096
    N(0,1) centres + sigma 0.25 noise) and load it with
    ``router.vector.ingest_matrix``;
@@ -106,6 +111,32 @@ Phases (each raises on failure; exit code 0 only if all pass):
 13. samples/knowledge-base.nql through the port's shell (plain theme) on
     a CUDA router and on a CPU router: equal text; ``doctor`` reports the
     CUDA device.
+14. PQ and TT collections (cell G; run after phase 12b, on phases 7-9's
+    rows): a ``QUANTIZATION pq`` collection of all 1,048,576 rows
+    ``{"cat": i % 16}`` (its first SIMILAR trains the 96-subspace
+    codebook and encodes, timed apart); counted: 64 singles, a batch of
+    1,024, 4 ``WHERE cat = 3`` (the ADC kernel, row 8), hits equal to the
+    plain ADC + top-k on the engine's codes, keys in order, every
+    filtered hit in cat 3; row 8 timed at the batch's query steps (85
+    queries, and the 4 left), and one batch call profiled; then a ``QUANTIZATION tt`` collection of the
+    first 262,144 rows (its first SIMILAR decomposes them on the card):
+    16 singles and a batch of 256, hits equal to the exact scan of the
+    reconstructed rows, 256 sampled rows within 1e-5 relative of the
+    numpy ``tt_decompose``. recall@10 against the exact f32 scan (L2 for
+    pq, cosine for tt) recorded, not limited.
+15. the ANN index APIs (cell H): ``build_ivf_index(1024, 32)`` over the
+    first 262,144 of the same rows in a default namespace (its padded
+    layout of 1,048,576 rows would take 100 GiB; build seconds; p50 and
+    recall@10 of 64 singles at nprobe 8 and 32, 16 of them equal to an
+    exact float64 scan of their probed lists); ``IVFIndex`` in the pq
+    storage (row 8 in its gathered mode, equal to its plain version) and
+    the binary storage on 262,144 rows, row 8 timed at the shapes its
+    batch and a single query launch; ``build_hnsw_index`` dense on
+    32,768 rows, quantized on 16,384 and binary on 8,192 (host inserts,
+    one row a call, the three graphs built at once in threads: insert
+    rate, p50, recall@10); ``save_index`` ->
+    ``load_index`` on a fresh router gives the same hits, for HNSW and
+    for IVF.
 
 Every kernel must launch in the counted phases. After phase 4 it
 profiles 8 single SIMILARs and one batch (cProfile on the host,
@@ -129,6 +160,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
 import json
 import os
@@ -137,6 +169,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 
@@ -178,6 +211,8 @@ KERNELS = {
                            replaces="neumann_tpu/ops/pallas_kernels.py:40"),
     "hamming_topk": dict(source="neumann_tpu_torch/csrc/hamming_topk.cu",
                          replaces="neumann_tpu/ops/pallas_kernels.py:90"),
+    "pq_adc": dict(source="neumann_tpu_torch/csrc/pq_adc.cu",
+                   replaces="neumann_tpu/ops/pq.py:116"),
 }
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
 # a kernel's bound is the larger of its bytes (each input read once, each
@@ -190,6 +225,9 @@ F32_FLOPS_PER_S = 67e12
 # C++ Programming Guide's throughput table (16 POPC per SM per clock) at
 # 132 SMs and the 1,980 MHz boost clock, reported beside the bytes bound
 POPC_PER_S = 16 * 132 * 1.98e9
+# the ADC scan's operations are table lookups in shared memory: 32 banks,
+# one 4-byte word each a clock, a SM, at 132 SMs and the same clock
+SMEM_LOOKUPS_PER_S = 32 * 132 * 1.98e9
 # why a kernel has no one-call PyTorch yardstick (library_ms null)
 NO_LIBRARY = {
     "ivf_probe": "no one PyTorch call scores windows gathered by probe "
@@ -201,6 +239,10 @@ NO_LIBRARY = {
     "hamming_topk": "no PyTorch call takes packed sign bits, and none "
                     "selects a top-k without the [Q, N] distances",
 }
+# row 8's yardstick: one PyTorch call for the same sums (adc_library)
+ADC_LIBRARY = ("F.embedding_bag(idx, w, mode='sum'): bags of a row's M "
+               "codes offset 256 a subspace (gathered: and M * 256 a query) "
+               "into the tables; sums only, no negation or mask")
 # phase 2: rows of one hamming_scores launch on the binary route above the
 # fused kernel's k cap (ops/quant.hamming_topk's block); phase 9: queries
 # of the TOP 65 batch held against the plain top-k
@@ -257,11 +299,12 @@ SAMPLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "samples",
 # phase 11's hybrid queries (F) and the served phases 12a (A) and 12b
 # (B-D)
 ROUTES = ("ivf", "pooled", "int8", "binary", "wide", "hybrid",
-          "served_ivf", "served_brute")
+          "served_ivf", "served_brute", "pq", "tt", "ann")
 # phase 2's records: the main shape's keys bare, the other shapes' with a
 # suffix
 SHAPE_SUFFIXES = ("_q1", "_q8", "_q32", "_w96", "_w96q1", "_w96q256",
-                  "_d4096", "_hyb")
+                  "_d4096", "_hyb", "_ivf", "_m384", "_g_step", "_g_tail",
+                  "_h_step", "_h_tail", "_h_single")
 # row 7's design, named in its kernels-line entry beside each shape's
 # plan (ops/kernels._hamming_groups)
 HT_DESIGN = ("queries on M (16 a warp, up to 8 warps a block), rows on N "
@@ -273,7 +316,43 @@ HT_DESIGN = ("queries on M (16 a warp, up to 8 warps a block), rows on N "
              "by 64-bit atomicMin")
 # the wrappers a route's reference swaps for their plain versions
 _PLAIN_SWAPPED = ("int8_dot_scores", "int8_pooled_bits", "f32_pooled_bits",
-                  "hamming_scores", "hamming_topk")
+                  "hamming_scores", "hamming_topk", "pq_adc_scores")
+# phase 2 and phases 14-15: row 8, the ADC scan. The engine's codebook at
+# 768-d has DIM // 8 subspaces; the kernel's design, named in its entry
+PQ_M = DIM // 8
+PQ_DESIGN = ("a block a query and 2,048 rows, the query's table in shared "
+             "memory 48 subspaces at a time, sums in registers in subspace "
+             "order; blocks walk 16 queries at a time row block by row "
+             "block (L2 reuse)")
+# phase 14 (cell G): the pq collection takes phases 7-9's rows; the tt one
+# their first TT_ROWS (the host decomposes nothing: the batched SVD runs on
+# the card), TT_SAMPLE of them held to the numpy decomposition
+TT_ROWS = 1 << 18
+N_TT_SINGLE = 16
+N_TT_BATCH = 256
+N_PQ_FILTERED = 4
+TT_SAMPLE = 256
+TT_RTOL = 1e-5
+# phase 15 (cell H): the legacy IVF index over the first IVF_ROWS of
+# phases 7-9's rows at each nprobe (its layout pads every cluster to the
+# largest: at 1,048,576 rows and 1,024 clusters the largest held about
+# 34,000 rows, a 100 GiB buffer, so the rows are cut to a quarter);
+# IVF_CHECKED queries a nprobe held to an exact scan of their probed
+# lists; IVFIndex's pq and binary storages on IVF_INDEX_ROWS rows; HNSW
+# graphs built on the host one row a call (the three at once, a thread
+# each), cut from 1,048,576 rows to what fits in about half the run's
+# time limit: on the card's host dense inserts ran at about 160 rows a
+# second at 32,768 rows, binary ones fell to 38 a second at 16,384
+IVF_ROWS = 1 << 18
+IVF_CLUSTERS = 1024
+IVF_NPROBES = (8, 32)
+IVF_CHECKED = 16
+IVF_INDEX_ROWS = 1 << 18
+IVF_INDEX_CLUSTERS = 256
+IVF_INDEX_NPROBE = 16
+HNSW_ROWS = 32_768
+HNSW_QUANT_ROWS = 16_384
+HNSW_BINARY_ROWS = 8192
 
 
 def say(msg: str) -> None:
@@ -1134,6 +1213,18 @@ def run(args, dev, config=None, on_card: bool = True) -> dict:
         torch.cuda.empty_cache()
         report["kernels"].update(check_new_kernels(dev, args.seed))
         torch.cuda.empty_cache()
+        report["kernels"]["pq_adc"] = check_pq_adc(dev, args.seed)
+        rec = report["kernels"]["pq_adc"]
+        say(f"[2] pq_adc kernel vs plain ({rec['shape']}): bit-exact"
+            + "".join(f"; {sfx[1:] or 'Q=' + str(N_BATCH)} kernel "
+                      f"{rec[f'ms{sfx}']:.4f} ms (device "
+                      f"{rec.get(f'device_ms{sfx}')}), plain "
+                      f"{rec[f'plain_ms{sfx}']:.4f} ms, embedding_bag "
+                      f"{rec[f'library_ms{sfx}']:.4f} ms, bound "
+                      f"{rec[f'bound_ms{sfx}']:.4f} ms "
+                      f"({rec[f'bound_by{sfx}']})"
+                      for sfx in ("", "_q8", "_q1", "_ivf", "_m384")))
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
     report.update(check_native_parse(args.seed))
@@ -1154,8 +1245,21 @@ def run(args, dev, config=None, on_card: bool = True) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     s_corpus7, s_queries7 = root.spawn(2)
+    shared = {}
     report.update(run_brute(args, dev, centres, s_corpus7, s_queries7,
-                            on_card))
+                            on_card, shared))
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    adc_rec = report["kernels"]["pq_adc"] if on_card else None
+    report.update(run_quantized(args, dev, shared["corpus"],
+                                shared["queries"], on_card, adc_rec))
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    report.update(run_ann(args, dev, shared["corpus"], shared["queries"],
+                          on_card, adc_rec))
+    del shared
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
@@ -1359,9 +1463,10 @@ def latency_stats(report: dict, prefix: str, lat) -> None:
 
 
 def run_brute(args, dev, centres, s_corpus, s_queries,
-              on_card: bool) -> dict:
+              on_card: bool, shared: dict) -> dict:
     """Phases 7-9: the brute-force routes at --pooled-rows (f32 pooled,
-    int8 pooled and int8 scan, binary), each counted on its own."""
+    int8 pooled and int8 scan, binary), each counted on its own. The
+    rows and queries are left in ``shared`` for phases 14-15."""
     import torch
 
     from neumann_tpu_torch.engines.vector import FilterCondition
@@ -1383,6 +1488,7 @@ def run_brute(args, dev, centres, s_corpus, s_queries,
     batch = queries[N_SINGLE:N_SINGLE + N_BATCH]
     extra = queries[N_SINGLE + N_BATCH:]
     report["pooled_generate_s"] = time.perf_counter() - t0
+    shared.update(corpus=corpus, queries=queries)
     router = QueryRouter(device=dev)
     eng = router.vector
     t0 = time.perf_counter()
@@ -1994,6 +2100,648 @@ def run_hybrid(args, dev, centres, s_corpus, s_queries, s_graph,
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 2, row 8: the ADC scan
+# ---------------------------------------------------------------------------
+
+def adc_library(codes, tables, cand=None):
+    """Row 8's one-call PyTorch yardstick, ``F.embedding_bag(idx, w,
+    mode="sum")``, with its index and weight layouts built here, outside
+    the timed call: the full scan's bags are a row's M codes offset by
+    256 a subspace into the [M * 256, Q] tables (out [N, Q]); the
+    gathered mode's are a (query, candidate) pair's codes offset also by
+    its query's M * 256 into the flat tables (out [Q * C, 1]). The
+    negation and the -inf mask are elementwise extras, left out as the
+    scales are beside ``_int_mm``. Returns the call."""
+    import torch
+    import torch.nn.functional as F
+
+    q, m, _ = tables.shape
+    off = torch.arange(m, device=codes.device) * 256
+    if cand is None:
+        idx = codes.long() + off
+        w = tables.permute(1, 2, 0).reshape(m * 256, q).contiguous()
+    else:
+        idx = (codes[cand.long().clamp_min(0)].long() + off
+               + (torch.arange(q, device=codes.device) * (m * 256))[
+                   :, None, None]).reshape(-1, m)
+        w = tables.reshape(q * m * 256, 1)
+    return lambda: F.embedding_bag(idx, w, mode="sum")
+
+
+def adc_record(rec: dict, sfx: str, codes, tables, valid, cand=None,
+               reps: int = 5) -> None:
+    """Row 8 at one shape, into ``rec`` under ``sfx``: the kernel bit for
+    bit against its plain version; the kernel and the library yardstick
+    timed in turns (``turns``), the yardstick held to the plain sums
+    within rtol 1e-5 (it computes the same function); the plain
+    version's time; device time (torch.profiler) at 8 queries or fewer;
+    the bound: the bytes each input and output move once (the gathered
+    mode's distinct candidate rows) and the live rows' lookups at the
+    shared-memory rate."""
+    import torch
+
+    from neumann_tpu_torch.ops import kernels as tk
+
+    got = tk.pq_adc_scores(codes, tables, valid, cand)
+    want = tk.pq_adc_scores_plain(codes, tables, valid, cand)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"pq_adc{sfx}: {int((got != want).sum())} scores differ "
+            f"from plain (must be bit-exact)")
+    fin = torch.isfinite(want)
+    q, m = tables.shape[0], codes.shape[1]
+    if cand is None:
+        rows_read = codes.shape[0]
+        in_bytes = nbytes(codes, tables, valid)
+    else:
+        rows_read = int(torch.unique(cand[cand >= 0]).numel())
+        in_bytes = rows_read * (m + 1) + nbytes(cand, tables)
+    lookups = int(fin.sum()) * m
+    for k, v in bound(in_bytes + nbytes(got), lookups,
+                      SMEM_LOOKUPS_PER_S).items():
+        rec[f"{k}{sfx}"] = v
+    rec[f"max_abs_err{sfx}"] = float(
+        (got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+    del got
+    lib = adc_library(codes, tables, cand)
+    sums = lib()
+    sums = (sums.T if cand is None else sums.reshape(q, -1))[fin]
+    lib_err = float(((-sums) - want[fin]).abs().max()) if fin.any() else 0.0
+    scale = float(want[fin].abs().max()) if fin.any() else 1.0
+    if not lib_err <= 1e-5 * max(scale, 1e-30):
+        raise AssertionError(f"pq_adc{sfx}: the embedding_bag yardstick is "
+                             f"off the plain sums by {lib_err}")
+    rec[f"library_max_abs_err{sfx}"] = lib_err
+    del want, fin, sums
+    rec[f"ms{sfx}"], rec[f"library_ms{sfx}"] = turns(
+        lambda: tk.pq_adc_scores(codes, tables, valid, cand), lib, reps)
+    del lib
+    rec[f"plain_ms{sfx}"] = cuda_ms(
+        lambda: tk.pq_adc_scores_plain(codes, tables, valid, cand), 1,
+        warm=False)
+    if q <= 8:
+        # a profile that saw no kernel gives 0: not measured then
+        rec[f"device_ms{sfx}"] = device_ms(
+            lambda: tk.pq_adc_scores(codes, tables, valid, cand), 20) or None
+    rec[f"lookups{sfx}"] = lookups
+    rec[f"rows_read{sfx}"] = rows_read
+    cols = (f"C {cand.shape[1]}" if cand is not None
+            else f"N {codes.shape[0]}")
+    rec[f"shape{sfx}"] = f"Q {q} x {cols} x M {m}"
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def adc_launches():
+    """Record the arguments of every ``pq_adc_scores`` call the main path
+    makes inside the block (``ops/pq`` and ``ops/ivf`` call it through
+    the ``kernels`` module), to time row 8 afterwards at those shapes."""
+    from neumann_tpu_torch.ops import kernels as tk
+
+    seen = []
+    orig = tk.pq_adc_scores
+
+    def spy(*a):
+        seen.append(a)
+        return orig(*a)
+
+    tk.pq_adc_scores = spy
+    try:
+        yield seen
+    finally:
+        tk.pq_adc_scores = orig
+
+
+def check_pq_adc(dev, seed: int) -> dict:
+    """Row 8 against its plain version, bit for bit, and beside its
+    library yardstick (``adc_record``) at: Q 1,024, 8 and 1 x 1,048,576
+    rows x M 96 (the 768-d codebook), 1 % dead rows; the gathered mode at
+    64 queries x 16 probed blocks of 2,048 rows, a third of each block
+    padding; M 384 (a 3,072-d codebook, past a block's shared memory) at
+    Q 64 x 262,144. Phases 14 and 15 add the shapes their batches
+    launch, on their own codes and tables."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed + 8)
+    rec = {"library": ADC_LIBRARY, "design": PQ_DESIGN}
+    one = functools.partial(adc_record, rec)
+
+    n = POOLED_ROWS
+    codes = torch.randint(0, 256, (n, PQ_M), generator=g, device=dev,
+                          dtype=torch.uint8)
+    valid = torch.rand(n, generator=g, device=dev) > 0.01
+    tables = torch.rand(N_BATCH, PQ_M, 256, generator=g, device=dev) * 4.0
+    one("", codes, tables, valid, reps=3)
+    for q in (8, 1):
+        one(f"_q{q}", codes, tables[:q].contiguous(), valid, reps=20)
+    del codes, valid, tables
+    blocks, stride, nprobe, q = 256, 2048, 16, 64
+    codes = torch.randint(0, 256, (blocks * stride, PQ_M), generator=g,
+                          device=dev, dtype=torch.uint8)
+    valid = (torch.arange(blocks * stride, device=dev) % stride
+             < 2 * stride // 3)
+    probe = torch.stack([torch.randperm(blocks, generator=g,
+                                        device=dev)[:nprobe]
+                         for _ in range(q)])
+    cand = ((probe[:, :, None] * stride
+             + torch.arange(stride, device=dev)).reshape(q, -1).int())
+    tables = torch.rand(q, PQ_M, 256, generator=g, device=dev) * 4.0
+    one("_ivf", codes, tables, valid, cand, reps=10)
+    del codes, valid, cand, tables
+    wide_m = WIDE_DIM // 8
+    codes = torch.randint(0, 256, (WIDE_ROWS, wide_m), generator=g,
+                          device=dev, dtype=torch.uint8)
+    valid = torch.rand(WIDE_ROWS, generator=g, device=dev) > 0.01
+    tables = torch.rand(64, wide_m, 256, generator=g, device=dev) * 4.0
+    one("_m384", codes, tables, valid, reps=5)
+    rec["shape"] = (f"Q={N_BATCH} (8, 1) x N={n} x M={PQ_M}; gathered "
+                    f"Q={q} x {nprobe} blocks of {stride}; Q=64 x "
+                    f"N={WIDE_ROWS} x M={wide_m}; phase 14's and 15's "
+                    f"batch steps")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 14 (cell G): PQ and TT collections
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def timed_methods(cls, names, sink: dict):
+    """Add each call's seconds of ``cls.<name>`` to ``sink[name]`` (the
+    engine trains and encodes inside a route's first query)."""
+    saved = {n: getattr(cls, n) for n in names}
+
+    def wrap(n, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                sink[n] = sink.get(n, 0.0) + time.perf_counter() - t0
+        return timed
+
+    try:
+        for n, fn in saved.items():
+            setattr(cls, n, wrap(n, fn))
+        yield sink
+    finally:
+        for n, fn in saved.items():
+            setattr(cls, n, fn)
+
+
+def hit_rows(hits) -> list:
+    return [int(h.key[1:]) for h in hits]
+
+
+def key_rows(index, ids) -> list:
+    """Corpus rows (keys k<row>) of slab row ids, per query."""
+    return [[int(k[1:]) for k in index.keys_of(r)] for r in ids]
+
+
+def run_quantized(args, dev, corpus, queries, on_card: bool,
+                  adc_rec: Optional[dict] = None) -> dict:
+    """Phase 14, cell G: phases 7-9's rows in a ``QUANTIZATION pq``
+    collection and their first TT_ROWS in a ``QUANTIZATION tt`` one,
+    through the router. Counted: 64 singles, a batch of 1,024 and 4
+    ``WHERE cat = 3`` on pq (the ADC kernel); 16 singles and a batch of
+    256 on tt. Gates: pq hits equal the plain ADC + top-k on the engine's
+    own codes (keys and order); tt hits equal the exact scan over the
+    reconstructed rows; TT_SAMPLE sampled rows reconstruct within TT_RTOL
+    of the numpy ``tt_decompose``; filtered hits in their category.
+    recall@10 against the exact f32 scan (L2 for pq, cosine for tt) is
+    recorded, not limited."""
+    import torch
+
+    from neumann_tpu_torch.compress.tensor_train import (
+        TTConfig,
+        tt_decompose,
+        tt_reconstruct,
+    )
+    from neumann_tpu_torch.ops import kernels as tk
+    from neumann_tpu_torch.ops.pq import PQCodebook, pq_topk
+    from neumann_tpu_torch.ops.scan import topk_scan
+    from neumann_tpu_torch.router import QueryRouter
+
+    n = len(corpus)
+    report = {}
+    single = queries[:N_SINGLE]
+    batch = queries[N_SINGLE:N_SINGLE + N_BATCH]
+    extra = queries[N_SINGLE + N_BATCH:][:N_PQ_FILTERED]
+    router = QueryRouter(device=dev)
+    eng = router.vector
+    router.execute(f"CREATE COLLECTION pq DIM {DIM} QUANTIZATION pq")
+    t0 = time.perf_counter()
+    with eng.bulk_ingest():
+        for i in range(n):
+            eng.store_in_collection("pq", f"k{i}", corpus[i],
+                                    {"cat": i % N_CATS})
+    report["pq_ingest_s"] = time.perf_counter() - t0
+    stmts = [f"SIMILAR {vec_literal(q)} IN pq TOP {TOP_K}" for q in single]
+    spent = {}
+    with timed_methods(PQCodebook, ("train", "encode"), spent):
+        t0 = time.perf_counter()
+        router.execute(stmts[0])
+        report["pq_first_query_s"] = time.perf_counter() - t0
+    report["pq_train_s"] = spent["train"]
+    report["pq_encode_s"] = spent["encode"]
+    with gc_pauses_ms() as (pauses, young):
+        tk.reset_launch_counts()
+        lat, rows_s, _ = similar_series(router, stmts, cosine=False)
+        qps, times, rows_b, _ = batch_series(
+            lambda: eng.batch_search_ns(batch, TOP_K, ns="col/pq"))
+        lat_f, rows_f, _ = similar_series(router, [
+            f"SIMILAR {vec_literal(q)} IN pq WHERE cat = {FILTER_CAT} TOP "
+            f"{TOP_K}" for q in extra], cosine=False)
+        pq_launches = dict(tk.LAUNCHES)
+    latency_stats(report, "pq_single", lat)
+    latency_stats(report, "pq_filtered", lat_f)
+    report["pq_batch_s"] = times
+    report["pq_batch_qps"] = qps
+    coll = eng._corpora["col/pq"][DIM]
+    _, book, codes, code_rows = coll._pq
+    qd = torch.from_numpy(np.ascontiguousarray(
+        queries[:N_SINGLE + N_BATCH + N_PQ_FILTERED])).to(dev)
+    live = torch.from_numpy(coll.slab.valid_mask_host()[code_rows]).to(dev)
+    cat = torch.from_numpy(np.asarray([
+        int(k[1:]) % N_CATS == FILTER_CAT
+        for k in coll.index.keys_of(code_rows.tolist())])).to(dev)
+    with plain_kernels():
+        _, ref = pq_topk(book, codes, qd[:N_SINGLE + N_BATCH], TOP_K, live)
+        _, ref_f = pq_topk(book, codes, qd[N_SINGLE + N_BATCH:], TOP_K,
+                           live & cat)
+    want = key_rows(coll.index, code_rows[ref.cpu().numpy()].tolist()) + \
+        key_rows(coll.index, code_rows[ref_f.cpu().numpy()].tolist())
+    bad = [i for i, (got, w) in enumerate(zip(rows_s + rows_b + rows_f,
+                                              want)) if got != w]
+    off_cat = [r for rr in rows_f for r in rr if r % N_CATS != FILTER_CAT]
+    emb, valid = coll.slab.device_view()
+    _, oracle = topk_scan(emb, qd[:N_SINGLE + N_BATCH], TOP_K, "euclidean",
+                          valid)
+    report["pq_recall_vs_l2"] = recall(rows_s + rows_b, np.asarray(
+        key_rows(coll.index, oracle.cpu().numpy().tolist())))
+    report["pq_subspaces"] = book.config.n_subspaces
+    report["pq_mismatches"] = len(bad)
+    report["launches_pq"] = pq_launches
+    say(f"[14] pq collection, {n} rows stored in "
+        f"{report['pq_ingest_s']:.1f} s; first query "
+        f"{report['pq_first_query_s']:.2f} s (train "
+        f"{report['pq_train_s']:.2f} s, encode {report['pq_encode_s']:.2f} "
+        f"s, M {book.config.n_subspaces}); single p50 "
+        f"{report['pq_single_p50_ms']:.3f} ms p99 "
+        f"{report['pq_single_p99_ms']:.3f} ms; batch of {N_BATCH}: "
+        f"{qps:.0f} QPS; filtered p50 {report['pq_filtered_p50_ms']:.3f} "
+        f"ms; recall@{TOP_K} vs exact L2 {report['pq_recall_vs_l2']:.4f}; "
+        f"{len(bad)} queries differ from the plain ADC; launches "
+        f"{pq_launches}")
+    if bad or off_cat:
+        raise AssertionError(f"pq hits differ from the plain ADC for "
+                             f"queries {bad[:5]}, or outside cat "
+                             f"{FILTER_CAT}: {off_cat[:5]}")
+    if on_card:
+        require_launches(pq_launches, ("pq_adc",), "14")
+        # row 8 at the shapes the batch launches (pq_topk steps its
+        # queries to bound the [Q, N] scores), on the engine's codes and
+        # tables; then where one batch call's device time goes
+        with adc_launches() as seen:
+            eng.batch_search_ns(batch, TOP_K, ns="col/pq")
+        report["pq_batch_adc_launches"] = len(seen)
+        steps = {"_g_step": seen[0], "_g_tail": seen[-1]}
+        del seen
+        for sfx, a in steps.items():
+            adc_record(adc_rec, sfx, *a)
+        del steps, a
+        prof = profile_calls({"pq_batch": lambda: eng.batch_search_ns(
+            batch, TOP_K, ns="col/pq")}, "chiprun_out")["pq_batch"]
+        adc_ms = sum(v for k, v in prof["kernels_ms"].items()
+                     if "pq_adc_kernel" in k)
+        report["profile_pq_batch"] = dict(prof, adc_device_ms=adc_ms)
+        say(f"[14] pq batch of {N_BATCH}: {report['pq_batch_adc_launches']}"
+            f" ADC launches; profiled: wall {prof['wall_ms']:.2f} ms, device "
+            f"busy {prof['device_busy_ms']:.2f} ms, of it row 8 "
+            f"{adc_ms:.2f} ms")
+    del emb, valid, codes, book, coll, live, cat, router, eng
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- tt, a router of its own -----------------------------------------
+    m = min(n, TT_ROWS)
+    router = QueryRouter(device=dev)
+    eng = router.vector
+    router.execute(f"CREATE COLLECTION tt DIM {DIM} QUANTIZATION tt")
+    t0 = time.perf_counter()
+    with eng.bulk_ingest():
+        for i in range(m):
+            eng.store_in_collection("tt", f"k{i}", corpus[i])
+    report["tt_ingest_s"] = time.perf_counter() - t0
+    stmts = [f"SIMILAR {vec_literal(q)} IN tt TOP {TOP_K}"
+             for q in single[:N_TT_SINGLE]]
+    tt_batch = batch[:N_TT_BATCH]
+    t0 = time.perf_counter()
+    router.execute(stmts[0])
+    report["tt_first_query_s"] = time.perf_counter() - t0
+    with gc_pauses_ms() as (pauses, young):
+        tk.reset_launch_counts()
+        lat, rows_s, _ = similar_series(router, stmts)
+        qps, times, rows_b, _ = batch_series(
+            lambda: eng.batch_search_ns(tt_batch, TOP_K, ns="col/tt"))
+        report["launches_tt"] = dict(tk.LAUNCHES)
+    latency_stats(report, "tt_single", lat)
+    report["tt_batch_s"] = times
+    report["tt_batch_qps"] = qps
+    coll = eng._corpora["col/tt"][DIM]
+    _, tts, tt_rows = coll._tt
+    t0 = time.perf_counter()
+    recon = tts.reconstruct()
+    if on_card:
+        torch.cuda.synchronize()
+    report["tt_reconstruct_ms"] = (time.perf_counter() - t0) * 1e3
+    report["tt_compression_ratio"] = tts.compression_ratio()
+    report["tt_rank_profiles"] = len(tts.groups)
+    tq = torch.cat([qd[:N_TT_SINGLE], qd[N_SINGLE:N_SINGLE + N_TT_BATCH]])
+    live = torch.from_numpy(coll.slab.valid_mask_host()[tt_rows]).to(dev)
+    _, ref = topk_scan(recon, tq, TOP_K, "cosine", live)
+    want = key_rows(coll.index, tt_rows[ref.cpu().numpy()].tolist())
+    bad = [i for i, (got, w) in enumerate(zip(rows_s + rows_b, want))
+           if got != w]
+    # sampled rows against the numpy decomposition, row by row
+    cfg = TTConfig.for_dim(coll.slab.dim_pad)
+    pick = np.random.default_rng(args.seed).choice(m, min(m, TT_SAMPLE),
+                                                   replace=False)
+    got = recon[torch.from_numpy(pick).to(dev)].cpu().numpy()
+    ref_rec = np.stack([tt_reconstruct(tt_decompose(r, cfg)) for r in
+                        coll.slab.rows_matrix(tt_rows[pick])[0]])
+    err = float((np.abs(got - ref_rec).max(axis=1)
+                 / np.maximum(np.abs(ref_rec).max(axis=1), 1e-30)).max())
+    report["tt_sample_max_rel_err"] = err
+    emb, valid = coll.slab.device_view()
+    _, oracle = topk_scan(emb, tq, TOP_K, "cosine", valid)
+    report["tt_recall_vs_f32"] = recall(rows_s + rows_b, np.asarray(
+        key_rows(coll.index, oracle.cpu().numpy().tolist())))
+    report["tt_mismatches"] = len(bad)
+    say(f"[14] tt collection, {m} rows stored in "
+        f"{report['tt_ingest_s']:.1f} s; first query (the decomposition) "
+        f"{report['tt_first_query_s']:.2f} s, {len(tts.groups)} rank "
+        f"profiles, compression {report['tt_compression_ratio']:.3f}x; "
+        f"single p50 {report['tt_single_p50_ms']:.3f} ms; batch of "
+        f"{len(tt_batch)}: {qps:.0f} QPS; reconstruct "
+        f"{report['tt_reconstruct_ms']:.2f} ms; sampled rows vs numpy: "
+        f"max rel err {err:.3g}; recall@{TOP_K} vs f32 "
+        f"{report['tt_recall_vs_f32']:.4f}; {len(bad)} queries differ from "
+        f"the exact scan of the reconstruction")
+    if bad or not err <= TT_RTOL:
+        raise AssertionError(f"tt hits differ from the exact scan of the "
+                             f"reconstructed rows for {bad[:5]}, or sampled "
+                             f"rows off numpy by {err} (rtol {TT_RTOL})")
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 15 (cell H): the ANN index APIs
+# ---------------------------------------------------------------------------
+
+def ann_router(dev, corpus: np.ndarray):
+    """A router whose default namespace holds ``corpus`` (keys k0..)."""
+    from neumann_tpu_torch.router import QueryRouter
+
+    router = QueryRouter(device=dev)
+    router.vector.ingest_matrix([f"k{i}" for i in range(len(corpus))],
+                                corpus)
+    return router
+
+
+def exact_rows(dev, corpus_t, q: np.ndarray, k: int = TOP_K) -> np.ndarray:
+    """Exact f32 cosine top-k row ids of queries over a device matrix."""
+    import torch
+
+    from neumann_tpu_torch.ops.scan import topk_scan
+
+    _, ids = topk_scan(corpus_t, torch.from_numpy(
+        np.ascontiguousarray(q)).to(dev), k, "cosine")
+    return ids.cpu().numpy()
+
+
+def timed_hits(fn, queries) -> tuple:
+    """(latencies ms, hit rows) of fn(q) per query."""
+    lat, rows = [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        hits = fn(q)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        rows.append(hit_rows(hits))
+    return lat, rows
+
+
+def same_hits(a, b) -> bool:
+    return [(h.key, h.score) for h in a] == [(h.key, h.score) for h in b]
+
+
+def run_ann(args, dev, corpus, queries, on_card: bool,
+            adc_rec: Optional[dict] = None) -> dict:
+    """Phase 15, cell H: the ANN index APIs. build_ivf_index over
+    IVF_ROWS of phases 7-9's rows in a default namespace (IVF_CLUSTERS
+    clusters), 64 singles at each of IVF_NPROBES, IVF_CHECKED of them
+    equal to an exact float64 scan of their probed lists; IVFIndex (the
+    default 8 PQ subspaces) in the pq storage (row 8's gathered mode,
+    equal to its plain version) and the binary storage on IVF_INDEX_ROWS
+    rows; build_hnsw_index (dense, quantized, binary) on routers of their
+    own; save_index -> load_index on a fresh router gives the same hits,
+    for HNSW and for IVF."""
+    import tempfile
+
+    import torch
+
+    from neumann_tpu_torch.ops import kernels as tk
+    from neumann_tpu_torch.ops.ivf import IVFConfig, IVFIndex
+    from neumann_tpu_torch.ops.scan import _topk_stable
+
+    report = {}
+    qs = np.ascontiguousarray(queries[:N_SINGLE])
+    corpus_t = torch.from_numpy(corpus).to(dev)
+
+    # ---- the legacy IVF API -----------------------------------------------
+    n_ivf = min(len(corpus), IVF_ROWS)
+    router = ann_router(dev, corpus[:n_ivf])
+    eng = router.vector
+    t0 = time.perf_counter()
+    eng.build_ivf_index(n_clusters=IVF_CLUSTERS, nprobe=max(IVF_NPROBES))
+    report["ivf_build_s"] = time.perf_counter() - t0
+    idx, _, row_map = eng._ivf
+    report["ivf_stride"] = idx._stride
+    oracle = exact_rows(dev, corpus_t[:n_ivf], qs)
+    tk.reset_launch_counts()
+    for nprobe in IVF_NPROBES:
+        lat, rows = timed_hits(
+            lambda q: eng.search_with_ivf_nprobe(q, TOP_K, nprobe), qs)
+        report[f"ivf_nprobe{nprobe}_p50_ms"] = float(np.percentile(lat, 50))
+        report[f"ivf_nprobe{nprobe}_recall"] = recall(rows, oracle)
+    ivf_launches = dict(tk.LAUNCHES)
+    # the plain reference: the same probed lists (the f32 cosine to the
+    # normalized centroids, as the index ranks them), scanned exactly
+    cents = torch.from_numpy(idx.centroids).to(dev)
+    cn = cents / cents.norm(dim=1, keepdim=True).clamp_min(1e-30)
+    qd = torch.from_numpy(qs).to(dev)
+    qn = qd / qd.norm(dim=1, keepdim=True).clamp_min(1e-30)
+    swaps = 0
+    for nprobe in IVF_NPROBES:
+        _, probe = _topk_stable(qn[:IVF_CHECKED] @ cn.T,
+                                min(nprobe, len(cn)))
+        for qi, blocks in enumerate(probe.cpu().numpy()):
+            pos = (blocks[:, None] * idx._stride
+                   + np.arange(idx._stride)).reshape(-1)
+            ids = idx._row_ids[pos]
+            rows = np.sort(row_map[ids[ids >= 0]])
+            hits = eng.search_with_ivf_nprobe(qs[qi], TOP_K, nprobe)
+            swaps += check_ranked(
+                [{"key": h.key, "score": h.score} for h in hits], corpus,
+                rows, qs[qi], TOP_K)
+    report["ivf_swaps"] = swaps
+    say(f"[15] IVF index, {n_ivf} rows, {idx.config.n_clusters} "
+        f"clusters (stride {idx._stride}), built in "
+        f"{report['ivf_build_s']:.1f} s; "
+        + "; ".join(f"nprobe {p}: p50 {report[f'ivf_nprobe{p}_p50_ms']:.3f}"
+                    f" ms, recall@{TOP_K} "
+                    f"{report[f'ivf_nprobe{p}_recall']:.4f}"
+                    for p in IVF_NPROBES)
+        + f"; {IVF_CHECKED} queries a nprobe equal the exact scan of their "
+          f"probed lists ({swaps} near-tie swaps)")
+    eng._ivf = None
+    del router, eng, idx, cents
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- IVFIndex, pq and binary storages --------------------------------
+    m = min(len(corpus), IVF_INDEX_ROWS)
+    x = corpus_t[:m]
+    oracle = exact_rows(dev, x, qs)
+    batch = np.ascontiguousarray(queries[N_SINGLE:N_SINGLE + N_TT_BATCH])
+    launches = {}
+    for storage in ("pq", "binary"):
+        ix = IVFIndex(DIM, IVFConfig(
+            n_clusters=min(IVF_INDEX_CLUSTERS, m), nprobe=IVF_INDEX_NPROBE,
+            storage=storage), device=dev)
+        t0 = time.perf_counter()
+        ix.train(x[:100_000])
+        ix.add(x)
+        report[f"ivf_{storage}_build_s"] = time.perf_counter() - t0
+        tk.reset_launch_counts()
+        lat, rows = [], []
+        for q in qs:
+            t0 = time.perf_counter()
+            _, ids = ix.search(q, TOP_K)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            rows.append(ids[0].tolist())
+        t0 = time.perf_counter()
+        s_b, i_b = ix.search(batch, TOP_K)
+        report[f"ivf_{storage}_batch_qps"] = len(batch) / (
+            time.perf_counter() - t0)
+        launches[storage] = dict(tk.LAUNCHES)
+        report[f"ivf_{storage}_p50_ms"] = float(np.percentile(lat, 50))
+        report[f"ivf_{storage}_recall"] = recall(rows, oracle)
+        if storage == "pq":
+            with plain_kernels():
+                s_p, i_p = ix.search(batch, TOP_K)
+            if not (np.array_equal(i_p, i_b) and np.array_equal(s_p, s_b)):
+                raise AssertionError("IVFIndex pq storage: ids or scores "
+                                     "differ from the plain ADC")
+            if adc_rec is not None:
+                # row 8's gathered mode at the shapes this index launches:
+                # the batch's query steps (they bound the [Q, C] scores)
+                # and a single query, on its own codes and tables
+                with adc_launches() as seen:
+                    ix.search(batch, TOP_K)
+                    ix.search(qs[0], TOP_K)
+                report["ivf_pq_batch_adc_launches"] = len(seen) - 1
+                steps = {"_h_step": seen[0], "_h_tail": seen[-2],
+                         "_h_single": seen[-1]}
+                del seen
+                for sfx, a in steps.items():
+                    adc_record(adc_rec, sfx, *a)
+                del steps, a
+        say(f"[15] IVFIndex {storage}, {m} rows, "
+            f"{ix.config.n_clusters} clusters (stride {ix._stride}), built "
+            f"in {report[f'ivf_{storage}_build_s']:.1f} s: p50 "
+            f"{report[f'ivf_{storage}_p50_ms']:.3f} ms, batch of "
+            f"{len(batch)} {report[f'ivf_{storage}_batch_qps']:.0f} QPS, "
+            f"recall@{TOP_K} {report[f'ivf_{storage}_recall']:.4f} (nprobe "
+            f"{IVF_INDEX_NPROBE}); launches {launches[storage]}")
+        del ix
+        gc.collect()
+    report["launches_ann"] = {
+        name: ivf_launches.get(name, 0) + sum(lc.get(name, 0)
+                                              for lc in launches.values())
+        for name in tk.LAUNCHES}
+    if on_card:
+        require_launches(launches["pq"], ("pq_adc",), "15")
+        torch.cuda.empty_cache()
+
+    # ---- HNSW, and saved indexes -----------------------------------------
+    # the three graphs build at once, a thread each (the native inserts
+    # release the GIL); each build's own seconds give its insert rate
+    engines = {st: ann_router(dev, corpus[:min(n_rows, len(corpus))]).vector
+               for st, n_rows in (("dense", HNSW_ROWS),
+                                  ("quantized", HNSW_QUANT_ROWS),
+                                  ("binary", HNSW_BINARY_ROWS))}
+
+    def build(storage):
+        t0 = time.perf_counter()
+        rows_n = engines[storage].build_hnsw_index(storage=storage)
+        return rows_n, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(engines)) as pool:
+        built = dict(zip(engines, pool.map(build, engines)))
+    report["hnsw_build_wall_s"] = time.perf_counter() - t0
+    say(f"[15] HNSW graphs built concurrently in "
+        f"{report['hnsw_build_wall_s']:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        for storage, eng in engines.items():
+            rows_n, dt = built[storage]
+            report[f"hnsw_{storage}_rows"] = rows_n
+            report[f"hnsw_{storage}_build_s"] = dt
+            report[f"hnsw_{storage}_insert_per_s"] = rows_n / dt
+            lat, rows = timed_hits(lambda q: eng.search_with_hnsw(q, TOP_K),
+                                   qs)
+            report[f"hnsw_{storage}_p50_ms"] = float(np.percentile(lat, 50))
+            report[f"hnsw_{storage}_recall"] = recall(
+                rows, exact_rows(dev, corpus_t[:rows_n], qs))
+            say(f"[15] HNSW {storage}, {rows_n} rows: built in {dt:.1f} s "
+                f"({rows_n / dt:.0f} inserts/s), search p50 "
+                f"{report[f'hnsw_{storage}_p50_ms']:.3f} ms, recall@{TOP_K} "
+                f"{report[f'hnsw_{storage}_recall']:.4f} (ef 50)")
+            if storage == "dense":
+                path = os.path.join(tmp, "hnsw.npz")
+                eng.save_index(path)
+                fresh = ann_router(dev, corpus[:rows_n]).vector
+                if fresh.load_index(path) != rows_n or not all(
+                        same_hits(eng.search_with_hnsw(q, TOP_K),
+                                  fresh.search_with_hnsw(q, TOP_K))
+                        for q in qs[:16]):
+                    raise AssertionError("a loaded HNSW index gives other "
+                                         "hits")
+                ivf_eng = ann_router(dev, corpus[:rows_n]).vector
+                ivf_eng.build_ivf_index(n_clusters=64, nprobe=8)
+                path = os.path.join(tmp, "ivf.npz")
+                ivf_eng.save_index(path)
+                fresh = ann_router(dev, corpus[:rows_n]).vector
+                if fresh.load_index(path) != rows_n or not all(
+                        same_hits(ivf_eng.search_with_ivf_nprobe(q, TOP_K, 8),
+                                  fresh.search_with_ivf_nprobe(q, TOP_K, 8))
+                        for q in qs[:16]):
+                    raise AssertionError("a loaded IVF index gives other "
+                                         "hits")
+                report["saved_index_ok"] = True
+                say("[15] save_index -> load_index on a fresh router: the "
+                    "same hits for HNSW and for IVF")
+                del ivf_eng, fresh
+    del engines, eng
+    gc.collect()
+    return report
+
+
 def check_native_parse(seed: int) -> dict:
     """Phase 1's parse check: the port's native lexer and parser build
     from neumann_tpu_torch/native/*.cpp and load, ``lang.parser.parse``
@@ -2443,11 +3191,13 @@ def kernels_line(report: dict) -> dict:
                     "ms", "plain_ms", "bound_ms", "bound_by",
                     "bytes_bound_ms", "ops_bound_ms", "kernel_ms",
                     "unselected_ms", "device_ms", "library_ms",
-                    "library_device_ms", "library", "plan")
+                    "library_device_ms", "library", "plan", "shape",
+                    "library_max_abs_err")
                     if f"{k}{sfx}" in rec})
                 row[f"roofline_share{sfx}"] = (rec[f"bound_ms{sfx}"]
                                                / rec[f"ms{sfx}"])
-                if f"device_ms{sfx}" in rec:
+                # a profile that saw no kernel records 0: no share then
+                if rec.get(f"device_ms{sfx}"):
                     row[f"device_roofline_share{sfx}"] = (
                         rec[f"bound_ms{sfx}"] / rec[f"device_ms{sfx}"])
         row["launches_by_route"] = {
@@ -2522,7 +3272,21 @@ def main() -> int:
         "parse_native_covers", "parse_native_covers_3072",
         "parse_python_native_lex_ms", "parse_python_native_lex_ms_3072",
         "shell_exact_differ", "shell_max_rel_diff", "shell_dev_s", "shell_cpu_s",
-        "total_s")}
+        "pq_ingest_s", "pq_first_query_s", "pq_train_s", "pq_encode_s",
+        "pq_single_p50_ms", "pq_single_p99_ms", "pq_batch_qps",
+        "pq_filtered_p50_ms", "pq_recall_vs_l2", "pq_mismatches",
+        "tt_ingest_s", "tt_first_query_s", "tt_single_p50_ms",
+        "tt_single_p99_ms", "tt_batch_qps", "tt_reconstruct_ms",
+        "tt_compression_ratio", "tt_sample_max_rel_err", "tt_recall_vs_f32",
+        "tt_mismatches", "ivf_build_s", "ivf_stride", "ivf_swaps",
+        *(f"ivf_nprobe{p}_{k}" for p in IVF_NPROBES
+          for k in ("p50_ms", "recall")),
+        *(f"ivf_{st}_{k}" for st in ("pq", "binary")
+          for k in ("build_s", "p50_ms", "batch_qps", "recall")),
+        *(f"hnsw_{st}_{k}" for st in ("dense", "quantized", "binary")
+          for k in ("rows", "build_s", "insert_per_s", "p50_ms", "recall")),
+        "hnsw_build_wall_s", "pq_batch_adc_launches",
+        "ivf_pq_batch_adc_launches", "saved_index_ok", "total_s")}
     for part in ("ivf", "pooled", "int8", "binary"):
         for k in ("p50_ms", "p99_ms", "qps", "batches", "mean_cohort",
                   "recall"):

@@ -16,6 +16,14 @@ Collection snapshots need no converter: both packages write and read
 the same ``.npz`` format (``snapshot_collection`` /
 ``load_collection_snapshot``).
 
+``pq_from_jax(book, codes, device)``, ``ivf_index_from_jax(ivf,
+device)`` and ``hnsw_from_jax(index)`` give the port a trained JAX
+``PQCodebook`` (its codebooks, and its codes as uint8), a JAX legacy
+``IVFIndex`` (centroids, padded layout, row ids and its f32 / PQ-code /
+sign-bit plane) and a JAX ``HNSWIndex`` (through its bytes, which both
+packages read and write alike), so both packages search one trained
+state.
+
 ``router_from_files(wal_path, snapshot_path, device)`` gives a port
 ``QueryRouter`` over a store that the JAX package's router wrote (its
 ``checkpoint`` snapshot and the WAL after it; both packages write the
@@ -75,6 +83,72 @@ def collection_state_from_jax(engine, name: str) -> dict:
                         else np.zeros((0, dim), np.float32)),
             "metadata": metas}
 
+
+def pq_from_jax(book, codes=None, device="cuda"):
+    """(port ``PQCodebook``, codes [N, M] uint8 tensor or None) of a
+    trained JAX ``PQCodebook`` and, optionally, codes it made (any
+    integer dtype)."""
+    from neumann_tpu_torch.ops.pq import PQCodebook, PQConfig
+
+    if getattr(book, "codebooks", None) is None:
+        raise ValueError("the JAX codebook is not trained")
+    cfg = book.config
+    port = PQCodebook.from_codebooks(
+        np.asarray(book.codebooks, np.float32),
+        PQConfig(n_subspaces=cfg.n_subspaces, n_centroids=cfg.n_centroids,
+                 iters=cfg.iters), device)
+    if codes is None:
+        return port, None
+    import torch
+
+    c = np.asarray(codes)
+    if c.min(initial=0) < 0 or c.max(initial=0) > 255:
+        raise ValueError("PQ codes outside 0..255")
+    return port, torch.from_numpy(c.astype(np.uint8)).to(device)
+
+
+def ivf_index_from_jax(ivf, device="cuda"):
+    """A port ``ops/ivf.IVFIndex`` holding a built JAX ``IVFIndex``'s
+    state: config, centroids, stride, row ids, cluster counts, the
+    storage plane (f32 rows, PQ codes as uint8 with the codebook, or the
+    uint32 sign-bit words as int32) and the originals it relayouts
+    from."""
+    import torch
+
+    from neumann_tpu_torch.ops.ivf import IVFConfig, IVFIndex
+
+    if getattr(ivf, "_row_ids", None) is None:
+        raise ValueError("the JAX index has no rows (add() first)")
+    c = ivf.config
+    port = IVFIndex(ivf.dim, IVFConfig(
+        n_clusters=c.n_clusters, nprobe=c.nprobe, iters=c.iters,
+        storage=c.storage, pq_subspaces=c.pq_subspaces), device=device)
+    port.centroids = np.asarray(ivf.centroids, np.float32).copy()
+    port._row_ids = np.asarray(ivf._row_ids, np.int32).copy()
+    port._stride = int(ivf._stride)
+    port._n = int(ivf._n)
+    if getattr(ivf, "_counts", None) is not None:
+        port._counts = np.asarray(ivf._counts).copy()
+    if getattr(ivf, "_host_v", None) is not None:
+        port._v = torch.from_numpy(np.array(
+            ivf._host_v, np.float32)).to(device)
+    if c.storage == "pq":
+        port._pq, port._codes = pq_from_jax(ivf._pq, ivf._codes, device)
+    elif c.storage == "binary":
+        port._bits = torch.from_numpy(
+            np.array(ivf._bits).view(np.int32)).to(device)
+    else:
+        port._reordered = torch.from_numpy(np.array(
+            ivf._reordered, np.float32)).to(device)
+    return port
+
+
+def hnsw_from_jax(index):
+    """A port ``ops/hnsw.HNSWIndex`` equal to a JAX ``HNSWIndex`` (its
+    ``to_bytes()``, read by the port's ``from_bytes``)."""
+    from neumann_tpu_torch.ops.hnsw import HNSWIndex
+
+    return HNSWIndex.from_bytes(index.to_bytes())
 
 
 def router_from_files(wal_path, snapshot_path=None, device="cuda"):

@@ -16,6 +16,12 @@ rebuilds the device state. Search routes, in the JAX engine's order:
   results and rescanned exactly at their current values;
 * binary storage: hamming top-k over packed sign bits (hamming kernel),
   score -distance;
+* pq storage: an ADC scan (``ops/pq.pq_topk``, the ADC kernel) over a
+  codebook trained on every live row, cached under the slab's version;
+  score 1 / (1 + distance);
+* tt storage: rows decomposed into tensor-train cores on the device
+  (``compress/tt_batch``, cached under the slab's version), rebuilt at
+  each search for the exact scan;
 * int8 storage, cosine / dot / euclidean: the pooled-bits int8 scan and
   an exact f32 rerank (int8 pooled kernel) where the pooled gate passes
   (``_pooled_pool``: cosine, dense, enough pools), else the int8 scan
@@ -28,9 +34,13 @@ rebuilds the device state. Search routes, in the JAX engine's order:
 
 Metadata filters are a host-evaluated row mask fused into each route.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): PQ and tensor-train storage, the HNSW / legacy IVF / saved-index
-APIs and the scan limits. One card places no corpus on a mesh.
+The ANN index APIs: ``build_ivf_index`` / ``search_with_ivf_nprobe``
+(the legacy ``ops/ivf.IVFIndex`` on the device), ``build_hnsw_index`` /
+``search_with_hnsw`` (the host HNSW graph, ``ops/hnsw``), and
+``save_index`` / ``load_index`` in the JAX engine's ``.npz`` format.
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
+the scan limits. One card places no corpus on a mesh.
 
 Every tensor lives on the engine's ``device`` (default "cuda"); nothing
 switches to the CPU on its own.
@@ -305,6 +315,9 @@ class _Corpus:
         self.build_lock = threading.Lock()
         self._auto_ivf = None
         self._auto_ivf_delta = None
+        # (slab version, ...) of the pq / tt storage routes
+        self._pq = None
+        self._tt = None
 
     def upsert(self, key: str, vec: np.ndarray,
                metadata: Optional[Dict[str, object]] = None) -> int:
@@ -389,6 +402,9 @@ class VectorEngine:
         # bulk-ingest mode: queued (ns, key, vec, metadata) puts, flushed
         # as one vectorized set_rows per (namespace, dim)
         self._bulk: Optional[list] = None
+        # the ANN index APIs' state: (index, corpus, row ids)
+        self._ivf = None
+        self._hnsw = None
         self.store.on_put(self._on_store_put)
         self.store.on_delete(self._on_store_delete)
 
@@ -703,10 +719,10 @@ class VectorEngine:
                 np.asarray(extra_mask, bool)).to(self.device)
 
         if quantization == "pq":
-            _not_ported("pq storage", "PQ storage")
+            return self._pq_search(corpus, qd, top_k, extra_mask)
         if quantization == "tt":
-            _not_ported("tt storage", "tensor-train storage")
-        if quantization == "binary":
+            scores, idx = self._tt_scan(corpus, qd, k, metric, extra_mask)
+        elif quantization == "binary":
             bits, valid = corpus.slab.quantized_view("binary")
             scores, idx = hamming_topk(bits, binary_quantize(qd), k,
                                        row_mask(valid))
@@ -746,6 +762,101 @@ class VectorEngine:
             return s
 
         return self._results(corpus, scores, idx, k, report)
+
+    def _live_rows(self, corpus: _Corpus) -> Tuple[np.ndarray, torch.Tensor]:
+        """(rows [n] int64 on the host, their embeddings [n, dim_pad] on
+        the device) of the corpus's live keys, in the index's key order
+        (the JAX engine's code order, so ties break as there)."""
+        valid = corpus.slab.valid_mask_host()
+        rows = np.fromiter((row for _, row in corpus.index.items()),
+                           np.int64)
+        rows = rows[rows < len(valid)]
+        rows = rows[valid[rows]]
+        emb, _ = corpus.slab.device_view()
+        return rows, emb[torch.from_numpy(rows).to(self.device)]
+
+    def _code_mask(self, corpus: _Corpus, rows: np.ndarray,
+                   extra_mask: Optional[np.ndarray]) -> torch.Tensor:
+        """The live mask of ``rows`` (the code order of a pq / tt state),
+        AND the filter where one is given: a row deleted after the state
+        was checked is masked, so the search still fills k."""
+        mask = corpus.slab.valid_mask_host()[rows]
+        if extra_mask is not None:
+            mask = mask & np.asarray(extra_mask, bool)[rows]
+        return torch.from_numpy(np.ascontiguousarray(mask)).to(self.device)
+
+    def _pq_search(self, corpus: _Corpus, qd: torch.Tensor, top_k: int,
+                   extra_mask: Optional[np.ndarray]
+                   ) -> List[List[SearchResult]]:
+        """QUANTIZATION pq: an ADC scan (``ops/pq.pq_topk``, the ADC
+        kernel) over a codebook of ``max(8, dim_pad // 8)`` subspaces
+        trained on every live row. The codebook and codes are cached on
+        the corpus under the slab's version, so any write retrains before
+        the next search. Scores are 1 / (1 + distance)."""
+        from neumann_tpu_torch.ops.pq import PQCodebook, PQConfig, pq_topk
+
+        with corpus.lock:
+            state = corpus._pq
+            version = corpus.slab.version
+        if state is None or state[0] != version:
+            rows, mat = self._live_rows(corpus)
+            dim_pad = corpus.slab.dim_pad
+            book = PQCodebook(dim_pad, PQConfig(
+                n_subspaces=max(8, dim_pad // 8)), device=self.device)
+            codes = None
+            if len(rows):
+                book.train(mat)
+                codes = book.encode(mat)
+            del mat
+            state = (version, book, codes, rows)
+            with corpus.lock:
+                corpus._pq = state
+        _, book, codes, rows = state
+        if not len(rows):
+            return [[] for _ in range(qd.shape[0])]
+        scores, idx = host_pull(*pq_topk(
+            book, codes, qd, min(top_k, len(rows)),
+            self._code_mask(corpus, rows, extra_mask)))
+        idx = np.where(idx >= 0, rows[np.maximum(idx, 0)], -1)
+        # ADC gives squared distance; report 1/(1+d), d in f32 as the
+        # JAX engine takes it
+        return self._results(
+            corpus, scores, idx, top_k,
+            lambda s: 1.0 / (1.0 + float(np.sqrt(np.float32(max(-s, 0.0))))))
+
+    def _tt_scan(self, corpus: _Corpus, qd: torch.Tensor, k: int,
+                 metric: str, extra_mask: Optional[np.ndarray]):
+        """QUANTIZATION tt: rows live as tensor-train cores (decomposed
+        on the device by ``compress/tt_batch``, cached on the corpus
+        under the slab's version); each search reconstructs them and runs
+        the exact scan. Returns (scores, slab row ids) on the device."""
+        from neumann_tpu_torch.compress.tensor_train import TTConfig
+        from neumann_tpu_torch.compress.tt_batch import tt_decompose_batch
+
+        with corpus.lock:
+            state = corpus._tt
+            version = corpus.slab.version
+        if state is None or state[0] != version:
+            rows, mat = self._live_rows(corpus)
+            tts = tt_decompose_batch(mat, TTConfig.for_dim(
+                corpus.slab.dim_pad))
+            del mat
+            state = (version, tts, rows)
+            with corpus.lock:
+                corpus._tt = state
+        _, tts, rows = state
+        kk = min(k, len(rows))
+        if kk == 0:
+            q = qd.shape[0]
+            return (torch.empty((q, 0), device=self.device),
+                    torch.empty((q, 0), dtype=torch.int32,
+                                device=self.device))
+        scores, idx = topk_scan(tts.reconstruct(), qd, kk, metric,
+                                self._code_mask(corpus, rows, extra_mask))
+        row_map = torch.from_numpy(rows).to(self.device)
+        idx = torch.where(idx >= 0, row_map[idx.clamp_min(0).long()],
+                          -1).int()
+        return scores, idx
 
     def _search_ns(self, ns: str, query, top_k: int, metric: Optional[str],
                    filter_cond: Optional[FilterCondition] = None,
@@ -1149,25 +1260,192 @@ class VectorEngine:
         return len(keys)
 
     # ------------------------------------------------------------------
-    # not ported yet
+    # ANN indexes (API parity with build_hnsw_index / build_ivf_index /
+    # search_with_hnsw / search_with_ivf_nprobe / save_index / load_index,
+    # vector_engine/src/lib.rs): the legacy IVF index on the device, the
+    # HNSW graph on the host
     # ------------------------------------------------------------------
-    def build_ivf_index(self, *args, **kwargs):
-        _not_ported("the legacy IVF index API", "HNSW and legacy IVF APIs")
+    def build_ivf_index(self, n_clusters: int = 64, nprobe: int = 8
+                        ) -> int:
+        """Build an IVF index over the default namespace. Returns #rows."""
+        from neumann_tpu_torch.ops.ivf import IVFConfig, IVFIndex
 
-    def build_hnsw_index(self, *args, **kwargs):
-        _not_ported("HNSW", "HNSW and legacy IVF APIs")
+        dim, corpus, row_map, mat = self._gather_rows()
+        idx = IVFIndex(dim, IVFConfig(
+            n_clusters=min(n_clusters, len(mat)), nprobe=nprobe),
+            device=self.device)
+        idx.train(mat[: min(len(mat), 100_000)])
+        idx.add(mat)
+        with self._lock:
+            self._ivf = (idx, corpus, row_map)
+        return len(mat)
 
-    def search_with_ivf_nprobe(self, *args, **kwargs):
-        _not_ported("the legacy IVF index API", "HNSW and legacy IVF APIs")
+    def _gather_rows(self):
+        """(dim, corpus, row ids [n] host, matrix [n, dim] on the device)
+        over the default namespace's largest corpus, in key order."""
+        with self._lock:
+            corpora = self._corpora.get("", {})
+            if not corpora:
+                raise VectorError("no embeddings to index")
+            dim, corpus = max(corpora.items(),
+                              key=lambda kv: kv[1].count())
+        rows, mat = self._live_rows(corpus)
+        if not len(rows):
+            raise VectorError("no embeddings to index")
+        return dim, corpus, rows, mat[:, :dim]
 
-    def search_with_hnsw(self, *args, **kwargs):
-        _not_ported("HNSW", "HNSW and legacy IVF APIs")
+    def build_hnsw_index(self, m: int = 16, ef_construction: int = 200,
+                         ef_search: int = 50,
+                         metric: Optional[str] = None,
+                         storage: str = "dense", **kw) -> int:
+        """Build a genuine HNSW graph index over the default namespace.
 
-    def search_with_hnsw_ef(self, *args, **kwargs):
-        _not_ported("HNSW", "HNSW and legacy IVF APIs")
+        Parity with vector_engine/src/lib.rs build_hnsw_index /
+        tensor_store/src/hnsw.rs. `storage` selects the per-node
+        embedding mode: dense | quantized | binary | auto
+        (EmbeddingStorage parity). The graph lives on the host (the
+        native C++ core); the bulk device scan remains the default
+        SIMILAR path. Extra kwargs accepted for IVF-call compatibility
+        (n_clusters/nprobe are ignored).
+        """
+        from neumann_tpu_torch.ops.hnsw import HNSWConfig, HNSWIndex
 
-    def save_index(self, *args, **kwargs):
-        _not_ported("saved ANN indexes", "HNSW and legacy IVF APIs")
+        dim, corpus, row_map, mat = self._gather_rows()
+        hnsw_metric = metric or self.config.default_metric
+        # validate BEFORE HNSWConfig so engine callers get a
+        # VectorError, not the kernel layer's ValueError
+        if hnsw_metric not in ("cosine", "euclidean", "dot"):
+            raise VectorError(
+                f"HNSW supports cosine/euclidean/dot, not {hnsw_metric}")
+        cfg = HNSWConfig(m=m, ef_construction=ef_construction,
+                         ef_search=ef_search, metric=hnsw_metric)
+        idx = HNSWIndex(dim, cfg)
+        ins = {"dense": idx.insert, "quantized": idx.insert_quantized,
+               "binary": idx.insert_binary,
+               "auto": idx.insert_auto}.get(storage)
+        if ins is None:
+            raise VectorError(f"unknown HNSW storage '{storage}'")
+        for v in mat.cpu().numpy():
+            ins(v)
+        with self._lock:
+            self._hnsw = (idx, corpus, row_map)
+        return len(mat)
 
-    def load_index(self, *args, **kwargs):
-        _not_ported("saved ANN indexes", "HNSW and legacy IVF APIs")
+    def _ivf_search(self, query, top_k: int, nprobe: Optional[int]
+                    ) -> List[SearchResult]:
+        state = self._ivf
+        if state is None:
+            raise VectorError("no index built (build_ivf_index first)")
+        idx, corpus, row_map = state
+        q = self._validate_vec(query, idx.dim)
+        s, ids = idx.search(q, top_k, nprobe)
+        out = []
+        for score, i in zip(s[0], ids[0]):
+            if i < 0:
+                continue
+            key = corpus.index.key_of(int(row_map[i]))
+            if key is not None:
+                out.append(SearchResult(key, float(score)))
+        return out
+
+    def search_with_ivf_nprobe(self, query, top_k: int, nprobe: int
+                               ) -> List[SearchResult]:
+        return self._ivf_search(query, top_k, nprobe)
+
+    def search_with_hnsw(self, query, top_k: int,
+                         ef: Optional[int] = None) -> List[SearchResult]:
+        """Graph-walk ANN search (hnsw.rs search / search_with_ef).
+
+        Uses the HNSW graph if built; otherwise falls through to an
+        IVF index built via the compat path."""
+        state = self._hnsw
+        if state is None:
+            return self._ivf_search(query, top_k, None)
+        idx, corpus, row_map = state
+        q = self._validate_vec(query, idx.dim)
+        hits = (idx.search_with_ef(q, top_k, ef) if ef
+                else idx.search(q, top_k))
+        out = []
+        for nid, score in hits:
+            key = corpus.index.key_of(int(row_map[nid]))
+            if key is not None:
+                out.append(SearchResult(key, float(score)))
+        return out
+
+    def search_with_hnsw_ef(self, query, top_k: int, ef: int
+                            ) -> List[SearchResult]:
+        return self.search_with_hnsw(query, top_k, ef=ef)
+
+    def save_index(self, path) -> None:
+        """Persist whichever ANN index is built (HNSW preferred), in the
+        JAX engine's ``.npz`` format (either package loads the
+        other's)."""
+        self._flush_bulk_if_pending()
+        hnsw = self._hnsw
+        if hnsw is not None:
+            idx, corpus, row_map = hnsw
+            np.savez_compressed(
+                path, hnsw_blob=np.frombuffer(idx.to_bytes(), np.uint8),
+                row_map=row_map)
+            return
+        state = self._ivf
+        if state is None:
+            raise VectorError("no index built")
+        idx, corpus, row_map = state
+        np.savez_compressed(
+            path, centroids=idx.centroids,
+            reordered=idx._reordered.cpu().numpy(),
+            row_ids=idx._row_ids, stride=idx._stride, n=idx._n,
+            dim=idx.dim, nprobe=idx.config.nprobe, row_map=row_map)
+
+    def _load_hnsw_index(self, blob) -> int:
+        from neumann_tpu_torch.ops.hnsw import HNSWIndex
+
+        idx = HNSWIndex.from_bytes(blob["hnsw_blob"].tobytes())
+        with self._lock:
+            corpus = self._corpora.get("", {}).get(idx.dim)
+        if corpus is None:
+            raise VectorError(
+                f"no dimension-{idx.dim} embeddings loaded to map the "
+                f"index onto")
+        self._hnsw = (idx, corpus, blob["row_map"])
+        return len(idx)
+
+    def load_index(self, path) -> int:
+        """Load an index written by ``save_index`` (of either package);
+        a corrupt or mangled file raises VectorError."""
+        from neumann_tpu_torch.ops.ivf import IVFConfig, IVFIndex
+
+        try:
+            blob = np.load(path)
+            files = blob.files
+        except Exception as e:       # zip/crc/pickle-layer corruption
+            raise VectorError(f"corrupt index file {path}: {e}") \
+                from None
+        try:
+            if "hnsw_blob" in files:
+                return self._load_hnsw_index(blob)
+            dim = int(blob["dim"])
+            idx = IVFIndex(dim, IVFConfig(
+                n_clusters=len(blob["centroids"]),
+                nprobe=int(blob["nprobe"])), device=self.device)
+            idx.centroids = blob["centroids"]
+            idx._reordered = torch.from_numpy(
+                np.ascontiguousarray(blob["reordered"], np.float32)).to(
+                self.device)
+            idx._row_ids = blob["row_ids"]
+            idx._stride = int(blob["stride"])
+            idx._n = int(blob["n"])
+            with self._lock:
+                corpus = self._corpora.get("", {}).get(dim)
+            if corpus is None:
+                raise VectorError(
+                    f"no dimension-{dim} embeddings loaded to map the "
+                    f"index onto")
+            self._ivf = (idx, corpus, blob["row_map"])
+            return idx._n
+        except VectorError:
+            raise
+        except Exception as e:       # missing keys / mangled arrays
+            raise VectorError(f"corrupt index file {path}: {e}") \
+                from None

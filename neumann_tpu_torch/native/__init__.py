@@ -1,14 +1,14 @@
 """ctypes loader for the C++ native module.
 
 The port's copy of ``neumann_tpu/native/__init__.py``. Compiles
-``neumann_native.cpp`` (this directory's copy) with g++ at first use into
+``neumann_native.cpp`` and ``hnsw_native.cpp`` (this directory's copies)
+into one library with g++ at first use into
 ``build/neumann_tpu_torch/`` at the root of the checkout, never beside
-the source: the library's name carries a hash of the source, and each
+the source: the library's name carries a hash of the sources, and each
 build writes a file of its own and renames it into place, so concurrent
 first uses never load a half-written library. Returns None if no
 compiler is available, in which case callers use the pure-Python
-implementations. The HNSW half of the reference's library
-(``hnsw_native.cpp``) is left out: the port has no HNSW index yet.
+implementations.
 """
 
 from __future__ import annotations
@@ -21,23 +21,30 @@ import threading
 from pathlib import Path
 from typing import Optional
 
-_SRC = Path(__file__).resolve().parent / "neumann_native.cpp"
+_SRCS = tuple(Path(__file__).resolve().parent / name
+              for name in ("neumann_native.cpp", "hnsw_native.cpp"))
 BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
              / "neumann_tpu_torch")
 _FLAGS = ("-O3", "-fno-math-errno", "-shared", "-fPIC")
 
 
-def built_path(src: Path, stem: str, suffix: str, flags,
+def _sources(src) -> tuple:
+    return (src,) if isinstance(src, Path) else tuple(src)
+
+
+def built_path(src, stem: str, suffix: str, flags,
                salt: str = "") -> Path:
     """``BUILD_DIR/<stem>-<hash><suffix>``: where ``build_shared`` puts
-    ``src``. The hash covers the source, the flags and ``salt`` (what
-    else the build depends on)."""
-    tag = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
+    ``src`` (a source, or several built into one library). The hash
+    covers the sources, the flags and ``salt`` (what else the build
+    depends on)."""
+    tag = hashlib.sha256(b"".join(p.read_bytes() for p in _sources(src))
+                         + " ".join(flags).encode()
                          + salt.encode()).hexdigest()[:16]
     return BUILD_DIR / f"{stem}-{tag}{suffix}"
 
 
-def build_shared(src: Path, stem: str, suffix: str, flags, libs=(),
+def build_shared(src, stem: str, suffix: str, flags, libs=(),
                  salt: str = "") -> Path:
     """Compile ``src`` with g++ into ``built_path(...)`` unless that file
     exists, and return its path. The output is written under a
@@ -47,7 +54,8 @@ def build_shared(src: Path, stem: str, suffix: str, flags, libs=(),
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         try:
-            subprocess.run(["g++", *flags, str(src), *libs, "-o", str(tmp)],
+            subprocess.run(["g++", *flags, *map(str, _sources(src)), *libs,
+                            "-o", str(tmp)],
                            check=True, capture_output=True, timeout=300)
             os.replace(tmp, out)
         finally:
@@ -70,7 +78,7 @@ def load() -> Optional[ctypes.CDLL]:
         _tried = True
         try:
             lib = ctypes.CDLL(str(build_shared(
-                _SRC, "libneumann_native", ".so", _FLAGS)))
+                _SRCS, "libneumann_native", ".so", _FLAGS)))
         except (OSError, subprocess.SubprocessError):
             return None
         u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -132,6 +140,39 @@ def load() -> Optional[ctypes.CDLL]:
                                           ctypes.c_size_t, cp,
                                           ctypes.c_size_t, ctypes.c_int,
                                           cp, ctypes.c_size_t]
+        u32p = ctypes.POINTER(ctypes.c_uint32)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        vp = ctypes.c_void_p
+        lib.nn_hnsw_new.restype = vp
+        lib.nn_hnsw_new.argtypes = [ctypes.c_int] * 5 + [
+            ctypes.c_uint64, ctypes.c_uint64]
+        lib.nn_hnsw_free.restype = None
+        lib.nn_hnsw_free.argtypes = [vp]
+        lib.nn_hnsw_len.restype = ctypes.c_size_t
+        lib.nn_hnsw_len.argtypes = [vp]
+        for name in ("nn_hnsw_insert", "nn_hnsw_insert_quantized",
+                     "nn_hnsw_insert_binary"):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int64
+            fn.argtypes = [vp, f32p]
+        lib.nn_hnsw_insert_sparse.restype = ctypes.c_int64
+        lib.nn_hnsw_insert_sparse.argtypes = [vp, u32p, f32p,
+                                              ctypes.c_uint32]
+        lib.nn_hnsw_kind.restype = ctypes.c_int
+        lib.nn_hnsw_kind.argtypes = [vp, ctypes.c_int64]
+        lib.nn_hnsw_get.restype = ctypes.c_int
+        lib.nn_hnsw_get.argtypes = [vp, ctypes.c_int64, f32p]
+        lib.nn_hnsw_memory_bytes.restype = ctypes.c_uint64
+        lib.nn_hnsw_memory_bytes.argtypes = [vp]
+        lib.nn_hnsw_search.restype = ctypes.c_size_t
+        lib.nn_hnsw_search.argtypes = [vp, f32p, ctypes.c_size_t,
+                                       ctypes.c_size_t, i64p, f32p]
+        lib.nn_hnsw_stats.restype = None
+        lib.nn_hnsw_stats.argtypes = [vp, u64p]
+        lib.nn_hnsw_serialize.restype = ctypes.c_size_t
+        lib.nn_hnsw_serialize.argtypes = [vp, u8p, ctypes.c_size_t]
+        lib.nn_hnsw_deserialize.restype = vp
+        lib.nn_hnsw_deserialize.argtypes = [u8p, ctypes.c_size_t]
         _lib = lib
         return _lib
 

@@ -1,5 +1,9 @@
-"""Windowed int8 IVF index on one GPU (the slice's part of
-``neumann_tpu/ops/ivf.py``).
+"""IVF indexes on one GPU (port of ``neumann_tpu/ops/ivf.py``): the
+windowed int8 index behind the engine's auto-IVF route
+(``DeviceIVFInt8``), and the legacy ``IVFIndex`` behind the engine's
+``build_ivf_index`` API (one padded block of rows a k-means cluster, in
+flat f32, PQ-code or sign-bit storage; its pq storage scores the probed
+rows with the ADC kernel, ``ops/kernels.pq_adc_scores``).
 
 Layout (same as the JAX package): rows sorted by k-means cluster into a
 buffer of exactly corpus size, chopped into disjoint fixed windows of
@@ -17,8 +21,9 @@ Two first passes, each a hand-written CUDA kernel (``ops/kernels.py``):
   query tables, one batched top-2 kernel pass that reads each window
   once per batch, packed-bits preselection; then the chunked rerank.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): incremental ``add`` / ``delete`` / ``compact`` (the delta plane),
+Not ported yet for ``DeviceIVFInt8`` (each raises
+``NotImplementedError`` naming its ROADMAP item): incremental ``add`` /
+``delete`` / ``compact`` (the delta plane),
 and the non-fast batched variants (approx / streamed / XLA-fused window
 scans). The default engine config never reaches them at >= 4M rows: the
 auto window is then 1,024 rows, so the pool is 8 and the fast path is
@@ -27,22 +32,29 @@ always taken.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from neumann_tpu_torch.ops import kernels
 from neumann_tpu_torch.ops.kernels import (
     batched_probe,
     decode_strided_pool_bits,
     ivf_windowed_topk,
 )
-from neumann_tpu_torch.ops.quant import int8_cosine_row_mult, scalar_quantize
+from neumann_tpu_torch.ops.pq import PQCodebook, PQConfig, to_f32
+from neumann_tpu_torch.ops.quant import (
+    binary_quantize,
+    int8_cosine_row_mult,
+    scalar_quantize,
+)
 from neumann_tpu_torch.ops.rerank import (
     gather_rerank_topk,
     gather_rerank_topk_chunked,
 )
-from neumann_tpu_torch.ops.scan import host_pull
+from neumann_tpu_torch.ops.scan import _topk_stable, host_pull
 
 _NOT_PORTED_MUTATION = ("incremental IVF mutation (add/delete/compact and "
                         "the delta plane) is not ported yet (ROADMAP: IVF "
@@ -514,3 +526,276 @@ def batched_ivf_topk(buf, rmult, cents, starts, qs, nprobe: int,
     out_p = torch.where(ok[:, :, None] & (g_pos >= 0), base + g_pos,
                         torch.full_like(g_pos, -1))
     return (out_s.reshape(Q, -1), out_p.reshape(Q, -1).int(), overflow)
+
+
+# ---------------------------------------------------------------------------
+# the legacy IVF index: one padded block of rows a k-means cluster
+# ---------------------------------------------------------------------------
+
+@dataclass
+class IVFConfig:
+    """Parity with IVFConfig::{flat,pq,binary}
+    (tensor_store/src/ivf.rs:61-140): per-list storage is Flat f32,
+    PQ codes (ADC scan), or packed sign bits (hamming scan)."""
+
+    n_clusters: int = 64
+    nprobe: int = 8
+    iters: int = 20
+    storage: str = "flat"        # flat | pq | binary
+    pq_subspaces: int = 8
+
+    @staticmethod
+    def flat(n_clusters: int = 64) -> "IVFConfig":
+        return IVFConfig(n_clusters=n_clusters)
+
+    @staticmethod
+    def pq(n_clusters: int = 64, n_subspaces: int = 8) -> "IVFConfig":
+        return IVFConfig(n_clusters=n_clusters, storage="pq",
+                         pq_subspaces=n_subspaces)
+
+    @staticmethod
+    def binary(n_clusters: int = 64) -> "IVFConfig":
+        return IVFConfig(n_clusters=n_clusters, storage="binary")
+
+
+# bytes of gathered candidates (or assignment scores) one step may hold
+_LEGACY_STEP_BYTES = 1 << 28
+
+
+def _padded_layout(v: torch.Tensor, assign: torch.Tensor, k: int,
+                   min_stride: int = 0):
+    """Cluster-sorted padded layout on v's device (the JAX package's
+    ``_padded_layout`` and the re-pad of its ``_relayout``): cluster c's
+    rows, in row order, fill rows [c * stride, c * stride + count).
+
+    Returns (buf [k*stride, d] v's dtype, ids [k*stride] int32 with -1
+    padding, stride), stride the largest cluster (at least
+    ``min_stride``) rounded up to 8."""
+    counts = torch.bincount(assign, minlength=k)
+    stride = max(int(counts.max()) if len(assign) else 1, 1, min_stride)
+    stride = (stride + 7) // 8 * 8
+    order = torch.argsort(assign, stable=True)
+    sorted_assign = assign[order]
+    starts = torch.cumsum(counts, 0) - counts
+    within = (torch.arange(len(v), device=v.device)
+              - starts[sorted_assign])
+    pos = sorted_assign * stride + within
+    buf = torch.zeros((k * stride, v.shape[1]), dtype=v.dtype,
+                      device=v.device)
+    ids = torch.full((k * stride,), -1, dtype=torch.int32, device=v.device)
+    buf[pos] = v[order]
+    ids[pos] = order.int()
+    return buf, ids, stride
+
+
+class IVFIndex:
+    """IVF over a cluster-sorted padded layout (port of
+    ``neumann_tpu.ops.ivf.IVFIndex``): k-means centroids; every
+    cluster's rows contiguous in one block of ``stride`` rows; a search
+    scores its query's ``nprobe`` nearest blocks only. Storage per
+    config: f32 rows (cosine), PQ codes (the ADC kernel, gathered mode)
+    or sign bits (hamming). The planes live on ``device``; centroids and
+    row ids are host numpy arrays, as in the JAX package."""
+
+    def __init__(self, dim: int, config: Optional[IVFConfig] = None,
+                 device="cuda"):
+        self.dim = dim
+        self.config = config or IVFConfig()
+        self.device = torch.device(device)
+        self.centroids: Optional[np.ndarray] = None  # [k, d]
+        self._reordered = None     # device [k * stride, d] f32 (flat)
+        self._codes = None         # device [k * stride, M] uint8 (pq)
+        self._bits = None          # device [k * stride, W] int32 (binary)
+        self._pq = None
+        self._row_ids = None       # np [k * stride] original ids (-1 pad)
+        self._stride = 0
+        self._n = 0
+        self._v = None             # device [n, d] originals (relayouts)
+        self._counts = None        # np [k] rows per cluster
+        self._valid = None         # device [k * stride] bool, cached
+        self._cents = (None, None)  # (host array, its device copy)
+
+    def train(self, sample) -> None:
+        from neumann_tpu_torch.parallel.partitioner import kmeans
+
+        self.centroids = kmeans(to_f32(sample, self.device),
+                                self.config.n_clusters, self.config.iters,
+                                device=self.device)
+
+    def _dev_centroids(self) -> torch.Tensor:
+        host, dev = self._cents
+        if host is not self.centroids:
+            dev = torch.from_numpy(np.ascontiguousarray(
+                self.centroids, np.float32)).to(self.device)
+            self._cents = (self.centroids, dev)
+        return dev
+
+    def _assign(self, v: torch.Tensor) -> torch.Tensor:
+        """Nearest centroid (squared L2) of each row, on the device."""
+        c = self._dev_centroids()
+        cc = (c * c).sum(1)[None, :]
+        step = max(1, _LEGACY_STEP_BYTES // (4 * len(c)))
+        out = torch.empty(len(v), dtype=torch.int64, device=v.device)
+        for r0 in range(0, len(v), step):
+            x = v[r0:r0 + step]
+            d2 = (x * x).sum(1)[:, None] - 2 * x @ c.T + cc
+            out[r0:r0 + step] = d2.argmin(dim=1)
+        return out
+
+    def _encode_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """Rows -> the storage plane's dtype (f32 / PQ codes / bits)."""
+        storage = self.config.storage
+        if storage == "pq":
+            return self._pq.encode(rows)
+        if storage == "binary":
+            # in steps: binary_quantize holds int64 [rows, d] temporaries
+            out = torch.empty((len(rows), -(-rows.shape[1] // 32)),
+                              dtype=torch.int32, device=rows.device)
+            step = max(1, _LEGACY_STEP_BYTES // (16 * rows.shape[1]))
+            for r0 in range(0, len(rows), step):
+                out[r0:r0 + step] = binary_quantize(rows[r0:r0 + step])
+            return out
+        return rows
+
+    def _relayout(self, v: torch.Tensor, assign: torch.Tensor,
+                  min_stride: int = 0) -> None:
+        """Full cluster-sorted (re)layout with ``min_stride`` slack."""
+        k = len(self.centroids)
+        buf, ids, stride = _padded_layout(v, assign, k, min_stride)
+        storage = self.config.storage
+        self._reordered = self._codes = self._bits = None
+        if storage == "pq":
+            if self._pq is None:
+                self._pq = PQCodebook(v.shape[1], PQConfig(
+                    n_subspaces=self.config.pq_subspaces), self.device)
+                self._pq.train(v)
+            self._codes = self._pq.encode(buf)
+        elif storage == "binary":
+            self._bits = self._encode_rows(buf)
+        else:
+            self._reordered = buf
+        self._row_ids = ids.cpu().numpy()
+        self._stride = stride
+        self._counts = torch.bincount(assign, minlength=k).cpu().numpy()
+        self._n = len(v)
+        self._valid = None
+
+    def add(self, vectors):
+        """APPEND vectors to a trained index (IVFIndex::add,
+        tensor_store/src/ivf.rs:276) — no full rebuild per call. The
+        first call lays out the cluster-sorted padded buffer; later
+        calls scatter rows into their clusters' padding slack, and
+        only a cluster OVERFLOW triggers an amortized stride-doubling
+        relayout. Returns the new row id (1-D input) or ids array."""
+        if self.centroids is None:
+            raise ValueError("train() first")
+        v = to_f32(vectors, self.device)
+        single = v.ndim == 1
+        if single:
+            v = v[None, :]
+        assign = self._assign(v)
+        if self._v is None:               # first add: full layout
+            self._v = v.clone()
+            self._relayout(v, assign)
+            ids = np.arange(len(v))
+            return int(ids[0]) if single else ids
+        base = self._n
+        ids = np.arange(base, base + len(v))
+        all_v = torch.cat([self._v, v])
+        new_counts = self._counts.copy()
+        np.add.at(new_counts, assign.cpu().numpy(), 1)
+        if int(new_counts.max()) > self._stride:
+            # amortized: relayout with doubled headroom
+            all_assign = torch.cat([self._assign(self._v), assign])
+            self._v = all_v
+            self._relayout(all_v, all_assign,
+                           min_stride=2 * int(new_counts.max()))
+            return int(ids[0]) if single else ids
+        # in-place append into each cluster's slack slots
+        order = torch.argsort(assign, stable=True)
+        srt = assign[order]
+        run_start = torch.searchsorted(srt, srt, side="left")
+        within = torch.arange(len(v), device=v.device) - run_start
+        counts = torch.from_numpy(self._counts).to(v.device)
+        pos = srt * self._stride + counts[srt] + within
+        rows = self._encode_rows(v[order])
+        plane = ("_codes" if self.config.storage == "pq" else
+                 "_bits" if self.config.storage == "binary" else
+                 "_reordered")
+        getattr(self, plane)[pos] = rows
+        pos_h = pos.cpu().numpy()
+        self._row_ids[pos_h] = ids[order.cpu().numpy()].astype(np.int32)
+        self._counts = new_counts
+        self._v = all_v
+        self._n += len(v)
+        self._valid = None
+        return int(ids[0]) if single else ids
+
+    def search(self, queries, k: int, nprobe: Optional[int] = None
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-k over the nprobe nearest clusters per query (cosine to
+        the normalized centroids): cosine over the gathered rows (flat),
+        -hamming distance over their sign bits (binary) or -ADC distance
+        (pq: the ADC kernel, each query scoring its own probed rows).
+        Returns host (scores [Q, kk], ids [Q, kk] int32), kk = min(k,
+        nprobe * stride); -inf / -1 past the live rows."""
+        storage = self.config.storage
+        plane = {"pq": self._codes, "binary": self._bits}.get(
+            storage, self._reordered)
+        if plane is None:
+            raise ValueError("add() first")
+        nprobe = min(nprobe or self.config.nprobe, len(self.centroids))
+        q = to_f32(queries, self.device)
+        if q.ndim == 1:
+            q = q[None, :]
+        stride = self._stride
+        if self._valid is None:
+            self._valid = torch.from_numpy(self._row_ids >= 0).to(
+                self.device)
+        cents = self._dev_centroids()
+        qn = q / q.norm(dim=1, keepdim=True).clamp_min(1e-30)
+        cn = cents / cents.norm(dim=1, keepdim=True).clamp_min(1e-30)
+        _, probe = _topk_stable(qn @ cn.T, nprobe)               # [Q, nprobe]
+        cols = nprobe * stride
+        kk = min(k, cols)
+        width = plane.shape[1] * plane.element_size()
+        step = max(1, min(65535, _LEGACY_STEP_BYTES // (cols * width)))
+        span = torch.arange(stride, device=self.device)
+        out_s, out_p = [], []
+        for q0 in range(0, q.shape[0], step):
+            qs = q[q0:q0 + step]
+            pos = (probe[q0:q0 + step, :, None] * stride
+                   + span).reshape(qs.shape[0], cols)
+            if storage == "pq":
+                scores = kernels.pq_adc_scores(
+                    self._codes, self._pq.adc_tables(qs), self._valid,
+                    pos.int())
+            else:
+                cand = plane[pos]                          # [q, C, w]
+                if storage == "binary":
+                    x = kernels._popcount32(
+                        cand ^ binary_quantize(qs)[:, None, :])
+                    scores = -x.sum(dim=2).float()
+                else:
+                    cn2 = cand.norm(dim=2).clamp_min(1e-30)
+                    dots = torch.bmm(cand, qs[:, :, None])[:, :, 0]
+                    scores = dots / (cn2 * qs.norm(
+                        dim=1, keepdim=True).clamp_min(1e-30))
+                scores = scores.masked_fill(~self._valid[pos],
+                                            float("-inf"))
+            s, i = _topk_stable(scores, kk)
+            out_s.append(s)
+            out_p.append(torch.gather(pos, 1, i))
+        s, pos = host_pull(torch.cat(out_s), torch.cat(out_p))
+        ids = np.where(pos >= 0, self._row_ids[np.maximum(pos, 0)], -1)
+        ids = np.where(np.isneginf(s), -1, ids)
+        return s, ids.astype(np.int32)
+
+    def search_with_nprobe(self, queries, k: int, nprobe: int
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+        """Name parity with IVFIndex::search_with_nprobe (ivf.rs:325)."""
+        return self.search(queries, k, nprobe)
+
+    @property
+    def n_vectors(self) -> int:
+        return self._n

@@ -21,6 +21,10 @@ that XLA fuses on the TPU.
   (``csrc/hamming_topk.cu``) replaces ``hamming_topk_pallas`` with the
   top-k fused in, no [Q, N] distances in device memory; both on the 1-bit
   tensor cores (``csrc/mma_b1.cuh``), for any row width.
+* ``pq_adc_scores`` (``csrc/pq_adc.cu``) replaces the XLA-fused ADC scan
+  of ``neumann_tpu/ops/pq.py`` (``_adc_search_fn``) and of the ``pq``
+  storage of ``neumann_tpu/ops/ivf.IVFIndex.search``: per-query lookup
+  tables summed over a code matrix, in full or over gathered candidates.
 
 Every wrapper takes its plain version only for tensors on the CPU; for
 a CUDA tensor it launches the kernel or raises — there is no fallback.
@@ -55,11 +59,11 @@ import torch
 
 LAUNCHES = {"ivf_probe": 0, "batched_probe": 0, "int8_dot_scores": 0,
             "int8_pooled_bits": 0, "f32_pooled_bits": 0, "hamming_scores": 0,
-            "hamming_topk": 0}
+            "hamming_topk": 0, "pq_adc": 0}
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("ivf_probe.cu", "batched_probe.cu", "int8_scores.cu",
-           "f32_pooled.cu", "hamming.cu", "hamming_topk.cu")
+           "f32_pooled.cu", "hamming.cu", "hamming_topk.cu", "pq_adc.cu")
 HEADERS = ("pooled_bits.cuh", "mma_s8.cuh", "mma_b1.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "neumann_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -151,7 +155,9 @@ def build_kernels(verbose: bool = False) -> ctypes.CDLL:
                 ("neumann_hamming_topk_unselected",
                  [vp, vp, vp, vp, vp, i64, i32, i32, i32, i64, i32, i32,
                   i32, i32, i32, vp]),
-                ("neumann_b1_mma_rate", [i32, i32, vp, vp])):
+                ("neumann_b1_mma_rate", [i32, i32, vp, vp]),
+                ("neumann_pq_adc_scores",
+                 [vp, vp, vp, vp, vp, i64, i64, i32, i32, vp])):
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = i32
         _lib = lib
@@ -915,3 +921,91 @@ def hamming_topk(corpus_bits, query_bits, mask, k: int):
     _hamming_topk_launch(corpus_bits, query_bits, mask, k, plan, out, gthr)
     LAUNCHES["hamming_topk"] += 1
     return decode_hamming_keys(merge_keys(None, out, min(k, n)))
+
+
+# ---------------------------------------------------------------------------
+# kernel 8: PQ ADC scan
+# ---------------------------------------------------------------------------
+
+def _check_pq_adc(codes, tables, valid, cand):
+    dev = codes.device
+    _check("codes", codes, torch.uint8, 2, dev)
+    _check("tables", tables, torch.float32, 3, dev)
+    _check("valid", valid, torch.bool, 1, dev)
+    n, m = codes.shape
+    q = tables.shape[0]
+    if tables.shape[1:] != (m, 256) or valid.shape[0] != n or (
+            cand is not None and (cand.dtype != torch.int32
+                                  or cand.ndim != 2 or cand.shape[0] != q
+                                  or cand.device != dev)):
+        raise ValueError(
+            f"pq_adc shapes: codes {tuple(codes.shape)}, tables "
+            f"{tuple(tables.shape)} (want [Q, M, 256]), valid "
+            f"{tuple(valid.shape)}, cand "
+            f"{None if cand is None else (tuple(cand.shape), cand.dtype)}"
+            f" (want [Q, C] int32)")
+
+
+def pq_adc_scores_plain(codes, tables, valid, cand=None):
+    """Plain PyTorch version of ``pq_adc_scores``, bit-identical to it:
+    each score is the f32 sum of the looked-up table values in subspace
+    order m = 0 .. M-1, negated; -inf for dead rows and -1 candidates.
+    Steps of rows (or candidates) bound the [Q, step] temporaries."""
+    n, m = codes.shape
+    q = tables.shape[0]
+    cols = n if cand is None else cand.shape[1]
+    out = torch.empty((q, cols), dtype=torch.float32, device=codes.device)
+    for c0, c1 in _row_steps(cols, q):
+        if cand is None:
+            rows = torch.arange(c0, c1, device=codes.device)[None, :]
+        else:
+            rows = cand[:, c0:c1].long()
+        live = (rows >= 0) & (rows < n)
+        rows = torch.where(live, rows, torch.zeros_like(rows))
+        live &= valid[rows]
+        acc = torch.zeros((q, c1 - c0), dtype=torch.float32,
+                          device=codes.device)
+        for j in range(m):
+            code = codes[rows, j].long().expand(q, -1)
+            acc = acc + torch.gather(tables[:, j, :], 1, code)
+        out[:, c0:c1] = torch.where(live, -acc,
+                                    torch.full_like(acc, float("-inf")))
+    return out
+
+
+def pq_adc_scores(codes, tables, valid, cand=None):
+    """ADC scores [Q, C] f32: ``-sum_m tables[q, m, codes[row, m]]`` for
+    the row of each column, -inf where the row is dead (``valid``
+    False) or the candidate is -1.
+
+    codes [N, M] uint8, tables [Q, M, 256] f32 (squared distances of each
+    query's subvectors to the 256 centroids of each subspace), valid [N]
+    bool. ``cand`` None: the full scan, C = N, column c is row c; else
+    cand [Q, C] int32 row ids, each query scoring its own candidates (the
+    gathered mode of IVFIndex's pq storage). Q is at most 65,535 a call:
+    callers step queries to bound the [Q, C] output."""
+    _check_pq_adc(codes, tables, valid, cand)
+    dev = codes.device
+    n, m = codes.shape
+    q = tables.shape[0]
+    cols = n if cand is None else cand.shape[1]
+    if dev.type == "cpu":
+        return pq_adc_scores_plain(codes, tables, valid, cand)
+    if dev.type != "cuda":
+        raise ValueError(f"pq_adc_scores: unsupported device {dev}")
+    if q > 65535:
+        raise ValueError(f"pq_adc kernel takes Q <= 65535 a call (Q={q})")
+    for name, t in (("codes", codes), ("tables", tables), ("valid", valid),
+                    *((("cand", cand),) if cand is not None else ())):
+        _launch_ready(name, t)
+    lib = build_kernels()
+    out = torch.empty((q, cols), dtype=torch.float32, device=dev)
+    if q and cols:
+        with torch.cuda.device(dev):
+            err = lib.neumann_pq_adc_scores(
+                codes.data_ptr(), tables.data_ptr(), valid.data_ptr(),
+                cand.data_ptr() if cand is not None else None,
+                out.data_ptr(), n, cols, q, m, _stream())
+        _raise_on(err, "pq_adc")
+        LAUNCHES["pq_adc"] += 1
+    return out

@@ -137,6 +137,23 @@ def _topk(scores: torch.Tensor, k: int):
     return torch.gather(scores, 1, idx), idx
 
 
+def _topk_stable(scores: torch.Tensor, k: int):
+    """``_topk`` that also orders equal scores as ``lax.top_k`` does, by
+    ascending index (``torch.topk`` leaves their order open): selects
+    on int64 keys, the int32 image above the index's complement. For
+    scores with exact ties by design (equal PQ codes, hamming
+    distances)."""
+    assert scores.dtype == torch.float32, scores.dtype
+    b = scores.contiguous().view(torch.int32)
+    img = torch.where(b < 0, b ^ 0x7FFFFFFF, b).long()
+    low = (1 << 32) - 1
+    keys = (img << 32) | (low - torch.arange(scores.shape[1],
+                                             device=scores.device))
+    top = torch.topk(keys, k, dim=1).values
+    idx = low - (top & low)
+    return torch.gather(scores, 1, idx), idx
+
+
 def _finalize(scores, metric):
     """Convert internal ordering scores to reportable scores."""
     if metric == "euclidean":

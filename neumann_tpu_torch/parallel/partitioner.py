@@ -24,32 +24,53 @@ import torch
 _DEVICE_KMEANS_MIN_ELEMS = 262_144
 
 
-def kmeans(vectors: np.ndarray, k: int, iters: int = 20, seed: int = 0,
-           device="cpu") -> np.ndarray:
-    """K-means (Lloyd's), k-means++ seeded on a bounded host subsample;
-    torch Lloyd steps on ``device`` at scale, pure numpy below the
-    threshold. Returns host centroids [k, d] f32."""
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def kmeans(vectors, k: int, iters: int = 20, seed: int = 0, *,
+           device) -> np.ndarray:
+    """K-means (Lloyd's), k-means++ seeded on a bounded subsample (the
+    draws on the host, the distance updates in float64 on ``device`` at
+    scale); torch Lloyd steps on ``device`` at scale, pure numpy below
+    the threshold. ``vectors`` is a numpy array or a tensor (a tensor on
+    ``device`` stays there: only the seeding subsample, or the whole of
+    a small input, comes to the host). ``device`` has no default: the
+    caller names where the steps run. Returns host centroids [k, d]
+    f32."""
     n, d = vectors.shape
     k = min(k, n)
     rng = np.random.default_rng(seed)
     seed_rows = min(n, max(4 * k, 16_384))
     seed_idx = (np.arange(n) if seed_rows >= n
                 else rng.choice(n, seed_rows, replace=False))
-    x64 = vectors[seed_idx].astype(np.float64)
+    x_seed = _host(vectors[torch.from_numpy(seed_idx)]
+                   if torch.is_tensor(vectors) else vectors[seed_idx])
+    x64 = x_seed.astype(np.float64)
+    if n * d < _DEVICE_KMEANS_MIN_ELEMS:
+        def dist2(c):
+            return np.sum((x64 - x64[c]) ** 2, axis=1)
+    else:
+        # the seeding's k sequential passes over the subsample, in float64
+        # on the device (a host pass over 16,384 x 768 takes tens of ms)
+        xs = torch.from_numpy(x64).to(device)
+
+        def dist2(c):
+            return ((xs - xs[c]) ** 2).sum(1).cpu().numpy()
     first = rng.integers(seed_rows)
     chosen = [first]
-    d2 = np.sum((x64 - x64[first]) ** 2, axis=1)
+    d2 = dist2(first)
     for _ in range(1, k):
         total = d2.sum()
         if total <= 0:
             chosen.append(rng.integers(seed_rows))
         else:
             chosen.append(int(rng.choice(seed_rows, p=d2 / total)))
-        d2 = np.minimum(d2, np.sum((x64 - x64[chosen[-1]]) ** 2, axis=1))
-    centroids = vectors[seed_idx[chosen]].copy()
+        d2 = np.minimum(d2, dist2(chosen[-1]))
+    centroids = x_seed[chosen].astype(np.float32)
 
     if n * d < _DEVICE_KMEANS_MIN_ELEMS:
-        x = vectors.astype(np.float32)
+        x = _host(vectors).astype(np.float32)
         cent = centroids.astype(np.float32)
         for _ in range(iters):
             d2 = (np.sum(x * x, 1, keepdims=True)
@@ -61,7 +82,9 @@ def kmeans(vectors: np.ndarray, k: int, iters: int = 20, seed: int = 0,
                     cent[c] = members.mean(axis=0)
         return cent
 
-    x = torch.as_tensor(np.asarray(vectors, np.float32), device=device)
+    x = (vectors.to(device, torch.float32) if torch.is_tensor(vectors)
+         else torch.as_tensor(np.asarray(vectors, np.float32),
+                              device=device))
     cent = torch.as_tensor(np.asarray(centroids, np.float32), device=device)
     for _ in range(iters):
         d2 = ((x * x).sum(1, keepdim=True) - 2.0 * x @ cent.T

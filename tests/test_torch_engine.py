@@ -26,7 +26,7 @@ from neumann_tpu_torch.engines.vector import VectorEngine
 from neumann_tpu_torch.engines.vector import VectorEngineConfig as TConfig
 from neumann_tpu_torch.ops.ivf import DeviceIVFInt8
 from neumann_tpu_torch.router import QueryRouter as TRouter
-from neumann_tpu_torch.utils.errors import NeumannError
+from neumann_tpu_torch.utils.errors import NeumannError, VectorError
 
 TOL = 1e-5
 N, D = 12_000, 64
@@ -148,7 +148,7 @@ def test_storage_statements_match_jax(routers):
 
 
 def test_unported_statements_raise(routers):
-    _, tr, _ = routers
+    jr, tr, _ = routers
     for stmt in ("VAULT GET 'x'", "CHECKPOINTS", "CACHE STATS",
                  "CHAIN HEIGHT", "EXPLAIN SELECT * FROM t"):
         with pytest.raises(NeumannError, match="ROADMAP"):
@@ -157,21 +157,26 @@ def test_unported_statements_raise(routers):
                  tr.init_cache, tr.init_blob, tr.init_chain):
         with pytest.raises(NeumannError, match="ROADMAP"):
             call()
+    # pq and tt storage are ported: they answer as the JAX router does
     for quant in ("pq", "tt"):
-        tr.execute(f"CREATE COLLECTION u_{quant} DIM {D} QUANTIZATION "
-                   f"{quant}")
-        tr.execute(f"EMBED STORE 'a' [{', '.join(['1.0'] * D)}] IN "
-                   f"u_{quant}")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tr.execute(f"SIMILAR 'a' TOP 3 IN u_{quant}")
-        tr.execute(f"DROP COLLECTION u_{quant}")
+        got = []
+        for r in (jr, tr):
+            r.execute(f"CREATE COLLECTION u_{quant} DIM {D} QUANTIZATION "
+                      f"{quant}")
+            r.execute(f"EMBED STORE 'a' [{', '.join(['1.0'] * D)}] IN "
+                      f"u_{quant}")
+            got.append(r.execute(f"SIMILAR 'a' TOP 3 IN u_{quant}").results)
+            r.execute(f"DROP COLLECTION u_{quant}")
+        assert [h["key"] for h in got[1]] == [h["key"] for h in got[0]]
+        _assert_hits_close(got[1], got[0])
 
 
 def test_config_takes_the_jax_fields_and_presets():
     """Every field of the JAX package's config constructs; on one card
     the mesh fields change nothing and every selector cuts exactly; the
     scan limits, which the JAX engine accepts and never reads, raise
-    instead of being ignored."""
+    instead of being ignored; the ANN index APIs raise as the JAX
+    engine's do when no index is built."""
     fields = dict(mesh_auto=False, mesh_threshold=1024,
                   pooled_selector="approx:0.95")
     assert TConfig(**fields) == TConfig(**fields)
@@ -184,7 +189,14 @@ def test_config_takes_the_jax_fields_and_presets():
     for cfg in (low, TConfig(search_timeout_s=1.0)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             VectorEngine(config=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the ANN index APIs are ported: with no index built they raise the
+    # JAX engine's VectorError
+    from neumann_tpu.engines.vector import VectorEngine as JEngine
+    from neumann_tpu.utils.errors import VectorError as JVectorError
+
+    with pytest.raises(JVectorError, match="no index built"):
+        JEngine().search_with_hnsw_ef([1.0], 1, 16)
+    with pytest.raises(VectorError, match="no index built"):
         VectorEngine(device="cpu").search_with_hnsw_ef([1.0], 1, 16)
 
 
@@ -378,11 +390,12 @@ def test_chip_smoke_shell_text_tolerance():
 
 
 def test_chip_smoke_rehearses_on_cpu(monkeypatch):
-    """chip_smoke.py's phases 1 and 3-13 (the native parse check, corpus,
+    """chip_smoke.py's phases 1 and 3-15 (the native parse check, corpus,
     counted auto-IVF path, recall against the exact scan, delta rescan;
     then the pooled, int8 and binary routes, the 3,072-d binary
     collection and the hybrid query with their checks; the served
-    auto-IVF and brute-force routes over HTTP; the shell) at a toy size
+    auto-IVF and brute-force routes over HTTP; the shell; the pq and tt
+    collections and the ANN index APIs) at a toy size
     on the CPU; the kernel phase, the launch checks and the profiles need
     the card. 8 mixture centres
     instead of 4,096 so that 20,480 rows are clustered like the real
@@ -399,6 +412,14 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "HYBRID_ROWS", 8192)
     monkeypatch.setattr(chip_smoke, "HYBRID_EDGES", 32_768)
     monkeypatch.setattr(chip_smoke, "N_SERVED", 256)
+    # phases 14-15 at a toy size: the legacy IVF index and IVFIndex with
+    # 16 clusters, HNSW graphs of a few hundred rows, 1,024 tt rows
+    monkeypatch.setattr(chip_smoke, "IVF_CLUSTERS", 16)
+    monkeypatch.setattr(chip_smoke, "IVF_INDEX_CLUSTERS", 16)
+    monkeypatch.setattr(chip_smoke, "TT_ROWS", 1024)
+    monkeypatch.setattr(chip_smoke, "HNSW_ROWS", 512)
+    monkeypatch.setattr(chip_smoke, "HNSW_QUANT_ROWS", 512)
+    monkeypatch.setattr(chip_smoke, "HNSW_BINARY_ROWS", 256)
     monkeypatch.setenv("NEUMANN_POOLED_MIN_ROWS", "1024")
     monkeypatch.setenv("NEUMANN_POOLED_MIN_POOLS", "64")
     cfg = TConfig(ivf_auto_threshold=10_000, ivf_auto_clusters=16,
@@ -420,6 +441,16 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     assert rep["wide_mismatches"] == 0
     assert len(rep["wide_single_ms"]) == chip_smoke.N_WIDE_SINGLE - 1
     assert set(rep["launches"]) == set(chip_smoke.KERNELS)
+    # phases 14-15: pq hits equal the plain ADC's, tt hits the exact scan
+    # of the reconstruction, IVF hits an exact scan of the probed lists;
+    # saved indexes load with the same hits
+    assert rep["pq_mismatches"] == 0 and rep["tt_mismatches"] == 0
+    assert rep["tt_sample_max_rel_err"] <= chip_smoke.TT_RTOL
+    assert rep["pq_subspaces"] == chip_smoke.PQ_M
+    assert rep["ivf_nprobe32_recall"] >= rep["ivf_nprobe8_recall"] > 0.5
+    assert rep["hnsw_dense_recall"] > 0.5 and rep["saved_index_ok"]
+    # the launch counts are kept per route; on the CPU nothing launches
+    assert rep["launches_pq"]["pq_adc"] == rep["launches_ann"]["pq_adc"] == 0
     # phase 11 at 8,192 entities: FIND's tier mask opens the pooled gate
     # (pool 16, one tier-3 row in each), the hubs' masks do not
     assert rep["hybrid_find_pool"] == 16

@@ -1,6 +1,6 @@
 """Edge shapes of the tensor-core int8 kernels, the f32 pooled-bits
-kernel, the fused hamming top-k and the batched top-2 probe against
-their plain PyTorch versions, on an NVIDIA card.
+kernel, the fused hamming top-k, the batched top-2 probe and the PQ ADC
+scan against their plain PyTorch versions, on an NVIDIA card.
 
 Every test here needs a card and ``nvcc`` (the kernels build from
 ``neumann_tpu_torch/csrc`` at first use) and skips elsewhere; the plain
@@ -30,6 +30,10 @@ the kernel's stages (W 1,408, the distances kernel); scores and ids
 equal. Batched probe: q_cap
 8 to 200, windows of 128 to 4,096 rows, d 64, 768, 784 (d % 32 = 16) and
 4,096 (queries streamed with the rows), top-2 on and off; bit for bit.
+ADC scan: M 8 to 392 (both sides of its 48-subspace shared-memory chunk,
+M not a multiple of 4), Q 1 to 1,025, N not a multiple of a block's
+rows, dead rows, the gathered mode with -1 and repeated candidates; bit
+for bit, and ``pq_topk`` through it equal to the plain selection.
 """
 
 import pytest
@@ -320,3 +324,62 @@ def test_batched_probe_edges_bit_exact(cuda, q_cap, window, d, top2):
     assert tk.LAUNCHES["batched_probe"] == before + 1
     want = tk.batched_probe_plain(buf, rm, qsel, scm, window, top2=top2)
     assert torch.equal(got, want)
+
+
+# PQ ADC scan (kernel 8): M on both sides of the 48-subspace shared-memory
+# chunk and of a block's 227 KB (M 192 tables are 192 KB, M 384 and 392
+# are past it), M not a multiple of 4 (byte loads), N not a multiple of a
+# block's 2,048 rows, 1 % dead rows, Q 1 to 1,025; the gathered mode with
+# -1 candidates and candidates repeated; bit for bit
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", (1, 8, 70, 1025))
+@pytest.mark.parametrize("m", (8, 13, 96, 192, 384, 392))
+def test_pq_adc_edges_bit_exact(cuda, m, q):
+    from neumann_tpu_torch.ops import kernels as tk
+
+    g = torch.Generator(device=cuda).manual_seed(m * 7 + q)
+    n = 3001 if q > 70 else 20_011
+    codes = torch.randint(0, 256, (n, m), generator=g, device=cuda,
+                          dtype=torch.uint8)
+    tables = torch.rand(q, m, 256, generator=g, device=cuda) * 4.0
+    valid = torch.rand(n, generator=g, device=cuda) > 0.01
+    before = tk.LAUNCHES["pq_adc"]
+    got = tk.pq_adc_scores(codes, tables, valid)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["pq_adc"] == before + 1
+    assert torch.equal(got, tk.pq_adc_scores_plain(codes, tables, valid))
+    assert torch.isneginf(got[:, ~valid]).all()
+    cand = torch.randint(-1, n, (q, 777), generator=g, device=cuda,
+                         dtype=torch.int32)
+    cand[:, 5:9] = cand[:, :4]
+    got = tk.pq_adc_scores(codes, tables, valid, cand)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["pq_adc"] == before + 2
+    assert torch.equal(got, tk.pq_adc_scores_plain(codes, tables, valid,
+                                                   cand))
+    assert torch.isneginf(got[cand < 0]).all()
+
+
+@pytest.mark.cuda
+def test_pq_topk_on_the_card_equals_plain(cuda):
+    """pq_topk through the kernel against the same selection over the
+    plain scores, with duplicated codes (exact ties, by ascending row)."""
+    from neumann_tpu_torch.ops import kernels as tk
+    from neumann_tpu_torch.ops.pq import PQCodebook, PQConfig, pq_topk
+    from neumann_tpu_torch.ops.scan import _topk_stable
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(50_000, 128, generator=g, device=cuda)
+    x[100:140] = x[7]
+    book = PQCodebook(128, PQConfig(n_subspaces=16), device=cuda)
+    book.train(x[:8192])
+    codes = book.encode(x)
+    valid = torch.rand(50_000, generator=g, device=cuda) > 0.01
+    valid[7] = True
+    q = torch.cat([x[7:8], torch.randn(63, 128, generator=g, device=cuda)])
+    s, i = pq_topk(book, codes, q, 64, valid)
+    ws, wi = _topk_stable(tk.pq_adc_scores_plain(
+        codes, book.adc_tables(q), valid), 64)
+    assert torch.equal(s, ws) and torch.equal(i, wi.int())
+    live = valid[100:140].nonzero().squeeze(1) + 100
+    assert i[0, 1:1 + len(live)].tolist() == live.tolist()

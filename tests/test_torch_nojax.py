@@ -6,7 +6,8 @@ The first test runs in a subprocess where ``import jax`` fails and the
 JAX package (``neumann_tpu``) is on the path: it imports every module of
 neumann_tpu_torch, drives EMBED and SIMILAR through the router on the
 CPU, a WAL-backed ``ingest_matrix`` replayed into a new store, one
-collection per storage mode (none, int8, binary), SQL, graph and Cypher
+collection per storage mode (none, int8, binary, pq, tt), the HNSW and
+legacy IVF index APIs, SQL, graph and Cypher
 statements, ``SIMILAR … CONNECTED TO`` and FIND, one REST ``/query``
 through ``neumann_tpu_torch.server.RestServer`` (batched serving on)
 and one shell statement, with the native lexer and parser loaded, and
@@ -52,7 +53,7 @@ _NOJAX = textwrap.dedent("""
         r.execute(f"EMBED STORE 'k{i}' [{', '.join(map(str, v[i]))}]")
     hits = r.execute(f"SIMILAR [{', '.join(map(str, v[4]))}] TOP 3").results
     assert hits[0]["key"] == "k4", hits
-    for quant in ("none", "int8", "binary"):
+    for quant in ("none", "int8", "binary", "pq", "tt"):
         r.execute(f"CREATE COLLECTION c_{quant} DIM 8 QUANTIZATION {quant}")
         for i in range(20):
             r.execute(f"EMBED STORE 'k{i}' [{', '.join(map(str, v[i]))}] "
@@ -60,7 +61,11 @@ _NOJAX = textwrap.dedent("""
         hits = r.execute(f"SIMILAR [{', '.join(map(str, v[6]))}] IN "
                          f"c_{quant} TOP 3").results
         assert hits[0]["key"] == "k6", (quant, hits)
-    assert len(r.execute("SHOW COLLECTIONS").rows) == 3
+    assert len(r.execute("SHOW COLLECTIONS").rows) == 5
+    assert r.vector.build_hnsw_index() == 20
+    assert r.vector.search_with_hnsw(v[4], 3)[0].key == "k4"
+    assert r.vector.build_ivf_index(4, 2) == 20
+    assert r.vector.search_with_ivf_nprobe(v[4], 3, 4)[0].key == "k4"
     r.execute("CREATE TABLE t (id INT PRIMARY KEY, v INT)")
     r.execute("INSERT INTO t VALUES (1, 10), (2, 20), (3, 30)")
     assert r.execute("SELECT id FROM t WHERE v > 15").rows == [
