@@ -15,7 +15,7 @@ the CUDA toolkit (nvcc)::
 Phases (each raises on failure; exit code 0 only if all pass):
 
 1. print the card's name and power limit (nvidia-smi), build the CUDA
-   kernels from neumann_tpu_torch/csrc (seven sources, eight entries) and
+   kernels from neumann_tpu_torch/csrc (seven sources, nine entries) and
    print the build time; build and load the native lexer and parser
    (neumann_tpu_torch/native/*.cpp), fail if either is missing, and time
    the parse of 64 unseen SIMILARs of 768 and of 3,072 floats through the
@@ -35,11 +35,13 @@ Phases (each raises on failure; exit code 0 only if all pass):
    launch), the top-10 at 1 and 256 queries x 262,144 rows (phase 10's
    single and batch launches); the batched top-2 probe again at d 4,096,
    512 windows; the f32 pooled bits again at phase 11's FIND launch, 1
-   query x 262,144 rows at pool 128; the ADC scan (row 8) bit for bit at
-   1,024, 8 and 1 queries x 1,048,576 rows x 96 subspaces, in its gathered
-   mode at 64 queries x 16 blocks of 2,048, and at 64 x 262,144 x 384,
-   each beside one ``F.embedding_bag`` call for the same sums; phases 14
-   and 15 add the shapes their batches launch);
+   query x 262,144 rows at pool 128; the ADC scan (row 8) at 1,024, 8
+   and 1 queries x 1,048,576 rows x 96 subspaces, in its gathered mode at
+   64 queries x 16 blocks of 2,048, and at 64 x 262,144 x 384: its scores
+   mode bit for bit beside one ``F.embedding_bag`` call for the same
+   sums, its select mode (top-10 inside the kernel) equal to its plain
+   version beside the scores mode + ``_topk_stable``; phases 14 and 15
+   add the shapes their batches launch);
 3. generate a 4,194,304 x 768 corpus from --seed with numpy (4,096
    N(0,1) centres + sigma 0.25 noise) and load it with
    ``router.vector.ingest_matrix``;
@@ -115,10 +117,13 @@ Phases (each raises on failure; exit code 0 only if all pass):
     rows): a ``QUANTIZATION pq`` collection of all 1,048,576 rows
     ``{"cat": i % 16}`` (its first SIMILAR trains the 96-subspace
     codebook and encodes, timed apart); counted: 64 singles, a batch of
-    1,024, 4 ``WHERE cat = 3`` (the ADC kernel, row 8), hits equal to the
-    plain ADC + top-k on the engine's codes, keys in order, every
-    filtered hit in cat 3; row 8 timed at the batch's query steps (85
-    queries, and the 4 left), and one batch call profiled; then a ``QUANTIZATION tt`` collection of the
+    1,024, 4 ``WHERE cat = 3`` (the ADC kernel's select mode, row 8) and
+    2 ``TOP 65`` (its scores mode), hits equal to the plain ADC + top-k
+    on the engine's codes, keys in order, every filtered hit in cat 3;
+    the batch must be one select launch (launch counter) and allocate
+    less than a quarter of its [Q, N] scores; row 8 timed in both modes
+    at the batch's launch shape, and one batch call profiled; then a
+    ``QUANTIZATION tt`` collection of the
     first 262,144 rows (its first SIMILAR decomposes them on the card):
     16 singles and a batch of 256, hits equal to the exact scan of the
     reconstructed rows, 256 sampled rows within 1e-5 relative of the
@@ -129,9 +134,9 @@ Phases (each raises on failure; exit code 0 only if all pass):
     layout of 1,048,576 rows would take 100 GiB; build seconds; p50 and
     recall@10 of 64 singles at nprobe 8 and 32, 16 of them equal to an
     exact float64 scan of their probed lists); ``IVFIndex`` in the pq
-    storage (row 8 in its gathered mode, equal to its plain version) and
-    the binary storage on 262,144 rows, row 8 timed at the shapes its
-    batch and a single query launch; ``build_hnsw_index`` dense on
+    storage (row 8's select mode, gathered, equal to its plain version)
+    and the binary storage on 262,144 rows, row 8 timed in both modes at
+    the shapes its batch and a single query launch; ``build_hnsw_index`` dense on
     32,768 rows, quantized on 16,384 and binary on 8,192 (host inserts,
     one row a call, the three graphs built at once in threads: insert
     rate, p50, recall@10); ``save_index`` ->
@@ -213,6 +218,8 @@ KERNELS = {
                          replaces="neumann_tpu/ops/pallas_kernels.py:90"),
     "pq_adc": dict(source="neumann_tpu_torch/csrc/pq_adc.cu",
                    replaces="neumann_tpu/ops/pq.py:116"),
+    "pq_adc_select": dict(source="neumann_tpu_torch/csrc/pq_adc.cu",
+                          replaces="neumann_tpu/ops/pq.py:111"),
 }
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
 # a kernel's bound is the larger of its bytes (each input read once, each
@@ -243,6 +250,10 @@ NO_LIBRARY = {
 ADC_LIBRARY = ("F.embedding_bag(idx, w, mode='sum'): bags of a row's M "
                "codes offset 256 a subspace (gathered: and M * 256 a query) "
                "into the tables; sums only, no negation or mask")
+ADC_SELECT_LIBRARY = ("no one PyTorch call selects the top-k of ADC sums "
+                      "without the [Q, C] sums; F.embedding_bag gives the "
+                      "sums alone (pq_adc's library_ms), scores_topk_ms the "
+                      "scores mode and _topk_stable over them")
 # phase 2: rows of one hamming_scores launch on the binary route above the
 # fused kernel's k cap (ops/quant.hamming_topk's block); phase 9: queries
 # of the TOP 65 batch held against the plain top-k
@@ -303,7 +314,7 @@ ROUTES = ("ivf", "pooled", "int8", "binary", "wide", "hybrid",
 # phase 2's records: the main shape's keys bare, the other shapes' with a
 # suffix
 SHAPE_SUFFIXES = ("_q1", "_q8", "_q32", "_w96", "_w96q1", "_w96q256",
-                  "_d4096", "_hyb", "_ivf", "_m384", "_g_step", "_g_tail",
+                  "_d4096", "_hyb", "_ivf", "_m384", "_g_step",
                   "_h_step", "_h_tail", "_h_single")
 # row 7's design, named in its kernels-line entry beside each shape's
 # plan (ops/kernels._hamming_groups)
@@ -316,14 +327,30 @@ HT_DESIGN = ("queries on M (16 a warp, up to 8 warps a block), rows on N "
              "by 64-bit atomicMin")
 # the wrappers a route's reference swaps for their plain versions
 _PLAIN_SWAPPED = ("int8_dot_scores", "int8_pooled_bits", "f32_pooled_bits",
-                  "hamming_scores", "hamming_topk", "pq_adc_scores")
+                  "hamming_scores", "hamming_topk", "pq_adc_scores",
+                  "pq_adc_topk")
 # phase 2 and phases 14-15: row 8, the ADC scan. The engine's codebook at
 # 768-d has DIM // 8 subspaces; the kernel's design, named in its entry
 PQ_M = DIM // 8
-PQ_DESIGN = ("a block a query and 2,048 rows, the query's table in shared "
-             "memory 48 subspaces at a time, sums in registers in subspace "
-             "order; blocks walk 16 queries at a time row block by row "
-             "block (L2 reuse)")
+PQ_DESIGN = ("shared layout (full scan, Q >= 8): 8 queries and passes of "
+             "4,096 rows a block of 512 threads, each code read once for "
+             "the 8, tables as [m][code][4 copies][8 queries] so a warp's "
+             "float4 lookups never conflict, a 3-stage ring (tables loaded "
+             "once and stored 4 times, codes transposed to [M, N] and "
+             "staged by cp.async) under full / empty mbarriers, 16 rows x "
+             "4 queries "
+             "of sums in registers in subspace order; lane layout (Q < 8, "
+             "gathered): a query and 2,048 columns a block, a row a lane; "
+             "select mode: each block's k best keys a query in shared "
+             "memory, a buffer of 192 merged by a warp, k-th keys shared "
+             "across blocks by 64-bit atomicMax")
+# phase 14: SIMILARs above the select mode's k cap (the scores mode)
+N_PQ_TOP65 = 2
+PQ_TOP65 = 65
+# row 8's kernels by name in a profile: the scan, and the select mode's
+# threshold fill, codes transpose and tables interleave
+ADC_KERNEL_NAMES = ("pq_adc_kernel", "transpose_codes", "interleave_tables",
+                    "fill_empty")
 # phase 14 (cell G): the pq collection takes phases 7-9's rows; the tt one
 # their first TT_ROWS (the host decomposes nothing: the batched SVD runs on
 # the card), TT_SAMPLE of them held to the numpy decomposition
@@ -1213,16 +1240,20 @@ def run(args, dev, config=None, on_card: bool = True) -> dict:
         torch.cuda.empty_cache()
         report["kernels"].update(check_new_kernels(dev, args.seed))
         torch.cuda.empty_cache()
-        report["kernels"]["pq_adc"] = check_pq_adc(dev, args.seed)
-        rec = report["kernels"]["pq_adc"]
-        say(f"[2] pq_adc kernel vs plain ({rec['shape']}): bit-exact"
-            + "".join(f"; {sfx[1:] or 'Q=' + str(N_BATCH)} kernel "
-                      f"{rec[f'ms{sfx}']:.4f} ms (device "
-                      f"{rec.get(f'device_ms{sfx}')}), plain "
-                      f"{rec[f'plain_ms{sfx}']:.4f} ms, embedding_bag "
+        rec, sel = check_pq_adc(dev, args.seed)
+        report["kernels"]["pq_adc"] = rec
+        report["kernels"]["pq_adc_select"] = sel
+        say(f"[2] pq_adc kernel vs plain ({rec['shape']}): scores bit-exact,"
+            f" top-{TOP_K} equal"
+            + "".join(f"; {sfx[1:] or 'Q=' + str(N_BATCH)} select "
+                      f"{sel[f'ms{sfx}']:.4f} ms (device "
+                      f"{sel.get(f'device_ms{sfx}')}), scores + "
+                      f"_topk_stable {sel[f'scores_topk_ms{sfx}']:.4f} ms, "
+                      f"scores {rec[f'ms{sfx}']:.4f} ms, plain select "
+                      f"{sel[f'plain_ms{sfx}']:.4f} ms, embedding_bag "
                       f"{rec[f'library_ms{sfx}']:.4f} ms, bound "
-                      f"{rec[f'bound_ms{sfx}']:.4f} ms "
-                      f"({rec[f'bound_by{sfx}']})"
+                      f"{sel[f'bound_ms{sfx}']:.4f} ms "
+                      f"({sel[f'bound_by{sfx}']})"
                       for sfx in ("", "_q8", "_q1", "_ivf", "_m384")))
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1251,14 +1282,15 @@ def run(args, dev, config=None, on_card: bool = True) -> dict:
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    adc_rec = report["kernels"]["pq_adc"] if on_card else None
+    adc_recs = ((report["kernels"]["pq_adc"],
+                 report["kernels"]["pq_adc_select"]) if on_card else None)
     report.update(run_quantized(args, dev, shared["corpus"],
-                                shared["queries"], on_card, adc_rec))
+                                shared["queries"], on_card, adc_recs))
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     report.update(run_ann(args, dev, shared["corpus"], shared["queries"],
-                          on_card, adc_rec))
+                          on_card, adc_recs))
     del shared
     gc.collect()
     if on_card:
@@ -1415,18 +1447,17 @@ def require_launches(launches: dict, names, phase: str) -> None:
                              f"launched: {missing} ({launches})")
 
 
-def similar_series(router, stmts, cosine: bool = True):
+def similar_series(router, stmts, cosine: bool = True, k: int = TOP_K):
     """Execute SIMILAR statements one by one, host clock around each.
     Returns (latencies ms, row ids per statement, scores per statement);
-    each must give TOP_K finite hits (cosine ones within [-1.01,
-    1.01])."""
+    each must give k finite hits (cosine ones within [-1.01, 1.01])."""
     lat, rows, scores = [], [], []
     for stmt in stmts:
         t0 = time.perf_counter()
         res = router.execute(stmt)
         lat.append((time.perf_counter() - t0) * 1e3)
         sc = [h["score"] for h in res.results]
-        if res.kind != "similar" or len(sc) != TOP_K or not all(
+        if res.kind != "similar" or len(sc) != k or not all(
                 np.isfinite(sc)) or (cosine and max(map(abs, sc)) > 1.01):
             raise AssertionError(f"bad SIMILAR result ({stmt[:32]}...): "
                                  f"{res.results}")
@@ -2193,40 +2224,121 @@ def adc_record(rec: dict, sfx: str, codes, tables, valid, cand=None,
     torch.cuda.empty_cache()
 
 
+def adc_select_record(rec: dict, sfx: str, codes, tables, valid, k: int,
+                      cand=None, reps: int = 5) -> None:
+    """Row 8's select mode at one shape, into ``rec`` under ``sfx``: its
+    scores and columns equal to ``pq_adc_topk_plain``'s; its time beside
+    the plain version's and the path it replaced (``scores_topk_ms``: the
+    scores mode, then ``_topk_stable`` over the [Q, C] scores); device
+    time (torch.profiler) at 8 queries or fewer; the plan; the bound: the
+    codes, tables and mask (gathered: the distinct candidate rows and
+    cand) and the [Q, k] result once each, and the live rows' lookups at
+    the shared-memory rate."""
+    import torch
+
+    from neumann_tpu_torch.ops import kernels as tk
+    from neumann_tpu_torch.ops.scan import _topk_stable
+
+    got = tk.pq_adc_topk(codes, tables, valid, k, cand)
+    want = tk.pq_adc_topk_plain(codes, tables, valid, k, cand)
+    torch.cuda.synchronize()
+    for a, b, what in zip(got, want, ("scores", "columns")):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"pq_adc_select{sfx}: {int((a != b).sum())} {what} differ "
+                f"from plain (must be equal)")
+    del want
+    q, m = tables.shape[0], codes.shape[1]
+    cols = codes.shape[0] if cand is None else cand.shape[1]
+    if cand is None:
+        live = int(valid.sum()) * q
+        in_bytes = nbytes(codes, tables, valid)
+    else:
+        ok = cand >= 0
+        live = int((ok & valid[cand.long().clamp_min(0)]).sum())
+        rows_read = int(torch.unique(cand[ok]).numel())
+        in_bytes = rows_read * (m + 1) + nbytes(cand, tables)
+    for key, v in bound(in_bytes + nbytes(*got), live * m,
+                        SMEM_LOOKUPS_PER_S).items():
+        rec[f"{key}{sfx}"] = v
+    rec[f"max_abs_err{sfx}"] = 0.0
+    del got
+    rec[f"ms{sfx}"] = cuda_ms(
+        lambda: tk.pq_adc_topk(codes, tables, valid, k, cand), reps)
+    rec[f"scores_topk_ms{sfx}"] = cuda_ms(lambda: _topk_stable(
+        tk.pq_adc_scores(codes, tables, valid, cand), min(k, cols)), reps)
+    torch.cuda.empty_cache()
+    rec[f"plain_ms{sfx}"] = cuda_ms(
+        lambda: tk.pq_adc_topk_plain(codes, tables, valid, k, cand), 1,
+        warm=False)
+    if q <= 8:
+        rec[f"device_ms{sfx}"] = device_ms(
+            lambda: tk.pq_adc_topk(codes, tables, valid, k, cand), 20) or None
+    sms = torch.cuda.get_device_properties(codes.device).multi_processor_count
+    rec[f"plan{sfx}"] = dict(zip(
+        ("shared", "chunk", "parts", "span"),
+        tk._pq_adc_plan(cols, q, m, k, cand is not None, True, sms)))
+    rec[f"shape{sfx}"] = (f"Q {q} x {'C' if cand is not None else 'N'} "
+                          f"{cols} x M {m}, k {k}")
+    torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def adc_launches():
-    """Record the arguments of every ``pq_adc_scores`` call the main path
-    makes inside the block (``ops/pq`` and ``ops/ivf`` call it through
-    the ``kernels`` module), to time row 8 afterwards at those shapes."""
+    """Record the mode and arguments of every call of row 8's wrappers
+    (``pq_adc_topk``: "select", ``pq_adc_scores``: "scores") the main
+    path makes inside the block (``ops/pq`` and ``ops/ivf`` call them
+    through the ``kernels`` module), to time row 8 afterwards at those
+    shapes."""
     from neumann_tpu_torch.ops import kernels as tk
 
     seen = []
-    orig = tk.pq_adc_scores
+    saved = {"select": tk.pq_adc_topk, "scores": tk.pq_adc_scores}
 
-    def spy(*a):
-        seen.append(a)
-        return orig(*a)
+    def spy(mode, fn):
+        def call(*a):
+            seen.append((mode, a))
+            return fn(*a)
+        return call
 
-    tk.pq_adc_scores = spy
+    tk.pq_adc_topk = spy("select", saved["select"])
+    tk.pq_adc_scores = spy("scores", saved["scores"])
     try:
         yield seen
     finally:
-        tk.pq_adc_scores = orig
+        tk.pq_adc_topk = saved["select"]
+        tk.pq_adc_scores = saved["scores"]
 
 
-def check_pq_adc(dev, seed: int) -> dict:
-    """Row 8 against its plain version, bit for bit, and beside its
-    library yardstick (``adc_record``) at: Q 1,024, 8 and 1 x 1,048,576
-    rows x M 96 (the 768-d codebook), 1 % dead rows; the gathered mode at
-    64 queries x 16 probed blocks of 2,048 rows, a third of each block
-    padding; M 384 (a 3,072-d codebook, past a block's shared memory) at
-    Q 64 x 262,144. Phases 14 and 15 add the shapes their batches
-    launch, on their own codes and tables."""
+def adc_both(recs, sfx: str, args) -> None:
+    """Row 8 in both modes at the shape of one recorded select call's
+    arguments, into recs = (scores record, select record)."""
+    codes, tables, valid, k = args[:4]
+    cand = args[4] if len(args) > 4 else None
+    adc_record(recs[0], sfx, codes, tables, valid, cand)
+    adc_select_record(recs[1], sfx, codes, tables, valid, k, cand)
+
+
+def check_pq_adc(dev, seed: int):
+    """Row 8 in both modes: the scores bit for bit against their plain
+    version and beside the library yardstick (``adc_record``), the select
+    mode (k 10) equal to its plain version and beside the scores mode
+    and ``_topk_stable`` (``adc_select_record``), at: Q 1,024, 8 and 1 x
+    1,048,576 rows x M 96 (the 768-d codebook), 1 % dead rows; the
+    gathered mode at 64 queries x 16 probed blocks of 2,048 rows, a third
+    of each block padding; M 384 (a 3,072-d codebook, past a block's
+    shared memory) at Q 64 x 262,144. Phases 14 and 15 add the shapes
+    their batches launch, on their own codes and tables. Returns the
+    (scores, select) records."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed + 8)
     rec = {"library": ADC_LIBRARY, "design": PQ_DESIGN}
-    one = functools.partial(adc_record, rec)
+    sel = {"library": ADC_SELECT_LIBRARY, "design": PQ_DESIGN}
+
+    def one(sfx, codes, tables, valid, cand=None, reps=5):
+        adc_record(rec, sfx, codes, tables, valid, cand, reps)
+        adc_select_record(sel, sfx, codes, tables, valid, TOP_K, cand, reps)
 
     n = POOLED_ROWS
     codes = torch.randint(0, 256, (n, PQ_M), generator=g, device=dev,
@@ -2256,11 +2368,11 @@ def check_pq_adc(dev, seed: int) -> dict:
     valid = torch.rand(WIDE_ROWS, generator=g, device=dev) > 0.01
     tables = torch.rand(64, wide_m, 256, generator=g, device=dev) * 4.0
     one("_m384", codes, tables, valid, reps=5)
-    rec["shape"] = (f"Q={N_BATCH} (8, 1) x N={n} x M={PQ_M}; gathered "
-                    f"Q={q} x {nprobe} blocks of {stride}; Q=64 x "
-                    f"N={WIDE_ROWS} x M={wide_m}; phase 14's and 15's "
-                    f"batch steps")
-    return rec
+    rec["shape"] = sel["shape"] = (
+        f"Q={N_BATCH} (8, 1) x N={n} x M={PQ_M}; gathered Q={q} x {nprobe} "
+        f"blocks of {stride}; Q=64 x N={WIDE_ROWS} x M={wide_m}; phase 14's "
+        f"and 15's batch steps")
+    return rec, sel
 
 
 # ---------------------------------------------------------------------------
@@ -2301,17 +2413,20 @@ def key_rows(index, ids) -> list:
 
 
 def run_quantized(args, dev, corpus, queries, on_card: bool,
-                  adc_rec: Optional[dict] = None) -> dict:
+                  adc_recs=None) -> dict:
     """Phase 14, cell G: phases 7-9's rows in a ``QUANTIZATION pq``
     collection and their first TT_ROWS in a ``QUANTIZATION tt`` one,
-    through the router. Counted: 64 singles, a batch of 1,024 and 4
-    ``WHERE cat = 3`` on pq (the ADC kernel); 16 singles and a batch of
-    256 on tt. Gates: pq hits equal the plain ADC + top-k on the engine's
-    own codes (keys and order); tt hits equal the exact scan over the
-    reconstructed rows; TT_SAMPLE sampled rows reconstruct within TT_RTOL
-    of the numpy ``tt_decompose``; filtered hits in their category.
-    recall@10 against the exact f32 scan (L2 for pq, cosine for tt) is
-    recorded, not limited."""
+    through the router. Counted: 64 singles, a batch of 1,024, 4 ``WHERE
+    cat = 3`` (the ADC kernel's select mode) and 2 ``TOP 65`` (its scores
+    mode) on pq; 16 singles and a batch of 256 on tt. Gates: pq hits equal
+    the plain ADC + top-k on the engine's own codes (keys and order); the
+    batch is one select launch and allocates less than its [Q, N] scores
+    would take; tt hits equal the exact scan over the reconstructed rows;
+    TT_SAMPLE sampled rows reconstruct within TT_RTOL of the numpy
+    ``tt_decompose``; filtered hits in their category. recall@10 against
+    the exact f32 scan (L2 for pq, cosine for tt) is recorded, not
+    limited. ``adc_recs``: row 8's (scores, select) records, which get
+    the batch's launch shape."""
     import torch
 
     from neumann_tpu_torch.compress.tensor_train import (
@@ -2354,9 +2469,13 @@ def run_quantized(args, dev, corpus, queries, on_card: bool,
         lat_f, rows_f, _ = similar_series(router, [
             f"SIMILAR {vec_literal(q)} IN pq WHERE cat = {FILTER_CAT} TOP "
             f"{TOP_K}" for q in extra], cosine=False)
+        lat_65, rows_65, _ = similar_series(router, [
+            f"SIMILAR {vec_literal(q)} IN pq TOP {PQ_TOP65}"
+            for q in single[:N_PQ_TOP65]], cosine=False, k=PQ_TOP65)
         pq_launches = dict(tk.LAUNCHES)
     latency_stats(report, "pq_single", lat)
     latency_stats(report, "pq_filtered", lat_f)
+    report["pq_top65_ms"] = lat_65
     report["pq_batch_s"] = times
     report["pq_batch_qps"] = qps
     coll = eng._corpora["col/pq"][DIM]
@@ -2371,10 +2490,12 @@ def run_quantized(args, dev, corpus, queries, on_card: bool,
         _, ref = pq_topk(book, codes, qd[:N_SINGLE + N_BATCH], TOP_K, live)
         _, ref_f = pq_topk(book, codes, qd[N_SINGLE + N_BATCH:], TOP_K,
                            live & cat)
-    want = key_rows(coll.index, code_rows[ref.cpu().numpy()].tolist()) + \
-        key_rows(coll.index, code_rows[ref_f.cpu().numpy()].tolist())
-    bad = [i for i, (got, w) in enumerate(zip(rows_s + rows_b + rows_f,
-                                              want)) if got != w]
+        _, ref_65 = pq_topk(book, codes, qd[:N_PQ_TOP65], PQ_TOP65, live)
+    want = [key_rows(coll.index, code_rows[r.cpu().numpy()].tolist())
+            for r in (ref, ref_f, ref_65)]
+    want = want[0] + want[1] + want[2]
+    bad = [i for i, (got, w) in enumerate(zip(
+        rows_s + rows_b + rows_f + rows_65, want)) if got != w]
     off_cat = [r for rr in rows_f for r in rr if r % N_CATS != FILTER_CAT]
     emb, valid = coll.slab.device_view()
     _, oracle = topk_scan(emb, qd[:N_SINGLE + N_BATCH], TOP_K, "euclidean",
@@ -2400,25 +2521,50 @@ def run_quantized(args, dev, corpus, queries, on_card: bool,
                              f"queries {bad[:5]}, or outside cat "
                              f"{FILTER_CAT}: {off_cat[:5]}")
     if on_card:
-        require_launches(pq_launches, ("pq_adc",), "14")
-        # row 8 at the shapes the batch launches (pq_topk steps its
-        # queries to bound the [Q, N] scores), on the engine's codes and
-        # tables; then where one batch call's device time goes
+        require_launches(pq_launches, ("pq_adc", "pq_adc_select"), "14")
+        # the batch in one select launch (the launch counter), allocating
+        # far less than its [Q, N] f32 scores; row 8 in both modes at that
+        # launch's shape on the engine's codes and tables; then where one
+        # batch call's device time goes
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tk.reset_launch_counts()
         with adc_launches() as seen:
             eng.batch_search_ns(batch, TOP_K, ns="col/pq")
+        torch.cuda.synchronize()
+        report["pq_batch_launch_counts"] = {
+            k: tk.LAUNCHES[k] for k in ("pq_adc", "pq_adc_select")}
+        report["pq_batch_peak_extra_gb"] = (
+            torch.cuda.max_memory_allocated() - base) / 1e9
+        scores_gb = len(batch) * n * 4 / 1e9
         report["pq_batch_adc_launches"] = len(seen)
-        steps = {"_g_step": seen[0], "_g_tail": seen[-1]}
+        if report["pq_batch_launch_counts"] != {"pq_adc": 0,
+                                                "pq_adc_select": 1} or \
+                not report["pq_batch_peak_extra_gb"] < scores_gb / 4:
+            raise AssertionError(
+                f"pq batch: launches {report['pq_batch_launch_counts']} "
+                f"(want one select launch), peak +"
+                f"{report['pq_batch_peak_extra_gb']:.2f} GB (its [Q, N] "
+                f"scores: {scores_gb:.2f} GB)")
+        a = seen[0][1]
         del seen
-        for sfx, a in steps.items():
-            adc_record(adc_rec, sfx, *a)
-        del steps, a
+        adc_both(adc_recs, "_g_step", a)
+        del a
         prof = profile_calls({"pq_batch": lambda: eng.batch_search_ns(
             batch, TOP_K, ns="col/pq")}, "chiprun_out")["pq_batch"]
         adc_ms = sum(v for k, v in prof["kernels_ms"].items()
-                     if "pq_adc_kernel" in k)
+                     if any(n in k for n in ADC_KERNEL_NAMES))
         report["profile_pq_batch"] = dict(prof, adc_device_ms=adc_ms)
-        say(f"[14] pq batch of {N_BATCH}: {report['pq_batch_adc_launches']}"
-            f" ADC launches; profiled: wall {prof['wall_ms']:.2f} ms, device "
+        # the call's kernels from a CUDA-only trace as well: the CPU + CUDA
+        # trace above has recorded only the call's last kernels here
+        report["pq_batch_device_ms"] = device_ms(
+            lambda: eng.batch_search_ns(batch, TOP_K, ns="col/pq"), 1)
+        say(f"[14] pq batch of {N_BATCH}: launches "
+            f"{report['pq_batch_launch_counts']}, peak +"
+            f"{report['pq_batch_peak_extra_gb']:.3f} GB (its scores would "
+            f"take {scores_gb:.2f}); device {report['pq_batch_device_ms']:.2f}"
+            f" ms a call; profiled: wall {prof['wall_ms']:.2f} ms, device "
             f"busy {prof['device_busy_ms']:.2f} ms, of it row 8 "
             f"{adc_ms:.2f} ms")
     del emb, valid, codes, book, coll, live, cat, router, eng
@@ -2539,7 +2685,7 @@ def same_hits(a, b) -> bool:
 
 
 def run_ann(args, dev, corpus, queries, on_card: bool,
-            adc_rec: Optional[dict] = None) -> dict:
+            adc_recs=None) -> dict:
     """Phase 15, cell H: the ANN index APIs. build_ivf_index over
     IVF_ROWS of phases 7-9's rows in a default namespace (IVF_CLUSTERS
     clusters), 64 singles at each of IVF_NPROBES, IVF_CHECKED of them
@@ -2647,19 +2793,26 @@ def run_ann(args, dev, corpus, queries, on_card: bool,
             if not (np.array_equal(i_p, i_b) and np.array_equal(s_p, s_b)):
                 raise AssertionError("IVFIndex pq storage: ids or scores "
                                      "differ from the plain ADC")
-            if adc_rec is not None:
+            if adc_recs is not None:
                 # row 8's gathered mode at the shapes this index launches:
-                # the batch's query steps (they bound the [Q, C] scores)
-                # and a single query, on its own codes and tables
+                # the batch's query steps (they bound the [Q, C]
+                # candidates) and a single query, on its own codes and
+                # tables, in both modes
                 with adc_launches() as seen:
                     ix.search(batch, TOP_K)
                     ix.search(qs[0], TOP_K)
                 report["ivf_pq_batch_adc_launches"] = len(seen) - 1
+                report["ivf_pq_adc_modes"] = sorted({m for m, _ in seen})
+                if report["ivf_pq_adc_modes"] != ["select"]:
+                    raise AssertionError(
+                        f"IVFIndex pq at TOP {TOP_K} launched "
+                        f"{report['ivf_pq_adc_modes']} (want the select "
+                        f"mode alone)")
                 steps = {"_h_step": seen[0], "_h_tail": seen[-2],
                          "_h_single": seen[-1]}
                 del seen
-                for sfx, a in steps.items():
-                    adc_record(adc_rec, sfx, *a)
+                for sfx, (_, a) in steps.items():
+                    adc_both(adc_recs, sfx, a)
                 del steps, a
         say(f"[15] IVFIndex {storage}, {m} rows, "
             f"{ix.config.n_clusters} clusters (stride {ix._stride}), built "
@@ -2675,7 +2828,7 @@ def run_ann(args, dev, corpus, queries, on_card: bool,
                                               for lc in launches.values())
         for name in tk.LAUNCHES}
     if on_card:
-        require_launches(launches["pq"], ("pq_adc",), "15")
+        require_launches(launches["pq"], ("pq_adc_select",), "15")
         torch.cuda.empty_cache()
 
     # ---- HNSW, and saved indexes -----------------------------------------
@@ -3182,7 +3335,7 @@ def kernels_line(report: dict) -> dict:
         for extra in ("bytes_bound_ms", "ops_bound_ms",
                       "popc_issue_bound_ms", "int8_rate_ms", "b1_ops_per_s",
                       "kernel_ms", "unselected_ms", "device_ms", "design",
-                      "plan"):
+                      "plan", "scores_topk_ms"):
             if extra in rec:
                 row[extra] = rec[extra]
         for sfx in SHAPE_SUFFIXES:   # the other shapes a kernel serves
@@ -3192,7 +3345,7 @@ def kernels_line(report: dict) -> dict:
                     "bytes_bound_ms", "ops_bound_ms", "kernel_ms",
                     "unselected_ms", "device_ms", "library_ms",
                     "library_device_ms", "library", "plan", "shape",
-                    "library_max_abs_err")
+                    "library_max_abs_err", "scores_topk_ms")
                     if f"{k}{sfx}" in rec})
                 row[f"roofline_share{sfx}"] = (rec[f"bound_ms{sfx}"]
                                                / rec[f"ms{sfx}"])
@@ -3286,6 +3439,8 @@ def main() -> int:
         *(f"hnsw_{st}_{k}" for st in ("dense", "quantized", "binary")
           for k in ("rows", "build_s", "insert_per_s", "p50_ms", "recall")),
         "hnsw_build_wall_s", "pq_batch_adc_launches",
+        "pq_batch_launch_counts", "pq_batch_peak_extra_gb",
+        "pq_batch_device_ms",
         "ivf_pq_batch_adc_launches", "saved_index_ok", "total_s")}
     for part in ("ivf", "pooled", "int8", "binary"):
         for k in ("p50_ms", "p99_ms", "qps", "batches", "mean_cohort",

@@ -91,11 +91,6 @@ QUANTIZATIONS = ("none", "int8", "binary", "pq", "tt")
 _GC_FREEZE_MIN_ROWS = 1 << 16
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP: {item})")
-
-
 # ---------------------------------------------------------------------------
 # results / filters
 # ---------------------------------------------------------------------------
@@ -227,10 +222,10 @@ class VectorEngineConfig:
     * ``mesh_auto`` / ``mesh_threshold``: one card is no mesh, so no
       corpus is ever placed on one (the mesh is ROADMAP item 12).
 
-    ``max_keys_per_scan`` and ``search_timeout_s`` are accepted here,
-    but the JAX engine reads neither and the port defines no limit yet:
-    an engine built with either set raises ``NotImplementedError``
-    (ROADMAP item 14, scan limits) instead of ignoring it.
+    ``max_keys_per_scan`` and ``search_timeout_s`` (set by
+    ``low_memory()``) are accepted and enforced by neither engine: the
+    JAX engine reads neither, so an engine on that preset answers as the
+    JAX engine does.
     """
 
     default_dimension: Optional[int] = None
@@ -274,10 +269,6 @@ class VectorEngineConfig:
             raise VectorError("sparse_threshold must be in [0,1]")
         if self.max_dimension is not None and self.max_dimension <= 0:
             raise VectorError("max_dimension must be positive")
-        if self.max_keys_per_scan is not None:
-            _not_ported("max_keys_per_scan", "14, scan limits")
-        if self.search_timeout_s is not None:
-            _not_ported("search_timeout_s", "14, scan limits")
 
 
 @dataclass

@@ -3,7 +3,8 @@ windowed int8 index behind the engine's auto-IVF route
 (``DeviceIVFInt8``), and the legacy ``IVFIndex`` behind the engine's
 ``build_ivf_index`` API (one padded block of rows a k-means cluster, in
 flat f32, PQ-code or sign-bit storage; its pq storage scores the probed
-rows with the ADC kernel, ``ops/kernels.pq_adc_scores``).
+rows with the ADC kernel, ``ops/kernels.pq_adc_topk`` in its gathered
+mode).
 
 Layout (same as the JAX package): rows sorted by k-means cluster into a
 buffer of exactly corpus size, chopped into disjoint fixed windows of
@@ -736,7 +737,8 @@ class IVFIndex:
         """Top-k over the nprobe nearest clusters per query (cosine to
         the normalized centroids): cosine over the gathered rows (flat),
         -hamming distance over their sign bits (binary) or -ADC distance
-        (pq: the ADC kernel, each query scoring its own probed rows).
+        (pq: the ADC kernel, each query scoring its own probed rows, the
+        top-k selected inside it up to its k cap; ties by probe order).
         Returns host (scores [Q, kk], ids [Q, kk] int32), kk = min(k,
         nprobe * stride); -inf / -1 past the live rows."""
         storage = self.config.storage
@@ -766,6 +768,13 @@ class IVFIndex:
             qs = q[q0:q0 + step]
             pos = (probe[q0:q0 + step, :, None] * stride
                    + span).reshape(qs.shape[0], cols)
+            if storage == "pq" and 1 <= kk <= kernels.PQ_ADC_TOPK_CAP:
+                s, i = kernels.pq_adc_topk(
+                    self._codes, self._pq.adc_tables(qs), self._valid, kk,
+                    pos.int())
+                out_s.append(s)
+                out_p.append(torch.gather(pos, 1, i))
+                continue
             if storage == "pq":
                 scores = kernels.pq_adc_scores(
                     self._codes, self._pq.adc_tables(qs), self._valid,

@@ -21,10 +21,13 @@ that XLA fuses on the TPU.
   (``csrc/hamming_topk.cu``) replaces ``hamming_topk_pallas`` with the
   top-k fused in, no [Q, N] distances in device memory; both on the 1-bit
   tensor cores (``csrc/mma_b1.cuh``), for any row width.
-* ``pq_adc_scores`` (``csrc/pq_adc.cu``) replaces the XLA-fused ADC scan
-  of ``neumann_tpu/ops/pq.py`` (``_adc_search_fn``) and of the ``pq``
-  storage of ``neumann_tpu/ops/ivf.IVFIndex.search``: per-query lookup
-  tables summed over a code matrix, in full or over gathered candidates.
+* ``pq_adc_topk`` and ``pq_adc_scores`` (``csrc/pq_adc.cu``, one kernel
+  in two modes) replace the XLA-fused ADC search of
+  ``neumann_tpu/ops/pq.py`` (``_adc_search_fn``: the sums and
+  ``lax.top_k``) and of the ``pq`` storage of
+  ``neumann_tpu/ops/ivf.IVFIndex.search``: per-query lookup tables summed
+  over a code matrix, in full or over gathered candidates, the top-k
+  selected inside the kernel (k up to 64) or the scores written.
 
 Every wrapper takes its plain version only for tensors on the CPU; for
 a CUDA tensor it launches the kernel or raises — there is no fallback.
@@ -57,9 +60,11 @@ from typing import Optional
 
 import torch
 
+from neumann_tpu_torch.ops.scan import stable_keys
+
 LAUNCHES = {"ivf_probe": 0, "batched_probe": 0, "int8_dot_scores": 0,
             "int8_pooled_bits": 0, "f32_pooled_bits": 0, "hamming_scores": 0,
-            "hamming_topk": 0, "pq_adc": 0}
+            "hamming_topk": 0, "pq_adc": 0, "pq_adc_select": 0}
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("ivf_probe.cu", "batched_probe.cu", "int8_scores.cu",
@@ -157,7 +162,11 @@ def build_kernels(verbose: bool = False) -> ctypes.CDLL:
                   i32, i32, i32, vp]),
                 ("neumann_b1_mma_rate", [i32, i32, vp, vp]),
                 ("neumann_pq_adc_scores",
-                 [vp, vp, vp, vp, vp, i64, i64, i32, i32, vp])):
+                 [vp, vp, vp, vp, vp, vp, vp, i64, i64, i32, i32, i32, i32,
+                  i32, i64, i64, vp]),
+                ("neumann_pq_adc_select",
+                 [vp, vp, vp, vp, vp, vp, vp, vp, i64, i64, i32, i32, i32,
+                  i32, i32, i32, i64, i64, vp])):
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = i32
         _lib = lib
@@ -924,8 +933,31 @@ def hamming_topk(corpus_bits, query_bits, mask, k: int):
 
 
 # ---------------------------------------------------------------------------
-# kernel 8: PQ ADC scan
+# kernel 8: PQ ADC scan, the top-k inside (select) or the scores written
 # ---------------------------------------------------------------------------
+
+# the select mode's largest k (it keeps k keys a query in shared memory,
+# as row 7 does); callers take pq_adc_scores and a selection above it
+PQ_ADC_TOPK_CAP = 64
+# csrc/pq_adc.cu's geometry: the lane layout's columns a pass and table
+# chunk; the shared layout's queries a block, table copies, rows a pass
+# and stages of its ring (a subspace each) in select and scores mode; a
+# query's candidate buffer; a block's shared memory
+_PQ_LANE_PASS = 2048
+_PQ_LANE_CHUNK = 48
+_PQ_QB = 8
+_PQ_COPIES = 4
+_PQ_SHARED_PASS = 4096
+_PQ_STAGES = {True: 3, False: 6}
+_PQ_CAP = 192
+_PQ_SMEM = 232448
+# the fewest queries of a full scan the shared layout takes: on an H100
+# (scripts/torch_pq_adc_probe.py, 2^20 rows x M 96) the lane layout took
+# 0.317 ms at Q 4 against 0.471, the shared one 0.478 at Q 8 against 0.540
+_PQ_SHARED_MIN_Q = 8
+# lane-layout blocks a SM that a select launch's grid fills
+_PQ_LANE_BLOCKS_PER_SM = 4
+
 
 def _check_pq_adc(codes, tables, valid, cand):
     dev = codes.device
@@ -973,10 +1005,132 @@ def pq_adc_scores_plain(codes, tables, valid, cand=None):
     return out
 
 
+def pq_adc_topk_plain(codes, tables, valid, k: int, cand=None):
+    """Plain PyTorch version of ``pq_adc_topk``: ``_topk_stable`` of
+    ``pq_adc_scores_plain``'s scores, taken in steps of columns whose
+    keys are merged (the keys are distinct, so the steps change
+    nothing), decoded as the kernel's keys are."""
+    n = codes.shape[0]
+    q = tables.shape[0]
+    cols = n if cand is None else cand.shape[1]
+    kk = min(k, cols)
+    best = torch.empty((q, 0), dtype=torch.int64, device=codes.device)
+    for c0, c1 in _row_steps(cols, q):
+        if cand is None:
+            s = pq_adc_scores_plain(codes[c0:c1], tables, valid[c0:c1])
+        else:
+            s = pq_adc_scores_plain(codes, tables, valid, cand[:, c0:c1])
+        best = merge_keys(best, stable_keys(s, c0), kk, largest=True)
+    return decode_score_keys(best)
+
+
+def _pq_smem(shared: bool, chunk: int, k: int, select: bool) -> int:
+    """Shared-memory bytes of one block (csrc/pq_adc.cu ``layout``): the
+    tables (shared: each stage of the ring [256, 4 copies, 8 queries];
+    lane: [chunk, 256]), the codes (shared: each stage's 4,096 bytes),
+    in select mode each query's best keys, candidate buffer, limit, k-th
+    key and count, and (shared) each stage's two mbarriers."""
+    if shared:
+        b = _PQ_STAGES[select] * (256 * _PQ_QB * _PQ_COPIES * 4
+                                  + _PQ_SHARED_PASS)
+    else:
+        b = chunk * 256 * 4
+    if select:
+        b += (_PQ_QB if shared else 1) * ((k + _PQ_CAP) * 8 + 20)
+    b = -(-b // 8) * 8
+    return b + (2 * _PQ_STAGES[select] * 8 if shared else 0)
+
+
+def _pq_adc_plan(cols: int, q: int, m: int, k: int, gathered: bool,
+                 select: bool, sms: int):
+    """The ADC kernel's plan: (shared, chunk, parts, span).
+
+    ``shared``: the full scan at ``_PQ_SHARED_MIN_Q`` queries or more
+    takes the shared layout (8 queries a block, passes of 4,096 rows);
+    fewer queries and the gathered mode the lane layout (a query a
+    block, passes of 2,048 columns). ``chunk``: subspaces a table chunk
+    (shared: 1, a stage of its ring; lane: up to 48).
+    Each block walks ``span`` columns (whole passes) of its query or
+    query group; ``parts`` blocks cover the columns. Shared: at least
+    enough parts to fill the SMs, then the count of parts (up to one a
+    pass) whose waves of one block a SM times a block's passes and
+    set-up is least. Lane: select mode fills _PQ_LANE_BLOCKS_PER_SM
+    blocks a SM with as few parts as that takes (a block's first pass
+    merges the most keys), scores mode a block a pass."""
+    shared = not gathered and q >= _PQ_SHARED_MIN_Q
+    if shared:
+        chunk = 1
+        groups = -(-q // _PQ_QB)
+        passes = -(-cols // _PQ_SHARED_PASS)
+        low = min(passes, -(-sms // groups))
+        # a block's set-up and first merges cost about (32 + 2 k) / 128 of
+        # a pass (at Q 1,024 x 2^20 x M 96, k 10: 27.6 ms in 2 parts, 29.1
+        # in 8, 31.6 in 128; scripts/torch_pq_adc_probe.py)
+        parts = min(range(low, min(passes, 4 * low + sms) + 1),
+                    key=lambda p: (-(-p * groups // sms)
+                                   * (128 * -(-passes // p) + 32 + 2 * k),
+                                   p))
+        span = -(-passes // parts) * _PQ_SHARED_PASS
+    else:
+        chunk = min(_PQ_LANE_CHUNK, m)
+        tiles = -(-cols // _PQ_LANE_PASS)
+        parts = tiles
+        if select:
+            parts = min(tiles, -(-_PQ_LANE_BLOCKS_PER_SM * sms // q))
+        span = -(-tiles // parts) * _PQ_LANE_PASS
+    return shared, chunk, -(-cols // span), span
+
+
+def _pq_adc_launch(codes, tables, valid, cand, k: int, select: bool):
+    """One launch of the ADC kernel by its plan: (keys [Q, parts * k]
+    int64, each block's k greatest keys a query) in select mode, else
+    the scores [Q, C] f32. Raises on a CUDA error."""
+    dev = codes.device
+    n, m = codes.shape
+    q = tables.shape[0]
+    cols = n if cand is None else cand.shape[1]
+    if q > 65535:
+        raise ValueError(f"pq_adc kernel takes Q <= 65535 a call (Q={q})")
+    if cols >= (1 << 32) - 1:
+        raise ValueError(f"pq_adc kernel takes fewer than 2^32 - 1 columns "
+                         f"({cols})")
+    for name, t in (("codes", codes), ("tables", tables), ("valid", valid),
+                    *((("cand", cand),) if cand is not None else ())):
+        _launch_ready(name, t)
+    shared, chunk, parts, span = _pq_adc_plan(
+        cols, q, m, k, cand is not None, select,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    npad = parts * span if shared else 0
+    codes_t = (torch.empty((m, npad), dtype=torch.uint8, device=dev)
+               if shared else None)
+    tables_g = (torch.empty((-(-q // _PQ_QB), m, 256, _PQ_QB),
+                            dtype=torch.float32, device=dev)
+                if shared else None)
+    ptr = (lambda t: None if t is None else t.data_ptr())   # noqa: E731
+    lib = build_kernels()
+    head = (codes.data_ptr(), tables.data_ptr(), valid.data_ptr(), ptr(cand))
+    if select:
+        out = torch.empty((q, parts * k), dtype=torch.int64, device=dev)
+        gthr = torch.empty(q, dtype=torch.int64, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.neumann_pq_adc_select(
+                *head, out.data_ptr(), gthr.data_ptr(), ptr(codes_t),
+                ptr(tables_g), n, cols, q, m, k, int(shared), chunk, parts,
+                span, npad, _stream())
+    else:
+        out = torch.empty((q, cols), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.neumann_pq_adc_scores(
+                *head, out.data_ptr(), ptr(codes_t), ptr(tables_g), n, cols,
+                q, m, int(shared), chunk, parts, span, npad, _stream())
+    _raise_on(err, "pq_adc")
+    return out
+
+
 def pq_adc_scores(codes, tables, valid, cand=None):
     """ADC scores [Q, C] f32: ``-sum_m tables[q, m, codes[row, m]]`` for
     the row of each column, -inf where the row is dead (``valid``
-    False) or the candidate is -1.
+    False) or the candidate is -1 (the kernel's scores mode).
 
     codes [N, M] uint8, tables [Q, M, 256] f32 (squared distances of each
     query's subvectors to the 256 centroids of each subspace), valid [N]
@@ -986,26 +1140,49 @@ def pq_adc_scores(codes, tables, valid, cand=None):
     callers step queries to bound the [Q, C] output."""
     _check_pq_adc(codes, tables, valid, cand)
     dev = codes.device
-    n, m = codes.shape
+    n = codes.shape[0]
     q = tables.shape[0]
     cols = n if cand is None else cand.shape[1]
     if dev.type == "cpu":
         return pq_adc_scores_plain(codes, tables, valid, cand)
     if dev.type != "cuda":
         raise ValueError(f"pq_adc_scores: unsupported device {dev}")
-    if q > 65535:
-        raise ValueError(f"pq_adc kernel takes Q <= 65535 a call (Q={q})")
-    for name, t in (("codes", codes), ("tables", tables), ("valid", valid),
-                    *((("cand", cand),) if cand is not None else ())):
-        _launch_ready(name, t)
-    lib = build_kernels()
-    out = torch.empty((q, cols), dtype=torch.float32, device=dev)
-    if q and cols:
-        with torch.cuda.device(dev):
-            err = lib.neumann_pq_adc_scores(
-                codes.data_ptr(), tables.data_ptr(), valid.data_ptr(),
-                cand.data_ptr() if cand is not None else None,
-                out.data_ptr(), n, cols, q, m, _stream())
-        _raise_on(err, "pq_adc")
-        LAUNCHES["pq_adc"] += 1
+    if not (q and cols):
+        return torch.empty((q, cols), dtype=torch.float32, device=dev)
+    out = _pq_adc_launch(codes, tables, valid, cand, 0, False)
+    LAUNCHES["pq_adc"] += 1
     return out
+
+
+def pq_adc_topk(codes, tables, valid, k: int, cand=None):
+    """The k best columns of the ADC scores in one launch, no [Q, C]
+    scores in device memory (the JAX package's ``_adc_search_fn``, the
+    sums and ``lax.top_k`` in one function).
+
+    Arguments as ``pq_adc_scores``, 1 <= k <= PQ_ADC_TOPK_CAP. Returns
+    (scores [Q, k'] f32, columns [Q, k'] int64), k' = min(k, C), equal
+    to ``_topk_stable(pq_adc_scores(...), k')``: descending, equal scores
+    by ascending column (rows with equal codes by ascending row; in the
+    gathered mode candidates by probe order), -inf past the live rows
+    (their columns are those of dead rows or -1 candidates, which
+    callers mask). The kernel writes each block's k' best keys a query;
+    one ``torch.topk`` over [Q, parts * k'] finishes."""
+    _check_pq_adc(codes, tables, valid, cand)
+    if not 1 <= k <= PQ_ADC_TOPK_CAP:
+        raise ValueError(f"pq_adc_topk takes 1 <= k <= {PQ_ADC_TOPK_CAP} "
+                         f"(k={k})")
+    dev = codes.device
+    n = codes.shape[0]
+    q = tables.shape[0]
+    cols = n if cand is None else cand.shape[1]
+    if dev.type == "cpu":
+        return pq_adc_topk_plain(codes, tables, valid, k, cand)
+    if dev.type != "cuda":
+        raise ValueError(f"pq_adc_topk: unsupported device {dev}")
+    kk = min(k, cols)
+    if not (q and cols):
+        return (torch.empty((q, kk), dtype=torch.float32, device=dev),
+                torch.empty((q, kk), dtype=torch.int64, device=dev))
+    keys = _pq_adc_launch(codes, tables, valid, cand, kk, True)
+    LAUNCHES["pq_adc_select"] += 1
+    return decode_score_keys(merge_keys(None, keys, kk, largest=True))

@@ -6,10 +6,13 @@ centroids learned with the port's k-means (``parallel/partitioner.
 kmeans``, seeded per subspace as the JAX package seeds it); codes are an
 [N, M] uint8 device tensor. A query's asymmetric-distance (ADC) table is
 [M, 256] squared distances of its subvectors to the centroids; scanning
-is a gather-and-sum over the code matrix, the hand-written kernel
-``ops/kernels.pq_adc_scores`` (``csrc/pq_adc.cu``), then the exact-order
-top-k of ``ops/scan._topk_stable`` (``lax.top_k``'s order, so rows with
-equal codes, whose distances tie exactly, come out by ascending row).
+is a gather-and-sum over the code matrix with the top-k selected inside
+the hand-written kernel (``ops/kernels.pq_adc_topk``, ``csrc/pq_adc.cu``)
+for k up to ``kernels.PQ_ADC_TOPK_CAP``, or its scores
+(``ops/kernels.pq_adc_scores``) and the exact-order top-k of
+``ops/scan._topk_stable`` above the cap; either way in ``lax.top_k``'s
+order, so rows with equal codes, whose distances tie exactly, come out
+by ascending row.
 
 Encoding is a plain batched product (``torch.bmm`` of subvectors and
 codebooks, then the argmin), as the JAX package leaves it to XLA, in
@@ -30,8 +33,10 @@ from neumann_tpu_torch.ops.scan import _topk_stable
 
 # bytes of f32 temporaries one encode / table / scan step may hold
 _STEP_BYTES = 1 << 28
-# bytes of [Q, N] scores and their int64 selection keys a scan step may
-# hold, and the most queries the ADC kernel scores a launch
+# bytes a scan step may hold: [Q, N] scores and their int64 selection
+# keys above the kernel's k cap, the [Q, M, 256] tables and the kernel's
+# interleaved copy within it; and the most queries the ADC kernel scores
+# a launch
 _SCAN_STEP_BYTES = 1 << 30
 _MAX_LAUNCH_QUERIES = 65535
 
@@ -169,7 +174,8 @@ def pq_topk(codebook: PQCodebook, codes: torch.Tensor, queries, k: int,
     codes [N, M] uint8 on the codebook's device, queries [Q, d] or [d]
     (numpy or tensor), mask [N] bool. Returns (scores [Q, k] f32, ids
     [Q, k] int32) on the device, ``lax.top_k``'s order; -inf / -1 past
-    the live rows. Queries go in steps that bound the [Q, N] scores."""
+    the live rows. Queries go in steps that bound the [Q, N] scores
+    above the kernel's k cap, and the tables within it."""
     dev = codebook.device
     q = to_f32(queries, dev)
     if q.ndim == 1:
@@ -179,13 +185,18 @@ def pq_topk(codebook: PQCodebook, codes: torch.Tensor, queries, k: int,
     k = min(k, n)
     valid = (torch.ones(n, dtype=torch.bool, device=dev) if mask is None
              else torch.as_tensor(mask).to(dev, torch.bool).contiguous())
-    step = max(1, min(_MAX_LAUNCH_QUERIES,
-                      _SCAN_STEP_BYTES // (12 * max(n, 1))))
+    select = 1 <= k <= kernels.PQ_ADC_TOPK_CAP
+    per_query = (8 * codes.shape[1] * codebook.config.n_centroids if select
+                 else 12 * max(n, 1))
+    step = max(1, min(_MAX_LAUNCH_QUERIES, _SCAN_STEP_BYTES // per_query))
     scores, ids = [], []
     for q0 in range(0, q.shape[0], step):
         tables = codebook.adc_tables(q[q0:q0 + step])
-        s, i = _topk_stable(kernels.pq_adc_scores(codes, tables, valid),
-                            k)
+        if select:
+            s, i = kernels.pq_adc_topk(codes, tables, valid, k)
+        else:
+            s, i = _topk_stable(kernels.pq_adc_scores(codes, tables, valid),
+                                k)
         scores.append(s)
         ids.append(i.masked_fill(torch.isneginf(s), -1).int())
     return torch.cat(scores), torch.cat(ids)

@@ -137,6 +137,18 @@ def _topk(scores: torch.Tensor, k: int):
     return torch.gather(scores, 1, idx), idx
 
 
+def stable_keys(scores: torch.Tensor, c0: int = 0) -> torch.Tensor:
+    """``_topk_stable``'s int64 keys of f32 scores [Q, B] at columns
+    c0 .. c0 + B - 1: the bits' order-preserving int32 image above the
+    column's complement (a greater key is a better column; distinct
+    columns give distinct keys). The ADC kernel's select mode
+    (csrc/pq_adc.cu) builds the same keys."""
+    b = scores.contiguous().view(torch.int32)
+    img = torch.where(b < 0, b ^ 0x7FFFFFFF, b).long()
+    cols = torch.arange(c0, c0 + scores.shape[1], device=scores.device)
+    return (img << 32) | (((1 << 32) - 1) - cols)
+
+
 def _topk_stable(scores: torch.Tensor, k: int):
     """``_topk`` that also orders equal scores as ``lax.top_k`` does, by
     ascending index (``torch.topk`` leaves their order open): selects
@@ -144,12 +156,8 @@ def _topk_stable(scores: torch.Tensor, k: int):
     scores with exact ties by design (equal PQ codes, hamming
     distances)."""
     assert scores.dtype == torch.float32, scores.dtype
-    b = scores.contiguous().view(torch.int32)
-    img = torch.where(b < 0, b ^ 0x7FFFFFFF, b).long()
     low = (1 << 32) - 1
-    keys = (img << 32) | (low - torch.arange(scores.shape[1],
-                                             device=scores.device))
-    top = torch.topk(keys, k, dim=1).values
+    top = torch.topk(stable_keys(scores), k, dim=1).values
     idx = low - (top & low)
     return torch.gather(scores, 1, idx), idx
 

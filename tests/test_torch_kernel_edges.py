@@ -33,7 +33,13 @@ equal. Batched probe: q_cap
 ADC scan: M 8 to 392 (both sides of its 48-subspace shared-memory chunk,
 M not a multiple of 4), Q 1 to 1,025, N not a multiple of a block's
 rows, dead rows, the gathered mode with -1 and repeated candidates; bit
-for bit, and ``pq_topk`` through it equal to the plain selection.
+for bit, and ``pq_topk`` through it equal to the plain selection. Its
+select mode at the same M, Q 1 to 1,025 on both sides of the switch
+between the lane layout and the 8-query shared layout (3 / 4) and of a
+shared block (8, 70), k 1, 10 and 64, codes copied across distant rows
+(exact ties at the shared threshold), fewer live rows than k, a whole
+block of dead rows, gathered candidates with -1; scores and columns
+equal to ``pq_adc_topk_plain``.
 """
 
 import pytest
@@ -383,3 +389,65 @@ def test_pq_topk_on_the_card_equals_plain(cuda):
     assert torch.equal(s, ws) and torch.equal(i, wi.int())
     live = valid[100:140].nonzero().squeeze(1) + 100
     assert i[0, 1:1 + len(live)].tolist() == live.tolist()
+
+
+def _tied_codes(g, dev, n, m):
+    """[n, m] codes in which every row repeats one of n // 8 patterns:
+    rows far apart tie exactly, so their order rests on the keys."""
+    base = torch.randint(0, 256, (max(1, n // 8), m), generator=g,
+                         device=dev, dtype=torch.uint8)
+    return base[torch.randint(0, base.shape[0], (n,), generator=g,
+                              device=dev)].contiguous()
+
+
+def _assert_select_equal(tk, codes, tables, valid, cand=None,
+                         ks=(1, 10, 64)):
+    for k in ks:
+        before = tk.LAUNCHES["pq_adc_select"]
+        got = tk.pq_adc_topk(codes, tables, valid, k, cand)
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES["pq_adc_select"] == before + 1
+        want = tk.pq_adc_topk_plain(codes, tables, valid, k, cand)
+        for a, b, what in zip(got, want, ("scores", "columns")):
+            assert torch.equal(a, b), (k, what, int((a != b).sum()))
+
+
+# the select mode: scores and columns equal to the plain top-k
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", (1, 3, 4, 8, 70, 1025))
+@pytest.mark.parametrize("m", (8, 13, 96, 192, 384, 392))
+def test_pq_adc_select_edges_equal_plain(cuda, m, q):
+    from neumann_tpu_torch.ops import kernels as tk
+
+    g = torch.Generator(device=cuda).manual_seed(m * 11 + q)
+    n = 3001 if q > 70 else 20_011
+    codes = _tied_codes(g, cuda, n, m)
+    tables = torch.rand(q, m, 256, generator=g, device=cuda) * 4.0
+    valid = torch.rand(n, generator=g, device=cuda) > 0.01
+    _assert_select_equal(tk, codes, tables, valid)
+    cand = torch.randint(-1, n, (q, 777), generator=g, device=cuda,
+                         dtype=torch.int32)
+    cand[:, 5:9] = cand[:, :4]
+    _assert_select_equal(tk, codes, tables, valid, cand)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", (1, 8, 70))
+def test_pq_adc_select_few_live_rows(cuda, q):
+    """Fewer live rows than k, and a whole shared-layout pass (4,096 rows)
+    and lane-layout pass (2,048) dead: the slots past the live rows hold
+    -inf, as the plain top-k's."""
+    from neumann_tpu_torch.ops import kernels as tk
+
+    g = torch.Generator(device=cuda).manual_seed(300 + q)
+    n, m = 3 * 4096 + 17, 16
+    codes = _tied_codes(g, cuda, n, m)
+    tables = torch.rand(q, m, 256, generator=g, device=cuda)
+    valid = torch.zeros(n, dtype=torch.bool, device=cuda)
+    valid[torch.randint(0, n, (20,), generator=g, device=cuda)] = True
+    _assert_select_equal(tk, codes, tables, valid)
+    s, _ = tk.pq_adc_topk(codes, tables, valid, 64)
+    assert torch.isneginf(s[:, int(valid.sum()):]).all()
+    valid = torch.rand(n, generator=g, device=cuda) > 0.5
+    valid[4096:2 * 4096] = False
+    _assert_select_equal(tk, codes, tables, valid)
