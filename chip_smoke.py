@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SIMILAR paths once on one NVIDIA GPU: the
 auto-IVF path, then the brute-force pooled, int8 and binary routes, PQ and
-TT collections and the ANN index APIs (IVF, HNSW, saved indexes), then a
-3,072-d binary collection, then the hybrid graph + vector query; serve
-the auto-IVF and brute-force corpora over HTTP to concurrent clients;
-run the shell.
+TT collections and the ANN index APIs (IVF, HNSW, saved indexes), a
+checkpoint and rollback of a loaded store with blob storage and the LLM
+cache, then a 3,072-d binary collection, then the hybrid graph + vector
+query; serve the auto-IVF and brute-force corpora over HTTP to
+concurrent clients; run the shell.
 
 Usage, from the root of a checkout, on a machine with one CUDA card and
 the CUDA toolkit (nvcc)::
@@ -110,9 +111,10 @@ Phases (each raises on failure; exit code 0 only if all pass):
        straight to a ``QueryBatcher`` and then a plain query, and 64 REST
        Points queries on q8 (no batcher), with their p50. Each served
        kernel (rows 2, 5, 6, 7) must launch.
-13. samples/knowledge-base.nql through the port's shell (plain theme) on
-    a CUDA router and on a CPU router: equal text; ``doctor`` reports the
-    CUDA device.
+13. samples/knowledge-base.nql through the port's shell (plain theme,
+    ``--wal-dir`` in a temporary directory) on a CUDA router and on a CPU
+    router: equal text, no statement answered with an error; ``doctor``
+    reports the CUDA device.
 14. PQ and TT collections (cell G; run after phase 12b, on phases 7-9's
     rows): a ``QUANTIZATION pq`` collection of all 1,048,576 rows
     ``{"cat": i % 16}`` (its first SIMILAR trains the 96-subspace
@@ -142,6 +144,30 @@ Phases (each raises on failure; exit code 0 only if all pass):
     rate, p50, recall@10); ``save_index`` ->
     ``load_index`` on a fresh router gives the same hits, for HNSW and
     for IVF.
+16. the extended modules (run after phase 15, on phases 7-9's rows): a
+    router of its own holds 262,144 of them ``{"cat": i % 16}`` (cut from
+    1,048,576: 218 s there, past the phase's 150 s), an int8 and a
+    binary collection of 262,144 and an ``events`` table; EXPLAIN of a
+    SIMILAR on each route (pooled, ``WHERE cat = 3``, int8, binary) names
+    the kernel that route then launches; 16 SIMILARs a route and 4 ``WHERE
+    cat = 3`` give their hits; ``init_checkpoints`` in a temporary
+    directory, CHECKPOINT (seconds, snapshot bytes); 1,024 rows
+    re-embedded by EMBED STORE, 48 of them to the routes' query vectors;
+    a DELETE that takes an automatic checkpoint (seconds); the SIMILARs
+    again put the re-embedded rows first; ROLLBACK (seconds), then
+    counted: the SIMILARs (each route's first timed on its own: it
+    rebuilds the device view) give the hits from before the checkpoint,
+    keys equal and scores within 1e-5, the table's rows are back, and
+    rows 5-7 launch; the directory is removed. ``enable_query_cache`` on
+    that router: a repeated SIMILAR served from the cache with equal
+    hits, searched again after a write. A 64 MiB blob from --seed (BLOB
+    PUT / GET MB/s, VERIFY), deleted and brought back by ROLLBACK with
+    equal bytes. CACHE INIT (10,000 entries, the 256-d default embedder,
+    on the host) filled with 10,000 prompts from --seed, then 1,000
+    lookups (half repeats, 3/10 with a word swapped): exact and semantic
+    hit rates and p50s. Prints whether ``cryptography`` imports; the
+    vault is host-only and is not driven on the card (its tests run on
+    the CPU).
 
 Every kernel must launch in the counted phases. After phase 4 it
 profiles 8 single SIMILARs and one batch (cProfile on the host,
@@ -153,7 +179,9 @@ hamming distances against the keyed merge's), phase 11 8 hybrid
 queries, one FIND and the three graph analytics; phases 12a and 12b
 profile a served run of A and of B (one client under cProfile,
 profile_served_*_host.txt; 32 clients under torch.profiler: the device
-idle share of serving).
+idle share of serving). Device times come from CUDA-only traces, and
+are null (with a log line) where a trace holds fewer records of the hand
+kernels than the traced run's launch counts (``trace_kernel_ms``).
 
 Prints the metrics JSON line, the kernels JSON line, the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``. Everything is also
@@ -310,7 +338,7 @@ SAMPLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "samples",
 # phase 11's hybrid queries (F) and the served phases 12a (A) and 12b
 # (B-D)
 ROUTES = ("ivf", "pooled", "int8", "binary", "wide", "hybrid",
-          "served_ivf", "served_brute", "pq", "tt", "ann")
+          "served_ivf", "served_brute", "pq", "tt", "ann", "rollback")
 # phase 2's records: the main shape's keys bare, the other shapes' with a
 # suffix
 SHAPE_SUFFIXES = ("_q1", "_q8", "_q32", "_w96", "_w96q1", "_w96q256",
@@ -347,6 +375,21 @@ PQ_DESIGN = ("shared layout (full scan, Q >= 8): 8 queries and passes of "
 # phase 14: SIMILARs above the select mode's k cap (the scores mode)
 N_PQ_TOP65 = 2
 PQ_TOP65 = 65
+# the CUDA kernels that each counted wrapper (kernels.LAUNCHES) runs once
+# a launch, by their names in a torch.profiler trace; a trace that holds
+# fewer of them than the wrappers counted in the traced run has lost
+# records, and its device time is not measured (``trace_kernel_ms``)
+TRACE_KERNELS = {
+    "ivf_probe": ("ivf_probe_kernel",),
+    "batched_probe": ("batched_probe_kernel",),
+    "int8_dot_scores": ("int8_kernel", "int8_tma_kernel"),
+    "int8_pooled_bits": ("int8_kernel", "int8_tma_kernel"),
+    "f32_pooled_bits": ("stream_kernel", "batch_kernel"),
+    "hamming_scores": ("hamming_few_kernel", "hamming_batch_kernel"),
+    "hamming_topk": ("hamming_topk_kernel",),
+    "pq_adc": ("pq_adc_kernel",),
+    "pq_adc_select": ("pq_adc_kernel",),
+}
 # row 8's kernels by name in a profile: the scan, and the select mode's
 # threshold fill, codes transpose and tables interleave
 ADC_KERNEL_NAMES = ("pq_adc_kernel", "transpose_codes", "interleave_tables",
@@ -380,6 +423,30 @@ IVF_INDEX_NPROBE = 16
 HNSW_ROWS = 32_768
 HNSW_QUANT_ROWS = 16_384
 HNSW_BINARY_ROWS = 8192
+# phase 16: the extended modules. A router of its own holds the first
+# ROLLBACK_ROWS of phases 7-9's rows (default namespace, {"cat": i % 16};
+# cut from 1,048,576, where the phase took 218 s by
+# scripts/torch_extended_phase.py, past its 150 s) and the
+# first ROLLBACK_SUB_ROWS in an int8 and a binary collection;
+# N_ROLLBACK_SINGLE SIMILARs a
+# route and N_ROLLBACK_FILTERED WHERE cat = 3 before a checkpoint and
+# after the rollback; N_REEMBED rows re-embedded between the two, the
+# events table's rows, a blob of BLOB_BYTES, CACHE_PROMPTS prompts of
+# CACHE_WORDS words from a CACHE_VOCAB-word vocabulary and a replayed mix
+# of CACHE_MIX lookups (half repeats, 3/10 one word swapped, the rest
+# unseen)
+ROLLBACK_ROWS = 1 << 18
+ROLLBACK_SUB_ROWS = 1 << 18
+N_ROLLBACK_SINGLE = 16
+N_ROLLBACK_FILTERED = 4
+N_REEMBED = 1024
+N_EVENTS = 1024
+ROLLBACK_ATOL = 1e-5
+BLOB_BYTES = 64 << 20
+CACHE_PROMPTS = 10_000
+CACHE_WORDS = 24
+CACHE_VOCAB = 4096
+CACHE_MIX = 1000
 
 
 def say(msg: str) -> None:
@@ -428,22 +495,70 @@ def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
+def launches_since(before: dict) -> dict:
+    """kernels.LAUNCHES counted since the copy ``before`` was taken."""
+    from neumann_tpu_torch.ops import kernels as tk
+
+    return {k: v - before.get(k, 0) for k, v in tk.LAUNCHES.items()}
+
+
+def trace_kernel_ms(tp, launched: dict, what: str):
+    """(kernel ms by name, lost) from a CUDA trace of a run in which the
+    wrappers counted ``launched``. ``lost`` maps each group of
+    TRACE_KERNELS names the trace holds fewer records of than its
+    wrappers launched to (records, launches); the caller then records
+    no device time (the trace has lost kernels: it has happened with
+    hand kernels and CUDA-only traces)."""
+    import torch
+
+    kernels, records = {}, {}
+    for e in tp.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+            records[e.name] = records.get(e.name, 0) + 1
+    want = {}
+    for name, n in launched.items():
+        if n > 0:
+            names = TRACE_KERNELS[name]
+            want[names] = want.get(names, 0) + n
+    lost = {}
+    for names, n in want.items():
+        pat = re.compile(r"::(%s)\b" % "|".join(names))
+        seen = sum(c for k, c in records.items() if pat.search(k))
+        if seen < n:
+            lost["|".join(names)] = (seen, n)
+    if lost:
+        say(f"[profile] {what}: the trace holds fewer kernel records than "
+            f"launches {lost} (records, launches): device time not "
+            f"measured")
+    return kernels, lost
+
+
+def device_ms(fn, reps: int, what: str = "device_ms"):
     """Mean device time of the CUDA kernels fn launches, from
     torch.profiler's kernel records: without the gaps a host-bound call
-    (one query) leaves between launches, which cuda_ms counts."""
+    (one query) leaves between launches, which cuda_ms counts. None
+    where the trace lost a counted launch's kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from neumann_tpu_torch.ops import kernels as tk
+
     fn()
     torch.cuda.synchronize()
+    before = dict(tk.LAUNCHES)
     with profile(activities=[ProfilerActivity.CUDA]) as tp:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in tp.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / reps
+    kernels, lost = trace_kernel_ms(tp, launches_since(before), what)
+    return None if lost else sum(kernels.values()) / reps
+
+
+def ms_text(ms, digits: int = 3) -> str:
+    """A device time for a log line: "not measured" for None."""
+    return "not measured" if ms is None else f"{ms:.{digits}f}"
 
 
 # ---------------------------------------------------------------------------
@@ -965,9 +1080,11 @@ def check_hamming_wide(dev, seed: int, rate: float):
         del got, want
     say(f"[2] hamming at W={w}: distances bit-exact (kernel "
         f"{r3['ms_w96']:.4f} ms, bound {r3['bound_ms_w96']:.4f}; Q 1 device "
-        f"{r3['device_ms_w96q1']:.4f} ms, bound {r3['bound_ms_w96q1']:.4f}), "
+        f"{ms_text(r3['device_ms_w96q1'], 4)} ms, bound "
+        f"{r3['bound_ms_w96q1']:.4f}), "
         f"top-{TOP_K} equal (kernel {r7['ms_w96']:.4f} ms; at {WIDE_ROWS} "
-        f"rows Q 1 device {r7['device_ms_w96q1']:.4f} ms, Q {N_WIDE_BATCH} "
+        f"rows Q 1 device {ms_text(r7['device_ms_w96q1'], 4)} ms, Q "
+        f"{N_WIDE_BATCH} "
         f"{r7['ms_w96q256']:.4f} ms)")
     return r3, r7
 
@@ -1140,13 +1257,19 @@ def profile_calls(calls: dict, out_dir: str) -> dict:
     cumulative time, profile_<name>_host.txt), then torch.profiler over a
     second run (profile_<name>_device.txt): kernel time summed from the
     CUDA events, and the device busy share = kernel time / wall time (the
-    profiler's own overhead is in the wall time)."""
+    profiler's own overhead is in the wall time). The device trace is
+    CUDA-only, as ``device_ms``'s. Where it holds fewer records of the
+    hand kernels than the run's launch counts (``trace_kernel_ms``: it
+    has lost them in G's batch and F's FIND), the busy time and share
+    are None, and ``trace_lost`` says which."""
     import cProfile
     import io
     import pstats
 
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from neumann_tpu_torch.ops import kernels as tk
 
     out = {}
     for name, fn in calls.items():
@@ -1159,28 +1282,27 @@ def profile_calls(calls: dict, out_dir: str) -> dict:
         with open(os.path.join(out_dir, f"profile_{name}_host.txt"), "w") as f:
             f.write(txt.getvalue())
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as tp:
+        before = dict(tk.LAUNCHES)
+        with profile(activities=[ProfilerActivity.CUDA]) as tp:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        kernels = {}
-        for e in tp.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                kernels[e.name] = kernels.get(e.name, 0.0) + \
-                    e.time_range.elapsed_us() / 1e3
-        busy_ms = sum(kernels.values())
+        kernels, lost = trace_kernel_ms(tp, launches_since(before), name)
+        busy_ms = None if lost else sum(kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
         out[name] = dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms,
-                         device_busy_share=busy_ms / (wall * 1e3),
-                         top_kernels_ms=top, kernels_ms=kernels)
+                         device_busy_share=None if lost
+                         else busy_ms / (wall * 1e3),
+                         top_kernels_ms=top, kernels_ms=kernels,
+                         trace_lost=lost)
         with open(os.path.join(out_dir, f"profile_{name}_device.txt"),
                   "w") as f:
             f.write(tp.key_averages().table(
                 sort_by="self_cuda_time_total", row_limit=25))
+        share = "" if lost else f" ({100 * busy_ms / (wall * 1e3):.1f}%)"
         say(f"[profile] {name}: wall {wall * 1e3:.2f} ms, device busy "
-            f"{busy_ms:.2f} ms ({100 * busy_ms / (wall * 1e3):.1f}%); "
+            f"{ms_text(busy_ms, 2)} ms{share}; "
             f"top: {[(k[:48], round(v, 3)) for k, v in top[:5]]}")
     return out
 
@@ -1291,6 +1413,13 @@ def run(args, dev, config=None, on_card: bool = True) -> dict:
         torch.cuda.empty_cache()
     report.update(run_ann(args, dev, shared["corpus"], shared["queries"],
                           on_card, adc_recs))
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report.update(run_extended(args, dev, shared["corpus"],
+                               shared["queries"], on_card))
+    report["extended_s"] = time.perf_counter() - t0
     del shared
     gc.collect()
     if on_card:
@@ -1744,16 +1873,17 @@ def run_brute(args, dev, centres, s_corpus, s_queries,
         # the TOP 65 batch's device time: the hamming distances (row 3)
         # against the keyed merge (hamming_keys, merge_keys' topk and cat)
         top65 = prof["binary_top65_batch"]
-        row3 = sum(v for k, v in top65["kernels_ms"].items()
-                   if "hamming" in k)
+        row3 = rest = None
+        if top65["device_busy_ms"] is not None:
+            row3 = sum(v for k, v in top65["kernels_ms"].items()
+                       if "hamming" in k)
+            rest = top65["device_busy_ms"] - row3
         report["binary_top65_split_ms"] = dict(
-            hamming_scores=row3,
-            keyed_merge_and_rest=top65["device_busy_ms"] - row3,
+            hamming_scores=row3, keyed_merge_and_rest=rest,
             wall=top65["wall_ms"])
         say(f"[9] TOP {top_wide} batch device time: hamming_scores "
-            f"{row3:.3f} ms, keyed merge and the rest "
-            f"{top65['device_busy_ms'] - row3:.3f} ms, of "
-            f"{top65['wall_ms']:.1f} ms")
+            f"{ms_text(row3)} ms, keyed merge and the rest "
+            f"{ms_text(rest)} ms, of {top65['wall_ms']:.1f} ms")
 
     # ---- phase 12b: the brute-force routes served ------------------------
     report.update(serve_brute(
@@ -2100,7 +2230,7 @@ def run_hybrid(args, dev, centres, s_corpus, s_queries, s_graph,
         # kernel time by a CUDA-only trace: the CPU + CUDA trace above
         # once showed no record of the pooled kernel in FIND's 0.9 s call
         report["hybrid_device_ms"] = {
-            k: device_ms(fn, 1) for k, fn in calls.items()}
+            k: device_ms(fn, 1, k) for k, fn in calls.items()}
 
     # ---- relational statements on the same router ------------------------
     t0 = time.perf_counter()
@@ -2128,6 +2258,357 @@ def run_hybrid(args, dev, centres, s_corpus, s_queries, s_graph,
     say(f"[11] SQL: {SQL_ROWS} rows inserted in {report['sql_insert_s']:.2f} "
         f"s, SELECT ... WHERE {report['sql_select_ms']:.1f} ms, "
         f"{len(got)} rows, equal to numpy")
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the extended modules (checkpoints, blobs, the LLM cache)
+# ---------------------------------------------------------------------------
+
+def rollback_hits(router, stmts: dict) -> tuple:
+    """Each route's statements through the router: ({route: [(key,
+    score), ...] per statement}, {route: latencies ms})."""
+    hits, lat = {}, {}
+    for route, group in stmts.items():
+        hits[route], lat[route] = [], []
+        for stmt in group:
+            t0 = time.perf_counter()
+            res = router.execute(stmt)
+            lat[route].append((time.perf_counter() - t0) * 1e3)
+            if res.kind != "similar" or len(res.results) != TOP_K:
+                raise AssertionError(f"[16] bad SIMILAR result on {route}: "
+                                     f"{res.results}")
+            hits[route].append([(h["key"], h["score"])
+                                for h in res.results])
+    return hits, lat
+
+
+def same_route_hits(a, b, atol: float) -> list:
+    """Statements whose keys differ, or a score by more than atol."""
+    return [i for i, (x, y) in enumerate(zip(a, b))
+            if [k for k, _ in x] != [k for k, _ in y]
+            or max(abs(s - t) for (_, s), (_, t) in zip(x, y)) > atol]
+
+
+def rollback_router(dev, corpus, queries) -> tuple:
+    """Phase 16's router: ``corpus`` (its first ROLLBACK_ROWS rows) in
+    the default namespace, loaded as phase 7 loads it (``{"cat": i %
+    16}``, under ``bulk_ingest``), its first ROLLBACK_SUB_ROWS rows in an
+    int8 (``q8``) and a binary (``bits``) collection, and an ``events``
+    table of N_EVENTS rows. Returns (router, {route: SIMILAR
+    statements})."""
+    from neumann_tpu_torch.router import QueryRouter
+
+    n = min(len(corpus), ROLLBACK_ROWS)
+    sub = min(n, ROLLBACK_SUB_ROWS)
+    router = QueryRouter(device=dev)
+    eng = router.vector
+    with eng.bulk_ingest():
+        for i in range(n):
+            eng.store_embedding(f"k{i}", corpus[i], {"cat": i % N_CATS})
+    router.execute(f"CREATE COLLECTION q8 DIM {DIM} QUANTIZATION int8")
+    router.execute(f"CREATE COLLECTION bits DIM {DIM} QUANTIZATION binary")
+    with eng.bulk_ingest():
+        for i in range(sub):
+            eng.store_in_collection("q8", f"k{i}", corpus[i])
+            eng.store_in_collection("bits", f"k{i}", corpus[i])
+    router.execute("CREATE TABLE events (id INT PRIMARY KEY, kind INT)")
+    router.execute("INSERT INTO events VALUES " + ", ".join(
+        f"({i}, {i % 8})" for i in range(N_EVENTS)))
+    single = queries[:N_ROLLBACK_SINGLE]
+    stmts = {
+        "pooled": [f"SIMILAR {vec_literal(q)} TOP {TOP_K}" for q in single],
+        "pooled_filtered": [
+            f"SIMILAR {vec_literal(q)} WHERE cat = {FILTER_CAT} TOP {TOP_K}"
+            for q in queries[N_ROLLBACK_SINGLE:N_ROLLBACK_SINGLE
+                             + N_ROLLBACK_FILTERED]],
+        "int8": [f"SIMILAR {vec_literal(q)} IN q8 TOP {TOP_K}"
+                 for q in single],
+        "binary": [f"SIMILAR {vec_literal(q)} IN bits TOP {TOP_K}"
+                   for q in single]}
+    return router, stmts
+
+
+def run_extended(args, dev, corpus, queries, on_card: bool) -> dict:
+    """Phase 16: checkpoint and rollback of a store of phases 7-9's rows
+    on the card, then SIMILAR on every route (ids equal to those before
+    the checkpoint, scores within ROLLBACK_ATOL, rows 5-7 launched);
+    EXPLAIN SIMILAR names the kernel each route launches; a blob survives
+    a delete and a rollback with equal bytes; the LLM cache (host HNSW)
+    and the router's query cache."""
+    import shutil
+    import tempfile
+
+    from neumann_tpu_torch.ops import kernels as tk
+
+    report = {}
+    n = min(len(corpus), ROLLBACK_ROWS)
+    sub = min(n, ROLLBACK_SUB_ROWS)
+    t0 = time.perf_counter()
+    router, stmts = rollback_router(dev, corpus, queries)
+    report["rollback_load_s"] = time.perf_counter() - t0
+    single = queries[:N_ROLLBACK_SINGLE]
+    say(f"[16] {n} rows + {sub} int8 + {sub} binary + {N_EVENTS} table rows "
+        f"loaded in {report['rollback_load_s']:.1f} s")
+
+    # ---- EXPLAIN names the kernel each route launches ---------------------
+    explained = {}
+    for route, group in stmts.items():
+        detail = router.execute(f"EXPLAIN {group[0]}").rows[0]["detail"]
+        m = re.search(r"\(kernel (\w+)\)", detail)
+        explained[route] = m.group(1) if m else None
+        tk.reset_launch_counts()
+        router.execute(group[0])
+        if on_card and (m is None or tk.LAUNCHES[m.group(1)] <= 0):
+            raise AssertionError(f"[16] EXPLAIN names {explained[route]} "
+                                 f"for {route}, launches {dict(tk.LAUNCHES)}")
+    report["explain_kernels"] = explained
+    say(f"[16] EXPLAIN SIMILAR kernels by route: {explained}")
+
+    # ---- 1-2: hits, then a checkpoint ---------------------------------------
+    before, _ = rollback_hits(router, stmts)
+    ck_dir = tempfile.mkdtemp(prefix="neumann_ckpt_")
+    try:
+        router.init_checkpoints(ck_dir)
+        t0 = time.perf_counter()
+        router.execute("CHECKPOINT 'pre'")
+        report["checkpoint_s"] = time.perf_counter() - t0
+        report["checkpoint_bytes"] = os.path.getsize(
+            router.checkpoints.list()[0]["path"])
+        # ---- 3: re-embed rows; each route's query vector lands on a row
+        rng = np.random.default_rng(args.seed + 16)
+        moved = {"pooled": [], "int8": [], "binary": []}
+        t0 = time.perf_counter()
+        for j, q in enumerate(single):
+            row = sub - 1 - j   # a row in every namespace
+            for route, where in (("pooled", ""), ("int8", " IN q8"),
+                                 ("binary", " IN bits")):
+                router.execute(f"EMBED STORE 'k{row}' {vec_literal(q)}"
+                               f"{where}")
+                moved[route].append(f"k{row}")
+        others = rng.choice(np.setdiff1d(np.arange(n), sub - 1 - np.arange(
+            len(single))), N_REEMBED - 3 * len(single), replace=False)
+        for row in others:
+            router.execute(f"EMBED STORE 'k{row}' "
+                           f"{vec_literal(-corpus[row])}")
+        report["reembed_s"] = time.perf_counter() - t0
+        # ---- 4: a DELETE takes an automatic checkpoint first
+        t0 = time.perf_counter()
+        deleted = router.execute("DELETE FROM events WHERE kind = 3").count
+        report["delete_auto_checkpoint_s"] = time.perf_counter() - t0
+        autos = [c for c in router.checkpoints.list() if c["auto"]]
+        if len(autos) != 1 or not autos[0]["reason"].startswith("delete"):
+            raise AssertionError(f"[16] DELETE took no auto checkpoint: "
+                                 f"{router.checkpoints.list()}")
+        # ---- 5: the re-embedded rows come first, no filtered hit lost
+        # its category (EMBED STORE drops a row's metadata)
+        during, _ = rollback_hits(router, stmts)
+        for route, keys in moved.items():
+            firsts = [hits[0][0] for hits in during[route]]
+            if firsts != keys:
+                raise AssertionError(f"[16] re-embedded rows not first on "
+                                     f"{route}: {firsts} != {keys}")
+        lost = set(others.tolist()) | set(sub - 1 - np.arange(len(single)))
+        off = [k for hits in during["pooled_filtered"] for k, _ in hits
+               if int(k[1:]) % N_CATS != FILTER_CAT or int(k[1:]) in lost]
+        if off:
+            raise AssertionError(f"[16] filtered hits off the filter: {off}")
+        # ---- 6: ROLLBACK, then the first SIMILAR rebuilds device views
+        t0 = time.perf_counter()
+        router.execute("ROLLBACK TO 'pre'")
+        report["rollback_s"] = time.perf_counter() - t0
+        with gc_pauses_ms() as (pauses, young):
+            tk.reset_launch_counts()
+            after, lat = rollback_hits(router, stmts)
+            launches = dict(tk.LAUNCHES)
+        report["launches_rollback"] = launches
+        report["gc_gen2_pauses_ms_rollback"] = pauses
+        report["rollback_first_query_ms"] = {r: v[0] for r, v in lat.items()}
+        report["rollback_p50_ms"] = {r: float(np.percentile(v[1:], 50))
+                                     for r, v in lat.items()}
+        report["rollback_events_rows"] = router.relational.row_count(
+            "events")
+        report["checkpoints_after"] = len(router.checkpoints.list())
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    # ---- 7-8: the hits of step 1 on every route, rows 5-7 launched
+    bad = {route: same_route_hits(before[route], after[route],
+                                  ROLLBACK_ATOL) for route in stmts}
+    report["rollback_mismatches"] = sum(map(len, bad.values()))
+    say(f"[16] CHECKPOINT {report['checkpoint_s']:.2f} s "
+        f"({report['checkpoint_bytes'] / 1e9:.2f} GB), {N_REEMBED} rows "
+        f"re-embedded in {report['reembed_s']:.2f} s, DELETE ({deleted} "
+        f"rows) with its auto checkpoint "
+        f"{report['delete_auto_checkpoint_s']:.2f} s, ROLLBACK "
+        f"{report['rollback_s']:.2f} s; first SIMILAR "
+        f"after it by route (ms) {report['rollback_first_query_ms']}, p50 "
+        f"{report['rollback_p50_ms']}; statements differing from before the "
+        f"checkpoint {bad}; events rows {report['rollback_events_rows']}; "
+        f"launches {launches}")
+    if report["rollback_mismatches"] or \
+            report["rollback_events_rows"] != N_EVENTS:
+        raise AssertionError(f"[16] rollback did not restore the hits: {bad}"
+                             f", events {report['rollback_events_rows']}")
+    if on_card:
+        require_launches(launches, ("f32_pooled_bits", "int8_pooled_bits",
+                                    "hamming_topk"), "16")
+    report.update(run_query_cache(router, stmts["pooled"][0], corpus))
+    del router
+    gc.collect()
+    report.update(run_blob(args, dev))
+    report.update(run_llm_cache(args, dev))
+    try:
+        import cryptography
+        crypto = f"imports (cryptography {cryptography.__version__})"
+    except ImportError:
+        crypto = "does not import"
+    report["cryptography"] = crypto
+    say(f"[16] cryptography {crypto} here; the vault is host-only and not "
+        f"driven on the card (its tests run on the CPU)")
+    return report
+
+
+def run_query_cache(router, stmt: str, corpus) -> dict:
+    """enable_query_cache on the phase's router: a repeated SIMILAR is
+    served from the cache (the router runs no statement for it) with the
+    fresh answer's hits; after a write the same statement is run again."""
+    router.enable_query_cache()
+    runs, run_statement = [], router.execute_statement
+
+    def counted(parsed):
+        runs.append(parsed)
+        return run_statement(parsed)
+
+    router.execute_statement = counted
+    times, hits = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        hits.append(router.execute(stmt).results)
+        times.append((time.perf_counter() - t0) * 1e3)
+    if hits[1] != hits[0] or len(runs) != 1:
+        raise AssertionError(f"[16] the query cache did not serve the "
+                             f"repeat: {len(runs)} statements run")
+    top = hits[0][0]["key"]
+    router.execute(f"EMBED STORE '{top}' {vec_literal(-corpus[int(top[1:])])}")
+    fresh = router.execute(stmt).results
+    router.execute_statement = run_statement
+    if len(runs) != 3 or fresh[0]["key"] == top:
+        raise AssertionError(f"[16] the query cache served a result "
+                             f"across a write: {len(runs)} statements run")
+    say(f"[16] query cache: SIMILAR {times[0]:.2f} ms, repeat from the "
+        f"cache {times[1]:.3f} ms with equal hits; after a write searched "
+        f"again")
+    return {"query_cache_miss_ms": times[0], "query_cache_hit_ms": times[1]}
+
+
+def run_blob(args, dev) -> dict:
+    """BLOB INIT on a router of its own; a BLOB_BYTES artifact from
+    --seed put and got back with equal bytes (MB/s each), VERIFY; a
+    checkpoint, BLOB DELETE, ROLLBACK, and VERIFY again with equal
+    bytes."""
+    import shutil
+    import tempfile
+
+    from neumann_tpu_torch.router import QueryRouter
+
+    router = QueryRouter(device=dev)
+    router.execute("BLOB INIT")
+    data = np.random.default_rng(args.seed + 17).bytes(BLOB_BYTES)
+    tmp = tempfile.mkdtemp(prefix="neumann_blob_")
+    try:
+        path = os.path.join(tmp, "artifact.bin")
+        with open(path, "wb") as f:
+            f.write(data)
+        t0 = time.perf_counter()
+        aid = router.execute(f"BLOB PUT 'artifact.bin' FROM '{path}'").value
+        put_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = router.execute(f"BLOB GET '{aid}'").value
+        get_s = time.perf_counter() - t0
+        ok = [got == data, router.execute(f"BLOB VERIFY '{aid}'").message]
+        router.init_checkpoints(os.path.join(tmp, "ckpts"))
+        router.execute("CHECKPOINT 'blob'")
+        router.execute(f"BLOB DELETE '{aid}'")
+        gone = router.blob.list() == []
+        router.execute("ROLLBACK TO 'blob'")
+        ok += [router.execute(f"BLOB VERIFY '{aid}'").message,
+               router.execute(f"BLOB GET '{aid}'").value == data]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    mb = BLOB_BYTES / 1e6
+    report = {"blob_put_mb_s": mb / put_s, "blob_get_mb_s": mb / get_s,
+              "blob_checks": ok}
+    say(f"[16] blob of {BLOB_BYTES} bytes: put {mb / put_s:.1f} MB/s, get "
+        f"{mb / get_s:.1f} MB/s; equal, VERIFY, deleted, after ROLLBACK "
+        f"VERIFY and equal: {ok} (deleted: {gone})")
+    if ok != [True, "OK", "OK", True] or not gone:
+        raise AssertionError(f"[16] blob checks failed: {ok}, {gone}")
+    return report
+
+
+def run_llm_cache(args, dev) -> dict:
+    """CACHE INIT (capacity 10,000, the 256-d default embedder) on a
+    router of its own, filled with CACHE_PROMPTS prompts from --seed;
+    a replayed mix through CACHE SEMANTIC GET: exact and semantic hit
+    rates, p50 of put, exact get and semantic get. The cache runs on the
+    host (its HNSW graph is the native host one)."""
+    from neumann_tpu_torch.router import QueryRouter
+
+    router = QueryRouter(device=dev)
+    router.execute("CACHE INIT")
+    rng = np.random.default_rng(args.seed + 18)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    vocab = ["".join(rng.choice(letters, rng.integers(3, 9)))
+             for _ in range(CACHE_VOCAB)]
+    prompts = [" ".join(rng.choice(vocab, CACHE_WORDS))
+               for _ in range(CACHE_PROMPTS)]
+    put = []
+    for i, p in enumerate(prompts):
+        t0 = time.perf_counter()
+        router.execute(f"CACHE PUT '{p}' 'answer {i}'")
+        put.append((time.perf_counter() - t0) * 1e3)
+    n_exact, n_swap = CACHE_MIX // 2, 3 * CACHE_MIX // 10
+    mix = []
+    for i in rng.integers(0, CACHE_PROMPTS, n_exact):
+        mix.append(("exact", prompts[i]))
+    for i in rng.integers(0, CACHE_PROMPTS, n_swap):
+        words = prompts[i].split()
+        words[rng.integers(CACHE_WORDS)] = "zz" + vocab[rng.integers(
+            CACHE_VOCAB)]
+        mix.append(("swapped", " ".join(words)))
+    for _ in range(CACHE_MIX - n_exact - n_swap):
+        mix.append(("unseen", " ".join(rng.choice(vocab, CACHE_WORDS))))
+    order = rng.permutation(len(mix))
+    stats = router.cache.stats
+    lat = {"exact": [], "semantic": [], "miss": []}
+    for j in order:
+        _, text = mix[j]
+        hits0, sem0 = stats.exact_hits, stats.semantic_hits
+        t0 = time.perf_counter()
+        router.execute(f"CACHE SEMANTIC GET '{text}'")
+        ms = (time.perf_counter() - t0) * 1e3
+        lat["exact" if stats.exact_hits > hits0 else
+            "semantic" if stats.semantic_hits > sem0 else "miss"].append(ms)
+    report = {
+        "cache_entries": len(router.cache),
+        "cache_exact_hit_rate": len(lat["exact"]) / len(mix),
+        "cache_semantic_hit_rate": len(lat["semantic"]) / len(mix),
+        "cache_put_p50_ms": float(np.median(put)),
+        "cache_fill_s": sum(put) / 1e3,
+        **{f"cache_{k}_get_p50_ms": float(np.median(v)) if v else None
+           for k, v in lat.items()}}
+    say(f"[16] LLM cache (host): {report['cache_entries']} entries filled in "
+        f"{report['cache_fill_s']:.1f} s, put p50 "
+        f"{report['cache_put_p50_ms']:.3f} ms; replayed {len(mix)} lookups "
+        f"({n_exact} repeats, {n_swap} with a word swapped): exact hits "
+        f"{report['cache_exact_hit_rate']:.3f}, semantic "
+        f"{report['cache_semantic_hit_rate']:.3f}; p50 exact get "
+        f"{report['cache_exact_get_p50_ms']} ms, semantic get "
+        f"{report['cache_semantic_get_p50_ms']} ms, miss "
+        f"{report['cache_miss_get_p50_ms']} ms")
+    if report["cache_entries"] != min(CACHE_PROMPTS, 10_000) or \
+            len(lat["exact"]) < n_exact:
+        raise AssertionError(f"[16] LLM cache: {report}")
     return report
 
 
@@ -2553,20 +3034,22 @@ def run_quantized(args, dev, corpus, queries, on_card: bool,
         del a
         prof = profile_calls({"pq_batch": lambda: eng.batch_search_ns(
             batch, TOP_K, ns="col/pq")}, "chiprun_out")["pq_batch"]
-        adc_ms = sum(v for k, v in prof["kernels_ms"].items()
-                     if any(n in k for n in ADC_KERNEL_NAMES))
+        adc_ms = None if prof["trace_lost"] else sum(
+            v for k, v in prof["kernels_ms"].items()
+            if any(n in k for n in ADC_KERNEL_NAMES))
         report["profile_pq_batch"] = dict(prof, adc_device_ms=adc_ms)
-        # the call's kernels from a CUDA-only trace as well: the CPU + CUDA
-        # trace above has recorded only the call's last kernels here
+        # the call's kernels from a second trace, of the call alone
         report["pq_batch_device_ms"] = device_ms(
-            lambda: eng.batch_search_ns(batch, TOP_K, ns="col/pq"), 1)
+            lambda: eng.batch_search_ns(batch, TOP_K, ns="col/pq"), 1,
+            "pq_batch")
         say(f"[14] pq batch of {N_BATCH}: launches "
             f"{report['pq_batch_launch_counts']}, peak +"
             f"{report['pq_batch_peak_extra_gb']:.3f} GB (its scores would "
-            f"take {scores_gb:.2f}); device {report['pq_batch_device_ms']:.2f}"
-            f" ms a call; profiled: wall {prof['wall_ms']:.2f} ms, device "
-            f"busy {prof['device_busy_ms']:.2f} ms, of it row 8 "
-            f"{adc_ms:.2f} ms")
+            f"take {scores_gb:.2f}); device "
+            f"{ms_text(report['pq_batch_device_ms'], 2)} ms a call; "
+            f"profiled: wall {prof['wall_ms']:.2f} ms, device busy "
+            f"{ms_text(prof['device_busy_ms'], 2)} ms, of it row 8 "
+            f"{ms_text(adc_ms, 2)} ms")
     del emb, valid, codes, book, coll, live, cat, router, eng
     gc.collect()
     if on_card:
@@ -3039,13 +3522,16 @@ def profile_served(port: int, stmts, tag: str) -> dict:
     (one profiler sees every thread: client, HTTP handler, batcher
     worker; profile_served_<tag>_host.txt by own time), then a run from
     N_CLIENTS threads under torch.profiler (device kernel time against
-    the wall: the device busy share of serving)."""
+    the wall: the device busy share of serving; None where the trace
+    lost launches, as in ``profile_calls``)."""
     import cProfile
     import io
     import pstats
 
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from neumann_tpu_torch.ops import kernels as tk
 
     prof = cProfile.Profile()
     prof.enable()
@@ -3060,19 +3546,24 @@ def profile_served(port: int, stmts, tag: str) -> dict:
     top = sorted(((v[2] * 1e3, f"{k[0].rsplit('/', 1)[-1]}:{k[1]}({k[2]})")
                   for k, v in st.stats.items()), reverse=True)[:10]
     torch.cuda.synchronize()
+    before = dict(tk.LAUNCHES)
     with profile(activities=[ProfilerActivity.CUDA]) as tp:
         t0 = time.perf_counter()
         served_run(port, stmts)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.time_range.elapsed_us() / 1e3 for e in tp.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    kernels, lost = trace_kernel_ms(tp, launches_since(before),
+                                    f"served {tag}")
+    busy = None if lost else sum(kernels.values())
     out = dict(host_top_own_ms=top, served_wall_ms=wall,
-               device_busy_ms=busy, device_idle_share=1 - busy / wall)
+               device_busy_ms=busy, trace_lost=lost,
+               device_idle_share=None if lost else 1 - busy / wall)
+    idle = "" if lost else \
+        f" (idle share {100 * out['device_idle_share']:.1f}%)"
     say(f"[profile] served {tag}: {len(stmts)} statements from {N_CLIENTS} "
-        f"clients in {wall:.1f} ms, device busy {busy:.2f} ms (idle share "
-        f"{100 * out['device_idle_share']:.1f}%); one client's host top by "
-        f"own time: {[(n, round(ms, 1)) for ms, n in top[:5]]}")
+        f"clients in {wall:.1f} ms, device busy {ms_text(busy, 2)} ms"
+        f"{idle}; one client's host top by own time: "
+        f"{[(n, round(ms, 1)) for ms, n in top[:5]]}")
     return out
 
 
@@ -3269,8 +3760,12 @@ def run_shell(dev) -> dict:
     router: equal text, but that a printed float (6 significant digits)
     may differ within SHELL_RTOL, since the card sums in another order
     (PageRank's scatter adds are atomic); ``doctor`` reports ``dev``'s
-    device."""
+    device. Each shell has a ``--wal-dir`` of its own (removed after), so
+    the sample's CHECKPOINT answers too: no statement may answer with an
+    error."""
     import io
+    import shutil
+    import tempfile
 
     import torch
 
@@ -3281,14 +3776,18 @@ def run_shell(dev) -> dict:
     with open(SAMPLE, encoding="utf-8") as f:
         stmts = _split_script(f.read())
     report, outs = {}, {}
-    for name, d in (("dev", dev), ("cpu", "cpu")):
-        sh = Shell(router=QueryRouter(device=d), stdout=io.StringIO(),
-                   theme="plain")
-        t0 = time.perf_counter()
-        outs[name] = [sh.execute(s) for s in stmts]
-        report[f"shell_{name}_s"] = time.perf_counter() - t0
-        if name == "dev":
-            doctor = sh.doctor()
+    tmp = tempfile.mkdtemp(prefix="neumann_shell_")
+    try:
+        for name, d in (("dev", dev), ("cpu", "cpu")):
+            sh = Shell(router=QueryRouter(device=d), stdout=io.StringIO(),
+                       theme="plain", wal_dir=os.path.join(tmp, name))
+            t0 = time.perf_counter()
+            outs[name] = [sh.execute(s) for s in stmts]
+            report[f"shell_{name}_s"] = time.perf_counter() - t0
+            if name == "dev":
+                doctor = sh.doctor()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     rel = [text_rel_diff(a, b) for a, b in zip(outs["dev"], outs["cpu"])]
     differ = [(stmts[i], outs["dev"][i], outs["cpu"][i])
               for i in range(len(stmts)) if rel[i] > SHELL_RTOL]
@@ -3298,7 +3797,7 @@ def run_shell(dev) -> dict:
     report["shell_statements"] = len(stmts)
     report["shell_exact_differ"] = sum(r > 0 for r in rel)
     report["shell_max_rel_diff"] = max(rel)
-    report["shell_refused"] = sum(o.startswith("error:") for o in outs["dev"])
+    report["shell_errors"] = sum(o.startswith("error:") for o in outs["dev"])
     report["shell_doctor_devices"] = devices
     say(f"[13] shell: {len(stmts)} statements of the sample on {kind} "
         f"({report['shell_dev_s']:.2f} s) and on the CPU "
@@ -3306,10 +3805,14 @@ def run_shell(dev) -> dict:
         f"outputs differ in text, {len(differ)} beyond a relative "
         f"{SHELL_RTOL} in their numerals (largest "
         f"{report['shell_max_rel_diff']:.2e}); "
-        f"{report['shell_refused']} refused by name (CACHE / CHECKPOINT); "
+        f"{report['shell_errors']} answered with an error; "
         f"doctor: {devices}")
     if differ:
         raise AssertionError(f"shell outputs differ: {differ[:3]}")
+    if report["shell_errors"]:
+        errors = [o for o in outs["dev"] if o.startswith("error:")]
+        raise AssertionError(f"shell statements answered with an error: "
+                             f"{errors}")
     if devices != [f"[OK ] devices         {n} x {kind}"]:
         raise AssertionError(f"doctor does not report {n} x {kind}: "
                              f"{devices}")
@@ -3441,7 +3944,16 @@ def main() -> int:
         "hnsw_build_wall_s", "pq_batch_adc_launches",
         "pq_batch_launch_counts", "pq_batch_peak_extra_gb",
         "pq_batch_device_ms",
-        "ivf_pq_batch_adc_launches", "saved_index_ok", "total_s")}
+        "ivf_pq_batch_adc_launches", "saved_index_ok",
+        "rollback_load_s", "checkpoint_s", "checkpoint_bytes", "reembed_s",
+        "delete_auto_checkpoint_s", "rollback_s", "rollback_first_query_ms",
+        "rollback_p50_ms", "rollback_mismatches", "explain_kernels",
+        "query_cache_miss_ms", "query_cache_hit_ms", "blob_put_mb_s",
+        "blob_get_mb_s", "cache_fill_s", "cache_put_p50_ms",
+        "cache_exact_hit_rate", "cache_semantic_hit_rate",
+        "cache_exact_get_p50_ms", "cache_semantic_get_p50_ms",
+        "cache_miss_get_p50_ms", "cryptography", "extended_s",
+        "shell_errors", "total_s")}
     for part in ("ivf", "pooled", "int8", "binary"):
         for k in ("p50_ms", "p99_ms", "qps", "batches", "mean_cohort",
                   "recall"):

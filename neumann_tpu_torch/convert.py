@@ -24,6 +24,12 @@ sign-bit plane) and a JAX ``HNSWIndex`` (through its bytes, which both
 packages read and write alike), so both packages search one trained
 state.
 
+``llm_cache_from_jax(cache)`` gives the port a JAX ``LLMCache``: its
+settings, entries, TTLs, statistics, embedding layer and semantic HNSW
+graph (through its bytes), so the same lookups give the same answers.
+Checkpoint directories need no converter: ``index.json`` and the
+snapshots are the same bytes in both packages.
+
 ``router_from_files(wal_path, snapshot_path, device)`` gives a port
 ``QueryRouter`` over a store that the JAX package's router wrote (its
 ``checkpoint`` snapshot and the WAL after it; both packages write the
@@ -149,6 +155,39 @@ def hnsw_from_jax(index):
     from neumann_tpu_torch.ops.hnsw import HNSWIndex
 
     return HNSWIndex.from_bytes(index.to_bytes())
+
+
+def llm_cache_from_jax(cache):
+    """A port ``cache/llm_cache.LLMCache`` holding a JAX ``LLMCache``'s
+    state. The JAX package's default embedder becomes the port's (the
+    same function); another embedder is a plain callable and carries
+    over as it is."""
+    from dataclasses import asdict
+
+    from neumann_tpu_torch.cache import llm_cache
+
+    embedder = cache.embedder
+    if getattr(embedder, "__qualname__", None) == "default_embedder" and \
+            embedder.__module__.endswith(".cache.llm_cache"):
+        embedder = llm_cache.default_embedder
+    port = llm_cache.LLMCache(
+        capacity=cache.capacity, default_ttl_s=cache.default_ttl_s,
+        semantic_threshold=cache.semantic_threshold,
+        eviction=cache.eviction, embedder=embedder, metric=cache.metric,
+        auto_select_metric=cache.auto_select_metric,
+        sparsity_metric_threshold=cache.sparsity_metric_threshold,
+        embedding_capacity=cache.embedding_capacity)
+    port._exact = {k: llm_cache._Entry(**asdict(e))
+                   for k, e in cache._exact.items()}
+    port._ttl_heap = list(cache._ttl_heap)
+    port._emb_cache = {k: np.array(v) for k, v in cache._emb_cache.items()}
+    port._embs = {k: np.array(v) for k, v in cache._embs.items()}
+    if cache._hnsw is not None:
+        port._hnsw = hnsw_from_jax(cache._hnsw)
+    port._hnsw_keys = list(cache._hnsw_keys)
+    port._node_of = dict(cache._node_of)
+    port.stats = llm_cache.CacheStats(**asdict(cache.stats))
+    return port
 
 
 def router_from_files(wal_path, snapshot_path=None, device="cuda"):

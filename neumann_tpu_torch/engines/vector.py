@@ -378,6 +378,30 @@ def _pooled_pool(corpus: _Corpus, k: int, metric: str,
     return pool
 
 
+def _scan_k_metric(corpus: _Corpus, top_k: int,
+                   metric: str) -> Tuple[int, str]:
+    """(k, metric) as the brute-force routes take them: k within 1 and
+    the slab's rows, angular / geodesic ordered by cosine."""
+    k = max(1, min(top_k, corpus.slab.capacity))
+    return k, "cosine" if metric in ("angular", "geodesic") else metric
+
+
+def _brute_route(corpus: _Corpus, k: int, metric: str, extra_mask,
+                 quantization: str) -> Tuple[str, Optional[int]]:
+    """(route, pool) of ``VectorEngine._device_search``: "pq", "tt",
+    "binary", "int8_pooled" or "int8_scan", "f32_pooled", or "exact"
+    (the f32 scan); ``pool`` only for the pooled routes. ``k`` and
+    ``metric`` as ``_scan_k_metric`` gives them."""
+    if quantization in ("pq", "tt", "binary"):
+        return quantization, None
+    if quantization == "int8" and metric in ("cosine", "dot", "euclidean"):
+        pool = _pooled_pool(corpus, k, metric, extra_mask)
+        return ("int8_scan", None) if pool is None else ("int8_pooled", pool)
+    pool = (_pooled_pool(corpus, k, metric, extra_mask)
+            if quantization == "none" else None)
+    return ("exact", None) if pool is None else ("f32_pooled", pool)
+
+
 class VectorEngine:
     def __init__(self, store: Optional[TensorStore] = None,
                  config: Optional[VectorEngineConfig] = None,
@@ -396,6 +420,12 @@ class VectorEngine:
         # the ANN index APIs' state: (index, corpus, row ids)
         self._ivf = None
         self._hnsw = None
+        # store writes seen: every put and delete (the hooks below see
+        # every key, not only embeddings) and each columnar ingest; the
+        # router's query cache holds results while it stands still
+        self.writes = 0
+        # set while the store is cleared and reloaded (``restoring``)
+        self._restoring = False
         self.store.on_put(self._on_store_put)
         self.store.on_delete(self._on_store_delete)
 
@@ -417,6 +447,7 @@ class VectorEngine:
         return None
 
     def _on_store_put(self, key: str, data: TensorData) -> None:
+        self.writes += 1
         parsed = self._parse_key(key)
         if parsed is None:
             return
@@ -482,10 +513,11 @@ class VectorEngine:
             gc.freeze()
 
     def _flush_bulk_if_pending(self) -> None:
-        if self._bulk is not None:
+        if self._bulk:
             self._flush_bulk()
 
     def _on_store_delete(self, key: str) -> None:
+        self.writes += 1
         parsed = self._parse_key(key)
         if parsed is None:
             return
@@ -496,6 +528,25 @@ class VectorEngine:
             corpora = list(self._corpora.get(ns, {}).values())
         for corpus in corpora:
             corpus.remove(inner)
+            if self._restoring and corpus.count() == 0:
+                with corpus.lock:
+                    corpus.index = EntityIndex()
+
+    @contextlib.contextmanager
+    def restoring(self):
+        """Context manager around a store cleared and reloaded (ROLLBACK):
+        a corpus the clear empties hands out rows from 0 again, not the
+        free list's reverse, so the reload gives keys rows in the
+        snapshot's order. Where the rows were in put order at the
+        checkpoint (no delete freed a row a later key took), each key
+        gets its row back and equal scores break as they did; otherwise
+        only the scores and the hits off the last tied score are kept.
+        A plain delete keeps the free list, as the JAX engine does."""
+        self._restoring = True
+        try:
+            yield
+        finally:
+            self._restoring = False
 
     def _corpus_for(self, ns: str, dim: int, create: bool) -> _Corpus:
         with self._lock:
@@ -620,6 +671,7 @@ class VectorEngine:
                 m[full] = TensorData({_EMBEDDING_FIELD: TensorValue(
                     "vector", matrix[i])})
                 pend.append(full)
+        self.writes += 1
         if len(key_list) >= _GC_FREEZE_MIN_ROWS:
             # the store now holds several long-lived Python objects per row;
             # the interpreter's next full collection walks all of them
@@ -690,8 +742,7 @@ class VectorEngine:
         """The brute-force routes (see the module docstring) over one
         corpus; a metadata filter is a row mask fused into each."""
         angular = metric in ("angular", "geodesic")
-        if angular:
-            metric = "cosine"
+        k, metric = _scan_k_metric(corpus, top_k, metric)
         q = np.asarray(queries, dtype=np.float32)
         if q.ndim == 1:
             q = q[None, :]
@@ -701,7 +752,6 @@ class VectorEngine:
         qp = np.zeros((q.shape[0], corpus.slab.dim_pad), np.float32)
         qp[:, :corpus.dim] = q
         qd = torch.from_numpy(qp).to(self.device)
-        k = max(1, min(top_k, corpus.slab.capacity))
 
         def row_mask(valid):
             if extra_mask is None:
@@ -709,37 +759,33 @@ class VectorEngine:
             return valid & torch.from_numpy(
                 np.asarray(extra_mask, bool)).to(self.device)
 
-        if quantization == "pq":
+        route, pool = _brute_route(corpus, k, metric, extra_mask,
+                                   quantization)
+        if route == "pq":
             return self._pq_search(corpus, qd, top_k, extra_mask)
-        if quantization == "tt":
+        if route == "tt":
             scores, idx = self._tt_scan(corpus, qd, k, metric, extra_mask)
-        elif quantization == "binary":
+        elif route == "binary":
             bits, valid = corpus.slab.quantized_view("binary")
             scores, idx = hamming_topk(bits, binary_quantize(qd), k,
                                        row_mask(valid))
-        elif quantization == "int8" and metric in ("cosine", "dot",
-                                                   "euclidean"):
-            pool = _pooled_pool(corpus, k, metric, extra_mask)
-            if pool is not None:
-                cq, cs, rmult, valid = corpus.slab.quantized_view("int8c")
-                scores, idx = int8_pooled_rerank_topk(
-                    cq, cs, qd, k, pool=pool, mask=row_mask(valid),
-                    row_mult=rmult)
-            else:
-                cq, cs, valid = corpus.slab.quantized_view("int8")
-                scores, idx = int8_topk_scan(cq, cs, qd, k, metric,
-                                             row_mask(valid))
+        elif route == "int8_pooled":
+            cq, cs, rmult, valid = corpus.slab.quantized_view("int8c")
+            scores, idx = int8_pooled_rerank_topk(
+                cq, cs, qd, k, pool=pool, mask=row_mask(valid),
+                row_mult=rmult)
+        elif route == "int8_scan":
+            cq, cs, valid = corpus.slab.quantized_view("int8")
+            scores, idx = int8_topk_scan(cq, cs, qd, k, metric,
+                                         row_mask(valid))
+        elif route == "f32_pooled":
+            emb, rmult, valid = corpus.slab.quantized_view("f32c")
+            scores, idx = f32_pooled_rerank_topk(
+                emb, qd, k, pool=pool, mask=row_mask(valid),
+                row_mult=rmult)
         else:
-            pool = (_pooled_pool(corpus, k, metric, extra_mask)
-                    if quantization == "none" else None)
-            if pool is not None:
-                emb, rmult, valid = corpus.slab.quantized_view("f32c")
-                scores, idx = f32_pooled_rerank_topk(
-                    emb, qd, k, pool=pool, mask=row_mask(valid),
-                    row_mult=rmult)
-            else:
-                emb, valid = corpus.slab.device_view()
-                scores, idx = topk_scan(emb, qd, k, metric, row_mask(valid))
+            emb, valid = corpus.slab.device_view()
+            scores, idx = topk_scan(emb, qd, k, metric, row_mask(valid))
         scores, idx = host_pull(scores, idx)
 
         def report(s):
@@ -924,6 +970,55 @@ class VectorEngine:
             corpus._auto_ivf_delta = None
         return n
 
+    def _auto_ivf_applies(self, corpus: _Corpus, n_queries: int,
+                          metric: str, quantization: str) -> bool:
+        """The auto-IVF gate: cosine (or angular) over a float or int8
+        corpus of at least ``ivf_auto_threshold`` rows, and batches only
+        where ``ivf_auto_batched`` allows them."""
+        cfg = self.config
+        if metric in ("angular", "geodesic"):
+            metric = "cosine"
+        if not cfg.ivf_auto or metric != "cosine" or \
+                quantization not in ("none", "int8"):
+            return False
+        if corpus.count() < cfg.ivf_auto_threshold:
+            return False
+        return n_queries <= cfg.ivf_auto_max_batch or cfg.ivf_auto_batched
+
+    def search_route(self, ns: str, dim: int, top_k: int,
+                     metric: Optional[str] = None,
+                     filter_cond: Optional[FilterCondition] = None,
+                     quantization: str = "none") -> Optional[dict]:
+        """The route one query of ``dim`` floats takes over namespace
+        ``ns`` (``_search_ns``'s gates, evaluated without searching), or
+        None when the namespace holds no such rows: ``route`` ("auto_ivf"
+        or a ``_brute_route`` name), ``kernel`` (the ``kernels.LAUNCHES``
+        name it launches on the card, None for the torch scans), ``pool``
+        and ``rows``."""
+        from neumann_tpu_torch.ops.pq import pq_kernel
+        from neumann_tpu_torch.ops.quant import hamming_kernel
+
+        self._flush_bulk_if_pending()
+        metric = metric or self.config.default_metric
+        with self._lock:
+            corpus = self._corpora.get(ns, {}).get(dim)
+        if corpus is None or corpus.count() == 0:
+            return None
+        rows = corpus.count()
+        if filter_cond is None and self._auto_ivf_applies(
+                corpus, 1, metric, quantization):
+            return dict(route="auto_ivf", kernel="ivf_probe", pool=None,
+                        rows=rows)
+        k, metric = _scan_k_metric(corpus, top_k, metric)
+        extra = corpus.filter_mask(filter_cond) if filter_cond else None
+        route, pool = _brute_route(corpus, k, metric, extra, quantization)
+        kernel = {"binary": hamming_kernel(k),
+                  "pq": pq_kernel(min(top_k, rows)),
+                  "int8_pooled": "int8_pooled_bits",
+                  "int8_scan": "int8_dot_scores",
+                  "f32_pooled": "f32_pooled_bits"}.get(route)
+        return dict(route=route, kernel=kernel, pool=pool, rows=rows)
+
     def _auto_ivf_search(self, corpus: _Corpus, q: np.ndarray, top_k: int,
                          metric: str, quantization: str
                          ) -> Optional[List[List[SearchResult]]]:
@@ -931,17 +1026,11 @@ class VectorEngine:
         back to the exact scan."""
         cfg = self.config
         angular = metric in ("angular", "geodesic")
-        if angular:
-            metric = "cosine"
-        if not cfg.ivf_auto or metric != "cosine" or \
-                quantization not in ("none", "int8"):
+        if not self._auto_ivf_applies(corpus, q.shape[0], metric,
+                                      quantization):
             return None
         n = corpus.count()
-        if n < cfg.ivf_auto_threshold:
-            return None
         throughput_batch = q.shape[0] > cfg.ivf_auto_max_batch
-        if throughput_batch and not cfg.ivf_auto_batched:
-            return None
         slab = corpus.slab
         stale_at = max(1024, cfg.ivf_auto_rebuild_frac * n)
         with corpus.lock:

@@ -166,6 +166,12 @@ class PQCodebook:
         return float(sum(table[s, c] for s, c in enumerate(code)))
 
 
+def pq_kernel(k: int) -> str:
+    """The ADC kernel's mode for a top-``k``: the select mode (the top-k
+    inside the kernel) up to its cap, the scores mode above it."""
+    return "pq_adc_select" if 1 <= k <= kernels.PQ_ADC_TOPK_CAP else "pq_adc"
+
+
 def pq_topk(codebook: PQCodebook, codes: torch.Tensor, queries, k: int,
             mask: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -185,7 +191,7 @@ def pq_topk(codebook: PQCodebook, codes: torch.Tensor, queries, k: int,
     k = min(k, n)
     valid = (torch.ones(n, dtype=torch.bool, device=dev) if mask is None
              else torch.as_tensor(mask).to(dev, torch.bool).contiguous())
-    select = 1 <= k <= kernels.PQ_ADC_TOPK_CAP
+    select = pq_kernel(k) == "pq_adc_select"
     per_query = (8 * codes.shape[1] * codebook.config.n_centroids if select
                  else 12 * max(n, 1))
     step = max(1, min(_MAX_LAUNCH_QUERIES, _SCAN_STEP_BYTES // per_query))

@@ -294,6 +294,13 @@ def binary_quantize(x: torch.Tensor) -> torch.Tensor:
                        packed).to(torch.int32)
 
 
+def hamming_kernel(k: int) -> str:
+    """The kernel ``hamming_topk`` launches for a top-``k``: the fused
+    top-k up to its cap, the hamming distances above it."""
+    return "hamming_topk" if k <= kernels.HAMMING_TOPK_CAP else \
+        "hamming_scores"
+
+
 def hamming_topk(corpus_bits: torch.Tensor, query_bits: torch.Tensor,
                  k: int, mask: Optional[torch.Tensor] = None,
                  block_rows: int = 128 * 1024):
@@ -310,7 +317,7 @@ def hamming_topk(corpus_bits: torch.Tensor, query_bits: torch.Tensor,
     k, like the f32 / int8 kernels' switches on Q. Results do not depend
     on ``block_rows``."""
     query_bits = _as2d(query_bits).contiguous()
-    if k <= kernels.HAMMING_TOPK_CAP:
+    if hamming_kernel(k) == "hamming_topk":
         return kernels.hamming_topk(corpus_bits, query_bits, mask, k)
     n, q = corpus_bits.shape[0], query_bits.shape[0]
     best = torch.empty((q, 0), dtype=torch.int64, device=corpus_bits.device)

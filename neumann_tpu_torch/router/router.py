@@ -13,19 +13,33 @@ Executes, against the port's engines on the router's ``device``
   ``CONNECTED TO``), CREATE / DROP / SHOW COLLECTIONS, COUNT and SHOW
   EMBEDDINGS;
 * unified: ENTITY CREATE / GET / DELETE / CONNECT / BATCH CREATE, FIND;
+* the extended modules, once attached (``init_vault``, ``init_cache``,
+  ``init_blob``, ``init_checkpoints``; each imports its module at the
+  call, so the router imports without ``cryptography``): VAULT, CACHE,
+  BLOB, BLOBS, CHECKPOINT, CHECKPOINTS and ROLLBACK; with a checkpoint
+  manager, destructive statements take an automatic checkpoint first;
+* EXPLAIN: the plan of a statement without running it;
 * ``execute_many`` and cursor pagination (``execute_paginated``);
 * serving: ``warmup`` and, once a caller enables it, batched serving
-  (``server/batcher.QueryBatcher`` coalesces concurrent SIMILARs).
+  (``server/batcher.QueryBatcher`` coalesces concurrent SIMILARs), and
+  the query cache (``enable_query_cache``).
 
-The handlers are the JAX router's, with the auto-checkpoint hook left
-out (no checkpoint manager is ported, and the JAX router's hook does
-nothing without one). VAULT, CACHE, BLOB(S), CHECKPOINT(S), ROLLBACK,
-CHAIN, CLUSTER and EXPLAIN parse but raise ``NeumannError`` naming their
-ROADMAP item, and so do the planner and the module attachments.
+The handlers are the JAX router's, with three differences. EXPLAIN
+SIMILAR names the route and kernel the port's engine takes for the
+statement (``VectorEngine.search_route``), where the JAX text describes
+TPU hardware. The query cache is a dict of the router's (statement text
+-> result) that answers only the same text and is emptied at the store's
+next write, where the JAX cache keeps results in the LLM cache, answers
+from its semantic layer and keeps them across writes. ROLLBACK reloads
+each corpus from row 0 (``VectorEngine.restoring``) and rebuilds the
+unified engine's key -> node map, as ``recover`` does. CHAIN and
+CLUSTER parse but raise ``NeumannError`` naming their ROADMAP item, and
+so do the planner and ``init_chain``.
 """
 
 from __future__ import annotations
 
+import copy
 import threading
 import time
 from dataclasses import dataclass, field
@@ -60,14 +74,6 @@ from neumann_tpu_torch.utils.observability import QueryMetrics
 
 # statements that parse but have no handler yet -> their ROADMAP item
 _UNPORTED = {
-    "Vault": "6, vault / blob / checkpoint / cache",
-    "Cache": "6, vault / blob / checkpoint / cache",
-    "Blob": "6, vault / blob / checkpoint / cache",
-    "Blobs": "6, vault / blob / checkpoint / cache",
-    "Checkpoint": "6, vault / blob / checkpoint / cache",
-    "Checkpoints": "6, vault / blob / checkpoint / cache",
-    "Rollback": "6, vault / blob / checkpoint / cache",
-    "Explain": "6, vault / blob / checkpoint / cache, with EXPLAIN",
     "Chain": "11, chain",
     "Cluster": "11, chain",
 }
@@ -190,9 +196,19 @@ class QueryRouter:
         self.vector = VectorEngine(self.store, device=device)
         self.unified = UnifiedEngine(self.store, self.relational,
                                      self.graph, self.vector)
+        self.vault = None        # attach via init_vault
+        self.cache = None        # attach via init_cache
+        self.blob = None         # attach via init_blob
+        self.checkpoints = None  # attach via init_checkpoints
         self.cursor_store = CursorStore()
         self._lock = threading.RLock()
         self.metrics = QueryMetrics()
+        # the query cache (enable_query_cache; None while off): statement
+        # text -> result, all computed at ``_cache_writes`` store writes
+        # (``VectorEngine.writes``)
+        self._query_cache: Optional[dict] = None
+        self._cache_writes = 0
+        self._cache_lock = threading.Lock()
         # serving-side query coalescing (server/batcher.py): off for
         # embedded use (adds max_wait_ms to single-caller latency),
         # enabled by a server before it takes traffic
@@ -259,21 +275,30 @@ class QueryRouter:
         warm calls."""
         return self.vector.warmup(buckets=buckets, top_ks=top_ks)
 
+    # -- module attachment ---------------------------------------------------
+    def init_vault(self, master_password: str, **kw) -> None:
+        from neumann_tpu_torch.vault import TensorVault
+
+        self.vault = TensorVault(self.store, master_password, **kw)
+
+    def init_cache(self, **kw) -> None:
+        from neumann_tpu_torch.cache import LLMCache
+
+        self.cache = LLMCache(**kw)
+
+    def init_blob(self) -> None:
+        from neumann_tpu_torch.blob import BlobStore
+
+        self.blob = BlobStore(self.store)
+
+    def init_checkpoints(self, directory: str, **kw) -> None:
+        from neumann_tpu_torch.checkpoint import CheckpointManager
+
+        self.checkpoints = CheckpointManager(self.store, directory, **kw)
+
     # -- not ported yet ------------------------------------------------------
     def attach_planner(self, *args, **kwargs):
         _not_ported("distributed planning", "12, mesh")
-
-    def init_vault(self, *args, **kwargs):
-        _not_ported("the vault", "6, vault / blob / checkpoint / cache")
-
-    def init_cache(self, *args, **kwargs):
-        _not_ported("the LLM cache", "6, vault / blob / checkpoint / cache")
-
-    def init_blob(self, *args, **kwargs):
-        _not_ported("blob storage", "6, vault / blob / checkpoint / cache")
-
-    def init_checkpoints(self, *args, **kwargs):
-        _not_ported("checkpoints", "6, vault / blob / checkpoint / cache")
 
     def init_chain(self, *args, **kwargs):
         _not_ported("the chain", "11, chain")
@@ -289,7 +314,11 @@ class QueryRouter:
             else:
                 stmt = parse_cached(query)
                 kind = type(stmt).__name__
-                out = self.execute_statement(stmt)
+                out = self._try_cache_get(kind, query)
+                if out is None:
+                    writes = self.vector.writes
+                    out = self.execute_statement(stmt)
+                    self._try_cache_put(kind, query, out, writes)
         except Exception:
             self.metrics.record(kind, (time.perf_counter() - t0) * 1e3,
                                 error=True, query=query)
@@ -298,8 +327,56 @@ class QueryRouter:
                             query=query)
         return out
 
+    # -- the query cache: results of SIMILAR, SELECT and FIND by their
+    # statement text. Off by default; enable_query_cache()
+    _CACHEABLE = ("Similar", "Select", "Find")
+    # the most statements it holds (the oldest go first): the LLM cache's
+    # default capacity, which the JAX router's query cache takes
+    _QUERY_CACHE_CAPACITY = 10_000
+
+    def enable_query_cache(self) -> None:
+        """Serve a repeated SIMILAR, SELECT or FIND from a dict of the
+        router's, up to ``_QUERY_CACHE_CAPACITY`` statements.
+        Only a statement of the same text is answered, each time with a
+        copy. The dict is emptied at the store's next write, which the
+        vector engine counts (``VectorEngine.writes``: every put and
+        delete through its store hooks, engine calls and ROLLBACK too,
+        and each ``ingest_matrix``), and a result computed across a
+        write is not kept."""
+        with self._cache_lock:
+            if self._query_cache is None:
+                self._query_cache = {}
+
+    def _try_cache_get(self, kind: str, query: str):
+        if self._query_cache is None or kind not in self._CACHEABLE:
+            return None
+        with self._cache_lock:
+            if self._cache_writes != self.vector.writes:
+                self._query_cache.clear()
+                self._cache_writes = self.vector.writes
+            out = self._query_cache.get(query)
+        return None if out is None else copy.deepcopy(out)
+
+    def _try_cache_put(self, kind: str, query: str, result,
+                       writes: int) -> None:
+        if self._query_cache is None or kind not in self._CACHEABLE:
+            return
+        with self._cache_lock:
+            if writes != self.vector.writes:
+                return            # a write landed while it ran
+            cache = self._query_cache
+            if self._cache_writes != writes:
+                cache.clear()
+                self._cache_writes = writes
+            if len(cache) >= self._QUERY_CACHE_CAPACITY:
+                del cache[next(iter(cache))]
+            cache[query] = copy.deepcopy(result)
+
     def _execute_cypher(self, query: str) -> QueryResult:
-        rows = CypherExecutor(self.graph).execute(parse_cypher(query))
+        q = parse_cypher(query)
+        if q.kind in ("create", "merge") or q.delete_vars:
+            self._auto_ckpt("update", "cypher")
+        rows = CypherExecutor(self.graph).execute(q)
         return QueryResult.of_rows(rows)
 
     def execute_many(self, query: str) -> List[QueryResult]:
@@ -335,6 +412,11 @@ class QueryRouter:
     def close_cursor(self, cursor: str) -> bool:
         return self.cursor_store.remove(cursor)
 
+    # -- auto checkpoint -------------------------------------------------------
+    def _auto_ckpt(self, op: str, detail: str = "") -> None:
+        if self.checkpoints is not None:
+            self.checkpoints.auto_checkpoint(op, detail)
+
     def execute_statement(self, stmt: ast.Statement) -> QueryResult:
         name = type(stmt).__name__
         handler = getattr(self, f"_exec_{name.lower()}", None)
@@ -362,6 +444,7 @@ class QueryRouter:
     def _exec_droptable(self, s: ast.DropTable) -> QueryResult:
         if s.if_exists and not self.relational.table_exists(s.table):
             return QueryResult.msg(f"table '{s.table}' does not exist")
+        self._auto_ckpt("drop_table", s.table)
         self.relational.drop_table(s.table)
         return QueryResult.msg(f"table '{s.table}' dropped")
 
@@ -773,12 +856,14 @@ class QueryRouter:
         return QueryResult.of_rows(rows)
 
     def _exec_update(self, s: ast.Update) -> QueryResult:
+        self._auto_ckpt("update", s.table)
         n = self.relational.update(s.table,
                                    self._resolve_subqueries(s.where),
                                    s.updates)
         return QueryResult("count", count=n, message=f"updated {n} row(s)")
 
     def _exec_delete(self, s: ast.Delete) -> QueryResult:
+        self._auto_ckpt("delete", s.table)
         n = self.relational.delete(s.table,
                                    self._resolve_subqueries(s.where))
         return QueryResult("count", count=n, message=f"deleted {n} row(s)")
@@ -817,6 +902,7 @@ class QueryRouter:
             **node["properties"]}])
 
     def _exec_nodedelete(self, s: ast.NodeDelete) -> QueryResult:
+        self._auto_ckpt("delete", f"node {s.node_id}")
         ok = self.graph.delete_node(_as_id(s.node_id, "node id"))
         return QueryResult.msg(
             f"node {s.node_id} deleted" if ok else f"no node {s.node_id}")
@@ -1018,6 +1104,7 @@ class QueryRouter:
                 self.graph.update_node(_as_id(nid), props)
             return QueryResult.msg(f"updated {len(s.items)} nodes")
         if s.action == "delete_nodes":
+            self._auto_ckpt("delete", "graph batch")
             n = sum(1 for nid in s.items
                     if self.graph.delete_node(_as_id(nid)))
             return QueryResult.msg(f"deleted {n} nodes")
@@ -1188,6 +1275,7 @@ class QueryRouter:
         return QueryResult.msg(f"collection '{s.name}' created")
 
     def _exec_dropcollection(self, s: ast.DropCollection) -> QueryResult:
+        self._auto_ckpt("drop_collection", s.name)
         ok = self.vector.drop_collection(s.name)
         return QueryResult.msg(
             f"collection '{s.name}' dropped" if ok else
@@ -1213,6 +1301,7 @@ class QueryRouter:
         return QueryResult.of_rows([row])
 
     def _exec_entitydelete(self, s: ast.EntityDelete) -> QueryResult:
+        self._auto_ckpt("delete", f"entity {s.key}")
         ok = self.unified.delete_entity(s.key)
         return QueryResult.msg(
             f"entity '{s.key}' deleted" if ok else f"no entity '{s.key}'")
@@ -1334,3 +1423,357 @@ class QueryRouter:
 
     def _exec_empty(self, s) -> QueryResult:
         return QueryResult.msg("")
+
+    # -- vault ---------------------------------------------------------------
+    def _need(self, attr: str, hint: str):
+        mod = getattr(self, attr)
+        if mod is None:
+            raise NeumannError(f"{attr} not initialized — {hint}")
+        return mod
+
+    def _exec_vault(self, s: ast.Vault) -> QueryResult:
+        vault = self._need("vault", "run init_vault(master_password)")
+        act = s.action
+        # VAULT statements act as the shell-selected identity
+        # (reference: VAULT IDENTITY builtin); default is root
+        actor = getattr(self, "vault_actor", None) or vault.ROOT
+        if act == "set":
+            vault.set(s.key, s.value, actor=actor)
+            return QueryResult.msg(f"secret '{s.key}' stored")
+        if act == "get":
+            return QueryResult.of_value(vault.get(s.key, actor=actor))
+        if act == "delete":
+            ok = vault.delete(s.key, actor=actor)
+            return QueryResult.msg("deleted" if ok else "no such secret")
+        if act == "list":
+            return QueryResult.of_rows(
+                [{"key": k} for k in vault.list(s.pattern, actor=actor)])
+        if act == "rotate":
+            vault.rotate(s.key, s.value, actor=actor)
+            return QueryResult.msg(f"secret '{s.key}' rotated")
+        if act == "grant":
+            vault.grant(s.entity, s.key)
+            return QueryResult.msg(f"granted '{s.entity}' on '{s.key}'")
+        if act == "revoke":
+            vault.revoke(s.entity, s.key)
+            return QueryResult.msg(f"revoked '{s.entity}' on '{s.key}'")
+        if act == "seal":
+            vault.seal(actor=actor)
+            return QueryResult.msg("vault sealed")
+        if act == "unseal":
+            vault.unseal(s.value, actor=actor)
+            return QueryResult.msg("vault unsealed")
+        if act == "rotate_master":
+            n = vault.rotate_master_key(s.value, actor=actor)
+            return QueryResult.msg(
+                f"master key rotated ({n} ciphertexts re-encrypted)")
+        if act == "history":
+            n = vault.versions(s.key, actor=actor)
+            return QueryResult.of_rows([{"key": s.key,
+                                         "prior_versions": n}])
+        if act == "rollback":
+            vault.rollback_version(s.key, actor=actor)
+            return QueryResult.msg(
+                f"secret '{s.key}' rolled back one version")
+        if act == "audit":
+            limit = int(s.pattern) if s.pattern else 100
+            return QueryResult.of_rows(vault.audit_log(limit))
+        raise NeumannError(f"vault action {act} unsupported")
+
+    def _exec_cache(self, s: ast.Cache) -> QueryResult:
+        if s.action == "init":
+            if self.cache is None:
+                self.init_cache()
+            return QueryResult.msg("cache initialized")
+        cache = self._need("cache", "run CACHE INIT first")
+        if s.action == "stats":
+            st = cache.stats
+            return QueryResult.of_rows([{
+                "exact_hits": st.exact_hits,
+                "semantic_hits": st.semantic_hits, "misses": st.misses,
+                "hit_rate": round(st.hit_rate(), 4),
+                "tokens_saved": st.tokens_saved,
+                "entries": len(cache)}])
+        if s.action == "clear":
+            cache.clear()
+            return QueryResult.msg("cache cleared")
+        if s.action == "evict":
+            n = cache.evict(s.count or 1)
+            return QueryResult.msg(f"evicted {n} entries")
+        if s.action == "get":
+            v = cache.get_exact(s.key)
+            return QueryResult.of_value(v) if v is not None else \
+                QueryResult.msg("cache miss")
+        if s.action == "put":
+            cache.put(s.key, s.value)
+            return QueryResult.msg("cached")
+        if s.action == "semantic_get":
+            v = cache.get(s.key, threshold=s.threshold)
+            return QueryResult.of_value(v) if v is not None else \
+                QueryResult.msg("cache miss")
+        if s.action == "semantic_put":
+            cache.put(s.key, s.value, embedding=np.asarray(
+                s.embedding, np.float32) if s.embedding else None)
+            return QueryResult.msg("cached")
+        raise NeumannError(f"cache action {s.action} unsupported")
+
+    def _exec_blob(self, s: ast.Blob) -> QueryResult:
+        if s.action == "init":
+            if self.blob is None:
+                self.init_blob()
+            return QueryResult.msg("blob storage initialized")
+        blob = self._need("blob", "run BLOB INIT first")
+        act = s.action
+        if act == "put":
+            if s.data is not None:
+                data = s.data.encode("utf-8")
+            elif s.path is not None:
+                with open(s.path, "rb") as fh:
+                    data = fh.read()
+            else:
+                raise NeumannError("BLOB PUT needs DATA or FROM")
+            aid = blob.put(s.name, data, s.content_type, s.creator)
+            if s.entity:
+                blob.link(aid, s.entity)
+            if s.tag:
+                blob.tag(aid, s.tag)
+            return QueryResult("value", value=aid,
+                               message=f"blob {aid} stored")
+        if act == "get":
+            data = blob.get(s.name)
+            if s.path:
+                with open(s.path, "wb") as fh:
+                    fh.write(data)
+                return QueryResult.msg(
+                    f"{len(data)} bytes written to {s.path}")
+            return QueryResult.of_value(data)
+        if act == "delete":
+            ok = blob.delete(s.name)
+            return QueryResult.msg("deleted" if ok else "no such blob")
+        if act == "info":
+            return QueryResult.of_rows([blob.info(s.name)])
+        if act == "link":
+            blob.link(s.name, s.entity)
+            return QueryResult.msg("linked")
+        if act == "unlink":
+            blob.unlink(s.name, s.entity)
+            return QueryResult.msg("unlinked")
+        if act == "links":
+            return QueryResult.of_rows(
+                [{"entity": e} for e in blob.links(s.name)])
+        if act == "tag":
+            blob.tag(s.name, s.tag)
+            return QueryResult.msg("tagged")
+        if act == "untag":
+            blob.untag(s.name, s.tag)
+            return QueryResult.msg("untagged")
+        if act == "verify":
+            ok = blob.verify(s.name)
+            return QueryResult.msg("OK" if ok else "CORRUPT")
+        if act == "gc":
+            n = blob.gc(full=s.full)
+            return QueryResult.msg(f"collected {n} chunks")
+        if act == "repair":
+            bad = blob.repair()
+            return QueryResult.msg(
+                "all blobs OK" if not bad else
+                f"corrupt: {', '.join(bad)}")
+        if act == "stats":
+            return QueryResult.of_rows([blob.stats()])
+        if act == "meta_set":
+            blob.meta_set(s.name, s.meta_key, s.meta_value)
+            return QueryResult.msg("meta set")
+        if act == "meta_get":
+            return QueryResult.of_value(blob.meta_get(s.name, s.meta_key))
+        raise NeumannError(f"blob action {act} unsupported")
+
+    def _exec_blobs(self, s: ast.Blobs) -> QueryResult:
+        blob = self._need("blob", "run BLOB INIT first")
+        if s.mode == "for":
+            ids = blob.for_entity(s.entity)
+        elif s.mode == "by_tag":
+            ids = blob.by_tag(s.tag)
+        elif s.mode == "where_type":
+            ids = blob.by_type(s.content_type)
+        elif s.mode == "similar":
+            ids = [i for i in blob.list() if i != s.artifact][: s.limit or 10]
+        else:
+            ids = blob.list(s.pattern)
+        return QueryResult.of_rows([blob.info(i) for i in ids])
+
+    # -- checkpoints ---------------------------------------------------------------
+    def _exec_checkpoint(self, s: ast.Checkpoint) -> QueryResult:
+        ck = self._need("checkpoints", "init_checkpoints(dir) first")
+        cid = ck.create(name=s.name)
+        return QueryResult("value", value=cid,
+                           message=f"checkpoint {cid} created")
+
+    def _exec_checkpoints(self, s: ast.Checkpoints) -> QueryResult:
+        ck = self._need("checkpoints", "init_checkpoints(dir) first")
+        return QueryResult.of_rows([
+            {"id": c["id"], "name": c["name"], "auto": c["auto"],
+             "reason": c["reason"], "entries": c["entries"]}
+            for c in ck.list(s.limit)])
+
+    def _exec_rollback(self, s: ast.Rollback) -> QueryResult:
+        ck = self._need("checkpoints", "init_checkpoints(dir) first")
+        with self.vector.restoring():
+            c = ck.rollback(s.target)
+        # as recover() does: the unified engine's key -> node map follows
+        # the restored graph (an entity deleted after the checkpoint is
+        # an entity again)
+        self.unified.rebuild_index()
+        return QueryResult.msg(f"rolled back to {c['id']}")
+
+    def _exec_explain(self, s: ast.Explain) -> QueryResult:
+        """EXPLAIN <statement>: the execution plan, without executing.
+
+        For SELECT: access path (index vs full scan), join strategy,
+        post-steps. For SIMILAR: the route the port's engine takes for
+        the statement (``_similar_route``) and its kernel — corpus size,
+        metric, quantization, selection, mask fusion. Other statements
+        report their target engine.
+        """
+        inner = s.inner
+        kind = type(inner).__name__
+        rows: List[dict] = []
+
+        def step(op: str, detail: str) -> None:
+            rows.append({"step": len(rows) + 1, "operation": op,
+                         "detail": detail})
+
+        if isinstance(inner, ast.Select):
+            tbl = self.relational._table(inner.table)  # validates
+            access = "full scan (vectorized bitmap)"
+            if inner.where is not None:
+                def _cond_cols(c):
+                    if c is None:
+                        return []
+                    out = [c.column] if c.column else []
+                    return out + _cond_cols(c.left) + _cond_cols(c.right)
+
+                for c in _cond_cols(inner.where):
+                    if c in tbl.hash_indexes:
+                        access = f"hash index on {c}"
+                        break
+                    if c in tbl.btree_indexes:
+                        access = f"btree index on {c}"
+                        break
+            step("scan", f"table '{inner.table}' "
+                 f"({self.relational.row_count(inner.table)} rows), "
+                 f"{access}")
+            for j in inner.joins or []:
+                on = (f"using ({', '.join(j.using)})" if j.using
+                      else f"on {j.left_col} = {j.right_col}")
+                step("join", f"{j.how} join {j.table} {on} "
+                     f"(hash build on smaller side)")
+            if inner.group_by:
+                step("aggregate", f"group by {', '.join(inner.group_by)}")
+            if inner.order_by:
+                step("sort", f"order by {inner.order_by}")
+            if inner.limit is not None:
+                step("limit", f"limit {inner.limit} "
+                     f"offset {inner.offset or 0}")
+        elif isinstance(inner, ast.Similar):
+            if inner.collection:
+                cfg = self.vector.collection_config(inner.collection)
+                quant = cfg.quantization
+                n = self.vector.collection_stats(
+                    inner.collection)["count"]
+                where = f"collection '{inner.collection}'"
+            else:
+                quant = "none"
+                n = self.vector.count_embeddings()
+                where = "default corpus"
+            scan, select = _route_text(self._similar_route(inner),
+                                       inner.connected_to is not None)
+            step("scan", f"{scan} over {where} ({n} vectors, "
+                 f"quantization={quant}, "
+                 f"metric={inner.metric or 'cosine'})")
+            masks = []
+            if inner.where is not None:
+                masks.append("metadata predicate")
+            if inner.connected_to is not None:
+                masks.append(f"CONNECTED TO '{inner.connected_to}' "
+                             f"graph neighborhood")
+            if masks:
+                step("mask", " + ".join(masks)
+                     + " fused into scan as -inf (exact for any k)")
+            step("select", f"top-{inner.limit} ({select})")
+        else:
+            engine = {
+                "Insert": "relational", "Update": "relational",
+                "Delete": "relational", "NodeCreate": "graph",
+                "EdgeCreate": "graph", "Neighbors": "graph",
+                "Path": "graph", "EmbedStore": "vector",
+                "Find": "unified", "Vault": "vault", "Cache": "cache",
+                "Blob": "blob", "Checkpoint": "checkpoint",
+            }.get(kind, "router")
+            step("execute", f"{kind} via {engine} engine")
+        return QueryResult.of_rows(rows)
+
+    def _similar_route(self, s: ast.Similar) -> Optional[dict]:
+        """``VectorEngine.search_route`` for the search ``_exec_similar``
+        runs for ``s`` (None: CONNECTED TO, which the unified engine
+        routes, or no rows to scan)."""
+        if s.connected_to is not None:
+            return None
+        query = s.query_vector if s.query_vector is not None \
+            else s.query_key
+        try:
+            dim = len(self._resolve_query(s, query))
+        except VectorError:
+            return None
+        filt = (_filter_from_condition(s.where) if s.where is not None
+                else None)
+        if s.collection is not None:
+            cfg = self.vector.collection_config(s.collection)
+            return self.vector.search_route(
+                f"col/{s.collection}", dim, s.limit, s.metric or cfg.metric,
+                filt, cfg.quantization)
+        return self.vector.search_route(
+            "", dim, s.limit, s.metric or (None if filt else "cosine"),
+            filt)
+
+
+# EXPLAIN SIMILAR's scan and select text for each route of the engine
+_ROUTE_SCAN = {
+    "auto_ivf": "auto-IVF probe of the nearest int8 windows",
+    "f32_pooled": "f32 pooled-bits scan, one winner a pool of {pool} rows",
+    "int8_pooled": "int8 pooled-bits scan, one winner a pool of {pool} rows",
+    "int8_scan": "int8 scores over every row",
+    "binary": "hamming distances over sign bits",
+    "pq": "PQ ADC scan over the codes",
+    "tt": "tensor-train reconstruction, then the exact f32 scan",
+    "exact": "exact f32 scan",
+}
+_ROUTE_SELECT = {
+    "auto_ivf": "exact f32 rerank of the probed candidates",
+    "f32_pooled": "best pools, then an exact f32 rerank of their rows",
+    "int8_pooled": "best pools, then an exact f32 rerank of their rows",
+    "int8_scan": "exact keyed merge, equal scores by row",
+    "hamming_topk": "inside the kernel, equal distances by row",
+    "hamming_scores": "keyed merge of the distances, equal ones by row",
+    "pq_adc_select": "inside the kernel",
+    "pq_adc": "stable top-k of the ADC scores",
+    "tt": "exact top-k",
+    "exact": "exact top-k",
+}
+
+
+def _route_text(route: Optional[dict], connected: bool):
+    """(scan, select) detail of EXPLAIN SIMILAR for a ``search_route``
+    (``connected``: a CONNECTED TO search, routed by the unified
+    engine)."""
+    if connected:
+        return ("unified engine: the neighbourhood as a row mask over the "
+                "entity corpus, scanned by its own gate",
+                "top-k of the masked scan")
+    if route is None:
+        return "no rows to scan", "empty result"
+    scan = _ROUTE_SCAN[route["route"]].format(pool=route["pool"])
+    kernel = route["kernel"]
+    if kernel is not None:
+        scan += f" (kernel {kernel})"
+    select = _ROUTE_SELECT.get(kernel, _ROUTE_SELECT.get(route["route"]))
+    return f"route {route['route']}: {scan}", select

@@ -8,11 +8,10 @@ recovery when started with --wal-dir.
 
 The port's copy of ``neumann_tpu/shell/shell.py``. It builds the port's
 ``QueryRouter()``, which runs on the card ("cuda") unless a caller
-passes a router of its own. Three changes besides the import lines:
-``doctor`` reports torch's devices; ``--wal-dir`` attaches no checkpoint
-manager (none is ported yet, ROADMAP item 6; CHECKPOINT statements
-answer with an error naming it); and ``vault init``, which the port's
-router refuses (item 6), prints that error instead of raising.
+passes a router of its own. Besides the import lines, ``doctor`` reports
+torch's devices. ``--wal-dir`` attaches a checkpoint manager under
+``<dir>/ckpts`` and ``vault init`` attaches the vault, as in the JAX
+shell; the vault needs the ``cryptography`` package.
 """
 
 from __future__ import annotations
@@ -207,6 +206,7 @@ class Shell:
             n = self.router.store.recover(
                 wal, snapshot_path=snap if os.path.exists(snap) else None)
             self.router.store.open_durable(wal)
+            self.router.init_checkpoints(os.path.join(wal_dir, "ckpts"))
             if n:
                 self._print(f"(replayed {n} WAL record(s))")
 
@@ -340,10 +340,7 @@ class Shell:
             pw = q[len("vault init"):].strip().strip("'\"")
             if not pw:
                 return "usage: vault init '<master password>'"
-            try:
-                self.router.init_vault(pw)
-            except NeumannError as e:
-                return f"error: {e}"
+            self.router.init_vault(pw)
             return "vault initialized"
         elif lower == "doctor":
             return self.doctor()
@@ -395,8 +392,7 @@ class Shell:
         checks.append(("graph",
                        f"{self.router.graph.node_count()} nodes / "
                        f"{self.router.graph.edge_count()} edges", "ok"))
-        checks.append(("vault", "initialized"
-                       if getattr(self.router, "vault", None)
+        checks.append(("vault", "initialized" if self.router.vault
                        else "not initialized", "ok"))
         width = max(len(c[0]) for c in checks)
         return "\n".join(

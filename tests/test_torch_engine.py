@@ -27,6 +27,8 @@ from neumann_tpu_torch.engines.vector import VectorEngineConfig as TConfig
 from neumann_tpu_torch.ops.ivf import DeviceIVFInt8
 from neumann_tpu_torch.router import QueryRouter as TRouter
 from neumann_tpu_torch.utils.errors import NeumannError, VectorError
+from tests.test_torch_relational import routers as fresh_routers
+from tests.test_torch_relational import run_both
 
 TOL = 1e-5
 N, D = 12_000, 64
@@ -147,16 +149,28 @@ def test_storage_statements_match_jax(routers):
         jr.execute("EMBED GET 'nope'").message
 
 
-def test_unported_statements_raise(routers):
+def test_unported_statements_raise(routers, tmp_path):
+    """The chain and the planner still raise naming their ROADMAP item;
+    the extended modules' statements and ``init_*`` answer as the JAX
+    router's do."""
     jr, tr, _ = routers
-    for stmt in ("VAULT GET 'x'", "CHECKPOINTS", "CACHE STATS",
-                 "CHAIN HEIGHT", "EXPLAIN SELECT * FROM t"):
-        with pytest.raises(NeumannError, match="ROADMAP"):
-            tr.execute(stmt)
-    for call in (tr.attach_planner, tr.init_checkpoints, tr.init_vault,
-                 tr.init_cache, tr.init_blob, tr.init_chain):
+    with pytest.raises(NeumannError, match="ROADMAP"):
+        tr.execute("CHAIN HEIGHT")
+    for call in (tr.attach_planner, tr.init_chain):
         with pytest.raises(NeumannError, match="ROADMAP"):
             call()
+    stmts = ("VAULT GET 'x'", "CHECKPOINTS", "CACHE STATS",
+             "EXPLAIN SELECT * FROM t", "BLOB STATS")
+    mj, mt = fresh_routers()
+    for stmt in stmts:                      # before init_*: errors alike
+        run_both(mj, mt, stmt, fields=("kind", "rows", "message"))
+    for r, name in ((mj, "jax"), (mt, "port")):
+        r.init_checkpoints(str(tmp_path / name))
+        r.init_vault("pw")
+        r.init_cache()
+        r.init_blob()
+    for stmt in stmts:
+        run_both(mj, mt, stmt, fields=("kind", "rows", "message"))
     # pq and tt storage are ported: they answer as the JAX router does
     for quant in ("pq", "tt"):
         got = []
@@ -420,6 +434,12 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "HNSW_ROWS", 512)
     monkeypatch.setattr(chip_smoke, "HNSW_QUANT_ROWS", 512)
     monkeypatch.setattr(chip_smoke, "HNSW_BINARY_ROWS", 256)
+    # phase 16 at a toy size: collections of 2,048 rows, a 1 MiB blob,
+    # 256 cache prompts
+    monkeypatch.setattr(chip_smoke, "ROLLBACK_SUB_ROWS", 2048)
+    monkeypatch.setattr(chip_smoke, "BLOB_BYTES", 1 << 20)
+    monkeypatch.setattr(chip_smoke, "CACHE_PROMPTS", 256)
+    monkeypatch.setattr(chip_smoke, "CACHE_MIX", 100)
     monkeypatch.setenv("NEUMANN_POOLED_MIN_ROWS", "1024")
     monkeypatch.setenv("NEUMANN_POOLED_MIN_POOLS", "64")
     cfg = TConfig(ivf_auto_threshold=10_000, ivf_auto_clusters=16,
@@ -469,5 +489,16 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     assert rep["served_binary_mismatches"] == 0
     assert rep["served_filtered_recall"] >= 0.95
     assert rep["served_in_filter_ok"] and rep["points_query_mismatches"] == 0
-    assert rep["shell_refused"] == 4 and rep["shell_max_rel_diff"] == 0
+    assert rep["shell_errors"] == 0 and rep["shell_max_rel_diff"] == 0
     assert rep["shell_doctor_devices"] == ["[OK ] devices         1 x cpu"]
+    # phase 16: the rollback restores every route's hits and the events
+    # table; EXPLAIN names each route's kernel; the blob comes back with
+    # equal bytes; the query cache serves a repeat and not across a write
+    assert rep["rollback_mismatches"] == 0
+    assert rep["rollback_events_rows"] == chip_smoke.N_EVENTS
+    assert rep["checkpoints_after"] == 3
+    assert rep["explain_kernels"]["pooled"] == "f32_pooled_bits"
+    assert rep["blob_checks"] == [True, "OK", "OK", True]
+    assert rep["cache_entries"] == 256
+    assert rep["cache_exact_hit_rate"] == 0.5
+    assert rep["launches_rollback"]["f32_pooled_bits"] == 0

@@ -39,7 +39,9 @@ between the lane layout and the 8-query shared layout (3 / 4) and of a
 shared block (8, 70), k 1, 10 and 64, codes copied across distant rows
 (exact ties at the shared threshold), fewer live rows than k, a whole
 block of dead rows, gathered candidates with -1; scores and columns
-equal to ``pq_adc_topk_plain``.
+equal to ``pq_adc_topk_plain``. ROLLBACK on a router whose corpora hold
+device views: SIMILAR on the f32 pooled, int8 and binary routes gives
+the hits from before the checkpoint, and their kernels launch.
 """
 
 import pytest
@@ -451,3 +453,59 @@ def test_pq_adc_select_few_live_rows(cuda, q):
     valid = torch.rand(n, generator=g, device=cuda) > 0.5
     valid[4096:2 * 4096] = False
     _assert_select_equal(tk, codes, tables, valid)
+
+
+@pytest.mark.cuda
+def test_rollback_under_device_views(cuda, tmp_path, monkeypatch):
+    """ROLLBACK on a router whose corpora hold device views (the f32
+    pooled view, the int8 and binary collections' quantized views), then
+    SIMILAR on each route: the hits taken before the checkpoint, keys
+    and scores equal, and each route's kernel launched after the
+    rollback."""
+    import numpy as np
+
+    from neumann_tpu_torch.ops import kernels as tk
+    from neumann_tpu_torch.router import QueryRouter
+
+    monkeypatch.setenv("NEUMANN_POOLED_MIN_ROWS", "1024")
+    monkeypatch.setenv("NEUMANN_POOLED_MIN_POOLS", "64")
+    rng = np.random.default_rng(12)
+    n, d = 8192, 768
+    cents = rng.standard_normal((32, d)).astype(np.float32)
+    x = (cents[rng.integers(0, 32, n)]
+         + 0.25 * rng.standard_normal((n, d))).astype(np.float32)
+    r = QueryRouter(device=cuda)
+    r.init_checkpoints(str(tmp_path))
+    r.execute(f"CREATE COLLECTION q8 DIM {d} QUANTIZATION int8")
+    r.execute(f"CREATE COLLECTION bits DIM {d} QUANTIZATION binary")
+    with r.vector.bulk_ingest():
+        for i in range(n):
+            r.vector.store_embedding(f"k{i}", x[i], {"cat": i % 4})
+            r.vector.store_in_collection("q8", f"k{i}", x[i])
+            r.vector.store_in_collection("bits", f"k{i}", x[i])
+
+    def lit(v):
+        return "[" + ", ".join(f"{a:.7g}" for a in v) + "]"
+
+    stmts = {"f32_pooled_bits": [f"SIMILAR {lit(q)} TOP 10" for q in x[:4]],
+             "int8_pooled_bits": [f"SIMILAR {lit(q)} IN q8 TOP 10"
+                                  for q in x[:4]],
+             "hamming_topk": [f"SIMILAR {lit(q)} IN bits TOP 10"
+                              for q in x[:4]]}
+
+    def hits():
+        return {k: [[(h["key"], h["score"]) for h in r.execute(s).results]
+                    for s in ss] for k, ss in stmts.items()}
+
+    before = hits()
+    r.execute("CHECKPOINT 'pre'")
+    for i in range(0, n, 7):
+        r.vector.store_embedding(f"k{i}", -x[i])
+        r.vector.store_in_collection("q8", f"k{i}", -x[i])
+        r.vector.store_in_collection("bits", f"k{i}", -x[i])
+    assert hits() != before
+    r.execute("ROLLBACK TO 'pre'")
+    tk.reset_launch_counts()
+    assert hits() == before
+    for kernel in stmts:
+        assert tk.LAUNCHES[kernel] >= len(stmts[kernel]), dict(tk.LAUNCHES)

@@ -9,11 +9,15 @@ CPU, a WAL-backed ``ingest_matrix`` replayed into a new store, one
 collection per storage mode (none, int8, binary, pq, tt), the HNSW and
 legacy IVF index APIs, SQL, graph and Cypher
 statements, ``SIMILAR … CONNECTED TO`` and FIND, one REST ``/query``
-through ``neumann_tpu_torch.server.RestServer`` (batched serving on)
-and one shell statement, with the native lexer and parser loaded, and
-fails if any module named ``neumann_tpu`` or ``neumann_tpu.*`` was
-loaded. A scan of the sources (the server, the shell and the native
-loaders included) checks the same statically. The ``cuda`` tests need an
+through ``neumann_tpu_torch.server.RestServer`` (batched serving on),
+one shell statement, a checkpoint and rollback, a blob, the LLM cache,
+EXPLAIN SIMILAR and the vault, with the native lexer and parser loaded,
+and fails if any module named ``neumann_tpu`` or ``neumann_tpu.*`` was
+loaded. A second subprocess blocks ``cryptography`` as well, as on the
+card's machine: the router and the shell import and run, and only
+``init_vault`` fails. A scan of the sources (the server, the shell, the
+native loaders and the extended modules included) checks the same
+statically. The ``cuda`` tests need an
 NVIDIA card with ``nvcc`` (the kernels build from csrc/ at first use);
 they skip elsewhere. Run them on the card with
 ``python -m pytest --noconftest tests/test_torch_nojax.py
@@ -128,6 +132,24 @@ _NOJAX = textwrap.dedent("""
     sh = Shell(router=r, stdout=io.StringIO(), theme="plain")
     assert "(3 row(s))" in sh.execute("SELECT * FROM t"), sh.execute(
         "SELECT * FROM t")
+    with tempfile.TemporaryDirectory() as tmp:
+        r.init_checkpoints(tmp)
+        r.execute("CHECKPOINT 'pre'")
+        r.execute("DELETE FROM t WHERE id = 1")
+        r.execute("ROLLBACK TO 'pre'")
+        assert len(r.execute("SELECT * FROM t").rows) == 3
+    r.execute("BLOB INIT")
+    aid = r.execute("BLOB PUT 'a.txt' 'hello'").value
+    assert r.execute(f"BLOB GET '{aid}'").value == b"hello"
+    r.execute("CACHE INIT")
+    r.execute("CACHE PUT 'q' 'a'")
+    assert r.execute("CACHE GET 'q'").value == "a"
+    plan = r.execute(f"EXPLAIN SIMILAR [{', '.join(map(str, v[5]))}] "
+                     f"IN c_binary TOP 3").rows
+    assert plan[0]["detail"].startswith("route binary"), plan
+    r.init_vault("pw")
+    r.execute("VAULT SET 's' 'v'")
+    assert r.execute("VAULT GET 's'").value == "v"
     bad = [m for m, mod in sys.modules.items()
            if mod is not None and (m == "jax" or m.startswith("jax.")
                or m == "neumann_tpu" or m.startswith("neumann_tpu."))]
@@ -142,6 +164,57 @@ def test_port_runs_without_jax():
         p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
     proc = subprocess.run([sys.executable, "-c", _NOJAX], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK")
+
+
+_NOCRYPTO = textwrap.dedent("""
+    import sys
+    for name in [m for m in sys.modules if m.split(".")[0] in (
+            "jax", "cryptography")]:
+        del sys.modules[name]
+    sys.modules["jax"] = None
+    sys.modules["cryptography"] = None  # the card's machine has neither
+    import tempfile
+    from neumann_tpu_torch.router import QueryRouter
+    from neumann_tpu_torch.shell import Shell
+    r = QueryRouter(device="cpu")
+    r.execute("CREATE TABLE t (id INT PRIMARY KEY)")
+    r.execute("INSERT INTO t VALUES (1), (2)")
+    with tempfile.TemporaryDirectory() as tmp:
+        r.init_checkpoints(tmp)
+        r.execute("CHECKPOINT 'pre'")
+        r.execute("DELETE FROM t WHERE id = 1")
+        r.execute("ROLLBACK TO 'pre'")
+    assert len(r.execute("SELECT * FROM t").rows) == 2
+    r.execute("BLOB INIT")
+    r.execute("CACHE INIT")
+    assert r.execute("EXPLAIN SELECT * FROM t").rows
+    Shell(router=r)
+    loaded = [m for m in sys.modules if m.startswith(
+        ("neumann_tpu_torch.vault", "cryptography", "jax"))
+        and sys.modules[m] is not None]
+    assert not loaded, loaded
+    try:
+        r.init_vault("pw")
+    except ImportError:
+        pass
+    else:
+        raise AssertionError("the vault imported without cryptography")
+    print("OK")
+""")
+
+
+def test_router_imports_without_cryptography():
+    """The card's machine has no ``cryptography``: the router, the shell
+    and every module but the vault import and run there; only
+    ``init_vault`` needs it."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+    proc = subprocess.run([sys.executable, "-c", _NOCRYPTO], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip().endswith("OK")
 
@@ -165,7 +238,13 @@ def _port_sources() -> list:
             "neumann_tpu_torch/native/pyparser.py",
             "neumann_tpu_torch/server/rest.py",
             "neumann_tpu_torch/server/batcher.py",
-            "neumann_tpu_torch/shell/shell.py"} <= names
+            "neumann_tpu_torch/shell/shell.py",
+            "neumann_tpu_torch/checkpoint/manager.py",
+            "neumann_tpu_torch/blob/blob_store.py",
+            "neumann_tpu_torch/cache/llm_cache.py",
+            "neumann_tpu_torch/vault/vault.py",
+            "neumann_tpu_torch/vault/scoped.py",
+            "neumann_tpu_torch/docs_cli.py"} <= names
     return srcs
 
 

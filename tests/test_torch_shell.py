@@ -8,9 +8,10 @@ built-ins, statements, errors, multi-statement lines, SAVE / LOAD and
 the command WAL (activation, truncation, crash replay, strict and
 recover modes), --wal-dir durability and ``wal truncate``, themed
 output, completion. Paths in the output are the same once each shell's
-directory is written as ``<dir>``. Where the port refuses a statement
-(CACHE and CHECKPOINT: ROADMAP item 6), its output is an error naming
-the item instead.
+directory is written as ``<dir>``. The sample runs with ``--wal-dir``,
+so its CACHE and CHECKPOINT lines answer on both shells and are
+compared as text like every other line; ``vault init`` attaches the
+vault on both.
 """
 
 import io
@@ -26,7 +27,6 @@ from neumann_tpu_torch.shell.shell import _split_script
 
 ROOT = Path(__file__).resolve().parents[1]
 SAMPLE = ROOT / "samples" / "knowledge-base.nql"
-UNPORTED = ("CACHE", "CHECKPOINT")
 
 
 def _jax_router():
@@ -68,18 +68,15 @@ def _same(tmp_path, lines, **kw):
 @pytest.fixture(scope="module")
 def sample_outputs(tmp_path_factory):
     stmts = _split_script(SAMPLE.read_text())
-    (js, jd), (ts, td) = _shells(tmp_path_factory.mktemp("kb"))
+    (js, jd), (ts, td) = _shells(tmp_path_factory.mktemp("kb"), wal=True)
     return stmts, _run(js, jd, stmts), _run(ts, td, stmts)
 
 
 @pytest.mark.parametrize("i", range(len(_split_script(SAMPLE.read_text()))))
 def test_knowledge_base_sample(sample_outputs, i):
     stmts, want, got = sample_outputs
-    if stmts[i].upper().startswith(UNPORTED):
-        assert got[i].startswith("error:") and "ROADMAP: 6" in got[i], got[i]
-    else:
-        assert "error" not in got[i].lower(), (stmts[i], got[i])
-        assert got[i] == want[i], stmts[i]
+    assert "error" not in got[i].lower(), (stmts[i], got[i])
+    assert got[i] == want[i], stmts[i]
 
 
 SCRIPTS = {
@@ -102,6 +99,12 @@ SCRIPTS = {
     "usage": ["SAVE", "LOAD", "vault init", "vault identity",
               "vault identity 'alice'", "vault identity", "wal status",
               "wal truncate"],
+    "modules": ["vault init 'pw'", "VAULT SET 'db/pw' 'one'",
+                "VAULT GET 'db/pw'", "vault identity 'alice'",
+                "VAULT GET 'db/pw'", "vault identity 'root'", "VAULT LIST",
+                "CACHE INIT", "CACHE PUT 'q' 'a'", "CACHE GET 'q'",
+                "CACHE STATS", "BLOB INIT", "BLOB PUT 'f.txt' 'hello'",
+                "BLOBS", "CHECKPOINT", "EXPLAIN SELECT * FROM nope"],
     "save_load": ["CREATE TABLE t (v INT)", "EMBED STORE 'k' [1.0]",
                   "save '{dir}/snap.ntpu'", "INSERT INTO t VALUES (5)",
                   "load '{dir}/snap.ntpu'", "COUNT EMBEDDINGS",
@@ -177,17 +180,14 @@ def test_crash_replay_strict_and_recover(tmp_path):
 
 
 def test_script_execution_builtin(tmp_path):
-    """``\\i`` runs a script: equal text for every statement the port
-    runs; the CACHE / CHECKPOINT lines are the port's named refusals."""
+    """``\\i`` runs a script: equal text for every statement, the CACHE
+    and CHECKPOINT lines included."""
     (js, jd), (ts, td) = _shells(tmp_path, wal=True)
     line = f"\\i {SAMPLE}"
     want = _run(js, jd, [line])[0].split("\n")
     got = _run(ts, td, [line])[0].split("\n")
-    refused = [g for g in got if g.startswith("error:")]
-    assert len(refused) == 4 and all("ROADMAP: 6" in g for g in refused)
-    assert [g for g in got if not g.startswith("error:")] == \
-        [w for w in want if not w.startswith(("cache", "cached", "The MXU",
-                                              "checkpoint"))]
+    assert not [g for g in got if g.startswith("error:")]
+    assert got == want
     assert _run(ts, td, ["SELECT COUNT(*) FROM people", "\\q"]) == \
         _run(js, jd, ["SELECT COUNT(*) FROM people", "\\q"])
 
@@ -227,3 +227,18 @@ def test_main_runs_one_command(monkeypatch, capsys):
                         lambda: TRouter(device="cpu"))
     assert tshell.main(["-c", "SHOW TABLES", "--theme", "plain"]) == 0
     assert "no rows" in capsys.readouterr().out
+
+
+def test_wal_dir_attaches_checkpoints(tmp_path):
+    """``--wal-dir`` attaches a checkpoint manager under <dir>/ckpts on
+    both shells: CHECKPOINT, automatic checkpoints, CHECKPOINTS and
+    ROLLBACK print the same text."""
+    lines = ["CREATE TABLE t (v INT)", "INSERT INTO t VALUES (1), (2)",
+             "CHECKPOINT 'two'", "DELETE FROM t WHERE v = 1",
+             "CHECKPOINTS", "ROLLBACK TO 'two'", "SELECT v FROM t ORDER BY v",
+             "CHECKPOINTS LIMIT 2", "ROLLBACK TO 'none'"]
+    (js, jd), (ts, td) = _shells(tmp_path, wal=True)
+    got, want = _run(ts, td, lines), _run(js, jd, lines)
+    assert got == want
+    assert "(2 row(s))" in got[6]
+    assert (td / "data" / "ckpts" / "index.json").exists()
