@@ -42,7 +42,9 @@ Phases (each raises on failure; exit code 0 only if all pass):
    mode bit for bit beside one ``F.embedding_bag`` call for the same
    sums, its select mode (top-10 inside the kernel) equal to its plain
    version beside the scores mode + ``_topk_stable``; phases 14 and 15
-   add the shapes their batches launch);
+   add the shapes their batches launch); the batched probe in top-1 mode
+   (``batched_probe_top1``, the launch of the top-1 route that phase
+   17b calls) at the top-2 shape, bit for bit;
 3. generate a 4,194,304 x 768 corpus from --seed with numpy (4,096
    N(0,1) centres + sigma 0.25 noise) and load it with
    ``router.vector.ingest_matrix``;
@@ -53,6 +55,35 @@ Phases (each raises on failure; exit code 0 only if all pass):
 5. recall@10 of both routes against the port's exact f32 scan over all
    rows (each >= 0.95), and both kernels launched by the main path;
 6. re-embed one key, search with the new vector, that key comes first;
+17. on the same router and rows (counted: every count at 0 before each
+    part, read after it):
+    b. 1,024 queries ``TOP 65`` through ``router.vector.batch_search``
+       (k_ivf 146 > 128: ``search_batched``'s non-fast branch, exact int8
+       dots in plain torch, the top-152 of each probed (query, window),
+       1,184 candidates a query to the rerank); QPS (median of the last 3
+       of 4 calls), recall@10 of the first ten hits >= 0.95 against the
+       exact scan, recall@65 and the overlap with the latency path's hits
+       (the same queries in batches of ``ivf_auto_max_batch``) recorded;
+       the first pass, the pre-selection and the rerank timed on the
+       inputs the route gave them (CUDA events, kernel launches from
+       torch.profiler), the first pass's bound, one batch call profiled;
+       then the top-1 batched route (``batched_ivf_topk(fused="pallas",
+       presel=0)``, pool expansion in the rerank), which no entry point
+       of the port reaches yet, called by this script at TOP 10, recall
+       >= 0.95. Counted apart: the TOP 65 route (plain torch: it must
+       launch no hand kernel), the latency-path comparison (row 1), the
+       top-1 call (row 2's top-1 mode);
+    c. an index over A's int8 rows (the engine's layout, shared; the
+       engine's own index is not mutated) takes 419,430 new rows of the
+       mixture through ``add`` (chunks of 65,536) and loses 41,943 old and
+       new ids through ``delete``; 64 singles and a batch of 1,024 search
+       it: recall@10 >= 0.95 against one ``int8_exact_topk`` over the
+       main and added rows in a single plane (multipliers computed
+       there, the phase's own deleted ids masked: not the index's delta
+       scan or merge), no deleted id back, 1,024 added rows (and 64
+       singly) first for their own vectors; the delta scan timed; ``compact`` (the live ids
+       kept), the same searches; seconds of each step and the first
+       search after it;
    then release that router.
 7. the default pooled route (BASELINE configs 2 and 3): a second router
    with 1,048,576 x 768 rows of the same recipe, loaded by
@@ -234,6 +265,9 @@ KERNELS = {
                       replaces="neumann_tpu/ops/pallas_kernels.py:212"),
     "batched_probe": dict(source="neumann_tpu_torch/csrc/batched_probe.cu",
                           replaces="neumann_tpu/ops/pallas_kernels.py:329"),
+    "batched_probe_top1": dict(
+        source="neumann_tpu_torch/csrc/batched_probe.cu",
+        replaces="neumann_tpu/ops/pallas_kernels.py:329"),
     "int8_dot_scores": dict(source="neumann_tpu_torch/csrc/int8_scores.cu",
                             replaces="neumann_tpu/ops/pallas_kernels.py:162"),
     "int8_pooled_bits": dict(source="neumann_tpu_torch/csrc/int8_scores.cu",
@@ -269,6 +303,8 @@ NO_LIBRARY = {
                  "lists (a gather, then a product)",
     "batched_probe": "no one PyTorch call scores per-window query tables "
                      "into packed top-2 winners",
+    "batched_probe_top1": "no one PyTorch call scores per-window query "
+                          "tables into packed pool winners",
     "hamming_scores": "no PyTorch call takes packed sign bits (cdist p=0 "
                       "needs them unpacked to floats)",
     "hamming_topk": "no PyTorch call takes packed sign bits, and none "
@@ -336,9 +372,21 @@ SAMPLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "samples",
                       "knowledge-base.nql")
 # the counted phases' launch counts: A-D, phase 10's wide collection,
 # phase 11's hybrid queries (F) and the served phases 12a (A) and 12b
-# (B-D)
-ROUTES = ("ivf", "pooled", "int8", "binary", "wide", "hybrid",
-          "served_ivf", "served_brute", "pq", "tt", "ann", "rollback")
+# (B-D); phase 17b's TOP 65 route, the same queries on the latency path,
+# and the top-1 batched route that the script calls itself (no entry
+# point of the port reaches it), each counted apart
+ROUTES = ("ivf", "top65", "top65_latency", "top1_direct", "delta",
+          "pooled", "int8", "binary", "wide", "hybrid", "served_ivf",
+          "served_brute", "pq", "tt", "ann", "rollback")
+# phase 17 (on A's corpus): the TOP 65 batch (k_ivf 146 > 128, the
+# non-fast batched route), and an index over A's rows that takes 10 %
+# more rows through add (in chunks of 65,536) and loses 1 % of A's row
+# count through delete, searched before and after compact
+TOP65 = 65
+PHASE17_BATCH = N_BATCH
+DELTA_FRAC = 0.1
+DELTA_CHUNK = 1 << 16
+DELETE_FRAC = 0.01
 # phase 2's records: the main shape's keys bare, the other shapes' with a
 # suffix
 SHAPE_SUFFIXES = ("_q1", "_q8", "_q32", "_w96", "_w96q1", "_w96q256",
@@ -382,6 +430,7 @@ PQ_TOP65 = 65
 TRACE_KERNELS = {
     "ivf_probe": ("ivf_probe_kernel",),
     "batched_probe": ("batched_probe_kernel",),
+    "batched_probe_top1": ("batched_probe_kernel",),
     "int8_dot_scores": ("int8_kernel", "int8_tma_kernel"),
     "int8_pooled_bits": ("int8_kernel", "int8_tma_kernel"),
     "f32_pooled_bits": ("stream_kernel", "batch_kernel"),
@@ -677,6 +726,27 @@ def check_kernels(dev, rows: int, seed: int) -> dict:
     say(f"[2] batched_probe kernel vs plain: bit-exact, max_abs_err "
         f"{err:.3g}; kernel {out['batched_probe']['ms']:.4f} ms, plain "
         f"{out['batched_probe']['plain_ms']:.4f} ms")
+    # the top-1 mode at the same shape: 128 lanes out, one winner a pool
+    got = tk.batched_probe(b, rm2, qsel, scm, window)
+    want = tk.batched_probe_plain(b, rm2, qsel, scm, window)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"batched_probe top-1: "
+                             f"{int((got != want).sum())} packed words "
+                             f"differ from plain (must be bit-exact)")
+    out["batched_probe_top1"] = dict(
+        **bound(nbytes(b, rm2, scm, got) + n_filled * DIM,
+                2 * n_filled * window * DIM, INT8_OPS_PER_S),
+        filled_slots=n_filled, max_abs_err=0.0,
+        ms=cuda_ms(lambda: tk.batched_probe(b, rm2, qsel, scm, window), 10),
+        plain_ms=cuda_ms(lambda: tk.batched_probe_plain(
+            b, rm2, qsel, scm, window), 1, warm=False),
+        shape=f"C={n_win} q_cap={q_cap} window={window} d={DIM} top1")
+    say(f"[2] batched_probe top-1 vs plain: bit-exact; kernel "
+        f"{out['batched_probe_top1']['ms']:.4f} ms (top-2 "
+        f"{out['batched_probe']['ms']:.4f}), plain "
+        f"{out['batched_probe_top1']['plain_ms']:.4f} ms, bound "
+        f"{out['batched_probe_top1']['bound_ms']:.4f} ms")
     del got, want, qsel, scm, b, rm2, buf, rm
     out["batched_probe"].update(check_batched_probe_wide(dev, seed, window))
     return out
@@ -1449,7 +1519,7 @@ def run(args, dev, config=None, on_card: bool = True) -> dict:
 
 def run_ivf(args, dev, centres, s_corpus, s_queries, config,
             on_card: bool) -> dict:
-    """Phases 3-6: the auto-IVF path at --rows."""
+    """Phases 3-6 and 17: the auto-IVF path at --rows."""
     import torch
 
     from neumann_tpu_torch.ops import kernels as tk
@@ -1564,8 +1634,436 @@ def run_ivf(args, dev, centres, s_corpus, s_queries, config,
         f"(score {hits[0]['score']:.6f})")
 
     report["launches_ivf"] = launches
+    # ---- phase 17: TOP 65 batches, the delta plane ----------------------
+    t0 = time.perf_counter()
+    report.update(run_top65(router, batch[:PHASE17_BATCH],
+                            oracle[N_SINGLE:N_SINGLE + PHASE17_BATCH], emb,
+                            valid, on_card))
+    report.update(run_delta_plane(
+        args, router.vector._corpora[""][DIM]._auto_ivf, centres,
+        s_corpus.spawn(1)[0], queries, on_card))
+    report["phase17_s"] = time.perf_counter() - t0
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
     # ---- phase 12a: served auto-IVF --------------------------------------
     report.update(serve_ivf(router, batch, oracle[N_SINGLE:], on_card))
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 17: A's TOP 65 batch (the non-fast batched route) and the delta
+# plane of an index over A's rows
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def captured(module, name: str):
+    """Record the arguments of every call of ``module.name`` inside the
+    block (the path calls it through the module), to time that step
+    afterwards on the same inputs."""
+    seen = []
+    saved = getattr(module, name)
+
+    def call(*a, **kw):
+        seen.append((a, kw))
+        return saved(*a, **kw)
+
+    setattr(module, name, call)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, saved)
+
+
+def torch_step(fn, reps: int, what: str) -> dict:
+    """A plain-torch step on the card: its mean time by CUDA events, its
+    device time and the CUDA kernels one call launches, from a
+    torch.profiler trace of one call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = cuda_ms(fn, reps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as tp:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in tp.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    return dict(ms=ms, device_ms=dev_ms, launches=len(kern), what=what)
+
+
+def top65_steps(ivf, call: tuple, rerank_call: tuple, on_card: bool
+                ) -> dict:
+    """The non-fast batched route's three steps, each on the inputs the
+    route gave it: the first pass (``batched_ivf_topk``), the pre-selection
+    (``_topk_stable`` of the first-pass scores) and the rerank (gather and
+    exact rescore of the survivors); their times, launches and the first
+    pass's bound: the probed windows' rows and multipliers read once
+    (bytes), and 2 x window x d int8 operations for every filled table
+    slot (the padded q_cap slots are the JAX design's extra work)."""
+    import torch
+
+    from neumann_tpu_torch.ops import ivf as tivf
+    from neumann_tpu_torch.ops import rerank as trerank
+    from neumann_tpu_torch.ops.scan import _topk_stable
+
+    a, kw = call
+    buf, rmult, cents, starts, qs, nprobe, window, m, q_cap = a[:9]
+    qn = qs / qs.norm(dim=1, keepdim=True).clamp_min(1e-30)
+    probe = tivf._probe_windows(qn, cents, nprobe, kw["probe_mode"])
+    probe = torch.where(kw["valid_q"][:, None], probe,
+                        torch.full_like(probe, cents.shape[0]))
+    tbl, _, overflow = tivf._query_tables(probe, cents.shape[0], q_cap)
+    live_windows = int((tbl[:, 0] >= 0).sum())
+    filled = int((tbl >= 0).sum())
+    d = buf.shape[1]
+    ra, rkw = rerank_call
+    sc, pos = tivf.batched_ivf_topk(*a, **kw)[:2]
+    pre = rkw["pre_select"]
+    fs, ci = _topk_stable(sc, pre)
+    pos_pre = torch.gather(pos, 1, ci)
+    rkw_pre = dict(rkw, first_scores=fs, pre_select=None)
+    out = dict(
+        shape=f"Q={qs.shape[0]} nprobe={nprobe} window={window} d={d} "
+              f"m={m} q_cap={q_cap} pre_select={pre}",
+        live_windows=live_windows, filled_slots=filled,
+        padded_slots=live_windows * q_cap, overflow=overflow,
+        windows_per_step=tivf._windows_per_step(window, q_cap, d))
+    out.update(bound(live_windows * window * (d + 4) + nbytes(qs)
+                     + 8 * sc.numel(),
+                     2 * filled * window * d, INT8_OPS_PER_S))
+    out["padded_ops_bound_ms"] = (2 * live_windows * q_cap * window * d
+                                  / INT8_OPS_PER_S * 1e3)
+    if on_card:
+        out["first_pass"] = torch_step(
+            lambda: tivf.batched_ivf_topk(*a, **kw), 3, "batched_ivf_topk")
+        out["pre_select"] = torch_step(
+            lambda: _topk_stable(sc, pre), 5, "_topk_stable")
+        out["rerank"] = torch_step(
+            lambda: trerank.gather_rerank_topk_chunked(
+                ra[0], pos_pre, *ra[2:], **rkw_pre), 3,
+            "gather_rerank_topk_chunked")
+    return out
+
+
+def run_top65(router, batch, truth10, emb, valid, on_card: bool) -> dict:
+    """Phase 17b: 1,024 ``TOP 65`` queries through the router's batch
+    search (k_ivf 146 > 128: ``search_batched``'s non-fast branch),
+    recall@10 of the first ten hits >= MIN_RECALL against the exact scan,
+    recall@65 and the overlap with the latency path's hits recorded; the
+    route's steps timed; then the top-1 batched route (row 2 in top-1
+    mode, pool expansion in the rerank) at TOP 10, recall >= MIN_RECALL."""
+    import torch
+
+    from neumann_tpu_torch.ops import ivf as tivf
+    from neumann_tpu_torch.ops import kernels as tk
+    from neumann_tpu_torch.ops import rerank as trerank
+    from neumann_tpu_torch.ops.scan import topk_scan
+
+    k = TOP65
+    report = {}
+    eng = router.vector
+    ivf = eng._corpora[""][DIM]._auto_ivf
+    # counted: the TOP 65 route alone (plain torch: no hand kernel)
+    tk.reset_launch_counts()
+    with captured(tivf, "batched_ivf_topk") as calls, \
+            captured(tivf, "gather_rerank_topk_chunked") as reranks:
+        qps, times, rows, _ = batch_series(
+            lambda: eng.batch_search(batch, k), k)
+    report["launches_top65"] = dict(tk.LAUNCHES)
+    report["top65_batch_qps"] = qps
+    report["top65_batch_s"] = times
+    # counted apart: the same queries on the latency path (row 1)
+    lat_rows = []
+    step = eng.config.ivf_auto_max_batch
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    for q0 in range(0, len(batch), step):
+        lat_rows += [[int(h.key[1:]) for h in hits]
+                     for hits in eng.batch_search(batch[q0:q0 + step], k)]
+    report["top65_latency_path_s"] = time.perf_counter() - t0
+    report["launches_top65_latency"] = dict(tk.LAUNCHES)
+    qd = torch.from_numpy(batch).to(emb.device)
+    _, truth65 = topk_scan(emb, qd, k, "cosine", valid)
+    truth65 = truth65.cpu().numpy()
+    report["top65_recall10"] = recall([r[:TOP_K] for r in rows], truth10)
+    report["top65_recall65"] = recall(rows, truth65)
+    report["top65_latency_recall65"] = recall(lat_rows, truth65)
+    report["top65_overlap_latency"] = recall(rows, np.array(lat_rows))
+    fast = [c for c in calls if c[1].get("fused") == "pallas"]
+    if fast or not calls:
+        raise AssertionError(f"the TOP {k} batch did not take the non-fast "
+                             f"batched route ({len(calls)} calls)")
+    report["top65_steps"] = top65_steps(ivf, calls[-1], reranks[-1],
+                                        on_card)
+    say(f"[17b] TOP {k} batch of {len(batch)}: {qps:.0f} QPS; recall@10 "
+        f"{report['top65_recall10']:.4f} (>= {MIN_RECALL}), recall@{k} "
+        f"{report['top65_recall65']:.4f} (latency path "
+        f"{report['top65_latency_recall65']:.4f}, overlap "
+        f"{report['top65_overlap_latency']:.4f}); first pass "
+        + ", ".join(f"{n} {report['top65_steps'][n]}" for n in (
+            "shape", "live_windows", "filled_slots", "windows_per_step",
+            "bound_ms", "bound_by")))
+    if on_card:
+        st = report["top65_steps"]
+        say("[17b] " + "; ".join(
+            f"{n} {st[n]['ms']:.3f} ms (device {st[n]['device_ms']:.3f}, "
+            f"{st[n]['launches']} launches)"
+            for n in ("first_pass", "pre_select", "rerank")))
+        report["profile_top65"] = profile_calls(
+            {"top65_batch": lambda: eng.batch_search(batch, k)},
+            "chiprun_out")["top65_batch"]
+    if report["top65_recall10"] < MIN_RECALL:
+        raise AssertionError(f"TOP {k} batch recall@10 below the limit")
+
+    # the top-1 batched route, called here (no entry point of the port
+    # reaches it; in the JAX package only the unported sharded search
+    # does), counted apart: row 2's top-1 mode, every (probe, pool)
+    # winner, each expanded to its strided pool's rows in the rerank
+    window, pool = ivf._window, ivf._window // 128
+    valid_q = torch.ones(len(batch), dtype=torch.bool, device=emb.device)
+    qp = torch.zeros((len(batch), ivf.dim), device=emb.device)
+    qp[:, :DIM] = qd
+    q_cap = ivf.default_q_cap(len(batch), ivf.nprobe)
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    while True:
+        sc, pos, overflow = tivf.batched_ivf_topk(
+            ivf._buf, ivf._rmult, ivf.centroids, ivf._starts, qp,
+            ivf.nprobe, window, 1, q_cap, valid_q=valid_q, selection=pool,
+            fused="pallas", probe_mode="pool")
+        if overflow == 0 or q_cap >= len(batch):
+            break
+        q_cap *= 2
+    s1, p1 = trerank.gather_rerank_topk_chunked(
+        ivf._buf, pos, qp, TOP_K, "cosine", scale=ivf._scale,
+        residual_q=ivf._rbuf, residual_scale=ivf._rscale, first_scores=sc,
+        dedup=False, chunk=128, pre_select=8 * TOP_K + 16,
+        expand_pool=pool, expand_window=window, valid_rows=ivf._rmult)
+    p1 = p1.cpu().numpy()
+    report["top1_route_s"] = time.perf_counter() - t0
+    report["launches_top1_direct"] = dict(tk.LAUNCHES)
+    ids = np.where(p1 >= 0, np.asarray(ivf._row_ids)[np.maximum(p1, 0)], -1)
+    report["top1_route_recall10"] = recall(ids.tolist(), truth10)
+    report["top1_route_q_cap"] = q_cap
+    say(f"[17b] launches: TOP {k} route {report['launches_top65']}; "
+        f"latency path {report['launches_top65_latency']}")
+    say(f"[17b] top-1 batched route, called directly (row 2 top-1, pool "
+        f"{pool} expanded): recall@{TOP_K} "
+        f"{report['top1_route_recall10']:.4f} in "
+        f"{report['top1_route_s']:.3f} s; launches "
+        f"{report['launches_top1_direct']}")
+    if report["top1_route_recall10"] < MIN_RECALL:
+        raise AssertionError("top-1 batched route recall below the limit")
+    if on_card:
+        hand = {n: c for n, c in report["launches_top65"].items() if c}
+        if hand:
+            raise AssertionError(f"[17b] the TOP {k} route launched hand "
+                                 f"kernels; its first pass is plain "
+                                 f"torch: {hand}")
+        require_launches(report["launches_top65_latency"], ("ivf_probe",),
+                         "17b")
+        require_launches(report["launches_top1_direct"],
+                         ("batched_probe_top1",), "17b")
+    return report
+
+
+def live_exact_top(ix, q: np.ndarray, k: int, added_ids: np.ndarray,
+                   dead: np.ndarray):
+    """The exact top-k over an index's live rows, apart from the index's
+    own delta scan, merge and tombstones: its main rows and the
+    ``added_ids`` rows of its delta plane put into one int8 plane on the
+    card, each row's cosine multiplier 1 / ||row|| computed here, the
+    ids in ``dead`` (the phase's own record) masked, one
+    ``int8_exact_topk`` over the plane. Host (scores, ids)."""
+    import torch
+
+    from neumann_tpu_torch.ops.quant import int8_exact_topk
+    from neumann_tpu_torch.ops.scan import host_pull
+
+    if ix._dn != len(added_ids):
+        raise AssertionError(f"[17c] {ix._dn} delta rows for "
+                             f"{len(added_ids)} added")
+    main_ids = np.asarray(ix._row_ids, np.int64)   # rows past it: padding
+    plane = torch.cat([ix._buf[:len(main_ids)], ix._dbuf[:ix._dn]])
+    ids = np.concatenate([main_ids, added_ids])
+    step = 1 << 18
+    norm2 = torch.cat([(plane[r:r + step].float() ** 2).sum(dim=1)
+                       for r in range(0, plane.shape[0], step)])
+    live = torch.from_numpy(~np.isin(ids, dead)).to(plane.device)
+    live &= norm2 > 0
+    mult = torch.where(live, norm2.clamp_min(1.0).rsqrt(),
+                       torch.zeros_like(norm2))
+    qd = torch.from_numpy(np.ascontiguousarray(q)).to(ix.device)
+    s, pos = host_pull(*int8_exact_topk(plane, mult, qd, k))
+    del plane
+    return s, np.where(pos >= 0, ids[np.maximum(pos, 0)], -1)
+
+
+def delta_searches(ix, q_single, q_batch, truth, dead: set, tag: str,
+                   report: dict) -> None:
+    """64 singles (the first timed apart) and a batch (QPS) on ``ix``:
+    recall@10 against ``truth``, and no deleted id among the hits."""
+    lat, rows = [], []
+    for q in q_single:
+        t0 = time.perf_counter()
+        _, ids = ix.search(q, TOP_K)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        rows.append(ids[0].tolist())
+    times = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        _, ids_b = ix.search_batched(q_batch, TOP_K)
+        times.append(time.perf_counter() - t0)
+    rows += ids_b.tolist()
+    report[f"delta_{tag}_first_ms"] = lat[0]
+    report[f"delta_{tag}_p50_ms"] = float(np.percentile(lat[1:], 50))
+    report[f"delta_{tag}_batch_qps"] = len(q_batch) / float(
+        np.median(times[1:]))
+    report[f"delta_{tag}_recall"] = recall(rows, truth)
+    back = dead & {i for r in rows for i in r}
+    if back:
+        raise AssertionError(f"[17c] deleted ids came back ({tag}): "
+                             f"{sorted(back)[:8]}")
+
+
+def run_delta_plane(args, ivf, centres, s_delta, queries, on_card: bool
+                    ) -> dict:
+    """Phase 17c: an index over A's int8 rows (the engine's layout,
+    shared: deletes replace the multipliers, so the engine's index is
+    left as it is) takes DELTA_FRAC more rows of the same mixture through
+    ``add`` in chunks of DELTA_CHUNK and loses DELETE_FRAC of the old and
+    new ids through ``delete``; 64 singles and a batch of 1,024 search it
+    (recall@10 >= MIN_RECALL against ``live_exact_top``, built apart
+    from the index's delta scan and merge; no deleted id back, each of
+    1,024 added rows first for its own vector); then ``compact`` (ids
+    preserved) and the same searches."""
+    import torch
+
+    from neumann_tpu_torch.ops import kernels as tk
+    from neumann_tpu_torch.ops.ivf import DeviceIVFInt8
+    from neumann_tpu_torch.ops.quant import int8_exact_topk
+
+    report = {}
+    n = args.rows
+    n_add = int(n * DELTA_FRAC)
+    s_new, s_del = s_delta.spawn(2)
+    new = mixture(n_add, centres, s_new)
+    ix = DeviceIVFInt8.from_device_layout(
+        ivf.dim, ivf.centroids, ivf._buf, ivf._rmult, ivf._starts,
+        ivf._row_ids, ivf._window, nprobe=ivf.nprobe, scale=ivf._scale,
+        fixed=ivf._fixed, device=ivf.device)
+    for key in ("_kmeans_k", "_nprobe_cfg", "iters", "max_read_frac"):
+        setattr(ix, key, getattr(ivf, key))
+    pad = ivf.dim - DIM
+
+    def padded(x):
+        return np.pad(x, ((0, 0), (0, pad))) if pad else x
+
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    ids = np.concatenate([ix.add(padded(new[s:s + DELTA_CHUNK]))
+                          for s in range(0, n_add, DELTA_CHUNK)])
+    if on_card:
+        torch.cuda.synchronize()
+    report["delta_add_s"] = time.perf_counter() - t0
+    if ids.tolist() != list(range(n, n + n_add)):
+        raise AssertionError("[17c] add did not continue the ids")
+    qs = padded(queries[N_SINGLE:N_SINGLE + PHASE17_BATCH])
+    t0 = time.perf_counter()
+    ix.search(qs[:1], TOP_K)
+    report["delta_first_search_after_add_ms"] = (
+        time.perf_counter() - t0) * 1e3
+    rng = np.random.default_rng(s_del)
+    n_del = int(n * DELETE_FRAC)
+    dead_ids = rng.choice(n + n_add, n_del, replace=False)
+    t0 = time.perf_counter()
+    removed = ix.delete(dead_ids)
+    if on_card:
+        torch.cuda.synchronize()
+    report["delta_delete_s"] = time.perf_counter() - t0
+    if removed != n_del or ix.delete(dead_ids[:16]) != 0:
+        raise AssertionError(f"[17c] delete removed {removed} of {n_del}")
+    t0 = time.perf_counter()
+    ix.search(qs[:1], TOP_K)
+    report["delta_first_search_after_delete_ms"] = (
+        time.perf_counter() - t0) * 1e3
+    dead = set(dead_ids.tolist())
+    live_added = np.setdiff1d(np.arange(n_add), dead_ids - n)
+    probe_rows = live_added[rng.choice(len(live_added), PHASE17_BATCH,
+                                       replace=False)]
+    q_single = [padded(queries[i:i + 1]) for i in range(N_SINGLE)]
+    q_all = np.concatenate(q_single + [qs])
+    t0 = time.perf_counter()
+    _, truth = live_exact_top(ix, q_all, TOP_K, ids, dead_ids)
+    report["delta_oracle_s"] = time.perf_counter() - t0
+    delta_searches(ix, q_single, qs, truth, dead, "before", report)
+    _, ids_b = ix.search_batched(padded(new[probe_rows]), TOP_K)
+    _, ids_s = ix.search(padded(new[probe_rows[:N_SINGLE]]), TOP_K)
+    first = np.concatenate([ids_b[:, 0], ids_s[:, 0]])
+    want = np.concatenate([n + probe_rows, n + probe_rows[:N_SINGLE]])
+    report["delta_added_first"] = float(np.mean(first == want))
+    if report["delta_added_first"] < 1.0:
+        raise AssertionError(f"[17c] an added row did not come first for "
+                             f"its own vector: "
+                             f"{report['delta_added_first']}")
+    qd = torch.from_numpy(qs).to(ix.device)
+    rows = int(ix._dbuf.shape[0])
+    report["delta_scan"] = dict(
+        shape=f"Q={len(qs)} x {rows} delta rows ({ix._dn} filled) x "
+              f"d {ix.dim}",
+        **bound(rows * (ix.dim + 4) + nbytes(qd) + 12 * len(qs) * TOP_K,
+                2 * len(qs) * rows * ix.dim, F32_FLOPS_PER_S))
+    if on_card:
+        report["delta_scan"].update(torch_step(
+            lambda: int8_exact_topk(ix._dbuf, ix._drmult, qd, TOP_K), 3,
+            "int8_exact_topk"))
+    launches = dict(tk.LAUNCHES)
+
+    t0 = time.perf_counter()
+    n_live = ix.compact()
+    if on_card:
+        torch.cuda.synchronize()
+    report["delta_compact_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ix.search(qs[:1], TOP_K)
+    report["delta_first_search_after_compact_ms"] = (
+        time.perf_counter() - t0) * 1e3
+    live = np.setdiff1d(np.arange(n + n_add), dead_ids)
+    if n_live != len(live) or not np.array_equal(
+            np.sort(np.asarray(ix._row_ids)), live):
+        raise AssertionError("[17c] compact did not keep the live ids")
+    tk.reset_launch_counts()
+    delta_searches(ix, q_single, qs, truth, dead, "after", report)
+    report["launches_delta"] = {
+        k: launches.get(k, 0) + v for k, v in tk.LAUNCHES.items()}
+    report["delta_recall_drop"] = (report["delta_before_recall"]
+                                   - report["delta_after_recall"])
+    report.update(delta_rows_added=n_add, delta_rows_deleted=n_del,
+                  delta_live_rows=n_live)
+    say(f"[17c] delta plane: add {n_add} rows {report['delta_add_s']:.3f} s, "
+        f"delete {n_del} {report['delta_delete_s']:.3f} s, compact "
+        f"{report['delta_compact_s']:.2f} s; first search after add / "
+        f"delete / compact "
+        f"{report['delta_first_search_after_add_ms']:.2f} / "
+        f"{report['delta_first_search_after_delete_ms']:.2f} / "
+        f"{report['delta_first_search_after_compact_ms']:.2f} ms; single "
+        f"p50 {report['delta_before_p50_ms']:.3f} -> "
+        f"{report['delta_after_p50_ms']:.3f} ms, batch "
+        f"{report['delta_before_batch_qps']:.0f} -> "
+        f"{report['delta_after_batch_qps']:.0f} QPS, recall@{TOP_K} "
+        f"{report['delta_before_recall']:.4f} -> "
+        f"{report['delta_after_recall']:.4f} (>= {MIN_RECALL}); added "
+        f"rows first {report['delta_added_first']:.4f}; delta scan "
+        f"{ {k: v for k, v in report['delta_scan'].items()} }; launches "
+        f"{report['launches_delta']}")
+    if min(report["delta_before_recall"],
+           report["delta_after_recall"]) < MIN_RECALL:
+        raise AssertionError("[17c] recall below the limit")
+    if on_card:
+        require_launches(report["launches_delta"],
+                         ("ivf_probe", "batched_probe"), "17c")
     return report
 
 
@@ -3953,7 +4451,15 @@ def main() -> int:
         "cache_exact_hit_rate", "cache_semantic_hit_rate",
         "cache_exact_get_p50_ms", "cache_semantic_get_p50_ms",
         "cache_miss_get_p50_ms", "cryptography", "extended_s",
-        "shell_errors", "total_s")}
+        "shell_errors", "top65_batch_qps", "top65_recall10",
+        "top65_recall65", "top65_latency_recall65", "top65_overlap_latency",
+        "top1_route_recall10", "delta_add_s", "delta_delete_s",
+        "delta_compact_s", "delta_first_search_after_add_ms",
+        "delta_first_search_after_delete_ms",
+        "delta_first_search_after_compact_ms", "delta_before_p50_ms",
+        "delta_after_p50_ms", "delta_before_batch_qps",
+        "delta_after_batch_qps", "delta_before_recall", "delta_after_recall",
+        "delta_recall_drop", "delta_added_first", "phase17_s", "total_s")}
     for part in ("ivf", "pooled", "int8", "binary"):
         for k in ("p50_ms", "p99_ms", "qps", "batches", "mean_cohort",
                   "recall"):

@@ -1,8 +1,9 @@
 """Carry state from the JAX package to the port.
 
 ``ivf_state_from_jax(ivf)`` reads a built ``neumann_tpu.ops.ivf.
-DeviceIVFInt8`` as host numpy arrays, through ``np.asarray`` only (this
-module never imports JAX: the arrays convert themselves).
+DeviceIVFInt8`` (with its delta plane and tombstones, if ``add`` or
+``delete`` mutated it) as host numpy arrays, through ``np.asarray`` only
+(this module never imports JAX: the arrays convert themselves).
 ``neumann_tpu_torch.ops.ivf.DeviceIVFInt8.from_state(state, device)``
 then gives the port the same index, so both packages can search one
 layout. (Their k-means inits differ by construction — ``jax.random``
@@ -44,23 +45,29 @@ import numpy as np
 
 IVF_STATE_KEYS = ("centroids", "_buf", "_rmult", "_scale", "_rbuf",
                   "_rscale", "_starts", "_row_ids", "_window", "nprobe",
-                  "_fixed")
+                  "_fixed", "_kmeans_k", "_nprobe_cfg", "iters",
+                  "max_read_frac", "_n", "_next_id", "_dbuf", "_drmult",
+                  "_dscale", "_dids", "_dn", "_deleted", "_dead_ids")
 
 
 def ivf_state_from_jax(ivf) -> dict:
-    """Host copy of a built JAX ``DeviceIVFInt8``'s search state."""
+    """Host copy of a built JAX ``DeviceIVFInt8``'s state: its layout,
+    and the delta plane and tombstones of its ``add`` / ``delete``
+    calls."""
     if getattr(ivf, "_buf", None) is None:
         raise ValueError("the JAX index is not built")
-    if getattr(ivf, "_dn", 0) or getattr(ivf, "_deleted", 0):
-        raise ValueError("the JAX index has un-compacted adds/deletes; "
-                         "the port has no delta plane yet (compact() "
-                         "first)")
     state = {}
     for key in IVF_STATE_KEYS:
         value = getattr(ivf, key)
-        state[key] = None if value is None else np.asarray(value)
-    state["_window"] = int(state["_window"])
-    state["nprobe"] = int(state["nprobe"])
+        if key == "_dead_ids":
+            value = sorted(int(i) for i in value)
+        elif value is not None:
+            value = np.asarray(value)
+        state[key] = value
+    for key in ("_window", "nprobe", "_kmeans_k", "_nprobe_cfg", "iters",
+                "_n", "_next_id", "_dn", "_deleted"):
+        state[key] = int(state[key])
+    state["max_read_frac"] = float(state["max_read_frac"])
     state["_fixed"] = bool(state["_fixed"])
     return state
 

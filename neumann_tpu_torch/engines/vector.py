@@ -1048,13 +1048,9 @@ class VectorEngine:
         qp = np.zeros((q.shape[0], slab.dim_pad), np.float32)
         qp[:, :corpus.dim] = q
         k_ivf = min(2 * top_k + 16, n)
-        if throughput_batch and ivf.batched_fast_ok(k_ivf):
+        if throughput_batch:
             scores, ids = ivf.search_batched(qp, k_ivf)
         else:
-            # where the JAX package would run a non-fast batched variant
-            # (not ported: a window that is not a power-of-two number of
-            # pools, or k > 128), the port takes the latency path, which
-            # probes the same windows per query and reranks exactly
             scores, ids = ivf.search(qp, k_ivf)
 
         dirty = slab.watched("auto_ivf")

@@ -13,22 +13,27 @@ buffer of exactly corpus size, chopped into disjoint fixed windows of
 legacy one-window-per-cluster layout (``fixed_window=None``) is built
 too; its windows may overlap, so the rerank dedups.
 
-Two first passes, each a hand-written CUDA kernel (``ops/kernels.py``):
+First passes:
 
 * ``search`` (latency, batches up to ``ivf_auto_max_batch``):
   ``windowed_ivf_topk`` — top-nprobe windows per query, the probe kernel
-  scores every row of them, exact top-kk; then the exact f32 rerank.
+  (``csrc/ivf_probe.cu``) scores every row of them, exact top-kk; then
+  the exact f32 rerank.
 * ``search_batched`` (throughput): ``batched_ivf_topk`` — per-window
-  query tables, one batched top-2 kernel pass that reads each window
-  once per batch, packed-bits preselection; then the chunked rerank.
+  query tables, every probed window read once per batch. The fast path
+  (fixed windows of a power-of-two number of 128-row pools, k <= 128)
+  runs the batched top-2 kernel (``csrc/batched_probe.cu``) and a
+  packed-bits preselection; every other batch (k > 128, or another
+  window) takes the JAX package's non-fast variant: exact int8 dots in
+  plain torch, the top-m of each (query, window), a preselection by
+  first-pass score. Both end in the chunked exact rerank.
 
-Not ported yet for ``DeviceIVFInt8`` (each raises
-``NotImplementedError`` naming its ROADMAP item): incremental ``add`` /
-``delete`` / ``compact`` (the delta plane),
-and the non-fast batched variants (approx / streamed / XLA-fused window
-scans). The default engine config never reaches them at >= 4M rows: the
-auto window is then 1,024 rows, so the pool is 8 and the fast path is
-always taken.
+Incremental mutation (``add`` / ``delete`` / ``compact``): added rows go
+to a device DELTA plane that every search scans exactly
+(``ops/quant.int8_exact_topk``) and merges over the windowed hits;
+deletes zero a row's cosine multiplier in the main and delta planes;
+``compact`` rebuilds the windowed layout from the live rows, keeping
+their ids.
 """
 
 from __future__ import annotations
@@ -49,21 +54,14 @@ from neumann_tpu_torch.ops.pq import PQCodebook, PQConfig, to_f32
 from neumann_tpu_torch.ops.quant import (
     binary_quantize,
     int8_cosine_row_mult,
+    int8_exact_topk,
     scalar_quantize,
 )
 from neumann_tpu_torch.ops.rerank import (
     gather_rerank_topk,
     gather_rerank_topk_chunked,
 )
-from neumann_tpu_torch.ops.scan import _topk_stable, host_pull
-
-_NOT_PORTED_MUTATION = ("incremental IVF mutation (add/delete/compact and "
-                        "the delta plane) is not ported yet (ROADMAP: IVF "
-                        "delta plane)")
-_NOT_PORTED_BATCHED = ("only the fast batched IVF path (fixed power-of-two "
-                       "pool windows, fused kernel, presel) is ported; the "
-                       "approx/streamed/XLA-fused variants are not "
-                       "(ROADMAP: non-fast batched IVF variants)")
+from neumann_tpu_torch.ops.scan import NEG_INF, _topk_stable, host_pull
 
 
 def window_mean_centroids(buf: torch.Tensor, rmult: torch.Tensor,
@@ -115,6 +113,18 @@ class DeviceIVFInt8:
         self._window = 0
         self._fixed = False           # disjoint fixed windows (no dedup)
         self._n = 0
+        # incremental mutation: appended rows live in a DELTA plane on
+        # the device, scanned exactly and merged over the windowed hits;
+        # deletes zero rmult
+        self._dbuf = None             # [cap, d] int8 delta rows
+        self._drmult = None           # [cap] f32 (0 = empty slot or dead)
+        self._dscale = None           # [cap] f32
+        self._dn = 0                  # filled delta slots
+        self._dids = None             # host [cap] int64 delta row ids
+        self._next_id = 0             # id counter (continues build ids)
+        self._pos_of = None           # host inverse: original id -> pos
+        self._deleted = 0             # live tombstone count
+        self._dead_ids = set()        # ids tombstoned (idempotence)
 
     # ------------------------------------------------------------------
     # construction
@@ -140,12 +150,15 @@ class DeviceIVFInt8:
         ivf._window = int(window)
         ivf._fixed = bool(fixed)
         ivf._n = int(buf.shape[0])
+        ivf._next_id = (int(np.max(row_ids)) + 1
+                        if row_ids is not None and len(row_ids) else ivf._n)
         return ivf
 
     @classmethod
     def from_state(cls, state: dict, device="cuda") -> "DeviceIVFInt8":
         """An index from host arrays (``convert.ivf_state_from_jax``):
-        the same layout, searched by the port."""
+        the same layout, delta plane and tombstones, searched and
+        mutated by the port."""
         def dev(a):
             return None if a is None else torch.from_numpy(
                 np.array(a)).to(device)
@@ -160,6 +173,17 @@ class DeviceIVFInt8:
             np.asarray(state["_row_ids"]), int(state["_window"]),
             nprobe=int(state["nprobe"]), scale=dev(state.get("_scale")),
             residual=residual, fixed=bool(state["_fixed"]), device=device)
+        if state["_dbuf"] is not None:
+            ivf._dbuf = dev(state["_dbuf"])
+            ivf._drmult = dev(state["_drmult"])
+            ivf._dscale = dev(state["_dscale"])
+            ivf._dids = np.array(state["_dids"], np.int64)
+        # counters, tombstones, and the settings compact() rebuilds with
+        for key in ("_kmeans_k", "_nprobe_cfg", "iters", "_n", "_next_id",
+                    "_dn", "_deleted"):
+            setattr(ivf, key, int(state[key]))
+        ivf.max_read_frac = float(state["max_read_frac"])
+        ivf._dead_ids = set(int(i) for i in state["_dead_ids"])
         return ivf
 
     def build(self, corpus_q: np.ndarray, corpus_scale: np.ndarray,
@@ -286,18 +310,196 @@ class DeviceIVFInt8:
                 self.n_clusters, cap,
                 -(-self._nprobe_cfg * avg // window))))
         self._n = n
+        self._next_id = n
+        self._dbuf = self._drmult = self._dscale = self._dids = None
+        self._dn = self._deleted = 0
+        self._dead_ids = set()
+        self._pos_of = None
 
     # ------------------------------------------------------------------
-    # mutation (not ported yet)
+    # incremental mutation (IVFIndex::add, tensor_store/src/ivf.rs:276;
+    # deletes are the tombstone side of the same contract). Adds cost
+    # O(added): rows are quantized on the host and written into a delta
+    # plane on the device whose capacity doubles. Every search scans the
+    # delta exactly and merges it over the windowed hits, so an added
+    # row is found at once. A delete zeroes the row's cosine multiplier
+    # (the first passes score it -inf, and the rerank's first_scores
+    # mask carries that on). compact() folds the delta back in.
     # ------------------------------------------------------------------
-    def add(self, vectors):
-        raise NotImplementedError(_NOT_PORTED_MUTATION)
+    _DELTA_MIN_CAP = 1024
 
-    def delete(self, ids):
-        raise NotImplementedError(_NOT_PORTED_MUTATION)
+    @staticmethod
+    def _quant_rows(v: np.ndarray):
+        """(int8 rows, scales, cosine multipliers) on the host, the JAX
+        package's arithmetic (numpy, the same bits)."""
+        v = np.asarray(v, np.float32)
+        if v.ndim == 1:
+            v = v[None, :]
+        absmax = np.max(np.abs(v), axis=1)
+        scale = np.where(absmax > 0, absmax / 127.0, 1.0).astype(np.float32)
+        q = np.clip(np.round(v / scale[:, None]), -127, 127).astype(np.int8)
+        sq = np.sum((q.astype(np.float32) * scale[:, None]) ** 2, axis=1)
+        rm = np.where(sq > 0, scale / np.sqrt(np.maximum(sq, 1e-30)),
+                      0.0).astype(np.float32)
+        return q, scale, rm
 
-    def compact(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_PORTED_MUTATION)
+    def _ensure_delta(self, extra: int) -> None:
+        """Room for ``extra`` more delta rows: the capacity doubles from
+        _DELTA_MIN_CAP, the old planes copied on the device."""
+        need = self._dn + extra
+        cap = 0 if self._dbuf is None else int(self._dbuf.shape[0])
+        if need <= cap:
+            return
+        new_cap = max(self._DELTA_MIN_CAP, 1 << (need - 1).bit_length())
+        dev = self.device
+        db = torch.zeros((new_cap, self.dim), dtype=torch.int8, device=dev)
+        drm = torch.zeros(new_cap, dtype=torch.float32, device=dev)
+        dsc = torch.ones(new_cap, dtype=torch.float32, device=dev)
+        dids = np.full(new_cap, -1, np.int64)
+        if cap:
+            db[:cap] = self._dbuf
+            drm[:cap] = self._drmult
+            dsc[:cap] = self._dscale
+            dids[:cap] = self._dids
+        self._dbuf, self._drmult, self._dscale = db, drm, dsc
+        self._dids = dids
+
+    def add(self, vectors: np.ndarray) -> np.ndarray:
+        """Append rows without rebuilding (ivf.rs:276 ``add``): O(added).
+        Returns the new rows' ids (continuing the build numbering); they
+        are found at once through the exact delta merge."""
+        if self._buf is None:
+            raise ValueError("build() first")
+        q, scale, rm = self._quant_rows(vectors)
+        m = q.shape[0]
+        if q.shape[1] != self.dim:
+            raise ValueError(f"dim {q.shape[1]} != index dim {self.dim}")
+        self._ensure_delta(m)
+        dn, dev = self._dn, self.device
+        self._dbuf[dn:dn + m] = torch.from_numpy(q).to(dev)
+        self._drmult[dn:dn + m] = torch.from_numpy(rm).to(dev)
+        self._dscale[dn:dn + m] = torch.from_numpy(scale).to(dev)
+        ids = np.arange(self._next_id, self._next_id + m, dtype=np.int64)
+        self._dids[dn:dn + m] = ids
+        self._dn += m
+        self._next_id += m
+        return ids
+
+    def _main_pos_of(self, ids: np.ndarray) -> np.ndarray:
+        """Sorted-buffer positions of original row ids (-1 = unknown)."""
+        if self._pos_of is None:
+            rid = np.asarray(self._row_ids, np.int64)
+            inv = np.full(int(rid.max()) + 1 if rid.size else 0, -1,
+                          np.int64)
+            inv[rid] = np.arange(rid.size)
+            self._pos_of = inv
+        inv = self._pos_of
+        ids = np.asarray(ids, np.int64)
+        ok = (ids >= 0) & (ids < inv.shape[0])
+        out = np.full(ids.shape, -1, np.int64)
+        out[ok] = inv[ids[ok]]
+        return out
+
+    def delete(self, ids) -> int:
+        """Tombstone rows by id: their cosine multiplier goes to 0, so
+        every scan (both first passes, the delta scan, the rerank through
+        its first_scores mask) treats them as invalid. Idempotent; no
+        relayout. Returns the number tombstoned.
+
+        The main plane's multipliers are replaced, not written in place:
+        an index assembled by ``from_device_layout`` may share them with
+        its caller."""
+        if self._buf is None:
+            raise ValueError("build() first")
+        ids = np.atleast_1d(np.asarray(ids, np.int64))
+        ids = ids[[int(i) not in self._dead_ids for i in ids]]
+        if ids.size == 0:
+            return 0
+        removed = 0
+        pos = self._main_pos_of(ids)
+        main = pos[pos >= 0]
+        if main.size:
+            self._rmult = self._rmult.index_fill(
+                0, torch.from_numpy(main).to(self.device), 0.0)
+            self._dead_ids.update(int(i) for i in ids[pos >= 0])
+            removed += int(main.size)
+        if self._dn:
+            slots = np.flatnonzero(np.isin(self._dids[:self._dn], ids))
+            if slots.size:
+                self._dead_ids.update(int(i) for i in self._dids[slots])
+                self._drmult[torch.from_numpy(slots).to(self.device)] = 0.0
+                self._dids[slots] = -1
+                removed += int(slots.size)
+        self._deleted += removed
+        return removed
+
+    def _delta_topk(self, qd: torch.Tensor, k: int):
+        """Exact f32 cosine top-k over the delta plane; host (scores
+        [Q, k'], original ids [Q, k'] with -inf / -1 sentinels)."""
+        rows = int(self._dbuf.shape[0])
+        s, pos = host_pull(*int8_exact_topk(self._dbuf, self._drmult, qd,
+                                            min(k, rows)))
+        ids = np.where(pos >= 0, self._dids[np.maximum(pos, 0)], -1)
+        ids = np.where(np.isneginf(s) | (ids < 0), -1, ids)
+        s = np.where(ids < 0, -np.inf, s)
+        return s, ids.astype(np.int64)
+
+    @staticmethod
+    def _merge_topk(s1, ids1, s2, ids2, k: int):
+        """The best k of two hit lists, on the host: a stable sort, so
+        equal scores keep the windowed hits first, as in the JAX
+        package."""
+        s = np.concatenate([s1, s2], axis=1)
+        ids = np.concatenate([np.asarray(ids1, np.int64),
+                              np.asarray(ids2, np.int64)], axis=1)
+        order = np.argsort(-s, axis=1, kind="stable")[:, :k]
+        s = np.take_along_axis(s, order, axis=1)
+        ids = np.take_along_axis(ids, order, axis=1)
+        return s, np.where(np.isfinite(s), ids, -1)
+
+    def compact(self, sample_rows: int = 200_000, seed: int = 0) -> int:
+        """Fold the delta plane and the tombstones back into a fresh
+        windowed layout: the planes come to the host, the live rows are
+        rebuilt (O(N), amortized over >= 10 % growth). Row ids are
+        preserved. The residual plane (if any) is dropped; rebuild with
+        ``build(..., residual=...)`` to restore it. Returns the live row
+        count."""
+        if self._buf is None:
+            raise ValueError("build() first")
+        if self._scale is None:
+            raise ValueError("compact() needs per-row scales; this index "
+                             "was assembled from a device layout without "
+                             "them")
+        rm, buf, scale = host_pull(self._rmult, self._buf, self._scale)
+        n0 = min(self._n, rm.shape[0])
+        keep = np.flatnonzero(rm[:n0] > 0)
+        bufs, scales = [buf[keep]], [scale[keep]]
+        all_ids = [np.asarray(self._row_ids, np.int64)[keep]]
+        if self._dn:
+            drm, dbuf, dsc = host_pull(self._drmult[:self._dn],
+                                       self._dbuf[:self._dn],
+                                       self._dscale[:self._dn])
+            dkeep = np.flatnonzero(drm > 0)
+            if dkeep.size:
+                bufs.append(dbuf[dkeep])
+                scales.append(dsc[dkeep])
+                all_ids.append(self._dids[dkeep])
+        ids = np.concatenate(all_ids, axis=0)
+        next_id = self._next_id
+        self.build(np.concatenate(bufs, axis=0),
+                   np.concatenate(scales, axis=0), sample_rows=sample_rows,
+                   seed=seed,
+                   fixed_window=self._window if self._fixed else None)
+        # build() numbers rows 0..n-1 in corpus order; restore the
+        # caller-visible ids through the sort permutation
+        self._row_ids = ids[self._row_ids].astype(np.int64)
+        self._pos_of = None
+        self._next_id = next_id
+        return int(ids.size)
+
+    @property
+    def n_live(self) -> int:
+        return self._n + self._dn - self._deleted
 
     # ------------------------------------------------------------------
     # search
@@ -306,12 +508,19 @@ class DeviceIVFInt8:
         return np.where(pos >= 0,
                         np.asarray(self._row_ids)[np.maximum(pos, 0)], -1)
 
+    def _with_delta(self, s, ids, qd: torch.Tensor, k: int):
+        """Host hits with the delta plane's exact hits merged in."""
+        if self._dn:
+            s, ids = self._merge_topk(s, ids, *self._delta_topk(qd, k), k)
+        return s, ids.astype(np.int32)
+
     def search(self, queries: np.ndarray, k: int,
                nprobe: Optional[int] = None
                ) -> Tuple[np.ndarray, np.ndarray]:
         """Latency path: probe kernel first pass (oversampled to 4k+16
         to cover window-overlap duplicates), exact f32 rerank (+residual
-        plane when built). Returns host (scores [Q, k], ids [Q, k])."""
+        plane when built), the delta plane merged in. Returns host
+        (scores [Q, k], ids [Q, k] int32)."""
         if self._buf is None:
             raise ValueError("build() first")
         nprobe = min(nprobe or self.nprobe, self.n_clusters)
@@ -328,29 +537,52 @@ class DeviceIVFInt8:
             residual_q=self._rbuf, residual_scale=self._rscale,
             first_scores=sc, dedup=not self._fixed)
         s, pos = host_pull(sc, pc)
-        return s, self._ids_of(pos).astype(np.int32)
+        return self._with_delta(s, self._ids_of(pos), qd, k)
 
     def batched_fast_ok(self, k: int) -> bool:
-        """Whether ``search_batched`` can take the fast path: disjoint
-        fixed windows of a power-of-two number (>= 2) of 128-row pools,
-        and k <= 128 (the packed-bits presel keeps at most 512 distinct
-        candidates per query)."""
+        """Whether ``search_batched`` takes the fast path by default (the
+        predicate the JAX package inlines): disjoint fixed windows of a
+        power-of-two number (>= 2) of 128-row pools, and k <= 128 (the
+        packed-bits presel keeps at most 512 distinct candidates per
+        query)."""
         pool = self._window // 128
         return (self._fixed and self._window % 128 == 0 and pool >= 2
                 and (pool & (pool - 1)) == 0 and k <= 128)
 
+    def default_q_cap(self, q_pad: int, nprobe: int) -> int:
+        """Queries a window's table holds, to start with: 3x the uniform
+        expectation rounded up to a multiple of 64 for batches above 64
+        (realistic query skew, without a power of two's padding), else
+        a power of two of at least 16."""
+        expect = -(-q_pad * nprobe // self.n_clusters)
+        if q_pad > 64:
+            return max(64, -(-(3 * expect) // 64) * 64)
+        return 1 << (max(16, 4 * expect) - 1).bit_length()
+
     def search_batched(self, queries: np.ndarray, k: int,
-                       nprobe: Optional[int] = None
+                       nprobe: Optional[int] = None,
+                       m: Optional[int] = None,
+                       q_cap: Optional[int] = None,
+                       fast: Optional[bool] = None
                        ) -> Tuple[np.ndarray, np.ndarray]:
-        """Throughput path: probe-sharing batched first pass through the
-        top-2 kernel + packed-bits preselection, then the chunked exact
-        rerank. Queries pad to power-of-two buckets; q_cap (max queries
-        per window) starts at ~3x the uniform expectation and doubles on
-        overflow. Only the fast path is ported (``batched_fast_ok``)."""
+        """Throughput path: probe-sharing batched first pass, then the
+        chunked exact rerank (+residual plane when built), the delta
+        plane merged in.
+
+        fast (default ``batched_fast_ok(k)``): the batched top-2 kernel
+        with pool-winner probes and a packed-bits preselection of
+        O(3k) candidates. Otherwise the non-fast variant: exact probes,
+        exact int8 dots of each probed window against its queries, the
+        top-m of each (query, window) (m default min(k + 6, window)),
+        then the best min(8k + 16, nprobe * m) candidates by first-pass
+        score go to the rerank. Queries pad to power-of-two buckets;
+        q_cap (queries per window) starts at ~3x the uniform expectation
+        and doubles on overflow. Returns host (scores [Q, k], ids [Q, k]
+        int32)."""
         if self._buf is None:
             raise ValueError("build() first")
-        if not self.batched_fast_ok(k):
-            raise NotImplementedError(_NOT_PORTED_BATCHED)
+        if fast is None:
+            fast = self.batched_fast_ok(k)
         nprobe = min(nprobe or self.nprobe, self.n_clusters)
         q = np.asarray(queries, np.float32)
         if q.ndim == 1:
@@ -360,40 +592,56 @@ class DeviceIVFInt8:
         if q_pad != nq:
             q = np.concatenate(
                 [q, np.zeros((q_pad - nq, q.shape[1]), np.float32)])
-        expect = -(-q_pad * nprobe // self.n_clusters)
-        q_cap = max(64, -(-(3 * expect) // 64) * 64) if q_pad > 64 else \
-            (1 << (max(16, 4 * expect) - 1).bit_length())
+        if m is None:
+            m = min(k + 6, self._window)
+        if q_cap is None:
+            q_cap = self.default_q_cap(q_pad, nprobe)
         qd = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
         valid = torch.arange(q_pad, device=self.device) < nq
-        pmode = "pool" if nprobe < self.n_clusters else "exact"
-        # the top-2 kernel + packed-bits presel keep O(3k) candidates
-        presel = min(max(3 * k + 2, 32), nprobe * 256)
+        if fast:
+            sel, fused = self._window // 128, "pallas"
+            pmode = "pool" if nprobe < self.n_clusters else "exact"
+            # the top-2 kernel + packed-bits presel keep O(3k) candidates
+            presel = min(max(3 * k + 2, 32), nprobe * 256)
+        else:
+            sel, fused, pmode, presel = "approx", False, "exact", 0
         while True:
             sc, pos, overflow = batched_ivf_topk(
                 self._buf, self._rmult, self.centroids, self._starts, qd,
-                nprobe, self._window, q_cap, valid_q=valid,
-                probe_mode=pmode, presel=presel)
+                nprobe, self._window, m, q_cap, valid_q=valid,
+                selection=sel, fused=fused, probe_mode=pmode, presel=presel)
             if overflow == 0 or q_cap >= q_pad:
                 break     # q_cap == q_pad can never overflow
             q_cap *= 2
+        # the non-fast pass keeps nprobe * m candidates a query: cut them
+        # to O(8k) by first-pass score before the rerank gathers rows
+        # (+16 covers window-overlap duplicates)
         sc, pos = gather_rerank_topk_chunked(
             self._buf, pos, qd, k, "cosine", scale=self._scale,
             residual_q=self._rbuf, residual_scale=self._rscale,
-            first_scores=sc, dedup=not self._fixed, chunk=min(128, q_pad))
+            first_scores=sc, dedup=not self._fixed, chunk=min(128, q_pad),
+            pre_select=None if fast else min(8 * k + 16, pos.shape[1]))
         s, p = host_pull(sc[:nq], pos[:nq])
-        return s, self._ids_of(p).astype(np.int32)
+        return self._with_delta(s, self._ids_of(p), qd[:nq], k)
 
 
 # --------------------------------------------------------------------------
 # Batched IVF: probe-sharing throughput pass (see the block comment in
 # neumann_tpu/ops/ivf.py). Windows stream once per batch, each scored
 # only against the queries that probed it: probe selection, per-window
-# query tables, one batched kernel launch, packed-bits preselection.
+# query tables, the first pass, then each query's candidates gathered
+# back from its probes' table slots.
 # --------------------------------------------------------------------------
 
 def _probe_windows(qn, cents, nprobe: int, probe_mode: str):
-    """[Q, nprobe] probed windows; C (sentinel) for dead pool picks."""
+    """[Q, nprobe] probed windows; C (sentinel) for dead pool picks.
+    "exact": the top-nprobe centroid scores in ``lax.top_k``'s order;
+    "approx" is the JAX package's ``approx_max_k`` of the same, exact
+    here (torch has none; on the CPU the JAX one is exact too); "pool":
+    one winner per strided pool of the score row."""
     n_c = cents.shape[0]
+    if probe_mode not in ("pool", "exact", "approx"):
+        raise ValueError(f"unknown probe_mode {probe_mode!r}")
     if probe_mode == "pool" and n_c > nprobe:
         # one winner per strided pool of the score row (the JAX
         # package's single-max-pass probe pick): scores in [1, 3) with
@@ -416,10 +664,7 @@ def _probe_windows(qn, cents, nprobe: int, probe_mode: str):
         probe = (wb_p & ((1 << lowb) - 1)) * nprobe + lane
         return torch.where(wb_p < 0x3F800000,
                            torch.full_like(probe, n_c), probe)
-    if probe_mode == "exact":
-        return torch.topk(qn @ cents.T, nprobe, dim=1)[1].int()
-    raise NotImplementedError(
-        f"probe_mode {probe_mode!r}: {_NOT_PORTED_BATCHED}")
+    return _topk_stable(qn @ cents.T, nprobe)[1].int()
 
 
 def _query_tables(probe, n_c: int, q_cap: int):
@@ -449,24 +694,162 @@ def _query_tables(probe, n_c: int, q_cap: int):
     return tbl, rank_of, overflow
 
 
+# int8 dots are exact in an f32 product while every sum stays below 2^24:
+# up to this many columns a product (1,024 x 127^2 < 2^24)
+_EXACT_DOT_COLS = 1024
+# the non-fused first pass scores its windows in steps of at most this
+# many bytes: a step's rows and queries (int8 and f32), its dots, scores
+# and the sort's values and indices (``_windows_per_step``: at cell A's
+# TOP 65 batch, 293 windows of 1,024 rows a step, 14 steps)
+_WINDOW_STEP_BYTES = 2 << 30
+
+
+def _int8_dots(qsel: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Exact int8 dots [G, q, d] x [G, w, d] -> [G, q, w] f32, as the
+    JAX package's int32 ``dot_general`` converted to f32.
+
+    torch has no batched int8 product (``torch._int_mm`` is 2-D only, a
+    launch per window), so the product runs in f32 on integer values:
+    every product is exact and so is every partial sum below 2^24, which
+    holds for up to _EXACT_DOT_COLS columns in any summation order, on
+    the CPU and on the card alike while TF32 is off (the package
+    docstring; checked here, as TF32 would round the operands). Wider
+    rows are cut into such column slices whose exact sums add in int32,
+    then convert to f32 once."""
+    if qsel.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("exact int8 dots need TF32 off "
+                           "(torch.backends.cuda.matmul.allow_tf32)")
+    d = qsel.shape[-1]
+    acc = None
+    for c0 in range(0, d, _EXACT_DOT_COLS):
+        part = torch.bmm(qsel[..., c0:c0 + _EXACT_DOT_COLS].float(),
+                         rows[..., c0:c0 + _EXACT_DOT_COLS].float()
+                         .transpose(1, 2))
+        if d <= _EXACT_DOT_COLS:
+            return part
+        acc = part.int() if acc is None else acc + part.int()
+    return acc.float()
+
+
+def _windows_per_step(window: int, q_cap: int, d: int) -> int:
+    """Windows one step of ``_score_windows`` takes: _WINDOW_STEP_BYTES
+    over a window's rows and queries (int8 and f32) and its f32 dots,
+    scores and sorted values and int64 indices."""
+    per_window = 5 * (window + q_cap) * d + 48 * q_cap * window
+    return max(1, _WINDOW_STEP_BYTES // per_window)
+
+
+def _score_windows(buf, rmult, starts, tbl, qq_i8, qsc, window: int, m: int,
+                   pool: int, from_view: bool):
+    """The non-fused first pass (the JAX package's ``score_window``
+    under its scan and fused variants), in plain torch: each probed
+    window's rows against the int8 queries of its table, exact dots
+    times the query scale and the row multiplier, then per (window,
+    slot) either the top-m (``pool`` 0; ``approx_max_k`` in the JAX
+    package, exact here: a stable descending sort keeps equal scores in
+    ``lax.top_k``'s order) or one pooled-bits winner per contiguous
+    ``pool``-row pool.
+
+    Only windows some query probed are scored (slots fill from 0, so
+    tbl[c, 0] >= 0 marks one). Returns (ys_s [L, q_cap, m_eff] f32, ys_p
+    [L, q_cap, m_eff] int32, -inf / -1 where dead, for the L probed
+    windows; slot_of [C], window c's index among them; m_eff = window //
+    pool or m). from_view: window c's rows are rows c * window on (the
+    stream and fused variants' reshaped view); otherwise the rows at
+    starts[c], clamped into the buffer as ``lax.dynamic_slice`` clamps.
+    Positions are starts[c] + offset either way. Windows go in steps of
+    at most _WINDOW_STEP_BYTES, a few dozen launches each."""
+    n_c, q_cap = tbl.shape
+    n, d = buf.shape
+    dev = buf.device
+    m_eff = window // pool if pool else m
+    live = torch.nonzero(tbl[:, 0] >= 0).flatten()
+    n_live = live.numel()
+    slot_of = torch.zeros(n_c, dtype=torch.int64, device=dev)
+    slot_of[live] = torch.arange(n_live, device=dev)
+    base = starts[live].long()
+    first = live * window if from_view else base.clamp(0, n - window)
+    t = tbl[live]
+    tq = t.clamp_min(0)
+    sc_slot = torch.where(t >= 0, qsc[tq], 0.0)
+    span = torch.arange(window, device=dev)
+    ys_s = torch.empty((n_live, q_cap, m_eff), device=dev)
+    ys_p = torch.empty((n_live, q_cap, m_eff), dtype=torch.int32,
+                       device=dev)
+    step = _windows_per_step(window, q_cap, d)
+    for i0 in range(0, n_live, step):
+        i1 = min(n_live, i0 + step)
+        idx = first[i0:i1, None] + span                       # [G, w]
+        rm = rmult[idx][:, None, :]                           # [G, 1, w]
+        dots = _int8_dots(qq_i8[tq[i0:i1]], buf[idx])         # [G, q, w]
+        mult = sc_slot[i0:i1, :, None] * rm
+        if pool:
+            # pooled bits: scores shifted to [1, 3), the member index in
+            # the low mantissa bits; the sum is one fused multiply-add,
+            # as XLA computes it
+            sp = torch.where(rm > 0, kernels._fma_f32(dots, mult, 2.0), 0.0)
+            member = (span % pool).int()
+            bits = (sp.view(torch.int32) & ~(pool - 1)) | member
+            wb = bits.reshape(i1 - i0, q_cap, m_eff, pool).amax(dim=3)
+            dead = wb < 0x3F800000                    # below bitcast(1.0)
+            ys_s[i0:i1] = torch.where(
+                dead, NEG_INF, (wb & ~(pool - 1)).view(torch.float32) - 2.0)
+            pos = (base[i0:i1, None, None] + span[:m_eff] * pool
+                   + (wb & (pool - 1)))
+            ys_p[i0:i1] = torch.where(dead, -1, pos)
+        else:
+            sc = torch.where(rm > 0, dots * mult, NEG_INF)
+            sv, si = torch.sort(sc, dim=2, descending=True, stable=True)
+            ys_s[i0:i1] = sv[:, :, :m]
+            ys_p[i0:i1] = base[i0:i1, None, None] + si[:, :, :m]
+    return ys_s, ys_p, slot_of, m_eff
+
+
 def batched_ivf_topk(buf, rmult, cents, starts, qs, nprobe: int,
-                     window: int, q_cap: int, valid_q=None,
-                     probe_mode: str = "pool", presel: int = 0):
-    """Probe-sharing batched IVF candidate pass over a fixed-window
-    layout, through the batched top-2 kernel.
+                     window: int, m: int, q_cap: int,
+                     valid_q=None, selection="approx", stream: bool = False,
+                     fused=False, probe_mode: str = "exact",
+                     presel: int = 0):
+    """Probe-sharing batched IVF candidate pass (the JAX package's
+    ``batched_ivf_topk``: its signature but ``group``, its argument errors).
 
     buf/rmult/cents/starts: the DeviceIVFInt8 layout; qs [Q, d] f32
-    queries; valid_q [Q] bool (False = padding query). presel > 0 runs
-    the kernel in top-2 mode and keeps the ``presel`` best candidates per
-    query straight from the packed bits; presel = 0 decodes every
-    (probe, pool) winner. Returns (scores [Q, presel or nprobe*128] f32,
-    positions in sorted-buffer coordinates int32 with -1 sentinels,
-    overflow: probes dropped because more than q_cap queries probed
-    one window — retry with a bigger q_cap if nonzero)."""
-    pool = window // 128
-    if window % 128 or pool < 1 or pool & (pool - 1):
-        raise ValueError(f"batched kernel needs a power-of-two multiple of "
-                         f"128 rows per window, got {window}")
+    queries; valid_q [Q] bool (False = padding query). selection:
+    "approx" = the top-m of each (query, window); an int p = pooled bits,
+    one winner per p-row pool (pair with ``gather_rerank_topk_chunked
+    (expand_pool=p)`` for collision-exact recall; m is then ignored).
+    stream: windows read as rows c * window of a fixed-window layout
+    instead of at starts[c]. fused=True: the JAX package's batched XLA
+    form, pooled selection over the fixed-window view (the same numbers
+    as stream with that pool). fused="pallas": the batched kernel
+    (``csrc/batched_probe.cu``) with 128 strided pools of window / 128
+    rows (selection must be window // 128); presel > 0 runs it in top-2
+    mode and keeps the ``presel`` best candidates a query straight from
+    the packed bits, presel 0 its top-1 mode with every (probe, pool)
+    winner decoded. probe_mode: "exact", "approx" (exact here) or
+    "pool". The JAX package's ``group`` (windows a scan step) has no
+    counterpart: the port's steps are sized by bytes
+    (``_score_windows``).
+
+    Returns (scores [Q, nprobe * m_eff] f32, or [Q, presel]; positions in
+    sorted-buffer coordinates int32 with -1 sentinels; overflow: probes
+    dropped because more than q_cap queries probed one window — retry
+    with a bigger q_cap if nonzero). Candidates may repeat across
+    overlapping windows; rerank with dedup=True."""
+    pool = selection if isinstance(selection, int) else 0
+    if pool and (window % pool or pool & (pool - 1)):
+        raise ValueError(f"pool {pool} must be a power-of-two divisor "
+                         f"of window {window}")
+    if fused and not pool:
+        raise ValueError("fused batched core requires pooled-bits "
+                         "selection (selection=<pool int>)")
+    if fused == "pallas" and pool * 128 != window:
+        raise ValueError(
+            f"pallas fused core uses 128 strided pools of window/128 "
+            f"rows: selection must be {window // 128}, got {pool}")
+    if presel and fused != "pallas":
+        raise ValueError("packed-bits presel requires the pallas "
+                         "fused core")
     Q, d = qs.shape
     n_c = cents.shape[0]
     nw = n_c * window
@@ -476,18 +859,25 @@ def batched_ivf_topk(buf, rmult, cents, starts, qs, nprobe: int,
     probe = _probe_windows(qn, cents, nprobe, probe_mode)
     probe = torch.where(valid_q[:, None], probe, torch.full_like(probe, n_c))
     tbl, rank_of, overflow = _query_tables(probe, n_c, q_cap)
-
     qq_i8, qsc = scalar_quantize(qn)
+    probe = probe.long()
+    ok = (probe < n_c) & (rank_of < q_cap)
+    cg = probe.clamp(max=n_c - 1)
+    rk = rank_of.clamp(max=q_cap - 1)
+    if fused != "pallas":
+        ys_s, ys_p, slot_of, m_eff = _score_windows(
+            buf, rmult, starts, tbl, qq_i8, qsc, window, m, pool,
+            from_view=bool(stream or fused))
+        cw = slot_of[cg]
+        out_s = torch.where(ok[:, :, None], ys_s[cw, rk], NEG_INF)
+        out_p = torch.where(ok[:, :, None], ys_p[cw, rk], -1)
+        return out_s.reshape(Q, -1), out_p.reshape(Q, -1), overflow
+
     tsafe = tbl.clamp_min(0)
     qsel = qq_i8[tsafe.reshape(-1)].reshape(n_c, q_cap, d)
     sc_slot = torch.where(tbl >= 0, qsc[tsafe], torch.zeros_like(qsc[tsafe]))
     wb = batched_probe(buf[:nw], rmult[:nw].reshape(n_c, window), qsel,
                        sc_slot, window, top2=bool(presel))
-
-    probe = probe.long()
-    ok = (probe < n_c) & (rank_of < q_cap)
-    cg = probe.clamp(max=n_c - 1)
-    rk = rank_of.clamp(max=q_cap - 1)
     if presel:
         # packed-bits preselect on the raw kernel output: steal
         # log2(nprobe) more mantissa bits for the probe slot, reduce the

@@ -9,7 +9,8 @@ that XLA fuses on the TPU.
 * ``batched_probe`` (``csrc/batched_probe.cu``) replaces the Pallas
   top-2 kernel ``_batched_probe_kernel`` (``batched_probe_pallas``): the
   throughput path's first pass on the int8 tensor cores, packed
-  strided-pool winners.
+  strided-pool winners (top-2 a pool, or top-1: counted apart as
+  ``batched_probe_top1``).
 * ``int8_dot_scores`` (``csrc/int8_scores.cu``) replaces the Pallas
   ``_int8_kernel`` (``int8_dot_scores``): the int8 scan's block scores.
 * ``int8_pooled_bits`` (``csrc/int8_scores.cu``) and ``f32_pooled_bits``
@@ -62,9 +63,10 @@ import torch
 
 from neumann_tpu_torch.ops.scan import stable_keys
 
-LAUNCHES = {"ivf_probe": 0, "batched_probe": 0, "int8_dot_scores": 0,
-            "int8_pooled_bits": 0, "f32_pooled_bits": 0, "hamming_scores": 0,
-            "hamming_topk": 0, "pq_adc": 0, "pq_adc_select": 0}
+LAUNCHES = {"ivf_probe": 0, "batched_probe": 0, "batched_probe_top1": 0,
+            "int8_dot_scores": 0, "int8_pooled_bits": 0,
+            "f32_pooled_bits": 0, "hamming_scores": 0, "hamming_topk": 0,
+            "pq_adc": 0, "pq_adc_select": 0}
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("ivf_probe.cu", "batched_probe.cu", "int8_scores.cu",
@@ -395,7 +397,7 @@ def batched_probe(buf, rmult2d, qsel, scmult, window: int,
                 rmult2d.data_ptr(), out.data_ptr(), n_win, q_cap, d, window,
                 int(top2), _stream())
         _raise_on(err, "batched_probe")
-        LAUNCHES["batched_probe"] += 1
+        LAUNCHES["batched_probe" if top2 else "batched_probe_top1"] += 1
     return out
 
 

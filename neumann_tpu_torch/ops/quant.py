@@ -33,7 +33,7 @@ from typing import Optional
 import torch
 
 from neumann_tpu_torch.ops import kernels
-from neumann_tpu_torch.ops.scan import NEG_INF, _as2d
+from neumann_tpu_torch.ops.scan import NEG_INF, _as2d, _topk_stable
 
 
 def scalar_quantize(x: torch.Tensor):
@@ -75,6 +75,45 @@ def int8_cosine_row_mult(corpus_q: torch.Tensor,
     row is ``corpus_q * row_mult``."""
     return _row_multiplier(corpus_scale,
                            corpus_sqnorms(corpus_q, corpus_scale), "cosine")
+
+
+# bytes one step of int8_exact_topk may hold: its block of rows converted
+# to f32, or its [Q, block] scores
+_EXACT_STEP_BYTES = 256 << 20
+
+
+def int8_exact_topk(corpus_q: torch.Tensor, row_mult: torch.Tensor,
+                    queries: torch.Tensor, k: int,
+                    block_rows: int = 256 * 1024):
+    """Exact cosine top-k over an int8 corpus with UNQUANTIZED f32
+    queries and f32 math throughout (the recall oracle, and the IVF
+    delta plane's scan). Each block of rows is converted to f32 and
+    multiplied by ``torch.matmul`` (TF32 off: the package docstring), as
+    the JAX package multiplies at ``Precision.HIGHEST``; a running top-k
+    carries across blocks in ``lax.top_k``'s order, equal scores by
+    ascending row. row_mult = ``int8_cosine_row_mult`` (0 marks invalid
+    rows). A block holds at most ``block_rows`` rows, and fewer where
+    its f32 rows or its scores would pass ``_EXACT_STEP_BYTES``.
+
+    Returns (scores [Q, k] f32, rows [Q, k] int64, -1 where -inf)."""
+    qf = _as2d(queries).float()
+    n, d = corpus_q.shape
+    k = min(k, n)
+    qf = qf / qf.norm(dim=1, keepdim=True).clamp_min(1e-30)
+    q = qf.shape[0]
+    block = max(1, min(block_rows, _EXACT_STEP_BYTES // (4 * max(d, q))))
+    best_s = qf.new_full((q, k), NEG_INF)
+    best_i = torch.full((q, k), -1, dtype=torch.int64, device=qf.device)
+    for r0 in range(0, n, block):
+        rm = row_mult[r0:r0 + block]
+        s = qf @ corpus_q[r0:r0 + block].float().T
+        s = torch.where(rm > 0, s * rm, torch.full_like(s, NEG_INF))
+        # the carry's rows all precede the block's: a stable cut over
+        # [carry, block] orders equal scores by row
+        best_s, col = _topk_stable(torch.cat([best_s, s], dim=1), k)
+        best_i = torch.where(col < k, best_i.gather(1, col.clamp(max=k - 1)),
+                             col - k + r0)
+    return best_s, best_i.masked_fill(torch.isneginf(best_s), -1)
 
 
 def f32_cosine_row_mult(corpus: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 
 from neumann_tpu_torch.ops.quant import f32_pooled_topk, int8_pooled_topk
-from neumann_tpu_torch.ops.scan import NEG_INF
+from neumann_tpu_torch.ops.scan import NEG_INF, _topk_stable
 
 
 def residual_quantize(x: torch.Tensor, q: torch.Tensor,
@@ -128,22 +128,45 @@ def gather_rerank_topk_chunked(corpus_q, pos, queries, k, metric="cosine",
                                scale=None, residual_q=None,
                                residual_scale=None, first_scores=None,
                                dedup=True, chunk=128, pre_select=None,
-                               row_mult=None, valid_rows=None):
+                               expand_pool=1, row_mult=None,
+                               expand_window=0, valid_rows=None):
     """gather_rerank_topk with the query axis in chunks of ``chunk``,
     so the [Q, C, d] f32 gather never exceeds one chunk's.
 
     pre_select: keep only the top-``pre_select`` candidates per query by
-    FIRST-pass score before gathering (exact ``torch.topk``; the JAX
-    package uses ``approx_max_k`` on wide lists). Requires first_scores.
+    FIRST-pass score before gathering, equal scores by column as
+    ``lax.top_k`` keeps them (exact: the JAX package cuts wide lists
+    with ``approx_max_k``, which torch does not have). Requires
+    first_scores.
 
-    The JAX package's ``expand_pool`` / ``expand_window`` (pool-winner
-    expansion of the batched IVF core's pooled selections) come with the
-    non-fast batched IVF variants that call them (ROADMAP: non-fast
-    batched IVF variants)."""
+    expand_pool=p: each surviving candidate is a pool winner of a
+    pooled-bits first pass (``ops/ivf.batched_ivf_topk`` with
+    selection=p); it is expanded to all p rows of its pool before the
+    rescore, each carrying the winner's first-pass score. A true top-k
+    row lost to a pool collision is a pool-mate of a higher-scoring
+    winner, so expansion makes the pooled selection collision-exact.
+    Pools are p aligned rows; with ``expand_window`` = W they are the
+    strided pools of the batched kernel instead (row i * 128 + b of a
+    W-row window, for i < W / 128). Positions must come from disjoint
+    fixed windows. Pass ``valid_rows`` with it: a tombstoned pool-mate
+    was never scored by the first pass."""
     if (pre_select is not None and first_scores is not None
             and pos.shape[1] > pre_select):
-        first_scores, ci = torch.topk(first_scores, pre_select, dim=1)
+        first_scores, ci = _topk_stable(first_scores, pre_select)
         pos = torch.gather(pos, 1, ci)
+    if expand_pool > 1:
+        off = torch.arange(expand_pool, dtype=pos.dtype, device=pos.device)
+        live = (pos >= 0)[:, :, None]
+        if expand_window:
+            w = expand_window
+            first = (pos // w) * w + (pos % w) % 128
+            off = off * 128
+        else:
+            first = pos - pos % expand_pool
+        pos = torch.where(live, first[:, :, None] + off, -1
+                          ).reshape(pos.shape[0], -1)
+        if first_scores is not None:
+            first_scores = first_scores.repeat_interleave(expand_pool, dim=1)
     parts_s, parts_p = [], []
     for q0 in range(0, pos.shape[0], chunk):
         q1 = q0 + chunk

@@ -11,9 +11,8 @@ the same statements (the port's k-means draws from a torch.Generator,
 so that layout is compared by recall, not bit for bit).
 
 On this setup the slab capacity (16,384) gives 384-row windows — 3
-pools, not a power of two — so the JAX package's batch of 40 runs its
-non-fast batched variant, which the port does not have; the port takes
-its latency path there, and both are held to the exact oracle.
+pools, not a power of two — so a batch of 40 runs the non-fast batched
+variant in both packages; both are held to the exact oracle.
 """
 
 import numpy as np
@@ -440,6 +439,8 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "BLOB_BYTES", 1 << 20)
     monkeypatch.setattr(chip_smoke, "CACHE_PROMPTS", 256)
     monkeypatch.setattr(chip_smoke, "CACHE_MIX", 100)
+    # phase 17's TOP 65 and delta batches: 256 queries
+    monkeypatch.setattr(chip_smoke, "PHASE17_BATCH", 256)
     monkeypatch.setenv("NEUMANN_POOLED_MIN_ROWS", "1024")
     monkeypatch.setenv("NEUMANN_POOLED_MIN_POOLS", "64")
     cfg = TConfig(ivf_auto_threshold=10_000, ivf_auto_clusters=16,
@@ -449,6 +450,13 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
                               wide_rows=2048),
         torch.device("cpu"), config=cfg, on_card=False)
     assert rep["recall_single"] >= 0.95 and rep["recall_batch"] >= 0.95
+    # phase 17: the TOP 65 batch on the non-fast route, the top-1 route,
+    # the delta plane before and after compact
+    assert rep["top65_recall10"] >= 0.95 and rep["top1_route_recall10"] >= 0.95
+    assert rep["top65_steps"]["live_windows"] > 0
+    assert rep["delta_rows_added"] == 2048 and rep["delta_rows_deleted"] == 204
+    assert rep["delta_added_first"] == 1.0
+    assert min(rep["delta_before_recall"], rep["delta_after_recall"]) >= 0.95
     assert len(rep["single_ms"]) == chip_smoke.N_SINGLE - 1
     assert "kernels" not in rep and "profile" not in rep
     for key in ("pooled_recall_single", "pooled_recall_batch",

@@ -108,7 +108,8 @@ def test_batched_ivf_topk_matches_jax(built, presel):
         probe_mode="exact", presel=presel)
     s_g, p_g, o_g = tivf.batched_ivf_topk(
         p._buf, p._rmult, p.centroids, p._starts, torch.from_numpy(qs),
-        nprobe, window, q_cap, probe_mode="exact", presel=presel)
+        nprobe, window, 16, q_cap, selection=window // 128, fused="pallas",
+        probe_mode="exact", presel=presel)
     assert o_g == int(o_w) == 0
     s_w, p_w = np.asarray(s_w), np.asarray(p_w)
     s_g, p_g = s_g.numpy(), p_g.numpy()
@@ -165,17 +166,29 @@ def test_legacy_layout_dedups():
         live = ids[r][ids[r] >= 0]
         assert len(set(live.tolist())) == live.size
         assert ids[r][0] == r
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p.search_batched(v[:40], 10)
+    # the batched path takes the non-fast variant here (windows overlap)
+    # and dedups the same way
+    s, ids = p.search_batched(v[:40], 10)
+    for r in range(40):
+        live = ids[r][ids[r] >= 0]
+        assert len(set(live.tolist())) == live.size
+        assert ids[r][0] == r
 
 
 def test_unported_paths_raise(built):
-    p = built["port"]
-    for call in (lambda: p.add(built["v"][:2]), lambda: p.delete([1]),
-                 lambda: p.compact(),
-                 lambda: p.search_batched(built["qs"], 129)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    """Every path of the JAX index is ported now (mutation, k above the
+    fast path's 128): what still raises is what raises in JAX too."""
+    p = tivf.DeviceIVFInt8.from_state(ivf_state_from_jax(built["j"]), "cpu")
+    assert p.add(built["v"][:2]).tolist() == [8192, 8193]
+    assert p.delete([1]) == 1 and p.n_live == 8193
+    assert p.search_batched(built["qs"], 129)[1].shape == (40, 129)
+    no_scale = tivf.DeviceIVFInt8.from_device_layout(
+        64, p.centroids, p._buf, p._rmult, p._starts, p._row_ids,
+        p._window, fixed=True)
+    with pytest.raises(ValueError, match="per-row scales"):
+        no_scale.compact()
+    with pytest.raises(ValueError, match="build"):
+        tivf.DeviceIVFInt8(64, device="cpu").add(built["v"][:2])
     j2 = jivf.DeviceIVFInt8(64, n_clusters=4, nprobe=2)
     with pytest.raises(ValueError, match="not built"):
         ivf_state_from_jax(j2)

@@ -39,9 +39,12 @@ between the lane layout and the 8-query shared layout (3 / 4) and of a
 shared block (8, 70), k 1, 10 and 64, codes copied across distant rows
 (exact ties at the shared threshold), fewer live rows than k, a whole
 block of dead rows, gathered candidates with -1; scores and columns
-equal to ``pq_adc_topk_plain``. ROLLBACK on a router whose corpora hold
-device views: SIMILAR on the f32 pooled, int8 and binary routes gives
-the hits from before the checkpoint, and their kernels launch.
+equal to ``pq_adc_topk_plain``. The batched probe's top-1 mode through
+``batched_ivf_topk(fused="pallas", presel=0)``, and the plain-torch
+non-fast first pass (exact int8 dots at d 768 and 3,072), equal to the
+CPU's bits. ROLLBACK on a router whose corpora hold device views:
+SIMILAR on the f32 pooled, int8 and binary routes gives the hits from
+before the checkpoint, and their kernels launch.
 """
 
 import pytest
@@ -326,12 +329,96 @@ def test_batched_probe_edges_bit_exact(cuda, q_cap, window, d, top2):
     scm = (torch.rand(n_win, q_cap, generator=g, device=cuda) * 1e-2 + 1e-3
            ) * (torch.arange(q_cap, device=cuda) < count)
     scm[1, q_cap // 2] = 0.0
-    before = tk.LAUNCHES["batched_probe"]
+    name = "batched_probe" if top2 else "batched_probe_top1"
+    before = tk.LAUNCHES[name]
     got = tk.batched_probe(buf, rm, qsel, scm, window, top2=top2)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES["batched_probe"] == before + 1
+    assert tk.LAUNCHES[name] == before + 1
     want = tk.batched_probe_plain(buf, rm, qsel, scm, window, top2=top2)
     assert torch.equal(got, want)
+
+
+def _ivf_layout(dev, n_win, window, d, seed):
+    """A fixed-window int8 layout with 2 % dead rows and a dead window,
+    window-mean centroids, on ``dev``."""
+    from neumann_tpu_torch.ops.ivf import window_mean_centroids
+    from neumann_tpu_torch.ops.quant import (
+        int8_cosine_row_mult,
+        scalar_quantize,
+    )
+
+    g = torch.Generator().manual_seed(seed)
+    cents = torch.randn(n_win // 4 + 1, d, generator=g)
+    x = cents[torch.randint(0, cents.shape[0], (n_win * window,),
+                            generator=g)] \
+        + 0.3 * torch.randn(n_win * window, d, generator=g)
+    buf, sc = scalar_quantize(x)
+    rm = int8_cosine_row_mult(buf, sc)
+    rm[torch.rand(n_win * window, generator=g) < 0.02] = 0.0
+    rm[:window] = 0.0
+    # odd integers near 2x stored rows: the same query norms, hence the
+    # same int8 queries, on the card and on the CPU
+    qs = 2 * torch.round(x[torch.randint(0, x.shape[0], (70,),
+                                         generator=g)]) + 1
+    starts = torch.arange(n_win, dtype=torch.int32) * window
+    layout = (buf, rm, window_mean_centroids(buf, rm, window), starts, qs)
+    return tuple(t.to(dev) for t in layout)
+
+
+# row 2's top-1 mode through its route, batched_ivf_topk(fused="pallas",
+# presel=0): windows of 1 (128 rows) to 16 pools, q_cap below the batch
+# (probes dropped) and above it, nprobe up to every window; every (probe,
+# pool) winner decoded equal to the plain version's on the CPU, bit for
+# bit, one top-1 launch a call
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,d", [(128, 64), (1024, 768), (2048, 784)])
+@pytest.mark.parametrize("nprobe,q_cap", [(3, 8), (8, 64), (32, 200)])
+def test_batched_top1_route_bit_exact(cuda, window, d, nprobe, q_cap):
+    from neumann_tpu_torch.ops import kernels as tk
+    from neumann_tpu_torch.ops.ivf import batched_ivf_topk
+
+    n_win = 32
+    nprobe = min(nprobe, n_win)
+    on_card = _ivf_layout(cuda, n_win, window, d, window + d)
+    on_cpu = tuple(t.cpu() for t in on_card)
+    kw = dict(selection=window // 128, fused="pallas", probe_mode="exact")
+    before = dict(tk.LAUNCHES)
+    s_g, p_g, o_g = batched_ivf_topk(*on_card, nprobe, window, 1, q_cap,
+                                     **kw)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["batched_probe_top1"] == \
+        before["batched_probe_top1"] + 1
+    assert tk.LAUNCHES["batched_probe"] == before["batched_probe"]
+    s_w, p_w, o_w = batched_ivf_topk(*on_cpu, nprobe, window, 1, q_cap, **kw)
+    assert o_g == o_w and s_g.shape == (70, nprobe * 128)
+    assert torch.equal(s_g.cpu().view(torch.int32), s_w.view(torch.int32))
+    assert torch.equal(p_g.cpu(), p_w)
+
+
+# the non-fast batched first pass is plain torch: on the card its exact
+# int8 dots (f32 products of up to 1,024 columns, TF32 off) and its top-m
+# must give the CPU's bits; d 3,072 takes three column slices
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [768, 3072])
+@pytest.mark.parametrize("selection", ["approx", 8])
+def test_non_fast_first_pass_on_the_card_equals_the_cpu(cuda, d, selection):
+    from neumann_tpu_torch.ops.ivf import _int8_dots, batched_ivf_topk
+
+    g = torch.Generator().manual_seed(d)
+    a = torch.randint(-127, 128, (4, 64, d), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (4, 1024, d), generator=g,
+                      dtype=torch.int8)
+    a[0, 0] = b[0, 0] = 127
+    want = torch.einsum("gqd,gwd->gqw", a.long(), b.long()).int().float()
+    assert torch.equal(_int8_dots(a.to(cuda), b.to(cuda)).cpu(), want)
+    on_card = _ivf_layout(cuda, 16, 1024, d, d + 1)
+    on_cpu = tuple(t.cpu() for t in on_card)
+    got = batched_ivf_topk(*on_card, 6, 1024, 152, 64, selection=selection)
+    want = batched_ivf_topk(*on_cpu, 6, 1024, 152, 64, selection=selection)
+    assert got[2] == want[2]
+    assert torch.equal(got[0].cpu().view(torch.int32),
+                       want[0].view(torch.int32))
+    assert torch.equal(got[1].cpu(), want[1])
 
 
 # PQ ADC scan (kernel 8): M on both sides of the 48-subspace shared-memory

@@ -70,6 +70,15 @@ _NOJAX = textwrap.dedent("""
     assert r.vector.search_with_hnsw(v[4], 3)[0].key == "k4"
     assert r.vector.build_ivf_index(4, 2) == 20
     assert r.vector.search_with_ivf_nprobe(v[4], 3, 4)[0].key == "k4"
+    from neumann_tpu_torch.ops.ivf import DeviceIVFInt8
+    w = np.random.default_rng(1).standard_normal((2048, 8)).astype("f4")
+    ix = DeviceIVFInt8(8, n_clusters=4, nprobe=4, device="cpu")
+    ix.build(*ix._quant_rows(w[:1792])[:2], fixed_window=256)
+    assert ix.add(w[1792:]).tolist() == list(range(1792, 2048))
+    assert ix.delete([0, 1800]) == 2
+    s, ids = ix.search_batched(w[[3, 1801]], 130, fast=False)
+    assert ids[:, 0].tolist() == [3, 1801] and 0 not in ids, ids[:, :3]
+    assert ix.compact() == 2046 and ix.search(w[5], 1)[1][0, 0] == 5
     r.execute("CREATE TABLE t (id INT PRIMARY KEY, v INT)")
     r.execute("INSERT INTO t VALUES (1, 10), (2, 20), (3, 30)")
     assert r.execute("SELECT id FROM t WHERE v > 15").rows == [

@@ -459,6 +459,7 @@ def test_wrappers_check_inputs(corpus):
 
 def test_launch_counters_cover_every_kernel():
     assert set(tk.LAUNCHES) == {"ivf_probe", "batched_probe",
-                                "int8_dot_scores", "int8_pooled_bits",
-                                "f32_pooled_bits", "hamming_scores",
-                                "hamming_topk", "pq_adc", "pq_adc_select"}
+                                "batched_probe_top1", "int8_dot_scores",
+                                "int8_pooled_bits", "f32_pooled_bits",
+                                "hamming_scores", "hamming_topk", "pq_adc",
+                                "pq_adc_select"}
