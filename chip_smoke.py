@@ -199,6 +199,31 @@ Phases (each raises on failure; exit code 0 only if all pass):
     hit rates and p50s. Prints whether ``cryptography`` imports; the
     vault is host-only and is not driven on the card (its tests run on
     the CPU).
+18. the chain and the cluster. 18a (at the end of phases 7-9, on their
+    router): ``init_chain(embedding_dim=768)``; a chain transaction
+    EMBEDs new vectors for 1,024 existing keys and commits, 64 SIMILARs
+    of them give their own keys first; a second re-embeds the same keys
+    and ends in ROLLBACK CHAIN, the SIMILARs then give the hits they
+    gave before it (keys equal, scores within 1e-5); CHAIN VERIFY,
+    HEIGHT, TIP, HISTORY, SIMILAR, DRIFT and the codebook statements
+    answer; row 6 launches. 18b: ``classify_pairwise_codes`` over 4,096
+    deltas x 768 with key sets from a seeded vocabulary on the card,
+    codes equal to a float64 classification but for pairs within 1e-5
+    of a threshold (counted); its device function timed by CUDA events,
+    its launches from torch.profiler, its bound. 18c: three
+    TcpClusterNodes in this process on localhost sockets, each router
+    on the card; a replicated CREATE COLLECTION … QUANTIZATION int8 and
+    EMBED BATCHes of two rows load 1,024 rows of B's recipe through the
+    leader (8 ClusterClients at once, rows a second); 64 SIMILARs a
+    replica give their own keys first, row 4 launching on each. 18d:
+    three ``python -m neumann_tpu_torch.chain.node --wal-dir …``
+    processes on the card load the same rows from 8 ClusterClients
+    through the leader; the leader is SIGKILLed at half the rows and
+    the clients move to the node elected after it; every
+    acknowledged key is read back by SIMILAR, its own key first, from
+    both survivors, and from the killed node once restarted from its
+    WAL directory and caught up; EXPLAIN SIMILAR … IN on each names row
+    4's kernel. The nodes' logs go to chiprun_out/node_*.log.
 
 Every kernel must launch in the counted phases. After phase 4 it
 profiles 8 single SIMILARs and one batch (cProfile on the host,
@@ -229,8 +254,11 @@ import gc
 import json
 import os
 import re
+import shutil
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
@@ -377,7 +405,7 @@ SAMPLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "samples",
 # point of the port reaches it), each counted apart
 ROUTES = ("ivf", "top65", "top65_latency", "top1_direct", "delta",
           "pooled", "int8", "binary", "wide", "hybrid", "served_ivf",
-          "served_brute", "pq", "tt", "ann", "rollback")
+          "served_brute", "pq", "tt", "ann", "rollback", "chain", "cluster")
 # phase 17 (on A's corpus): the TOP 65 batch (k_ivf 146 > 128, the
 # non-fast batched route), and an index over A's rows that takes 10 %
 # more rows through add (in chunks of 65,536) and loses 1 % of A's row
@@ -496,6 +524,32 @@ CACHE_PROMPTS = 10_000
 CACHE_WORDS = 24
 CACHE_VOCAB = 4096
 CACHE_MIX = 1000
+
+# phase 18: the chain and the cluster. 18a on phases 7-9's router (B's
+# rows): a chain transaction re-embeds N_CHAIN_KEYS keys and commits, a
+# second ends in ROLLBACK CHAIN; N_CHAIN_SIMILAR SIMILARs of the new
+# vectors before and after it (scores within CHAIN_ATOL)
+N_CHAIN_KEYS = 1024
+N_CHAIN_SIMILAR = 64
+CHAIN_ATOL = 1e-5
+# 18b: the pairwise consensus classification of N_DELTAS deltas whose key
+# sets come from DELTA_VOCAB keys, held to float64 but for pairs within
+# CONSENSUS_MARGIN of a threshold
+N_DELTAS = 4096
+DELTA_VOCAB = 1024
+CONSENSUS_MARGIN = 1e-5
+# 18c-d: three replicas load CLUSTER_ROWS rows of B's recipe through Raft
+# (cut from 65,536: the load is held by the statements' parse, PERF.md
+# §4) from CLUSTER_CLIENTS clients (more stall Raft's resends, ROADMAP §2
+# tuning item 10). EMBED BATCH is outside the native parser's grammar,
+# so the Python parser runs on the native lexer's tokens, whose cap
+# (4,096) holds two rows of 768 floats a statement
+CLUSTER_ROWS = 1024
+CLUSTER_BATCH_ROWS = 2
+CLUSTER_CLIENTS = 8
+N_CLUSTER_SIMILAR = 64
+CLUSTER_TIMEOUT_S = 30.0
+CLUSTER_DEADLINE_S = 600.0
 
 
 def say(msg: str) -> None:
@@ -878,7 +932,17 @@ def check_new_kernels(dev, seed: int) -> dict:
     rec.update(max_abs_err_q1=float((got - want).abs().max()),
                ms_q1=cuda_ms(lambda: tk.int8_dot_scores(*a1), 20),
                plain_ms_q1=cuda_ms(lambda: tk.int8_dot_scores_plain(*a1), 3))
-    del got, want
+    # torch._int_mm takes more than 16 rows (a multiple of 8): the query
+    # padded with 31 zero rows, so it does 32 queries' products
+    q32 = torch.zeros((32, DIM), dtype=torch.int8, device=dev)
+    q32[0] = qq[0]
+    _, rec["library_ms_q1"] = turns(
+        lambda: tk.int8_dot_scores(*a1),
+        lambda: torch._int_mm(q32, a1[0].t()), 20)
+    rec["library_q1"] = ("torch._int_mm(q32, cq.t()), the query padded with "
+                         "31 zero rows to 32 (its least row count above 16):"
+                         " 32 queries' products, no scaling")
+    del got, want, q32
 
     for name, fn, plain, args in (
             ("int8_pooled_bits", tk.int8_pooled_bits,
@@ -1501,6 +1565,9 @@ def run(args, dev, config=None, on_card: bool = True) -> dict:
     report.update(run_hybrid(args, dev, centres, *root.spawn(3), on_card))
     gc.collect()
     report.update(run_shell(dev))
+    gc.collect()
+    report.update(run_chain_cluster(args, dev, centres, *root.spawn(2),
+                                    on_card))
     report["launches"] = {
         name: sum(report[f"launches_{ph}"].get(name, 0) for ph in ROUTES)
         for name in tk.LAUNCHES}
@@ -1678,7 +1745,8 @@ def captured(module, name: str):
 def torch_step(fn, reps: int, what: str) -> dict:
     """A plain-torch step on the card: its mean time by CUDA events, its
     device time and the CUDA kernels one call launches, from a
-    torch.profiler trace of one call."""
+    torch.profiler trace of one call (None, with a log line, where the
+    trace holds no kernel record: it has lost them)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1689,6 +1757,10 @@ def torch_step(fn, reps: int, what: str) -> dict:
         torch.cuda.synchronize()
     kern = [e for e in tp.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        say(f"[profile] {what}: the trace holds no kernel record: device "
+            f"time and launches not measured")
+        return dict(ms=ms, device_ms=None, launches=None, what=what)
     dev_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
     return dict(ms=ms, device_ms=dev_ms, launches=len(kern), what=what)
 
@@ -1808,8 +1880,8 @@ def run_top65(router, batch, truth10, emb, valid, on_card: bool) -> dict:
     if on_card:
         st = report["top65_steps"]
         say("[17b] " + "; ".join(
-            f"{n} {st[n]['ms']:.3f} ms (device {st[n]['device_ms']:.3f}, "
-            f"{st[n]['launches']} launches)"
+            f"{n} {st[n]['ms']:.3f} ms (device "
+            f"{ms_text(st[n]['device_ms'])}, {st[n]['launches']} launches)"
             for n in ("first_pass", "pre_select", "rerank")))
         report["profile_top65"] = profile_calls(
             {"top65_batch": lambda: eng.batch_search(batch, k)},
@@ -2387,6 +2459,11 @@ def run_brute(args, dev, centres, s_corpus, s_queries,
     report.update(serve_brute(
         router, batch, extra, oracle[N_SINGLE:N_SINGLE + N_BATCH], oracle_f,
         (ref[0][N_SINGLE:], ref[1][N_SINGLE:]), bits_c.index, on_card))
+
+    # ---- phase 18a: chain transactions on this router ------------------
+    t0 = time.perf_counter()
+    report.update(run_chain(args, router, corpus, on_card))
+    report["phase18a_s"] = time.perf_counter() - t0
     return report
 
 
@@ -4317,6 +4394,677 @@ def run_shell(dev) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the chain and the cluster
+# ---------------------------------------------------------------------------
+
+def chain_hits(router, stmts) -> tuple:
+    """SIMILAR statements through the router: ([(key, score), ...] per
+    statement, latencies ms)."""
+    hits, lat = [], []
+    for stmt in stmts:
+        t0 = time.perf_counter()
+        res = router.execute(stmt)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if res.kind != "similar" or len(res.results) != TOP_K:
+            raise AssertionError(f"[18] bad SIMILAR result: {res.results}")
+        hits.append([(h["key"], h["score"]) for h in res.results])
+    return hits, lat
+
+
+def chain_tx(router, keys, vecs, end: str) -> tuple:
+    """BEGIN CHAIN TRANSACTION, EMBED STORE each key's vector, then
+    ``end`` (COMMIT CHAIN or ROLLBACK CHAIN): (its message, the EMBEDs'
+    seconds, ``end``'s ms)."""
+    router.execute("BEGIN CHAIN TRANSACTION")
+    t0 = time.perf_counter()
+    for key, v in zip(keys, vecs):
+        router.execute(f"EMBED STORE '{key}' {vec_literal(v)}")
+    embed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    msg = router.execute(end).message
+    return msg, embed_s, (time.perf_counter() - t0) * 1e3
+
+
+def run_chain(args, router, corpus, on_card: bool) -> dict:
+    """Phase 18a: chain transactions on phases 7-9's router (B's rows in
+    the default namespace: the f32 pooled route, row 6). ``init_chain``
+    at 768 dimensions (its state root seeded from every stored key);
+    a transaction re-embeds N_CHAIN_KEYS keys and commits: SIMILARs of
+    the new vectors give their own keys first; a second re-embeds the
+    same keys and ends in ROLLBACK CHAIN: the SIMILARs give the hits
+    they gave before it (keys equal, scores within CHAIN_ATOL). CHAIN
+    VERIFY, HEIGHT, TIP, HISTORY, SIMILAR, DRIFT and the codebook
+    statements answer; row 6 launches (counted as ``chain``)."""
+    from neumann_tpu_torch.ops import kernels as tk
+
+    report = {}
+    rng = np.random.default_rng(args.seed + 18)
+    rows = rng.choice(len(corpus), N_CHAIN_KEYS, replace=False)
+    keys = [f"k{r}" for r in rows]
+    fresh = rng.standard_normal((N_CHAIN_KEYS, DIM)).astype(np.float32)
+    other = rng.standard_normal((N_CHAIN_KEYS, DIM)).astype(np.float32)
+    stmts = [f"SIMILAR {vec_literal(v)} TOP {TOP_K}"
+             for v in fresh[:N_CHAIN_SIMILAR]]
+    t0 = time.perf_counter()
+    router.init_chain(embedding_dim=DIM)
+    report["chain_init_s"] = time.perf_counter() - t0
+    report["chain_store_keys"] = len(router.store)
+    msg, report["chain_embed_s"], report["chain_commit_ms"] = chain_tx(
+        router, keys, fresh, "COMMIT CHAIN")
+    tk.reset_launch_counts()
+    committed, lat_c = chain_hits(router, stmts)
+    launches = dict(tk.LAUNCHES)
+    firsts = [h[0][0] for h in committed]
+    if firsts != keys[:N_CHAIN_SIMILAR]:
+        raise AssertionError(f"[18a] committed rows not first: "
+                             f"{firsts[:5]} != {keys[:5]}")
+    msg2, report["chain_abort_embed_s"], report["chain_rollback_ms"] = \
+        chain_tx(router, keys, other, "ROLLBACK CHAIN")
+    tk.reset_launch_counts()
+    after, lat_r = chain_hits(router, stmts)
+    launches = {k: v + tk.LAUNCHES[k] for k, v in launches.items()}
+    report["launches_chain"] = launches
+    report["chain_first_similar_after_commit_ms"] = lat_c[0]
+    report["chain_first_similar_after_rollback_ms"] = lat_r[0]
+    report["chain_similar_p50_ms"] = float(np.percentile(lat_c + lat_r, 50))
+    bad = same_route_hits(committed, after, CHAIN_ATOL)
+    report["chain_rollback_mismatches"] = len(bad)
+
+    # the chain's views
+    verify = router.execute("CHAIN VERIFY").message
+    height = router.execute("CHAIN HEIGHT").count
+    tip = router.execute("CHAIN TIP").rows[0]
+    store_key = tip["transactions"][0]["ops"][0]["key"]
+    history = router.execute(f"CHAIN HISTORY '{store_key}'").rows
+    # a statement-level transaction journals its writes at the store and
+    # stages none in the chain's workspace, so its block's delta is zero
+    # (as in the JAX router): CHAIN SIMILAR finds no block, DRIFT is 0
+    tip_delta = float(np.linalg.norm(tip["delta_embedding"]))
+    delta = fresh.sum(0) - corpus[rows].sum(0)
+    blocks = router.execute(f"CHAIN SIMILAR {vec_literal(delta)} "
+                            f"LIMIT 3").rows
+    drift = router.execute("CHAIN DRIFT FROM 0 TO 1").rows[0]
+    book = router.execute("SHOW CODEBOOK GLOBAL").rows[0]
+    trans = router.execute("ANALYZE CODEBOOK TRANSITIONS").rows[0]
+    report["chain_views"] = dict(
+        verify=verify, height=height, tip_ops=len(tip["transactions"][0][
+            "ops"]), history=len(history), similar_blocks=blocks,
+        drift_norm=drift["drift_norm"], tip_delta_norm=tip_delta,
+        codebook=book, transitions=trans)
+    say(f"[18a] init_chain over {report['chain_store_keys']} keys "
+        f"{report['chain_init_s']:.2f} s; {N_CHAIN_KEYS} EMBED STOREs "
+        f"{report['chain_embed_s']:.2f} s, {msg} in "
+        f"{report['chain_commit_ms']:.2f} ms; {msg2} in "
+        f"{report['chain_rollback_ms']:.2f} ms after "
+        f"{report['chain_abort_embed_s']:.2f} s of EMBEDs; first SIMILAR "
+        f"after commit {lat_c[0]:.2f} ms, after rollback {lat_r[0]:.2f} ms, "
+        f"p50 {report['chain_similar_p50_ms']:.3f} ms; statements differing "
+        f"after ROLLBACK CHAIN {bad}; views {report['chain_views']}; "
+        f"launches {launches}")
+    if bad:
+        raise AssertionError(f"[18a] ROLLBACK CHAIN changed the hits of "
+                             f"statements {bad}")
+    if verify != "chain OK" or height != 1 or len(history) != 1 or \
+            bool(blocks) != (tip_delta > 0) or book["trained"] or \
+            abs(drift["drift_norm"] - tip_delta) > 1e-3 * tip_delta or \
+            report["chain_views"]["tip_ops"] != N_CHAIN_KEYS:
+        raise AssertionError(f"[18a] chain views: {report['chain_views']}")
+    if on_card:
+        require_launches(launches, ("f32_pooled_bits",), "18a")
+    return report
+
+
+def consensus_inputs(seed) -> tuple:
+    """N_DELTAS deltas of DIM in groups of 8 around a base vector (two
+    near-copies with equal key sets, four at noise 1, two free), one in
+    97 zero, and key sets of 1-4 keys from a vocabulary of DELTA_VOCAB
+    (one in 101 empty): every class occurs."""
+    rng = np.random.default_rng(seed)
+    n = N_DELTAS
+    j = np.arange(n) % 8
+    base = rng.standard_normal((n // 8 + 1, DIM)).astype(np.float32)
+    noise = rng.standard_normal((n, DIM)).astype(np.float32)
+    scale = np.where(j < 2, 0.05, 1.0).astype(np.float32)[:, None]
+    deltas = np.where(j[:, None] < 6, base[np.arange(n) // 8]
+                      + scale * noise, noise).astype(np.float32)
+    deltas[::97] = 0.0
+    key_sets = []
+    for i in range(n):
+        if j[i] == 1:
+            key_sets.append(set(key_sets[-1]))
+        elif i % 101 == 0:
+            key_sets.append(set())
+        else:
+            key_sets.append({f"key{k}" for k in rng.choice(
+                DELTA_VOCAB, int(rng.integers(1, 5)), replace=False)})
+    return deltas, key_sets
+
+
+def pairwise_codes_f64(deltas, key_sets, cfg) -> tuple:
+    """The classification of ``pairwise_codes_kernel`` in float64 numpy
+    (the key-set intersections as exact f32 counts): (codes int8
+    [n, n], pairs whose cosine or Jaccard lies within CONSENSUS_MARGIN
+    of a threshold)."""
+    d = np.asarray(deltas, np.float64)
+    norms = np.linalg.norm(d, axis=1, keepdims=True)
+    dn = np.where(norms > 0, d / np.maximum(norms, 1e-300), 0.0)
+    cos = dn @ dn.T
+    vocab = {k: i for i, k in enumerate(sorted({k for s in key_sets
+                                                for k in s}))}
+    inc = np.zeros((len(key_sets), max(len(vocab), 1)), np.float32)
+    for i, s in enumerate(key_sets):
+        inc[i, [vocab[k] for k in s]] = 1.0
+    inter = (inc @ inc.T).astype(np.float64)
+    sizes = inc.sum(1).astype(np.float64)
+    union = sizes[:, None] + sizes[None, :] - inter
+    jac = np.where(union > 0, inter / np.maximum(union, 1.0), 1.0)
+    eq = (inter >= sizes[:, None]) & (inter >= sizes[None, :])
+    codes = np.where(
+        jac > cfg.jaccard_conflict,
+        np.where(eq & (cos >= cfg.identical_threshold), 0,
+                 np.where(cos >= cfg.similar_threshold, 1, 3)),
+        np.where(np.abs(cos) <= cfg.orthogonal_threshold, 2,
+                 np.where(cos >= cfg.similar_threshold, 1, 2))
+    ).astype(np.int8)
+    m = CONSENSUS_MARGIN
+    near = ((np.abs(cos - cfg.identical_threshold) < m)
+            | (np.abs(cos - cfg.similar_threshold) < m)
+            | (np.abs(np.abs(cos) - cfg.orthogonal_threshold) < m)
+            | ((np.abs(jac - cfg.jaccard_conflict) < m)
+               & (jac != cfg.jaccard_conflict)))
+    return codes, near
+
+
+def run_consensus(dev, seed, on_card: bool) -> dict:
+    """Phase 18b: ``classify_pairwise_codes`` over N_DELTAS deltas on the
+    card, held to a float64 classification (equal codes but for pairs
+    within CONSENSUS_MARGIN of a threshold, counted); the card time of
+    its device function (``pairwise_codes_kernel``) by CUDA events, its
+    launches from torch.profiler, and its bound: the f32 products at
+    the FFMA peak against the inputs read and the int8 [n, n] written."""
+    import torch
+
+    from neumann_tpu_torch.chain.consensus import (
+        ConsensusConfig,
+        classify_pairwise_codes,
+        pairwise_codes_kernel,
+    )
+
+    cfg = ConsensusConfig()
+    deltas, key_sets = consensus_inputs(seed)
+    t0 = time.perf_counter()
+    codes = classify_pairwise_codes(deltas, key_sets, cfg, device=dev)
+    call_ms = (time.perf_counter() - t0) * 1e3
+    want, near = pairwise_codes_f64(deltas, key_sets, cfg)
+    off = (codes != want) & ~near
+    counts = np.bincount(codes.ravel().astype(np.int64), minlength=4)
+    report = {"consensus_pairs": int(codes.size),
+              "consensus_class_counts": counts.tolist(),
+              "consensus_near_threshold_pairs": int(near.sum()),
+              "consensus_near_threshold_differ": int(
+                  ((codes != want) & near).sum()),
+              "consensus_mismatches": int(off.sum()),
+              "consensus_call_ms": call_ms}
+    n = len(key_sets)
+    vocab = {k for s in key_sets for k in s}
+    d = torch.from_numpy(deltas).to(dev)
+    inc = np.zeros((n, len(vocab)), np.float32)
+    index = {k: i for i, k in enumerate(sorted(vocab))}
+    for i, s in enumerate(key_sets):
+        inc[i, [index[k] for k in s]] = 1.0
+    a = torch.from_numpy(inc).to(dev)
+
+    def step():
+        return pairwise_codes_kernel(
+            d, a, cfg.identical_threshold, cfg.similar_threshold,
+            cfg.orthogonal_threshold, cfg.jaccard_conflict)
+
+    if not np.array_equal(step().cpu().numpy(), codes):
+        raise AssertionError("[18b] pairwise_codes_kernel differs from "
+                             "classify_pairwise_codes")
+    if on_card:
+        rec = torch_step(step, 10, "pairwise_codes_kernel")
+        flops = 2.0 * n * n * (DIM + len(vocab))
+        rec.update(bound(nbytes(d, a) + n * n, flops, F32_FLOPS_PER_S))
+        rec["shape"] = f"{n} deltas x {DIM}, {len(vocab)} keys"
+        report["consensus_kernel"] = rec
+    say(f"[18b] classify_pairwise_codes over {n} deltas x {DIM} on "
+        f"{dev}: {call_ms:.1f} ms the call; classes {counts.tolist()} "
+        f"(identical, similar, orthogonal, conflicting); "
+        f"{report['consensus_mismatches']} pairs differ from float64 off "
+        f"the thresholds, {report['consensus_near_threshold_pairs']} lie "
+        f"within {CONSENSUS_MARGIN} of one "
+        f"({report['consensus_near_threshold_differ']} of them differ); "
+        f"device function {report.get('consensus_kernel')}")
+    if report["consensus_mismatches"] or not counts.all():
+        raise AssertionError(f"[18b] codes differ from float64 on "
+                             f"{report['consensus_mismatches']} pairs, "
+                             f"classes {counts.tolist()}")
+    return report
+
+
+def free_ports(n: int) -> list:
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def embed_batches(vecs: np.ndarray, coll: str) -> list:
+    """(keys, ``EMBED BATCH … IN coll`` statement) of CLUSTER_BATCH_ROWS
+    rows each; key ``r<i>`` holds row i."""
+    out = []
+    for s in range(0, len(vecs), CLUSTER_BATCH_ROWS):
+        keys = [f"r{i}" for i in range(s, min(len(vecs),
+                                               s + CLUSTER_BATCH_ROWS))]
+        out.append((keys, "EMBED BATCH [" + ", ".join(
+            f"('{k}', {vec_literal(vecs[int(k[1:])])})" for k in keys)
+            + f"] IN {coll}"))
+    return out
+
+
+def cluster_load(addrs: list, batches: list, clients: int,
+                 during=None) -> dict:
+    """Execute every statement through ClusterClients, ``clients`` at
+    once, each retried on the next node of ``addrs`` until acknowledged
+    (a reply after the leader applied it) or CLUSTER_DEADLINE_S pass.
+    ``addrs`` is shared: ``during(acked rows)`` runs on the caller's
+    thread every 0.2 s and may change it (empty: wait). Returns
+    acknowledged keys, seconds and retries."""
+    import queue
+    import threading
+
+    from neumann_tpu_torch.chain.node import ClusterClient
+    from neumann_tpu_torch.utils.errors import ChainError
+
+    work = queue.Queue()
+    for b in batches:
+        work.put(b)
+    acked, errors = [], []
+    state = {"retries": 0}
+    lock = threading.Lock()
+    deadline = time.time() + CLUSTER_DEADLINE_S
+
+    def worker(w: int) -> None:
+        cc, i = None, w
+        try:
+            while True:
+                try:
+                    keys, stmt = work.get_nowait()
+                except queue.Empty:
+                    return
+                while True:
+                    if time.time() > deadline:
+                        raise AssertionError(f"[18] a write was never "
+                                             f"acknowledged: {keys}")
+                    try:
+                        if cc is None:
+                            live = list(addrs)
+                            if not live:        # no leader known yet
+                                time.sleep(0.2)
+                                continue
+                            cc = ClusterClient(live[i % len(live)])
+                        cc.execute(stmt, timeout=CLUSTER_TIMEOUT_S)
+                        break
+                    except (ChainError, OSError):
+                        with lock:
+                            state["retries"] += 1
+                        if cc is not None:
+                            cc.close()
+                        cc, i = None, i + 1
+                        time.sleep(0.2)
+                with lock:
+                    acked.extend(keys)
+        except Exception as e:  # noqa: BLE001 (raised by the caller)
+            errors.append(e)
+        finally:
+            if cc is not None:
+                cc.close()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(w,), daemon=True)
+               for w in range(clients)]
+    for t in threads:
+        t.start()
+    while any(t.is_alive() for t in threads):
+        if during is not None:
+            with lock:
+                n = len(acked)
+            during(n)
+        for t in threads:
+            t.join(timeout=0.2 / len(threads))
+    if errors:
+        raise errors[0]
+    return {"acked": acked, "load_s": time.perf_counter() - t0,
+            "retries": state["retries"]}
+
+
+def cluster_reads(addr, keys, vecs, coll: str) -> dict:
+    """SIMILAR of each key's vector IN ``coll`` through a ClusterClient to
+    the node at ``addr``: keys whose own key is not first, and
+    latencies ms."""
+    from neumann_tpu_torch.chain.node import ClusterClient
+
+    cc = ClusterClient(addr)
+    lost, lat = [], []
+    try:
+        for k in keys:
+            t0 = time.perf_counter()
+            res = cc.execute(f"SIMILAR {vec_literal(vecs[int(k[1:])])} IN "
+                             f"{coll} TOP {TOP_K}", timeout=CLUSTER_TIMEOUT_S)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            hits = res.get("hits") or []
+            if not hits or hits[0]["key"] != k:
+                lost.append(k)
+        explain = cc.execute(f"EXPLAIN SIMILAR {vec_literal(vecs[0])} IN "
+                             f"{coll} TOP {TOP_K}")["rows"][0]["detail"]
+    finally:
+        cc.close()
+    m = re.search(r"\(kernel (\w+)\)", explain)
+    return {"lost": lost, "lat": lat, "kernel": m.group(1) if m else None}
+
+
+def collection_count(addr, coll: str) -> int:
+    from neumann_tpu_torch.chain.node import ClusterClient
+
+    cc = ClusterClient(addr)
+    try:
+        rows = cc.execute("SHOW COLLECTIONS",
+                          timeout=CLUSTER_TIMEOUT_S)["rows"]
+    finally:
+        cc.close()
+    return next((r["count"] for r in rows if r["name"] == coll), -1)
+
+
+def wait_counts(addrs, coll: str, n: int, what: str) -> float:
+    """Seconds until every node at ``addrs`` holds n rows in ``coll``."""
+    from neumann_tpu_torch.utils.errors import ChainError
+
+    t0 = time.perf_counter()
+    while True:
+        try:
+            counts = [collection_count(a, coll) for a in addrs]
+        except (ChainError, OSError):   # a node still starting
+            counts = [-1]
+        if min(counts) >= n:
+            return time.perf_counter() - t0
+        if time.perf_counter() - t0 > CLUSTER_DEADLINE_S:
+            raise AssertionError(f"[18] {what}: {counts} of {n} rows after "
+                                 f"{CLUSTER_DEADLINE_S} s")
+        time.sleep(0.25)
+
+
+def run_cluster(dev, vecs: np.ndarray, on_card: bool) -> dict:
+    """Phase 18c: three TcpClusterNodes in this process over localhost
+    sockets, each router on ``dev``. A replicated CREATE COLLECTION …
+    QUANTIZATION int8 and EMBED BATCH … IN statements load ``vecs``
+    through the leader (every row through Raft), CLUSTER_CLIENTS
+    ClusterClients at once; then on every replica N_CLUSTER_SIMILAR
+    SIMILARs of loaded rows give their own keys first, each replica's
+    counted apart: row 4 (the int8 scan) launches on each."""
+    from neumann_tpu_torch.chain.node import ClusterClient, TcpClusterNode
+    from neumann_tpu_torch.chain.raft import RaftConfig
+    from neumann_tpu_torch.ops import kernels as tk
+
+    report = {}
+    ids = ("c0", "c1", "c2")
+    # the node CLI's Raft settings and 50 ms tick: heartbeats 150 ms
+    # apart (a 30 ms heartbeat resends each pending batch of statements,
+    # up to 64 of 16 KB, before its ack is back: the leader then spends
+    # its loop compressing frames and the load stalls)
+    nodes = {nid: TcpClusterNode(nid, {}, port=0, config=RaftConfig(),
+                                 seed=i, device=dev.type)
+             for i, nid in enumerate(ids)}
+    addrs = {nid: n.address for nid, n in nodes.items()}
+    try:
+        for nid, n in nodes.items():
+            n._peer_addrs = {p: addrs[p] for p in ids if p != nid}
+            n.raft.voters = set(ids)
+            n.start()
+        t0 = time.perf_counter()
+        while not any(n.is_leader() for n in nodes.values()):
+            if time.perf_counter() - t0 > 60:
+                raise AssertionError("[18c] no leader elected in 60 s")
+            time.sleep(0.05)
+        leader = next(nid for nid, n in nodes.items() if n.is_leader())
+        report["cluster_elect_s"] = time.perf_counter() - t0
+        cc = ClusterClient(addrs[leader])
+        try:
+            cc.execute(f"CREATE COLLECTION cl DIM {DIM} QUANTIZATION int8",
+                       timeout=CLUSTER_TIMEOUT_S)
+        finally:
+            cc.close()
+        load = cluster_load([addrs[leader]], embed_batches(vecs, "cl"),
+                            CLUSTER_CLIENTS)
+        report["cluster_load_s"] = load["load_s"]
+        report["cluster_acked_rows"] = len(load["acked"])
+        report["cluster_rows_per_s"] = len(load["acked"]) / load["load_s"]
+        report["cluster_retries"] = load["retries"]
+        report["cluster_replicas_s"] = wait_counts(
+            list(addrs.values()), "cl", len(vecs), "18c replicas")
+        keys = [f"r{i}" for i in range(0, len(vecs),
+                                       max(1, len(vecs)
+                                           // N_CLUSTER_SIMILAR))]
+        keys = keys[:N_CLUSTER_SIMILAR]
+        per = {}
+        for nid in ids:
+            tk.reset_launch_counts()
+            got = cluster_reads(addrs[nid], keys, vecs, "cl")
+            per[nid] = dict(lost=got["lost"], kernel=got["kernel"],
+                            p50_ms=float(np.percentile(got["lat"], 50)),
+                            launches=dict(tk.LAUNCHES))
+        report["cluster_replicas"] = per
+        report["launches_cluster"] = {
+            k: sum(p["launches"][k] for p in per.values())
+            for k in tk.LAUNCHES}
+    finally:
+        for n in nodes.values():
+            n.stop()
+    say(f"[18c] 3 nodes in one process (routers on {dev}): leader "
+        f"{leader} in {report['cluster_elect_s']:.2f} s; {len(vecs)} rows "
+        f"in EMBED BATCHes of {CLUSTER_BATCH_ROWS} (the Python parser on "
+        f"the native lexer's tokens) acknowledged in "
+        f"{report['cluster_load_s']:.1f} s "
+        f"({report['cluster_rows_per_s']:.1f} rows/s, "
+        f"{CLUSTER_CLIENTS} clients, {report['cluster_retries']} retries), "
+        f"every replica whole {report['cluster_replicas_s']:.2f} s later; "
+        f"reads by replica {per}")
+    bad = {nid: p["lost"] for nid, p in per.items() if p["lost"]}
+    if bad:
+        raise AssertionError(f"[18c] own keys not first on replicas: {bad}")
+    if on_card:
+        for nid, p in per.items():
+            require_launches(p["launches"], ("int8_dot_scores",),
+                             f"18c {nid}")
+    return report
+
+
+class NodeProcess:
+    """A ``python -m neumann_tpu_torch.chain.node`` process of this
+    checkout, its output in ``log_dir``."""
+
+    def __init__(self, nid: str, port: int, peers: str, wal_dir: str,
+                 device: str, log_dir: str):
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [root] + [p for p in [env.get("PYTHONPATH")] if p])
+        self.nid = nid
+        self.args = [sys.executable, "-m", "neumann_tpu_torch.chain.node",
+                     "--id", nid, "--port", str(port), "--peers", peers,
+                     "--wal-dir", wal_dir, "--device", device]
+        self.log_path = os.path.join(log_dir, f"node_{nid}.log")
+        self.env, self.cwd = env, root
+        self.proc = None
+        self.start()
+
+    def start(self) -> None:
+        with open(self.log_path, "a") as log:
+            self.proc = subprocess.Popen(
+                self.args, cwd=self.cwd, env=self.env, stdout=log,
+                stderr=subprocess.STDOUT)
+
+    def state(self) -> Optional[str]:
+        with open(self.log_path) as f:
+            found = re.findall(r"state=(\w+)", f.read())
+        return found[-1] if found else None
+
+    def kill(self) -> None:
+        self.proc.kill()
+        self.proc.wait(timeout=30)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=10)
+
+
+def run_cluster_processes(dev, vecs: np.ndarray, on_card: bool) -> dict:
+    """Phase 18d: three node processes on the one card (``--wal-dir``
+    each); CLUSTER_CLIENTS ClusterClients load ``vecs`` by acknowledged
+    EMBED BATCHes through the leader (the node a status line names:
+    statements a follower forwards stall the leader, ROADMAP §2 tuning
+    item 10); the leader is SIGKILLed when half the rows are
+    acknowledged, and the clients move to the node elected after it.
+    Every acknowledged key is then read back by
+    SIMILAR, its own key first, from both surviving nodes; the killed
+    node, restarted from its WAL dir, catches up and answers the same.
+    EXPLAIN SIMILAR … IN on each node names row 4's kernel (the node
+    processes' launch counts are out of this script's reach)."""
+    report = {}
+    ids = ("p0", "p1", "p2")
+    ports = free_ports(3)
+    addrs = {nid: ("127.0.0.1", ports[i]) for i, nid in enumerate(ids)}
+    work = tempfile.mkdtemp(prefix="neumann_cluster_")
+    log_dir = "chiprun_out" if on_card else work
+    os.makedirs(log_dir, exist_ok=True)
+    procs = {}
+    try:
+        for i, nid in enumerate(ids):
+            peers = ",".join(f"{p}=127.0.0.1:{ports[j]}"
+                             for j, p in enumerate(ids) if p != nid)
+            procs[nid] = NodeProcess(nid, ports[i], peers,
+                                     os.path.join(work, nid), dev.type,
+                                     log_dir)
+        t0 = time.perf_counter()
+        while True:
+            states = {nid: p.state() for nid, p in procs.items()}
+            if "leader" in states.values():
+                break
+            dead = [nid for nid, p in procs.items()
+                    if p.proc.poll() is not None]
+            if dead or time.perf_counter() - t0 > 120:
+                raise AssertionError(f"[18d] no leader: states {states}, "
+                                     f"exited {dead}")
+            time.sleep(0.25)
+        report["cluster_proc_start_s"] = time.perf_counter() - t0
+        from neumann_tpu_torch.chain.node import ClusterClient
+
+        first = next(n for n, s in states.items() if s == "leader")
+        cc = ClusterClient(addrs[first])
+        try:
+            cc.execute(f"CREATE COLLECTION cl DIM {DIM} QUANTIZATION int8",
+                       timeout=CLUSTER_TIMEOUT_S)
+        finally:
+            cc.close()
+        live = [addrs[first]]
+        killed = {}
+
+        def kill_leader(n_acked: int) -> None:
+            if not killed and n_acked >= len(vecs) // 2:
+                procs[first].kill()
+                live.clear()
+                killed.update(nid=first, at_rows=n_acked,
+                              t=time.perf_counter())
+            elif killed and not live:
+                new = [nid for nid in ids if nid != first
+                       and procs[nid].state() == "leader"]
+                if new:
+                    live.append(addrs[new[0]])
+                    killed["new_leader_s"] = (time.perf_counter()
+                                              - killed["t"])
+
+        load = cluster_load(live, embed_batches(vecs, "cl"),
+                            CLUSTER_CLIENTS, during=kill_leader)
+        if not killed:
+            raise AssertionError("[18d] the leader was never killed")
+        acked = sorted(set(load["acked"]), key=lambda k: int(k[1:]))
+        report.update(cluster_kill_load_s=load["load_s"],
+                      cluster_kill_acked_rows=len(acked),
+                      cluster_kill_rows_per_s=len(acked) / load["load_s"],
+                      cluster_kill_retries=load["retries"],
+                      cluster_killed=killed["nid"],
+                      cluster_killed_at_rows=killed["at_rows"],
+                      cluster_new_leader_s=killed.get("new_leader_s"))
+        survivors = [nid for nid in ids if nid != killed["nid"]]
+        report["cluster_survivors_whole_s"] = wait_counts(
+            [addrs[n] for n in survivors], "cl", len(acked),
+            "18d survivors")
+        reads = {}
+        with ThreadPoolExecutor(len(survivors)) as pool:
+            for nid, got in zip(survivors, pool.map(
+                    lambda n: cluster_reads(addrs[n], acked, vecs, "cl"),
+                    survivors)):
+                reads[nid] = got
+        t0 = time.perf_counter()
+        procs[killed["nid"]].start()
+        report["cluster_restart_catchup_s"] = wait_counts(
+            [addrs[killed["nid"]]], "cl", len(acked), "18d restarted node")
+        reads[killed["nid"]] = cluster_reads(addrs[killed["nid"]], acked,
+                                             vecs, "cl")
+        report["cluster_restart_s"] = time.perf_counter() - t0
+        report["cluster_kill_reads"] = {
+            nid: dict(lost=len(r["lost"]), kernel=r["kernel"],
+                      p50_ms=float(np.percentile(r["lat"], 50)))
+            for nid, r in reads.items()}
+    finally:
+        for p in procs.values():
+            p.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    say(f"[18d] 3 node processes (routers on {dev.type}) up in "
+        f"{report['cluster_proc_start_s']:.1f} s; {len(acked)} rows "
+        f"acknowledged in {report['cluster_kill_load_s']:.1f} s "
+        f"({report['cluster_kill_rows_per_s']:.1f} rows/s, "
+        f"{report['cluster_kill_retries']} retries), leader "
+        f"{killed['nid']} SIGKILLed at {killed['at_rows']} rows, a new "
+        f"leader named {killed.get('new_leader_s')} s later; "
+        f"survivors whole {report['cluster_survivors_whole_s']:.2f} s after"
+        f" the load; the restarted node caught up in "
+        f"{report['cluster_restart_catchup_s']:.1f} s; reads "
+        f"{report['cluster_kill_reads']}")
+    lost = {nid: r["lost"][:5] for nid, r in reads.items() if r["lost"]}
+    if lost or len(acked) != len(vecs):
+        raise AssertionError(f"[18d] acknowledged keys lost: {lost}, "
+                             f"{len(acked)} of {len(vecs)} acknowledged")
+    wrong = {nid: r["kernel"] for nid, r in reads.items()
+             if r["kernel"] != "int8_dot_scores"}
+    if wrong:
+        raise AssertionError(f"[18d] EXPLAIN names another kernel: {wrong}")
+    return report
+
+
+def run_chain_cluster(args, dev, centres, s_consensus, s_cluster,
+                      on_card: bool) -> dict:
+    """Phases 18b-18d (18a runs at the end of phases 7-9)."""
+    report = {}
+    t0 = time.perf_counter()
+    report.update(run_consensus(dev, s_consensus, on_card))
+    vecs = mixture(CLUSTER_ROWS, centres, s_cluster)
+    report.update(run_cluster(dev, vecs, on_card))
+    report.update(run_cluster_processes(dev, vecs, on_card))
+    report["phase18bcd_s"] = time.perf_counter() - t0
+    return report
+
+
 def kernels_line(report: dict) -> dict:
     """The kernels JSON line: per kernel its time, its plain version's,
     its bound and roofline share, the library call's time (or null and
@@ -4459,7 +5207,18 @@ def main() -> int:
         "delta_first_search_after_compact_ms", "delta_before_p50_ms",
         "delta_after_p50_ms", "delta_before_batch_qps",
         "delta_after_batch_qps", "delta_before_recall", "delta_after_recall",
-        "delta_recall_drop", "delta_added_first", "phase17_s", "total_s")}
+        "delta_recall_drop", "delta_added_first", "phase17_s",
+        "chain_init_s", "chain_store_keys", "chain_embed_s",
+        "chain_commit_ms", "chain_rollback_ms",
+        "chain_first_similar_after_commit_ms",
+        "chain_first_similar_after_rollback_ms", "chain_similar_p50_ms",
+        "chain_rollback_mismatches", "consensus_call_ms",
+        "consensus_kernel", "consensus_mismatches",
+        "consensus_near_threshold_pairs", "consensus_class_counts",
+        "cluster_load_s", "cluster_rows_per_s", "cluster_replicas_s",
+        "cluster_kill_load_s", "cluster_kill_rows_per_s",
+        "cluster_restart_catchup_s", "cluster_kill_reads", "phase18a_s",
+        "phase18bcd_s", "total_s")}
     for part in ("ivf", "pooled", "int8", "binary"):
         for k in ("p50_ms", "p99_ms", "qps", "batches", "mean_cohort",
                   "recall"):

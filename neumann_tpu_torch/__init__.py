@@ -15,7 +15,10 @@ hybrid ``SIMILAR … CONNECTED TO`` / FIND queries); the vector engine's
 storage, namespaces and collections (f32, int8 and binary), the exact
 scan, the brute-force pooled routes, the int8 windowed IVF index, and
 the CUDA kernels they run (``csrc/``, built at first use;
-``ops/kernels.py``).
+``ops/kernels.py``); the extended modules (checkpoints, blobs, the LLM
+cache, the vault) and the chain and cluster (``chain/``: chain
+transactions, Raft, 2PC, gossip, cluster nodes whose routers run on the
+card).
 
 TF32 is switched off for float32 matrix products: the IVF build assigns
 rows to windows by an f32 argmax whose margins are correctness-coupled

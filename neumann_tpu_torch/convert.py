@@ -31,6 +31,18 @@ graph (through its bytes), so the same lookups give the same answers.
 Checkpoint directories need no converter: ``index.json`` and the
 snapshots are the same bytes in both packages.
 
+``chain_from_jax(jax_chain, store)`` gives the port a JAX
+``TensorChain`` over ``store`` (a port store holding the same rows): its
+blocks (hashes, signatures and codebook codes as they are), its
+codebooks (the global book's codes and anomaly threshold, each domain's
+local book and usage, the deltas still waiting to train it, the
+transition log), its consensus settings, signing key, counters and next
+transaction id, so CHAIN VERIFY, HEIGHT, HISTORY and the codebook
+statements answer alike, and the next commit appends the same block.
+The state root is the port chain's own, seeded from ``store``: equal to
+the JAX chain's when the stores hold the same rows. A Raft node's WAL
+directory needs no converter: both packages write the same bytes.
+
 ``router_from_files(wal_path, snapshot_path, device)`` gives a port
 ``QueryRouter`` over a store that the JAX package's router wrote (its
 ``checkpoint`` snapshot and the WAL after it; both packages write the
@@ -40,6 +52,8 @@ rebuilds the unified engine's key -> node map from the recovered graph.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 
@@ -204,3 +218,58 @@ def router_from_files(wal_path, snapshot_path=None, device="cuda"):
     router = QueryRouter(device=device)
     router.recover(wal_path, snapshot_path=snapshot_path)
     return router
+
+
+def chain_from_jax(jax_chain, store):
+    """A port ``TensorChain`` over ``store`` carrying a JAX chain's
+    state (module docstring)."""
+    import itertools
+    import re
+
+    from neumann_tpu_torch.chain.block import Block
+    from neumann_tpu_torch.chain.codebook import (
+        GlobalCodebook,
+        LocalCodebook,
+    )
+    from neumann_tpu_torch.chain.consensus import ConsensusConfig
+    from neumann_tpu_torch.chain.tensor_chain import TensorChain
+
+    cfg = jax_chain.consensus
+    chain = TensorChain(store, jax_chain.embedding_dim,
+                        ConsensusConfig(**vars(cfg)),
+                        signing_key=jax_chain.chain._key)
+    chain.chain._blocks = [Block(
+        height=b.height, prev_hash=b.prev_hash, timestamp=b.timestamp,
+        transactions=copy.deepcopy(b.transactions),
+        state_root=b.state_root,
+        delta_embedding=(None if b.delta_embedding is None
+                         else list(b.delta_embedding)),
+        signature=b.signature, codebook_code=b.codebook_code)
+        for b in jax_chain.chain.blocks()]
+    src, dst = jax_chain.codebooks, chain.codebooks
+    dst.n_codes, dst.train_after = src.n_codes, src.train_after
+    dst._buffer = [(h, np.array(d, np.float32)) for h, d in src._buffer]
+    dst.transitions = copy.deepcopy(src.transitions)
+    gb = src.global_book
+    if gb is not None:
+        book = GlobalCodebook(gb.dim, gb.n_codes)
+        book.codes = None if gb.codes is None else np.array(gb.codes,
+                                                           np.float32)
+        book._threshold = gb._threshold
+        dst.global_book = book
+        for domain, lb in src.locals.items():
+            local = LocalCodebook(book, lb.ema)
+            local.codes = None if lb.codes is None else np.array(
+                lb.codes, np.float32)
+            local.usage = np.array(lb.usage, np.int64)
+            dst.locals[domain] = local
+    chain._code_sync = getattr(jax_chain, "_code_sync", 0)
+    # itertools.count shows its next value only in its repr
+    nxt = int(re.fullmatch(r"count\((\d+)\)", repr(jax_chain._tx_ids))
+              .group(1))
+    chain._tx_ids = itertools.count(nxt)
+    for name in ("commits", "rollbacks", "conflicts_rejected",
+                 "auto_merges", "blocks"):
+        setattr(chain.metrics, name, getattr(jax_chain.metrics, name))
+    return chain
+

@@ -18,6 +18,11 @@ Executes, against the port's engines on the router's ``device``
   call, so the router imports without ``cryptography``): VAULT, CACHE,
   BLOB, BLOBS, CHECKPOINT, CHECKPOINTS and ROLLBACK; with a checkpoint
   manager, destructive statements take an automatic checkpoint first;
+* the chain (``init_chain``, or the first BEGIN CHAIN TRANSACTION):
+  chain transactions journaled at the store, COMMIT / ROLLBACK CHAIN and
+  the chain's views; CLUSTER CONNECT makes the router a gateway to a
+  ``chain/node.py`` cluster, CLUSTER STATUS / NODES / LEADER read an
+  attached ``cluster``;
 * EXPLAIN: the plan of a statement without running it;
 * ``execute_many`` and cursor pagination (``execute_paginated``);
 * serving: ``warmup`` and, once a caller enables it, batched serving
@@ -32,9 +37,9 @@ TPU hardware. The query cache is a dict of the router's (statement text
 next write, where the JAX cache keeps results in the LLM cache, answers
 from its semantic layer and keeps them across writes. ROLLBACK reloads
 each corpus from row 0 (``VectorEngine.restoring``) and rebuilds the
-unified engine's key -> node map, as ``recover`` does. CHAIN and
-CLUSTER parse but raise ``NeumannError`` naming their ROADMAP item, and
-so do the planner and ``init_chain``.
+unified engine's key -> node map, as ``recover`` does. The
+distributed planner (``attach_planner``) raises ``NeumannError`` naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -71,13 +76,6 @@ from neumann_tpu_torch.router.cursor_store import CursorError, CursorStore
 from neumann_tpu_torch.store.tensor_store import TensorStore
 from neumann_tpu_torch.utils.errors import NeumannError, VectorError
 from neumann_tpu_torch.utils.observability import QueryMetrics
-
-# statements that parse but have no handler yet -> their ROADMAP item
-_UNPORTED = {
-    "Chain": "11, chain",
-    "Cluster": "11, chain",
-}
-
 
 def _not_ported(what: str, item: str):
     raise NeumannError(
@@ -214,6 +212,16 @@ class QueryRouter:
         # enabled by a server before it takes traffic
         self._batchers = None
         self._batcher_wait_ms = 2.0
+        # the chain (init_chain) and its open statement-level transaction
+        self.chain = None
+        self._chain_tx = None
+        self._tx_undo: list = []
+        self._tx_ops: list = []
+        # CLUSTER CONNECT's client, and a cluster a caller attaches for
+        # CLUSTER STATUS / NODES / LEADER
+        self.cluster_client = None
+        self.cluster = None
+        self.cluster_read_mode = "forward"
 
     def recover(self, wal_path, snapshot_path=None) -> int:
         """Recover the store from a snapshot + WAL (``TensorStore.
@@ -296,12 +304,14 @@ class QueryRouter:
 
         self.checkpoints = CheckpointManager(self.store, directory, **kw)
 
+    def init_chain(self, embedding_dim: int = 64, **kw) -> None:
+        from neumann_tpu_torch.chain import TensorChain
+
+        self.chain = TensorChain(self.store, embedding_dim, **kw)
+
     # -- not ported yet ------------------------------------------------------
     def attach_planner(self, *args, **kwargs):
         _not_ported("distributed planning", "12, mesh")
-
-    def init_chain(self, *args, **kwargs):
-        _not_ported("the chain", "11, chain")
 
     # -- entry points ---------------------------------------------------------
     def execute(self, query: str) -> QueryResult:
@@ -314,6 +324,10 @@ class QueryRouter:
             else:
                 stmt = parse_cached(query)
                 kind = type(stmt).__name__
+                cc = self.cluster_client
+                if cc is not None and not self._reads_stay_local(stmt) \
+                        and not isinstance(stmt, (ast.Cluster, ast.Empty)):
+                    return self._execute_remote(cc, query, kind, t0)
                 out = self._try_cache_get(kind, query)
                 if out is None:
                     writes = self.vector.writes
@@ -372,6 +386,42 @@ class QueryRouter:
                 del cache[next(iter(cache))]
             cache[query] = copy.deepcopy(result)
 
+    def _execute_remote(self, cc, query: str, kind: str,
+                        t0: float) -> QueryResult:
+        """Under CLUSTER CONNECT: the statement runs on the cluster."""
+        remote = cc.execute(query, strong=True)
+        self.metrics.record(kind, (time.perf_counter() - t0) * 1e3,
+                            query=query)
+        return QueryResult(
+            kind=remote.get("kind", "message"),
+            message=remote.get("message") or "",
+            rows=remote.get("rows") or [],
+            count=remote.get("count"),
+            results=remote.get("hits") or [],
+            value=remote.get("value"))
+
+    # statements with no write side anywhere in their execution path —
+    # safe to serve from local replicated state under CLUSTER CONNECT
+    _READ_ONLY_STMTS = (
+        ast.Select, ast.ShowTables, ast.Describe, ast.NodeGet,
+        ast.NodeList, ast.EdgeGet, ast.EdgeList, ast.Neighbors,
+        ast.Path, ast.PageRank, ast.GraphAlgorithm, ast.GraphPattern,
+        ast.GraphAggregate, ast.EmbedGet, ast.Similar,
+        ast.ShowEmbeddings, ast.CountEmbeddings, ast.ShowCollections,
+        ast.Find, ast.EntityGet, ast.Blobs, ast.Checkpoints,
+        ast.Explain)
+
+    def _reads_stay_local(self, stmt) -> bool:
+        """Gateway read policy. ``cluster_read_mode``:
+        - "forward" (default): everything ships to the cluster — right
+          for thin clients whose local store is empty;
+        - "local": read-only statements execute against local state —
+          right for routers embedded in a cluster NODE, where the
+          store is Raft-replicated (eventual consistency on
+          followers, like the reference's follower reads)."""
+        return (self.cluster_read_mode == "local"
+                and isinstance(stmt, self._READ_ONLY_STMTS))
+
     def _execute_cypher(self, query: str) -> QueryResult:
         q = parse_cypher(query)
         if q.kind in ("create", "merge") or q.delete_vars:
@@ -421,8 +471,7 @@ class QueryRouter:
         name = type(stmt).__name__
         handler = getattr(self, f"_exec_{name.lower()}", None)
         if handler is None:
-            _not_ported(f"statement {name}",
-                        _UNPORTED.get(name, "router statements"))
+            raise NeumannError(f"statement {name} not yet executable")
         return handler(stmt)
 
     def _exec_createtable(self, s: ast.CreateTable) -> QueryResult:
@@ -1624,6 +1673,194 @@ class QueryRouter:
         # an entity again)
         self.unified.rebuild_index()
         return QueryResult.msg(f"rolled back to {c['id']}")
+
+    # -- statement-level chain transactions ----------------------------
+    # Statements between BEGIN CHAIN TRANSACTION and COMMIT/ROLLBACK
+    # write through the engines as usual, but every store mutation is
+    # journaled with its prior value (the store is the authoritative
+    # state; engine device slabs resync through the store's hooks), so
+    # ROLLBACK CHAIN restores the pre-transaction state and COMMIT
+    # CHAIN records the touched keys in the block. Parity:
+    # tensor_chain/src/transaction.rs workspace semantics at the
+    # query-router level. The journal is router-scoped, like the
+    # transaction itself.
+
+    def _tx_journal_start(self) -> None:
+        store = self.store
+        undo: list = []
+        self._tx_undo = undo
+        self._tx_ops: list = []
+        orig_put, orig_delete = store.put, store.delete
+
+        def tx_put(key, data, _p=orig_put, _s=store):
+            undo.append(("put", key, _s.get(key)))
+            self._tx_ops.append({"op": "put", "key": key})
+            _p(key, data)
+
+        def tx_delete(key, _d=orig_delete, _s=store):
+            old = _s.get(key)
+            ok = _d(key)
+            if ok:
+                undo.append(("delete", key, old))
+                self._tx_ops.append({"op": "delete", "key": key})
+            return ok
+
+        store.put = tx_put
+        store.delete = tx_delete
+        self._tx_orig = (orig_put, orig_delete)
+
+    def _tx_journal_detach(self) -> None:
+        store = self.store
+        for attr in ("put", "delete"):
+            store.__dict__.pop(attr, None)
+        self._tx_orig = None
+
+    def _tx_journal_stop(self, commit_into=None) -> None:
+        self._tx_journal_detach()
+        if commit_into is not None:
+            commit_into.ops.extend(self._tx_ops)
+        self._tx_undo = []
+        self._tx_ops = []
+
+    def _tx_journal_abort(self) -> None:
+        self._tx_journal_detach()
+        store = self.store
+        for kind, key, old in reversed(self._tx_undo):
+            if kind == "put":
+                if old is None:
+                    store.delete(key)
+                else:
+                    store.put(key, old)
+            else:                          # a delete: restore the row
+                store.put(key, old)
+        self._tx_undo = []
+        self._tx_ops = []
+
+    def _exec_chain(self, s: ast.Chain) -> QueryResult:
+        chain = self.chain
+        if s.action == "begin":
+            if chain is None:
+                self.init_chain()
+                chain = self.chain
+            self._chain_tx = chain.begin()
+            self._tx_journal_start()
+            return QueryResult.msg(
+                f"chain transaction {self._chain_tx.tx_id} started")
+        if chain is None:
+            raise NeumannError("chain not initialized — "
+                               "BEGIN CHAIN TRANSACTION first")
+        if s.action == "commit":
+            tx = self._chain_tx
+            if tx is None:
+                raise NeumannError("no open chain transaction")
+            self._tx_journal_stop(commit_into=tx)
+            h = chain.commit(tx)
+            self._chain_tx = None
+            return QueryResult.msg(f"committed block {h - 1} "
+                                   f"(height {h})")
+        if s.action == "abort":
+            tx = self._chain_tx
+            if tx is None:
+                raise NeumannError("no open chain transaction")
+            self._tx_journal_abort()
+            chain.rollback(tx)
+            self._chain_tx = None
+            return QueryResult.msg(f"chain transaction {tx.tx_id} "
+                                   f"aborted")
+        if s.action == "rollback":
+            n = chain.rollback_to(s.height or 0)
+            return QueryResult.msg(f"chain rolled back {n} block(s)")
+        if s.action == "height":
+            return QueryResult.of_count(chain.height)
+        if s.action == "tip":
+            tip = chain.tip()
+            return QueryResult.of_rows([tip.to_dict()] if tip else [])
+        if s.action == "block":
+            blk = chain.get_block(s.height)
+            if blk is None:
+                return QueryResult.msg(f"no block {s.height}")
+            return QueryResult.of_rows([blk.to_dict()])
+        if s.action == "verify":
+            return QueryResult.msg(
+                "chain OK" if chain.verify() else "chain CORRUPT")
+        if s.action == "history":
+            return QueryResult.of_rows(chain.history(s.key))
+        if s.action == "similar":
+            return QueryResult.of_rows(
+                chain.similar_blocks(s.embedding, s.limit or 5))
+        if s.action == "drift":
+            return QueryResult.of_rows(
+                [chain.drift(s.from_height, s.to_height)])
+        if s.action == "stats":
+            return QueryResult.of_rows([chain.metrics.snapshot()])
+        if s.action == "show_codebook_global":
+            return QueryResult.of_rows([chain.codebooks.info("global")])
+        if s.action == "show_codebook_local":
+            return QueryResult.of_rows(
+                [chain.codebooks.info("local", s.key)])
+        if s.action == "analyze_transitions":
+            return QueryResult.of_rows(
+                [chain.codebooks.analyze_transitions()])
+        raise NeumannError(f"chain action {s.action} unsupported")
+
+    def _exec_cluster(self, s: ast.Cluster) -> QueryResult:
+        cluster = self.cluster
+        if s.action == "connect":
+            # become a gateway: subsequent statements forward to the
+            # cluster node at this address (reference: shell CLUSTER
+            # CONNECT routes queries through the cluster)
+            from neumann_tpu_torch.chain.node import ClusterClient
+
+            addr = (s.address or "").rpartition("@")[2]  # drop 'id@'
+            host, _, port = addr.rpartition(":")
+            if not host or not port.isdigit():
+                raise NeumannError(
+                    f"CLUSTER CONNECT expects '[id@]host:port', got "
+                    f"{s.address!r}")
+            try:
+                self.cluster_client = ClusterClient((host, int(port)))
+            except OSError as e:
+                raise NeumannError(
+                    f"cannot reach cluster node at {addr}: {e}") from e
+            return QueryResult.msg(
+                f"connected to cluster node at {s.address}; statements "
+                "now execute on the cluster (CLUSTER DISCONNECT to "
+                "detach)")
+        if s.action == "disconnect":
+            cc = self.cluster_client
+            if cc is not None:
+                cc.close()
+                self.cluster_client = None
+            was = cluster is not None or cc is not None
+            self.cluster = None
+            return QueryResult.msg("disconnected" if was
+                                   else "not connected to a cluster")
+        if cluster is None:
+            return QueryResult.msg("not connected to a cluster")
+        if s.action == "status":
+            statuses = {
+                nid: n.gossip.partition_status()
+                for nid, n in cluster.nodes.items()
+                if getattr(n, "gossip", None) is not None}
+            row = {"leader": cluster.leader(),
+                   "nodes": len(cluster.nodes)}
+            if statuses:
+                # membership.rs PartitionStatus: any node seeing quorum
+                # makes the cluster writable
+                vals = set(statuses.values())
+                row["partition"] = (
+                    "quorum_reachable" if "quorum_reachable" in vals
+                    else "stalemate" if "stalemate" in vals
+                    else "quorum_lost" if "quorum_lost" in vals
+                    else "unknown")
+            return QueryResult.of_rows([row])
+        if s.action == "nodes":
+            return QueryResult.of_rows([
+                {"id": nid, "state": n.raft.state, "term": n.raft.term}
+                for nid, n in cluster.nodes.items()])
+        if s.action == "leader":
+            return QueryResult.of_value(cluster.leader())
+        raise NeumannError(f"cluster action {s.action} unsupported")
 
     def _exec_explain(self, s: ast.Explain) -> QueryResult:
         """EXPLAIN <statement>: the execution plan, without executing.

@@ -4,7 +4,9 @@ encoding of results and the JSON filter syntax, which the REST facade
 
 The gRPC server itself (``NeumannServer``, ``main``) needs ``grpcio``
 and ``protobuf`` and is not ported yet: both raise ``NeumannError``
-naming ROADMAP item 4's gRPC half.
+naming ROADMAP item 4's gRPC half. ``generate_self_signed`` (a TLS
+certificate for the chain's transport, as for the gRPC server) is the
+JAX function, importing ``cryptography`` at the call.
 """
 
 from __future__ import annotations
@@ -73,3 +75,37 @@ def main(argv=None) -> int:
     raise NeumannError("the gRPC server is not ported to the PyTorch "
                        f"package yet (ROADMAP: {_GRPC_ITEM}); serve over "
                        "REST with neumann_tpu_torch.server.RestServer")
+
+
+def generate_self_signed(host: str = "127.0.0.1"):
+    """(cert_pem, key_pem) — parity with the reference's rcgen TLS."""
+    import datetime
+    import ipaddress
+
+    from cryptography import x509
+    from cryptography.hazmat.primitives import hashes, serialization
+    from cryptography.hazmat.primitives.asymmetric import ec
+    from cryptography.x509.oid import NameOID
+
+    key = ec.generate_private_key(ec.SECP256R1())
+    name = x509.Name([x509.NameAttribute(NameOID.COMMON_NAME,
+                                         "neumann-tpu")])
+    try:
+        san = x509.SubjectAlternativeName(
+            [x509.IPAddress(ipaddress.ip_address(host))])
+    except ValueError:
+        san = x509.SubjectAlternativeName([x509.DNSName(host)])
+    now = datetime.datetime.now(datetime.timezone.utc)
+    cert = (x509.CertificateBuilder()
+            .subject_name(name).issuer_name(name)
+            .public_key(key.public_key())
+            .serial_number(x509.random_serial_number())
+            .not_valid_before(now)
+            .not_valid_after(now + datetime.timedelta(days=365))
+            .add_extension(san, critical=False)
+            .sign(key, hashes.SHA256()))
+    return (cert.public_bytes(serialization.Encoding.PEM),
+            key.private_bytes(
+                serialization.Encoding.PEM,
+                serialization.PrivateFormat.PKCS8,
+                serialization.NoEncryption()))

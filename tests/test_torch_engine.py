@@ -149,17 +149,14 @@ def test_storage_statements_match_jax(routers):
 
 
 def test_unported_statements_raise(routers, tmp_path):
-    """The chain and the planner still raise naming their ROADMAP item;
-    the extended modules' statements and ``init_*`` answer as the JAX
+    """The planner still raises naming its ROADMAP item; the extended
+    modules' and the chain's statements and ``init_*`` answer as the JAX
     router's do."""
     jr, tr, _ = routers
     with pytest.raises(NeumannError, match="ROADMAP"):
-        tr.execute("CHAIN HEIGHT")
-    for call in (tr.attach_planner, tr.init_chain):
-        with pytest.raises(NeumannError, match="ROADMAP"):
-            call()
+        tr.attach_planner()
     stmts = ("VAULT GET 'x'", "CHECKPOINTS", "CACHE STATS",
-             "EXPLAIN SELECT * FROM t", "BLOB STATS")
+             "EXPLAIN SELECT * FROM t", "BLOB STATS", "CHAIN HEIGHT")
     mj, mt = fresh_routers()
     for stmt in stmts:                      # before init_*: errors alike
         run_both(mj, mt, stmt, fields=("kind", "rows", "message"))
@@ -168,8 +165,9 @@ def test_unported_statements_raise(routers, tmp_path):
         r.init_vault("pw")
         r.init_cache()
         r.init_blob()
+        r.init_chain()
     for stmt in stmts:
-        run_both(mj, mt, stmt, fields=("kind", "rows", "message"))
+        run_both(mj, mt, stmt, fields=("kind", "rows", "message", "count"))
     # pq and tt storage are ported: they answer as the JAX router does
     for quant in ("pq", "tt"):
         got = []
@@ -408,7 +406,8 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     then the pooled, int8 and binary routes, the 3,072-d binary
     collection and the hybrid query with their checks; the served
     auto-IVF and brute-force routes over HTTP; the shell; the pq and tt
-    collections and the ANN index APIs) at a toy size
+    collections and the ANN index APIs; the chain, the consensus
+    classification and the clusters of phase 18) at a toy size
     on the CPU; the kernel phase, the launch checks and the profiles need
     the card. 8 mixture centres
     instead of 4,096 so that 20,480 rows are clustered like the real
@@ -441,6 +440,10 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "CACHE_MIX", 100)
     # phase 17's TOP 65 and delta batches: 256 queries
     monkeypatch.setattr(chip_smoke, "PHASE17_BATCH", 256)
+    # phase 18: 256 chain keys, 512 deltas, clusters of 32 rows
+    monkeypatch.setattr(chip_smoke, "N_CHAIN_KEYS", 256)
+    monkeypatch.setattr(chip_smoke, "N_DELTAS", 512)
+    monkeypatch.setattr(chip_smoke, "CLUSTER_ROWS", 32)
     monkeypatch.setenv("NEUMANN_POOLED_MIN_ROWS", "1024")
     monkeypatch.setenv("NEUMANN_POOLED_MIN_POOLS", "64")
     cfg = TConfig(ivf_auto_threshold=10_000, ivf_auto_clusters=16,
@@ -510,3 +513,18 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     assert rep["cache_entries"] == 256
     assert rep["cache_exact_hit_rate"] == 0.5
     assert rep["launches_rollback"]["f32_pooled_bits"] == 0
+    # phase 18: ROLLBACK CHAIN restores the hits; the consensus codes
+    # equal float64 off the thresholds, every class present; every
+    # acknowledged row is read back first on each replica, after the
+    # leader's SIGKILL too, through the int8 scan
+    assert rep["chain_rollback_mismatches"] == 0
+    assert rep["chain_views"]["verify"] == "chain OK"
+    assert rep["consensus_mismatches"] == 0
+    assert min(rep["consensus_class_counts"]) > 0
+    assert rep["cluster_acked_rows"] == chip_smoke.CLUSTER_ROWS
+    assert all(not p["lost"] and p["kernel"] == "int8_dot_scores"
+               for p in rep["cluster_replicas"].values())
+    assert rep["cluster_kill_acked_rows"] == chip_smoke.CLUSTER_ROWS
+    assert all(r["lost"] == 0 and r["kernel"] == "int8_dot_scores"
+               for r in rep["cluster_kill_reads"].values())
+    assert len(rep["cluster_kill_reads"]) == 3

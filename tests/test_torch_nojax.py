@@ -11,13 +11,16 @@ legacy IVF index APIs, SQL, graph and Cypher
 statements, ``SIMILAR … CONNECTED TO`` and FIND, one REST ``/query``
 through ``neumann_tpu_torch.server.RestServer`` (batched serving on),
 one shell statement, a checkpoint and rollback, a blob, the LLM cache,
-EXPLAIN SIMILAR and the vault, with the native lexer and parser loaded,
+EXPLAIN SIMILAR and the vault, a chain transaction, the pairwise
+consensus classification and a cluster node built as
+``--device cpu``, with the native lexer and parser loaded,
 and fails if any module named ``neumann_tpu`` or ``neumann_tpu.*`` was
 loaded. A second subprocess blocks ``cryptography`` as well, as on the
 card's machine: the router and the shell import and run, and only
 ``init_vault`` fails. A scan of the sources (the server, the shell, the
 native loaders and the extended modules included) checks the same
-statically. The ``cuda`` tests need an
+statically (the chain's copies and the ``scripts/torch_*.py`` harnesses
+included). The ``cuda`` tests need an
 NVIDIA card with ``nvcc`` (the kernels build from csrc/ at first use);
 they skip elsewhere. Run them on the card with
 ``python -m pytest --noconftest tests/test_torch_nojax.py
@@ -159,6 +162,19 @@ _NOJAX = textwrap.dedent("""
     r.init_vault("pw")
     r.execute("VAULT SET 's' 'v'")
     assert r.execute("VAULT GET 's'").value == "v"
+    from neumann_tpu_torch.chain import classify_pairwise
+    from neumann_tpu_torch.chain.node import build_node
+    r.init_chain(embedding_dim=8)
+    r.execute("BEGIN CHAIN TRANSACTION")
+    r.execute(f"EMBED STORE 'k3' [{', '.join(map(str, v[7]))}]")
+    assert r.execute("COMMIT CHAIN").message.startswith("committed block 0")
+    assert r.execute("CHAIN VERIFY").message == "chain OK"
+    pairs = classify_pairwise(np.stack([v[0], v[0], v[1]]),
+                              [{"a"}, {"a"}, {"b"}], device="cpu")
+    assert [c.value for _, _, c in pairs][0] == "identical", pairs
+    node, _ = build_node(["--id", "n0", "--port", "0", "--device", "cpu"])
+    assert node.router.vector.device.type == "cpu"
+    node.stop()
     bad = [m for m, mod in sys.modules.items()
            if mod is not None and (m == "jax" or m.startswith("jax.")
                or m == "neumann_tpu" or m.startswith("neumann_tpu."))]
@@ -229,19 +245,27 @@ def test_router_imports_without_cryptography():
 
 
 def _imported_roots(path: Path) -> set:
-    """Top-level packages a module imports, from its syntax tree."""
+    """Top-level packages a module imports, from its syntax tree
+    (``__import__("pkg...")`` and ``import_module("pkg...")`` too)."""
     roots = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
             roots.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             roots.add(node.module.split(".")[0])
+        elif isinstance(node, ast.Call) and node.args and \
+                isinstance(node.args[0], ast.Constant) and \
+                isinstance(node.args[0].value, str) and \
+                getattr(node.func, "id", getattr(node.func, "attr", None)) \
+                in ("__import__", "import_module"):
+            roots.add(node.args[0].value.split(".")[0])
     return roots
 
 
 def _port_sources() -> list:
     srcs = list((ROOT / "neumann_tpu_torch").rglob("*.py"))
     srcs.append(ROOT / "chip_smoke.py")
+    srcs += sorted((ROOT / "scripts").glob("torch_*.py"))
     names = {str(p.relative_to(ROOT)) for p in srcs}
     assert {"neumann_tpu_torch/native/pylexer.py",
             "neumann_tpu_torch/native/pyparser.py",
@@ -253,7 +277,12 @@ def _port_sources() -> list:
             "neumann_tpu_torch/cache/llm_cache.py",
             "neumann_tpu_torch/vault/vault.py",
             "neumann_tpu_torch/vault/scoped.py",
-            "neumann_tpu_torch/docs_cli.py"} <= names
+            "neumann_tpu_torch/docs_cli.py",
+            "neumann_tpu_torch/chain/node.py",
+            "neumann_tpu_torch/chain/consensus.py",
+            "neumann_tpu_torch/chain/jepsen.py",
+            "neumann_tpu_torch/store/delta_vector.py",
+            "scripts/torch_chain_phase.py"} <= names
     return srcs
 
 

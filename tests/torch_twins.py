@@ -2,12 +2,17 @@
 
 ``twin_tests("test_vault_depth")`` loads tests/test_vault_depth.py twice:
 once as written, and once with every ``neumann_tpu`` in its source
-replaced by ``neumann_tpu_torch`` (and ``QueryRouter()`` by the port's
-CPU router). For each of the file's tests it returns one test, of the
-same name, parametrised over ``package`` ("jax", "port"): the same
-scenario on the reference and on the port's copy of the modules it
-covers. The file's own fixtures are resolved per package; pytest's
-(``tmp_path``, ``monkeypatch``, ...) and its parametrisations carry over.
+replaced by ``neumann_tpu_torch``, and the port's entry points that run
+on the card by default asked for the CPU (``QueryRouter()``, the chain's
+``TcpClusterNode`` / ``build_node`` / ``classify_pairwise(_codes)``, and
+``python -m neumann_tpu_torch.chain.node``, whose nodes import this
+checkout); helpers it imports from another test file come from that
+file's port twin. For each of the file's tests it returns one test, of
+the same name, parametrised over ``package`` ("jax", "port", or those
+that ``packages`` names): the same scenario on the reference and on the
+port's copy of the modules it covers. The file's own fixtures are
+resolved per package; pytest's (``tmp_path``, ``monkeypatch``, ...) and
+its parametrisations carry over.
 A test module assigns the returned tests to its globals to have pytest
 collect them.
 """
@@ -15,8 +20,10 @@ collect them.
 from __future__ import annotations
 
 import contextlib
+import functools
 import inspect
 import re
+import sys
 import types
 from pathlib import Path
 
@@ -24,15 +31,39 @@ import pytest
 
 TESTS = Path(__file__).resolve().parent
 PACKAGES = ("jax", "port")
+# the port's entry points with a device argument that defaults to "cuda"
+_ON_CARD = r"\b(TcpClusterNode|build_node|classify_pairwise_codes|" \
+    r"classify_pairwise)\("
+
+
+def _on_cpu(fn):
+    """``fn``, a port entry point of ``_ON_CARD``, asked for the CPU."""
+    if fn.__name__ == "build_node":
+        return lambda argv: fn([*argv, "--device", "cpu"])
+    return functools.partial(fn, device="cpu")
 
 
 def _load(name: str, package: str) -> types.ModuleType:
     path = TESTS / f"{name}.py"
     src = path.read_text()
+    mod = types.ModuleType(f"_twin_{package}_{name}")
     if package == "port":
+        # helpers imported from another JAX test file come from its twin
+        for dep in sorted(set(re.findall(r"^from tests\.(test_\w+) import",
+                                         src, re.M))):
+            if f"_twin_port_{dep}" not in sys.modules:
+                sys.modules[f"_twin_port_{dep}"] = _load(dep, "port")
+        src = re.sub(r"^from tests\.(test_\w+) import",
+                     r"from _twin_port_\1 import", src, flags=re.M)
         src = re.sub(r"\bneumann_tpu\b", "neumann_tpu_torch", src)
         src = src.replace("QueryRouter()", 'QueryRouter(device="cpu")')
-    mod = types.ModuleType(f"_twin_{package}_{name}")
+        src = re.sub(_ON_CARD, r"_cpu(\1)(", src)
+        src = src.replace('"-m", "neumann_tpu_torch.chain.node",',
+                          '"-m", "neumann_tpu_torch.chain.node", '
+                          '"--device", "cpu",')
+        src = re.sub(r'(env\["PYTHONPATH"\] = )"[^"]*"',
+                     lambda m: m.group(1) + repr(str(TESTS.parent)), src)
+        mod._cpu = _on_cpu
     mod.__file__ = str(path)
     exec(compile(src, str(path), "exec"), mod.__dict__)
     return mod
@@ -58,11 +89,14 @@ def _fixture_value(mod, name: str, request, stack):
 
 
 def _twin(name: str, mods: dict):
-    jf = getattr(mods["jax"], name)
+    first = next(iter(mods.values()))
+    jf = getattr(first, name)
     sig = inspect.signature(jf)
     local = {p for p in sig.parameters
-             if _fixture(getattr(mods["jax"], p, None)) is not None}
-    outer = [p for p in sig.parameters.values() if p.name not in local]
+             if _fixture(getattr(first, p, None)) is not None}
+    # a parameter with a default is no fixture: the test's default holds
+    outer = [p for p in sig.parameters.values()
+             if p.name not in local and p.default is p.empty]
     if "request" not in sig.parameters:
         outer.append(inspect.Parameter(
             "request", inspect.Parameter.POSITIONAL_OR_KEYWORD))
@@ -81,15 +115,16 @@ def _twin(name: str, mods: dict):
     test.__signature__ = inspect.Signature([inspect.Parameter(
         "package", inspect.Parameter.POSITIONAL_OR_KEYWORD), *outer])
     test.pytestmark = [*getattr(jf, "pytestmark", []),
-                       pytest.mark.parametrize("package", PACKAGES)]
+                       pytest.mark.parametrize("package", tuple(mods))]
     return test
 
 
-def twin_tests(module: str, names=None) -> dict:
+def twin_tests(module: str, names=None, packages=PACKAGES) -> dict:
     """{test name: twin test} for the tests of tests/<module>.py (all of
-    them, or those whose names ``names`` lists)."""
-    mods = {pkg: _load(module, pkg) for pkg in PACKAGES}
-    found = [n for n, obj in vars(mods["jax"]).items()
+    them, or those whose names ``names`` lists), on each of ``packages``
+    (("port",) where the JAX side already runs in its own file)."""
+    mods = {pkg: _load(module, pkg) for pkg in packages}
+    found = [n for n, obj in vars(next(iter(mods.values()))).items()
              if n.startswith("test_") and inspect.isfunction(obj)]
     if names is not None:
         missing = set(names) - set(found)
