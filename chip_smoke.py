@@ -4,8 +4,9 @@ auto-IVF path, then the brute-force pooled, int8 and binary routes, PQ and
 TT collections and the ANN index APIs (IVF, HNSW, saved indexes), a
 checkpoint and rollback of a loaded store with blob storage and the LLM
 cache, then a 3,072-d binary collection, then the hybrid graph + vector
-query; serve the auto-IVF and brute-force corpora over HTTP to
-concurrent clients; run the shell.
+query; serve the auto-IVF and brute-force corpora over HTTP and over
+gRPC (Execute, the Points plane, gRPC-web) to concurrent clients; run
+the shell.
 
 Usage, from the root of a checkout, on a machine with one CUDA card and
 the CUDA toolkit (nvcc)::
@@ -155,7 +156,11 @@ Phases (each raises on failure; exit code 0 only if all pass):
     on the engine's codes, keys in order, every filtered hit in cat 3;
     the batch must be one select launch (launch counter) and allocate
     less than a quarter of its [Q, N] scores; row 8 timed in both modes
-    at the batch's launch shape, and one batch call profiled; then a
+    at the batch's launch shape, and one batch call profiled; a standing
+    check of its select mode at one query (``pq_select_repeat``: 10,880
+    launches over the 1,088 queries' own tables, each equal to the
+    scores mode + ``_topk_stable``, and a count of the queries whose
+    one-query tables differ from a batch's); then a
     ``QUANTIZATION tt`` collection of the
     first 262,144 rows (its first SIMILAR decomposes them on the card):
     16 singles and a batch of 256, hits equal to the exact scan of the
@@ -170,7 +175,7 @@ Phases (each raises on failure; exit code 0 only if all pass):
     storage (row 8's select mode, gathered, equal to its plain version)
     and the binary storage on 262,144 rows, row 8 timed in both modes at
     the shapes its batch and a single query launch; ``build_hnsw_index`` dense on
-    32,768 rows, quantized on 16,384 and binary on 8,192 (host inserts,
+    16,384 rows, quantized on 8,192 and binary on 4,096 (host inserts,
     one row a call, the three graphs built at once in threads: insert
     rate, p50, recall@10); ``save_index`` ->
     ``load_index`` on a fresh router gives the same hits, for HNSW and
@@ -224,6 +229,27 @@ Phases (each raises on failure; exit code 0 only if all pass):
     both survivors, and from the killed node once restarted from its
     WAL directory and caught up; EXPLAIN SIMILAR … IN on each names row
     4's kernel. The nodes' logs go to chiprun_out/node_*.log.
+19. serving over gRPC, right after 12a and 12b on their routers, each
+    part counted from its first served request: a ``NeumannServer`` on
+    127.0.0.1:0 started by ``serve()`` (the router's warm-up, which
+    raises on a failure; batched serving on), the native points codec
+    loaded (or the phase fails), ``Health`` naming the card. 19a (A): 32
+    client threads, a ``NeumannClient.connect`` channel each, send 1,024
+    ``SIMILAR [...] TOP 10`` through ``Execute`` (p50 / p99, QPS,
+    batches, mean cohort above 1, recall@10 >= 0.95; the card's idle
+    share from the same run under torch.profiler); one Points
+    ``QueryBatch`` of 1,024 equal to ``router.vector.batch_search`` on
+    the same matrix; rows 1 and 2 launch. 19b (B-D): the same ``Execute``
+    run on the default namespace (row 6); a ``PointsPipeline``
+    (QueryStream) of 1,024 pipelined queries on q8 answered through the
+    batcher's completion callback (row 5; every future resolves,
+    recall@10 >= 0.95); a ``QueryBatch`` of 1,024 on bits (row 7; ids
+    and distances of the plain hamming top-k, in order); 16 Points
+    queries with ``filter_json`` cat = 3 at once on the default
+    namespace (q8's rows hold no metadata; every hit in cat 3, recall
+    against the masked scan); 64 ``Execute`` over gRPC-web through a
+    ``RestServer(grpc_web=server)``, each equal to the same statement
+    sent alone over gRPC; rows 5, 6 and 7 launch.
 
 Every kernel must launch in the counted phases. After phase 4 it
 profiles 8 single SIMILARs and one batch (cProfile on the host,
@@ -405,7 +431,8 @@ SAMPLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "samples",
 # point of the port reaches it), each counted apart
 ROUTES = ("ivf", "top65", "top65_latency", "top1_direct", "delta",
           "pooled", "int8", "binary", "wide", "hybrid", "served_ivf",
-          "served_brute", "pq", "tt", "ann", "rollback", "chain", "cluster")
+          "served_brute", "pq", "tt", "ann", "rollback", "chain", "cluster",
+          "served_grpc_ivf", "served_grpc_brute")
 # phase 17 (on A's corpus): the TOP 65 batch (k_ivf 146 > 128, the
 # non-fast batched route), and an index over A's rows that takes 10 %
 # more rows through add (in chunks of 65,536) and loses 1 % of A's row
@@ -450,6 +477,8 @@ PQ_DESIGN = ("shared layout (full scan, Q >= 8): 8 queries and passes of "
              "across blocks by 64-bit atomicMax")
 # phase 14: SIMILARs above the select mode's k cap (the scores mode)
 N_PQ_TOP65 = 2
+# phase 14's standing check of row 8's select mode at one query
+PQ_REPEAT_LAUNCHES = 10_880
 PQ_TOP65 = 65
 # the CUDA kernels that each counted wrapper (kernels.LAUNCHES) runs once
 # a launch, by their names in a torch.profiler trace; a trace that holds
@@ -487,9 +516,11 @@ TT_RTOL = 1e-5
 # IVF_CHECKED queries a nprobe held to an exact scan of their probed
 # lists; IVFIndex's pq and binary storages on IVF_INDEX_ROWS rows; HNSW
 # graphs built on the host one row a call (the three at once, a thread
-# each), cut from 1,048,576 rows to what fits in about half the run's
-# time limit: on the card's host dense inserts ran at about 160 rows a
-# second at 32,768 rows, binary ones fell to 38 a second at 16,384
+# each), cut from 1,048,576 rows to what fits beside the other phases in
+# the run's time limit: on the card's host dense inserts ran at 130-160
+# rows a second at 32,768 rows, binary ones at 38-41 a second at 8,192
+# (251 s of phase at 32,768 / 16,384 / 8,192 rows, in a 1,081 s run),
+# so they build at half those sizes
 IVF_ROWS = 1 << 18
 IVF_CLUSTERS = 1024
 IVF_NPROBES = (8, 32)
@@ -497,9 +528,9 @@ IVF_CHECKED = 16
 IVF_INDEX_ROWS = 1 << 18
 IVF_INDEX_CLUSTERS = 256
 IVF_INDEX_NPROBE = 16
-HNSW_ROWS = 32_768
-HNSW_QUANT_ROWS = 16_384
-HNSW_BINARY_ROWS = 8192
+HNSW_ROWS = 16_384
+HNSW_QUANT_ROWS = 8192
+HNSW_BINARY_ROWS = 4096
 # phase 16: the extended modules. A router of its own holds the first
 # ROLLBACK_ROWS of phases 7-9's rows (default namespace, {"cat": i % 16};
 # cut from 1,048,576, where the phase took 218 s by
@@ -1715,6 +1746,9 @@ def run_ivf(args, dev, centres, s_corpus, s_queries, config,
         torch.cuda.empty_cache()
     # ---- phase 12a: served auto-IVF --------------------------------------
     report.update(serve_ivf(router, batch, oracle[N_SINGLE:], on_card))
+    # ---- phase 19a: the same served over gRPC -----------------------------
+    report.update(serve_grpc_ivf(router, batch, oracle[N_SINGLE:], dev,
+                                 on_card))
     return report
 
 
@@ -2459,6 +2493,10 @@ def run_brute(args, dev, centres, s_corpus, s_queries,
     report.update(serve_brute(
         router, batch, extra, oracle[N_SINGLE:N_SINGLE + N_BATCH], oracle_f,
         (ref[0][N_SINGLE:], ref[1][N_SINGLE:]), bits_c.index, on_card))
+    # ---- phase 19b: the same routes served over gRPC ----------------------
+    report.update(serve_grpc_brute(
+        router, batch, extra, oracle[N_SINGLE:N_SINGLE + N_BATCH], oracle_f,
+        (ref[0][N_SINGLE:], ref[1][N_SINGLE:]), bits_c.index, dev, on_card))
 
     # ---- phase 18a: chain transactions on this router ------------------
     t0 = time.perf_counter()
@@ -3468,6 +3506,73 @@ def key_rows(index, ids) -> list:
     return [[int(k[1:]) for k in index.keys_of(r)] for r in ids]
 
 
+def pq_select_repeat(book, codes, live, qd) -> dict:
+    """A standing check of row 8's select mode at the single query's
+    launch (Q 1, the lane layout, k 10, M 96) on phase 14's trained
+    codebook and codes: PQ_REPEAT_LAUNCHES launches, the queries' own
+    tables in turn (each query PQ_REPEAT_LAUNCHES / len(qd) times), each
+    held to the scores mode + ``_topk_stable`` on the same tables (scores
+    and columns equal). A launch that differs leaves its inputs in
+    chiprun_out/pq_select_mismatch.pt and fails the phase. Also counts
+    the queries whose one-query tables differ bit for bit from the same
+    rows of a batch's tables (``adc_tables`` at Q 1 and at Q 1,088), and
+    those whose top-10 then differ: hits of a single SIMILAR held to a
+    batched reference can differ that way with no kernel at fault."""
+    import torch
+
+    from neumann_tpu_torch.ops import kernels as tk
+    from neumann_tpu_torch.ops.scan import _topk_stable
+
+    t0 = time.perf_counter()
+    batched = book.adc_tables(qd)
+    singles = [book.adc_tables(qd[i:i + 1]) for i in range(len(qd))]
+    table_diff = [i for i, t in enumerate(singles)
+                  if not torch.equal(t[0], batched[i])]
+    hits_diff = 0
+    for i in table_diff:
+        a = tk.pq_adc_topk(codes, singles[i], live, TOP_K)[1]
+        b = tk.pq_adc_topk(codes, batched[i:i + 1], live, TOP_K)[1]
+        hits_diff += int(not torch.equal(a, b))
+    launches = 0
+    bad = []
+    while launches < PQ_REPEAT_LAUNCHES:
+        flags = []
+        for i in range(len(qd)):
+            if launches >= PQ_REPEAT_LAUNCHES:
+                break
+            s, c = tk.pq_adc_topk(codes, singles[i], live, TOP_K)
+            s2, c2 = _topk_stable(tk.pq_adc_scores(codes, singles[i], live),
+                                  TOP_K)
+            flags.append(((s != s2) | (c != c2)).any())
+            launches += 1
+        miss = torch.stack(flags).nonzero().flatten().tolist()
+        for j in miss:
+            bad.append(j)
+            s, c = tk.pq_adc_topk(codes, singles[j], live, TOP_K)
+            s2, c2 = _topk_stable(tk.pq_adc_scores(codes, singles[j], live),
+                                  TOP_K)
+            torch.save({"query": j, "tables": singles[j].cpu(),
+                        "select": (s.cpu(), c.cpu()),
+                        "scores_topk": (s2.cpu(), c2.cpu())},
+                       os.path.join("chiprun_out", "pq_select_mismatch.pt"))
+    out = {"pq_repeat_launches": launches, "pq_repeat_mismatches": len(bad),
+           "pq_repeat_queries": len(qd),
+           "pq_tables_single_vs_batch_differ": len(table_diff),
+           "pq_hits_single_vs_batch_tables_differ": hits_diff,
+           "pq_repeat_s": time.perf_counter() - t0}
+    say(f"[14] row 8 select mode at Q 1, k {TOP_K}: {launches} launches "
+        f"over {len(qd)} queries' tables, {len(bad)} differ from the scores "
+        f"mode + _topk_stable; {len(table_diff)} queries' one-query tables "
+        f"differ from their rows of the batch's, {hits_diff} of them with "
+        f"other top-{TOP_K} columns ({out['pq_repeat_s']:.1f} s)")
+    if bad:
+        raise AssertionError(f"[14] row 8's select mode differs from the "
+                             f"scores mode + _topk_stable on queries "
+                             f"{bad[:5]} (inputs in chiprun_out/"
+                             f"pq_select_mismatch.pt)")
+    return out
+
+
 def run_quantized(args, dev, corpus, queries, on_card: bool,
                   adc_recs=None) -> dict:
     """Phase 14, cell G: phases 7-9's rows in a ``QUANTIZATION pq``
@@ -3625,6 +3730,8 @@ def run_quantized(args, dev, corpus, queries, on_card: bool,
             f"profiled: wall {prof['wall_ms']:.2f} ms, device busy "
             f"{ms_text(prof['device_busy_ms'], 2)} ms, of it row 8 "
             f"{ms_text(adc_ms, 2)} ms")
+        report.update(pq_select_repeat(book, codes, live,
+                                       qd[:N_SINGLE + N_BATCH]))
     del emb, valid, codes, book, coll, live, cat, router, eng
     gc.collect()
     if on_card:
@@ -4073,17 +4180,18 @@ def batcher_counts(router):
             sum(b.queries_served for b in bs))
 
 
-def served_part(report: dict, prefix: str, router, port: int, stmts):
-    """A served run with its p50 / p99, QPS, the batches the router's
+def served_part(report: dict, prefix: str, router, run):
+    """A served run (``run()``: ``served_run`` or ``grpc_served_run`` on
+    its statements) with its p50 / p99, QPS, the batches the router's
     batchers ran and their mean cohort size; fails unless the mean cohort
     is above 1 (concurrent statements were coalesced). Returns the row
     ids per statement and the hits."""
     b0, s0 = batcher_counts(router)
-    lat, hits, wall = served_run(port, stmts)
+    lat, hits, wall = run()
     b1, s1 = batcher_counts(router)
     report[f"{prefix}_p50_ms"] = float(np.percentile(lat, 50))
     report[f"{prefix}_p99_ms"] = float(np.percentile(lat, 99))
-    report[f"{prefix}_qps"] = len(stmts) / wall
+    report[f"{prefix}_qps"] = len(lat) / wall
     report[f"{prefix}_batches"] = b1 - b0
     report[f"{prefix}_mean_cohort"] = (s1 - s0) / max(b1 - b0, 1)
     if report[f"{prefix}_mean_cohort"] <= 1:
@@ -4103,11 +4211,6 @@ def profile_served(port: int, stmts, tag: str) -> dict:
     import io
     import pstats
 
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from neumann_tpu_torch.ops import kernels as tk
-
     prof = cProfile.Profile()
     prof.enable()
     served_run(port, stmts[:N_PROFILED], clients=1)
@@ -4120,26 +4223,37 @@ def profile_served(port: int, stmts, tag: str) -> dict:
         f.write(txt.getvalue())
     top = sorted(((v[2] * 1e3, f"{k[0].rsplit('/', 1)[-1]}:{k[1]}({k[2]})")
                   for k, v in st.stats.items()), reverse=True)[:10]
+    out = dict(device_idle(lambda: served_run(port, stmts), f"served {tag}"),
+               host_top_own_ms=top)
+    idle = "" if out["trace_lost"] else \
+        f" (idle share {100 * out['device_idle_share']:.1f}%)"
+    say(f"[profile] served {tag}: {len(stmts)} statements from {N_CLIENTS} "
+        f"clients in {out['served_wall_ms']:.1f} ms, device busy "
+        f"{ms_text(out['device_busy_ms'], 2)} ms{idle}; one client's host "
+        f"top by own time: {[(n, round(ms, 1)) for ms, n in top[:5]]}")
+    return out
+
+
+def device_idle(run, what: str) -> dict:
+    """``run()`` (a served run) under torch.profiler: device kernel time
+    against the wall, the card's idle share while it serves (None where
+    the trace lost launches, as in ``profile_calls``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from neumann_tpu_torch.ops import kernels as tk
+
     torch.cuda.synchronize()
     before = dict(tk.LAUNCHES)
     with profile(activities=[ProfilerActivity.CUDA]) as tp:
         t0 = time.perf_counter()
-        served_run(port, stmts)
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels, lost = trace_kernel_ms(tp, launches_since(before),
-                                    f"served {tag}")
+    kernels, lost = trace_kernel_ms(tp, launches_since(before), what)
     busy = None if lost else sum(kernels.values())
-    out = dict(host_top_own_ms=top, served_wall_ms=wall,
-               device_busy_ms=busy, trace_lost=lost,
-               device_idle_share=None if lost else 1 - busy / wall)
-    idle = "" if lost else \
-        f" (idle share {100 * out['device_idle_share']:.1f}%)"
-    say(f"[profile] served {tag}: {len(stmts)} statements from {N_CLIENTS} "
-        f"clients in {wall:.1f} ms, device busy {ms_text(busy, 2)} ms"
-        f"{idle}; one client's host top by own time: "
-        f"{[(n, round(ms, 1)) for ms, n in top[:5]]}")
-    return out
+    return dict(served_wall_ms=wall, device_busy_ms=busy, trace_lost=lost,
+                device_idle_share=None if lost else 1 - busy / wall)
 
 
 def serve_ivf(router, qs, truth, on_card: bool) -> dict:
@@ -4161,7 +4275,8 @@ def serve_ivf(router, qs, truth, on_card: bool) -> dict:
     report["warmup_s"] = time.perf_counter() - t0
     warm = dict(tk.LAUNCHES)
     with serving(router) as port:
-        rows, _ = served_part(report, "served_ivf", router, port, stmts)
+        rows, _ = served_part(report, "served_ivf", router,
+                              lambda: served_run(port, stmts))
         launches = dict(tk.LAUNCHES)
         if on_card:
             report["profile_served_ivf"] = profile_served(port, stmts, "ivf")
@@ -4211,8 +4326,8 @@ def serve_brute(router, batch, extra, truth, truth_f, ref_bits, bits_index,
             stmts = [f"SIMILAR {vec_literal(q)}{suffix} TOP {TOP_K}"
                      for q in qs]
             before = dict(tk.LAUNCHES)
-            rows, hits = served_part(report, f"served_{name}", router, port,
-                                     stmts)
+            rows, hits = served_part(report, f"served_{name}", router,
+                                     lambda: served_run(port, stmts))
             part = {k: v - before.get(k, 0) for k, v in tk.LAUNCHES.items()}
             report[f"launches_served_{name}"] = part
             if on_card:
@@ -4305,6 +4420,324 @@ def serve_brute(router, batch, extra, truth, truth_f, ref_bits, bits_index,
     if bad:
         raise AssertionError(f"REST Points hits differ from "
                              f"search_in_collection for queries {bad[:5]}")
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 19: serving over gRPC (NeumannServer, its clients, the Points
+# plane and the gRPC-web gateway) on phase 12's routers
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def grpc_serving(router):
+    """A ``NeumannServer`` on 127.0.0.1:0 over ``router``, started with
+    ``serve()`` as a user starts it: the router's warm-up (a failure
+    raises) and batched serving on. Yields (server, its address, the
+    warm-up's seconds); stops the server (and the batchers) on the way
+    out."""
+    from neumann_tpu_torch.server import NeumannServer
+
+    srv = NeumannServer(router, host="127.0.0.1", port=0)
+    t0 = time.perf_counter()
+    port = srv.serve(warmup=True)
+    warm_s = time.perf_counter() - t0
+    try:
+        yield srv, f"127.0.0.1:{port}", warm_s
+    finally:
+        srv.stop()
+
+
+def grpc_clients(addr: str, n: int):
+    from neumann_tpu_torch.server import NeumannClient
+
+    return [NeumannClient.connect(addr, retries=0) for _ in range(n)]
+
+
+def grpc_served_run(clients, stmts):
+    """``Execute`` each statement from one thread a client (statement i
+    on client i mod len(clients)). Returns the latencies (ms), the hits
+    per statement and the wall seconds; fails unless every answer has
+    TOP_K finite hits."""
+    lat = [0.0] * len(stmts)
+    hits = [None] * len(stmts)
+
+    def work(c):
+        for i in range(c, len(stmts), len(clients)):
+            t0 = time.perf_counter()
+            res = clients[c].execute(stmts[i])
+            lat[i] = (time.perf_counter() - t0) * 1e3
+            hits[i] = res.hits
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(clients)) as ex:
+        list(ex.map(work, range(len(clients))))
+    wall = time.perf_counter() - t0
+    bad = [i for i, hh in enumerate(hits)
+           if len(hh) != TOP_K or not all(np.isfinite(h["score"])
+                                          for h in hh)]
+    if bad:
+        raise AssertionError(f"{len(bad)} statements served over gRPC "
+                             f"failed: {[(i, hits[i]) for i in bad[:3]]}")
+    return lat, hits, wall
+
+
+def check_health(client, dev, phase: str) -> dict:
+    health = client.health()
+    if not health["ok"] or health["device"] != dev.type:
+        raise AssertionError(f"[{phase}] Health reports {health}, not a "
+                             f"{dev.type} device")
+    return health
+
+
+def check_points_codec(on_card: bool) -> bool:
+    """Whether the native points codec serves the Points plane; on the
+    card it must (the data plane phase 19 measures is the native one)."""
+    from neumann_tpu_torch.native import pypoints
+    from neumann_tpu_torch.server.server import _PbPointsCodec, _points_codec
+
+    native = _points_codec() is not _PbPointsCodec and \
+        pypoints.load() is not None
+    if on_card and not native:
+        raise AssertionError("[19] the native points codec did not load")
+    return native
+
+
+def serve_grpc_ivf(router, batch, truth, dev, on_card: bool) -> dict:
+    """Phase 19a, on A's router after 12a: a ``NeumannServer`` (warm-up,
+    batching); N_SERVED ``SIMILAR [...] TOP 10`` through ``Execute``
+    from N_CLIENTS threads, a channel each (recall@10 >= MIN_RECALL,
+    mean cohort above 1, the card's idle share from a second run under
+    torch.profiler); one Points ``QueryBatch`` of the same N_SERVED
+    queries (hits equal ``router.vector.batch_search`` on the same
+    matrix); ``Health`` reports the device. Launches counted from the
+    first served request: rows 1 (the served cohorts) and 2 (the
+    QueryBatch) must launch."""
+    from neumann_tpu_torch.ops import kernels as tk
+
+    report = {"points_codec_native": check_points_codec(on_card)}
+    qs = batch[:N_SERVED]
+    stmts = [f"SIMILAR {vec_literal(q)} TOP {TOP_K}" for q in qs]
+    t_phase = time.perf_counter()
+    with grpc_serving(router) as (srv, addr, warm_s):
+        report["grpc_warmup_s"] = warm_s
+        clients = grpc_clients(addr, N_CLIENTS)
+        try:
+            report["grpc_health"] = check_health(clients[0], dev, "19a")
+            tk.reset_launch_counts()
+            rows, _ = served_part(report, "grpc_ivf", router,
+                                  lambda: grpc_served_run(clients, stmts))
+            t0 = time.perf_counter()
+            got = clients[0].query_points_batch(qs, TOP_K)
+            report["grpc_ivf_query_batch_ms"] = \
+                (time.perf_counter() - t0) * 1e3
+            launches = dict(tk.LAUNCHES)
+            want = router.vector.batch_search(qs, TOP_K)
+            bad = [i for i, (g, w) in enumerate(zip(got, want))
+                   if [(h["id"], h["score"]) for h in g]
+                   != [(h.key, h.score) for h in w]]
+            report["grpc_ivf_query_batch_mismatches"] = len(bad)
+            if bad or len(got) != len(qs):
+                raise AssertionError(f"[19a] QueryBatch hits differ from "
+                                     f"batch_search for queries {bad[:5]}")
+            if on_card:
+                report["grpc_ivf_idle"] = device_idle(
+                    lambda: grpc_served_run(clients, stmts), "gRPC ivf")
+        finally:
+            for c in clients:
+                c.close()
+        report["grpc_ivf_server_requests"] = srv.metrics["requests"]
+    report["phase19a_s"] = time.perf_counter() - t_phase
+    report["grpc_ivf_recall"] = recall(rows, truth[:N_SERVED])
+    report["launches_served_grpc_ivf"] = launches
+    idle = report.get("grpc_ivf_idle", {}).get("device_idle_share")
+    say(f"[19a] gRPC server warm-up {warm_s:.3f} s; {len(stmts)} SIMILARs "
+        f"through Execute from {N_CLIENTS} channels: p50 "
+        f"{report['grpc_ivf_p50_ms']:.3f} ms p99 "
+        f"{report['grpc_ivf_p99_ms']:.3f} ms, "
+        f"{report['grpc_ivf_qps']:.0f} QPS, {report['grpc_ivf_batches']} "
+        f"batches (mean cohort {report['grpc_ivf_mean_cohort']:.2f}), "
+        f"recall@{TOP_K} {report['grpc_ivf_recall']:.4f}, device idle "
+        f"share {ms_text(idle, 4)}; QueryBatch of {len(qs)} in "
+        f"{report['grpc_ivf_query_batch_ms']:.1f} ms, equal to "
+        f"batch_search; Health {report['grpc_health']}; native points "
+        f"codec {report['points_codec_native']}; launches {launches}")
+    if report["grpc_ivf_recall"] < MIN_RECALL:
+        raise AssertionError("[19a] recall over gRPC below the limit")
+    if on_card:
+        require_launches(launches, ("ivf_probe", "batched_probe"), "19a")
+    return report
+
+
+def grpc_web_execute(port: int, query: str):
+    """One ``Execute`` as a gRPC-web call (binary frames) to a
+    RestServer's port: (ms, hits)."""
+    import http.client
+
+    from neumann_tpu_torch.server import neumann_pb2 as pb
+    from neumann_tpu_torch.server.grpc_web import decode_frames, encode_frame
+
+    body = encode_frame(0x00, pb.QueryRequest(query=query)
+                        .SerializeToString())
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", "/neumann.QueryService/Execute", body,
+                     {"Content-Type": "application/grpc-web+proto"})
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    ms = (time.perf_counter() - t0) * 1e3
+    frames = decode_frames(data)
+    if resp.status != 200 or not frames or frames[0][0] != 0x00:
+        raise AssertionError(f"[19b] gRPC-web call failed: {resp.status} "
+                             f"{data[:200]!r}")
+    msg = pb.QueryResponse.FromString(frames[0][1])
+    if msg.error:
+        raise AssertionError(f"[19b] gRPC-web Execute: {msg.error}")
+    return ms, [{"key": h.key, "score": h.score} for h in msg.hits]
+
+
+def serve_grpc_brute(router, batch, extra, truth, truth_f, ref_bits,
+                     bits_index, dev, on_card: bool) -> dict:
+    """Phase 19b, on B's router after 12b: a ``NeumannServer``; N_SERVED
+    ``SIMILAR [...] TOP 10`` on the default namespace through
+    ``Execute`` from N_CLIENTS channels (f32 pooled, row 6; recall@10 >=
+    MIN_RECALL); a ``PointsPipeline`` (QueryStream) of the N_SERVED
+    queries on q8, answered through the batcher's completion callback
+    (int8 pooled, row 5): every future resolves, recall@10 >=
+    MIN_RECALL; a Points ``QueryBatch`` of them on bits (row 7): ids and distances equal
+    the plain hamming top-k's, in order; N_FILTERED Points queries with
+    ``filter_json`` cat = 3 on the default namespace (q8's rows carry no
+    metadata): every hit in cat 3, recall against the masked scan; 64
+    ``Execute`` over gRPC-web through a ``RestServer(grpc_web=server)``,
+    one at a time, each equal to the same statement's hits over gRPC
+    sent alone (a cohort of one either way: a cohort's size picks the
+    f32 pooled kernel's mode, so hits of near ties may differ between
+    cohorts). Rows 5, 6 and 7 must launch."""
+    from neumann_tpu_torch.ops import kernels as tk
+    from neumann_tpu_torch.server import RestServer
+
+    report = {"points_codec_native": check_points_codec(on_card)}
+    qs = batch[:N_SERVED]
+    stmts = [f"SIMILAR {vec_literal(q)} TOP {TOP_K}" for q in qs]
+    t_phase = time.perf_counter()
+    with grpc_serving(router) as (srv, addr, warm_s):
+        report["grpc_brute_warmup_s"] = warm_s
+        clients = grpc_clients(addr, N_CLIENTS)
+        try:
+            check_health(clients[0], dev, "19b")
+            tk.reset_launch_counts()
+            rows, _ = served_part(report, "grpc_pooled", router,
+                                  lambda: grpc_served_run(clients, stmts))
+            report["grpc_pooled_recall"] = recall(rows, truth[:N_SERVED])
+            pooled = dict(tk.LAUNCHES)
+            # QueryStream on q8: pipelined, answered by callbacks
+            before = dict(tk.LAUNCHES)
+            b0, s0 = batcher_counts(router)
+            t0 = time.perf_counter()
+            with clients[1].points_pipeline() as pipe:
+                futs = [pipe.search(q, TOP_K, "q8") for q in qs]
+                got = [f.result(timeout=300) for f in futs]
+            wall = time.perf_counter() - t0
+            b1, s1 = batcher_counts(router)
+            report["grpc_stream_qps"] = len(qs) / wall
+            report["grpc_stream_batches"] = b1 - b0
+            report["grpc_stream_mean_cohort"] = (s1 - s0) / max(b1 - b0, 1)
+            stream = launches_since(before)
+            report["grpc_stream_recall"] = recall(
+                [[int(h["id"][1:]) for h in hh] for hh in got],
+                truth[:N_SERVED])
+            if any(len(hh) != TOP_K for hh in got):
+                raise AssertionError("[19b] a QueryStream answer lacks hits")
+            # QueryBatch on bits: ids and distances of the plain top-k
+            before = dict(tk.LAUNCHES)
+            t0 = time.perf_counter()
+            got = clients[2].query_points_batch(qs, TOP_K, "bits")
+            report["grpc_bits_query_batch_ms"] = \
+                (time.perf_counter() - t0) * 1e3
+            bits = launches_since(before)
+            ref_s, ref_i = (t.cpu().numpy() for t in ref_bits)
+            bad = [r for r, hh in enumerate(got)
+                   if [h["id"] for h in hh]
+                   != bits_index.keys_of(ref_i[r].tolist())
+                   or [h["score"] for h in hh] != ref_s[r].tolist()]
+            report["grpc_bits_mismatches"] = len(bad)
+            if bad or len(got) != len(qs):
+                raise AssertionError(f"[19b] QueryBatch on bits differs from "
+                                     f"the plain hamming top-k: {bad[:5]}")
+            # filtered Points queries, one client each at once: one
+            # cohort of the filter
+            filt = {"op": "eq", "field": "cat", "value": FILTER_CAT}
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(extra)) as ex:
+                got = list(ex.map(
+                    lambda i: clients[i].query_points(
+                        "", extra[i], TOP_K, filter_json=filt,
+                        with_payload=True), range(len(extra))))
+            report["grpc_filtered_wall_ms"] = \
+                (time.perf_counter() - t0) * 1e3
+            off = [h for hh in got for h in hh
+                   if int(h["id"][1:]) % N_CATS != FILTER_CAT
+                   or h["payload"] != {"cat": FILTER_CAT}]
+            report["grpc_filtered_recall"] = recall(
+                [[int(h["id"][1:]) for h in hh] for hh in got], truth_f)
+            if off or any(len(hh) != TOP_K for hh in got):
+                raise AssertionError(f"[19b] filtered Points hits outside cat "
+                                     f"{FILTER_CAT}: {off[:3]}")
+            # gRPC-web through the REST port, one statement at a time and
+            # each also over gRPC: both cohorts of one, the same launch
+            web = RestServer(router, grpc_web=srv)
+            port = web.serve()
+            try:
+                lat, diff = [], []
+                for i, s in enumerate(stmts[:N_POINTS]):
+                    ms, hits = grpc_web_execute(port, s)
+                    lat.append(ms)
+                    if hits != clients[4].execute(s).hits:
+                        diff.append(i)
+            finally:
+                web.stop()
+            report["grpc_web_p50_ms"] = float(np.percentile(lat, 50))
+            report["grpc_web_mismatches"] = len(diff)
+            if diff:
+                raise AssertionError(f"[19b] gRPC-web hits differ from "
+                                     f"gRPC's for statements {diff[:5]}")
+            launches = dict(tk.LAUNCHES)
+            if on_card:
+                report["grpc_pooled_idle"] = device_idle(
+                    lambda: grpc_served_run(clients, stmts), "gRPC pooled")
+        finally:
+            for c in clients:
+                c.close()
+    report["phase19b_s"] = time.perf_counter() - t_phase
+    report["launches_served_grpc_brute"] = launches
+    idle = report.get("grpc_pooled_idle", {}).get("device_idle_share")
+    say(f"[19b] gRPC server warm-up {warm_s:.3f} s; {len(stmts)} SIMILARs "
+        f"through Execute: p50 {report['grpc_pooled_p50_ms']:.3f} ms p99 "
+        f"{report['grpc_pooled_p99_ms']:.3f} ms, "
+        f"{report['grpc_pooled_qps']:.0f} QPS, mean cohort "
+        f"{report['grpc_pooled_mean_cohort']:.2f}, recall@{TOP_K} "
+        f"{report['grpc_pooled_recall']:.4f}, device idle share "
+        f"{ms_text(idle, 4)}, launches {pooled}; QueryStream of "
+        f"{len(qs)} on q8: {report['grpc_stream_qps']:.0f} QPS, mean "
+        f"cohort {report['grpc_stream_mean_cohort']:.2f}, recall@{TOP_K} "
+        f"{report['grpc_stream_recall']:.4f}, launches {stream}; QueryBatch "
+        f"of {len(qs)} on bits {report['grpc_bits_query_batch_ms']:.1f} "
+        f"ms, equal to the plain top-k, launches {bits}; {len(extra)} "
+        f"filtered Points queries at once in "
+        f"{report['grpc_filtered_wall_ms']:.0f} ms, all in cat {FILTER_CAT} "
+        f"(recall {report['grpc_filtered_recall']:.4f}); {N_POINTS} gRPC-web "
+        f"Executes equal to gRPC's, p50 {report['grpc_web_p50_ms']:.3f} ms")
+    for name in ("grpc_pooled_recall", "grpc_stream_recall",
+                 "grpc_filtered_recall"):
+        if report[name] < MIN_RECALL:
+            raise AssertionError(f"[19b] {name} {report[name]:.4f} below "
+                                 f"the limit")
+    if on_card:
+        require_launches(pooled, ("f32_pooled_bits",), "19b Execute")
+        require_launches(stream, ("int8_pooled_bits",), "19b QueryStream")
+        require_launches(bits, ("hamming_topk",), "19b QueryBatch")
     return report
 
 
@@ -5218,7 +5651,17 @@ def main() -> int:
         "cluster_load_s", "cluster_rows_per_s", "cluster_replicas_s",
         "cluster_kill_load_s", "cluster_kill_rows_per_s",
         "cluster_restart_catchup_s", "cluster_kill_reads", "phase18a_s",
-        "phase18bcd_s", "total_s")}
+        "phase18bcd_s", "points_codec_native", "grpc_warmup_s",
+        "grpc_brute_warmup_s", "grpc_ivf_query_batch_ms",
+        "grpc_ivf_query_batch_mismatches", "grpc_stream_qps",
+        "grpc_stream_batches", "grpc_stream_mean_cohort",
+        "grpc_stream_recall", "grpc_bits_query_batch_ms",
+        "grpc_bits_mismatches", "grpc_filtered_recall",
+        "grpc_filtered_wall_ms", "grpc_web_p50_ms",
+        "grpc_web_mismatches", "phase19a_s", "phase19b_s",
+        "pq_repeat_launches", "pq_repeat_mismatches",
+        "pq_tables_single_vs_batch_differ",
+        "pq_hits_single_vs_batch_tables_differ", "pq_repeat_s", "total_s")}
     for part in ("ivf", "pooled", "int8", "binary"):
         for k in ("p50_ms", "p99_ms", "qps", "batches", "mean_cohort",
                   "recall"):
@@ -5227,6 +5670,11 @@ def main() -> int:
     for part in ("ivf", "pooled"):
         metrics[f"served_{part}_device_idle_share"] = \
             report[f"profile_served_{part}"]["device_idle_share"]
+        for k in ("p50_ms", "p99_ms", "qps", "batches", "mean_cohort",
+                  "recall"):
+            metrics[f"grpc_{part}_{k}"] = report[f"grpc_{part}_{k}"]
+        metrics[f"grpc_{part}_device_idle_share"] = \
+            report[f"grpc_{part}_idle"]["device_idle_share"]
     metrics["hybrid_mask_ms_median"] = float(np.median(
         report["hybrid_mask_ms"]))
     metrics["parse_ms_median"] = float(np.median(

@@ -29,14 +29,23 @@ Three departures from the reference:
 * **Timed-out requests leave the queue.** The reference leaves a
   request whose caller timed out queued, to be run for no one;
   ``search`` removes it on timeout.
+
+The completion callback (``submit(..., callback=)``) fires exactly once
+per request, as in the reference, with one repair: a cohort's results
+are all taken before any request finishes, and a callback that raises
+is logged, so a failing callback can no longer send its cohort down the
+per-request re-run and fire the callbacks a second time. The workers
+also count batches and queries under the batcher's lock, where the
+reference's unlocked ``+=`` from several workers can lose a count.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -45,6 +54,8 @@ from neumann_tpu_torch.engines.vector import (
     SearchResult,
     VectorEngine,
 )
+
+_log = logging.getLogger(__name__)
 
 
 @dataclass(eq=False)
@@ -55,9 +66,17 @@ class _Request:
     event: threading.Event = field(default_factory=threading.Event)
     result: Optional[List[SearchResult]] = None
     error: Optional[Exception] = None
+    # async completion hook (QueryStream serving): called exactly once
+    # with (results, error) from a worker thread
+    callback: Optional[Callable] = None
 
     def finish(self) -> None:
         self.event.set()
+        if self.callback is not None:
+            try:
+                self.callback(self.result, self.error)
+            except Exception:  # noqa: BLE001 — the caller's fault
+                _log.exception("batcher completion callback failed")
 
 
 class BatcherClosed(RuntimeError):
@@ -130,16 +149,19 @@ class QueryBatcher:
         return req.result
 
     def submit(self, query, top_k: int,
-               filter_cond: Optional[FilterCondition] = None) -> _Request:
+               filter_cond: Optional[FilterCondition] = None,
+               callback: Optional[Callable] = None) -> _Request:
         """Non-blocking enqueue; validation errors raise HERE (in the
         submitting thread); the request's ``event`` is set on
-        completion."""
+        completion. ``callback(results, error)`` fires once from a
+        worker thread on completion — the QueryStream pipelined-serving
+        hook."""
         q = np.asarray(query, np.float32)
         if q.shape != (self.dim,):
             raise ValueError(f"query dim {q.shape} != ({self.dim},)")
         if top_k <= 0:
             raise ValueError("top_k must be positive")
-        req = _Request(q, top_k, filter_cond)
+        req = _Request(q, top_k, filter_cond, callback=callback)
         with self._cond:
             if self._stop.is_set():
                 raise BatcherClosed("batcher is closed")
@@ -203,11 +225,8 @@ class QueryBatcher:
             # one device call for the whole cohort, at its own size
             all_results = self.engine.batch_search_ns(
                 q, max_k, self.metric, self.ns, filter_cond=filt)
-            for i, req in enumerate(cohort):
-                req.result = all_results[i][: req.top_k]
-                req.finish()
-            self.batches_run += 1
-            self.queries_served += len(cohort)
+            results = [all_results[i][: req.top_k]
+                       for i, req in enumerate(cohort)]
         except Exception as e:  # noqa: BLE001 — isolate, then propagate
             if len(cohort) == 1:
                 cohort[0].error = e
@@ -220,7 +239,15 @@ class QueryBatcher:
                     req.result = self.engine.batch_search_ns(
                         req.query[None, :], req.top_k, self.metric,
                         self.ns, filter_cond=filt)[0]
-                    self.queries_served += 1
+                    with self._lock:
+                        self.queries_served += 1
                 except Exception as e2:  # noqa: BLE001
                     req.error = e2
                 req.finish()
+            return
+        with self._lock:       # several workers count
+            self.batches_run += 1
+            self.queries_served += len(cohort)
+        for req, res in zip(cohort, results):
+            req.result = res
+            req.finish()

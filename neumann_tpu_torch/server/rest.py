@@ -16,12 +16,11 @@ stdlib http.server with a thread pool — the control-plane surface; bulk
 traffic belongs on the gRPC service.
 
 The port's copy of ``neumann_tpu/server/rest.py``, serving the port's
-``QueryRouter()`` (on the card unless a caller passes a router of its
-own). Changes besides the import lines: ``/health`` and the dashboard
+``QueryRouter(device=device)`` (``device`` "cuda" unless the caller asks
+for the CPU, or passes a router of its own). Changes besides the import
+lines and ``device``: ``/health`` and the dashboard
 report the router's torch device type where the reference asks JAX for
-its devices; the gRPC-web gateway is not ported (ROADMAP item 4's gRPC
-half), so ``grpc_web=`` raises ``NeumannError`` and POST bodies always
-take the JSON routes. And the listening socket's backlog is 128, not the
+its devices. And the listening socket's backlog is 128, not the
 standard library's 5: with the reference's 5, connections past the
 fifth concurrent one lose their handshake and retry 1-3 s later, or are
 reset (32 concurrent clients saw both).
@@ -46,14 +45,14 @@ class _HTTPServer(ThreadingHTTPServer):
 class RestServer:
     def __init__(self, router: Optional[QueryRouter] = None,
                  host: str = "127.0.0.1", port: int = 0,
-                 api_keys=None, grpc_web=None):
-        """grpc_web: not ported (the gateway needs grpcio); any value
-        but None raises NeumannError."""
-        if grpc_web is not None:
-            raise NeumannError("the gRPC-web gateway is not ported to the "
-                               "PyTorch package yet (ROADMAP: 4, the gRPC "
-                               "server and its clients)")
-        self.router = router or QueryRouter()
+                 api_keys=None, grpc_web=None, device="cuda"):
+        """grpc_web: a GrpcWebGateway (or NeumannServer, whose gateway is
+        taken) to serve browser gRPC-web traffic on this HTTP port.
+        device: where the router built when none is given runs."""
+        self.router = router or QueryRouter(device=device)
+        if grpc_web is not None and hasattr(grpc_web, "web_gateway"):
+            grpc_web = grpc_web.web_gateway()
+        self._grpc_web = grpc_web
         from neumann_tpu_torch.server.gamification import ProgressTracker
 
         self.tracker = ProgressTracker()
@@ -143,7 +142,7 @@ class RestServer:
                 self.send_header("Access-Control-Expose-Headers",
                                  "grpc-status,grpc-message")
 
-            def do_OPTIONS(self):  # CORS preflight
+            def do_OPTIONS(self):  # CORS preflight for grpc-web
                 self.send_response(204)
                 self._cors()
                 self.send_header("Access-Control-Allow-Methods",
@@ -154,6 +153,32 @@ class RestServer:
                 self._route("GET")
 
             def do_POST(self):
+                from neumann_tpu_torch.server.grpc_web import GrpcWebGateway
+
+                ctype = self.headers.get("Content-Type")
+                if (outer._grpc_web is not None
+                        and GrpcWebGateway.is_grpc_web(ctype)):
+                    # this port's api_keys gate grpc-web traffic too —
+                    # mounting the gateway must not open a key-free
+                    # side door (the gRPC server's own auth still
+                    # applies inside the replayed handlers)
+                    if not self._auth():
+                        return
+                    length = int(self.headers.get("Content-Length") or 0)
+                    if length > self._MAX_BODY:
+                        self.send_response(413)
+                        self.end_headers()
+                        return
+                    raw = self.rfile.read(length) if length else b""
+                    body, out_type = outer._grpc_web.handle(
+                        self.path, self.headers, raw)
+                    self.send_response(200)
+                    self.send_header("Content-Type", out_type)
+                    self.send_header("Content-Length", str(len(body)))
+                    self._cors()
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return
                 self._route("POST")
 
             def do_PUT(self):

@@ -36,7 +36,20 @@ from neumann_tpu_torch.chain.transport import Message as TMessage
 from tests.test_torch_relational import routers, run_both
 from tests.torch_twins import twin_tests
 
-globals().update(twin_tests("test_chain"))
+# The in-process TCP clusters of test_chain.py (replication, leader
+# failover, the CLUSTER CONNECT gateway) elect in 3-6 ticks of 10 ms, with
+# RaftConfig's default heartbeat of every 3 ticks: a follower whose
+# timeout is 3 ticks then times out against a live leader whenever the
+# leader's loop runs a little slower than its own, about 3 elections a
+# second with no load at all, and a write proposed or forwarded across
+# one is lost. Their twins run with a heartbeat every tick (elections
+# still 3-6 ticks), where the same three nodes hold one leader.
+_STEADY_LEADER = {
+    "RaftConfig(election_timeout_min=3, election_timeout_max=6)":
+    "RaftConfig(election_timeout_min=3, election_timeout_max=6, "
+    "heartbeat_interval=1)"}
+
+globals().update(twin_tests("test_chain", patch=_STEADY_LEADER))
 
 MARGIN = 1e-5
 

@@ -154,15 +154,22 @@ def _write_node(pkg, wal_dir):
 
 def _restarted(pkg, wal_dir, count):
     """Answers of a ``pkg`` node restarted from ``wal_dir`` once it has
-    replayed ``count`` embeddings."""
+    replayed ``count`` embeddings (the log's last writes, so the replay
+    is whole). The node replays between two statements of one read, so
+    it is polled by COUNT EMBEDDINGS alone (a statement about a
+    collection not created yet fails meanwhile) and read after."""
+    _, _, node = PACKAGES[pkg]
     b = _solo(pkg, wal_dir)
     try:
-        deadline = time.time() + 20
-        while True:
-            got = _answers(b.address, pkg)
-            if got[-1]["count"] == count or time.time() > deadline:
-                return got
-            time.sleep(0.1)
+        c = node.ClusterClient(b.address)
+        try:
+            deadline = time.time() + 20
+            while c.execute("COUNT EMBEDDINGS", timeout=10.0)["count"] \
+                    != count and time.time() < deadline:
+                time.sleep(0.1)
+        finally:
+            c.close()
+        return _answers(b.address, pkg)
     finally:
         b.stop()
 

@@ -405,7 +405,8 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     counted auto-IVF path, recall against the exact scan, delta rescan;
     then the pooled, int8 and binary routes, the 3,072-d binary
     collection and the hybrid query with their checks; the served
-    auto-IVF and brute-force routes over HTTP; the shell; the pq and tt
+    auto-IVF and brute-force routes over HTTP and over gRPC; the shell;
+    the pq and tt
     collections and the ANN index APIs; the chain, the consensus
     classification and the clusters of phase 18) at a toy size
     on the CPU; the kernel phase, the launch checks and the profiles need
@@ -500,6 +501,19 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     assert rep["served_binary_mismatches"] == 0
     assert rep["served_filtered_recall"] >= 0.95
     assert rep["served_in_filter_ok"] and rep["points_query_mismatches"] == 0
+    # phase 19: the same routers served over gRPC: Execute, the Points
+    # QueryBatch / QueryStream / filtered queries, gRPC-web; Health
+    # names the device, the native points codec serves
+    for part in ("ivf", "pooled"):
+        assert rep[f"grpc_{part}_recall"] >= 0.95, part
+        assert rep[f"grpc_{part}_mean_cohort"] > 1, part
+    assert rep["grpc_stream_recall"] >= 0.95
+    assert rep["grpc_filtered_recall"] >= 0.95
+    assert rep["grpc_ivf_query_batch_mismatches"] == 0
+    assert rep["grpc_bits_mismatches"] == rep["grpc_web_mismatches"] == 0
+    assert rep["grpc_health"]["device"] == "cpu"
+    assert rep["points_codec_native"]
+    assert rep["grpc_ivf_server_requests"] >= chip_smoke.N_SERVED
     assert rep["shell_errors"] == 0 and rep["shell_max_rel_diff"] == 0
     assert rep["shell_doctor_devices"] == ["[OK ] devices         1 x cpu"]
     # phase 16: the rollback restores every route's hits and the events

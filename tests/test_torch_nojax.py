@@ -9,7 +9,9 @@ CPU, a WAL-backed ``ingest_matrix`` replayed into a new store, one
 collection per storage mode (none, int8, binary, pq, tt), the HNSW and
 legacy IVF index APIs, SQL, graph and Cypher
 statements, ``SIMILAR … CONNECTED TO`` and FIND, one REST ``/query``
-through ``neumann_tpu_torch.server.RestServer`` (batched serving on),
+through ``neumann_tpu_torch.server.RestServer`` (batched serving on), one
+Execute and one Points query over gRPC (``NeumannServer``, the native
+points codec),
 one shell statement, a checkpoint and rollback, a blob, the LLM cache,
 EXPLAIN SIMILAR and the vault, a chain transaction, the pairwise
 consensus classification and a cluster node built as
@@ -141,6 +143,17 @@ _NOJAX = textwrap.dedent("""
     assert r._batchers[("", 8, "cosine")].queries_served == 1
     srv.stop()
     r.disable_batched_serving()
+    from neumann_tpu_torch.server import NeumannClient, NeumannServer
+    from neumann_tpu_torch.server.server import _PbPointsCodec, _points_codec
+    gsrv = NeumannServer(r, port=0)
+    cli = NeumannClient.connect(f"127.0.0.1:{gsrv.serve(warmup=False)}")
+    hits = cli.execute(f"SIMILAR [{', '.join(map(str, v[5]))}] TOP 3").hits
+    assert hits[0]["key"] == "k5", hits
+    assert cli.query_points("", v[5], 3)[0]["id"] == "k5"
+    assert cli.health()["device"] == "cpu"
+    assert _points_codec() is not _PbPointsCodec
+    cli.close()
+    gsrv.stop()
     sh = Shell(router=r, stdout=io.StringIO(), theme="plain")
     assert "(3 row(s))" in sh.execute("SELECT * FROM t"), sh.execute(
         "SELECT * FROM t")
@@ -271,6 +284,13 @@ def _port_sources() -> list:
             "neumann_tpu_torch/native/pyparser.py",
             "neumann_tpu_torch/server/rest.py",
             "neumann_tpu_torch/server/batcher.py",
+            "neumann_tpu_torch/server/server.py",
+            "neumann_tpu_torch/server/client.py",
+            "neumann_tpu_torch/server/aio.py",
+            "neumann_tpu_torch/server/grpc_web.py",
+            "neumann_tpu_torch/server/__main__.py",
+            "neumann_tpu_torch/native/pypoints.py",
+            "neumann_tpu_torch/utils/otlp.py",
             "neumann_tpu_torch/shell/shell.py",
             "neumann_tpu_torch/checkpoint/manager.py",
             "neumann_tpu_torch/blob/blob_store.py",

@@ -277,17 +277,6 @@ def test_dashboard_and_health_report_the_torch_device(servers):
     assert "device: <code>cpu</code>" in html
 
 
-def test_grpc_web_is_refused_by_name():
-    with pytest.raises(NeumannError, match="ROADMAP: 4"):
-        TRest(TRouter(device="cpu"), grpc_web=object())
-    from neumann_tpu_torch.server import NeumannServer
-    from neumann_tpu_torch.server.server import main
-
-    with pytest.raises(NeumannError, match="ROADMAP: 4"):
-        NeumannServer(TRouter(device="cpu"))
-    with pytest.raises(NeumannError, match="ROADMAP: 4"):
-        main([])
-
 
 def test_json_of_port_results_takes_torch_values():
     """Port results may hold tensors, dtypes and devices; ``in`` filters
