@@ -5,8 +5,9 @@ TT collections and the ANN index APIs (IVF, HNSW, saved indexes), a
 checkpoint and rollback of a loaded store with blob storage and the LLM
 cache, then a 3,072-d binary collection, then the hybrid graph + vector
 query; serve the auto-IVF and brute-force corpora over HTTP and over
-gRPC (Execute, the Points plane, gRPC-web) to concurrent clients; run
-the shell.
+gRPC (Execute, the Points plane, gRPC-web) to concurrent clients, and
+the brute-force corpus from three shard servers behind a scatter-gather
+coordinator; run the shell.
 
 Usage, from the root of a checkout, on a machine with one CUDA card and
 the CUDA toolkit (nvcc)::
@@ -250,6 +251,26 @@ Phases (each raises on failure; exit code 0 only if all pass):
     against the masked scan); 64 ``Execute`` over gRPC-web through a
     ``RestServer(grpc_web=server)``, each equal to the same statement
     sent alone over gRPC; rows 5, 6 and 7 launch.
+20. scatter-gather (cell P; after 18a, on phase 7's rows and queries): a
+    ``SemanticPartitioner(3)`` trained on the card over 65,536 of the
+    rows places every row on a shard (``assign_batch``); the rows go to
+    ``.npy`` files in a temporary directory, and three ``NeumannServer``
+    processes of this checkout on the card (``_SHARD_WORKER``, logs in
+    chiprun_out/shard_*.log) each memory-map theirs, load it through
+    ``ingest_matrix``, warm up, set their launch counts to 0 and serve.
+    The coordinator, a ``QueryRouter`` on the card, fans statements out
+    through ``attach_planner`` over ``NeumannClient`` connections. 20a:
+    64 ``SIMILAR [...] TOP 10`` (p50 / p99), each merge equal to the top
+    10 of the shards' own answers asked directly (keys, scores, ties in
+    shard order), recall@10 >= 0.95 against phase 7's exact scan of all
+    rows; 20b: the semantic planner at nprobe 1, 2, 3 (p50, recall; at 3
+    the hits of 20a); 20c: N_SERVED statements from 32 threads (QPS);
+    20d: COUNT EMBEDDINGS equal to the rows; 20e: one shard SIGKILLed,
+    16 SIMILARs each equal to the live shards' own merge. Each shard's
+    launch counts come back on its stdin's request (the killed one's
+    before the kill) and when its stdin closes: row 6 must launch in
+    every shard of at least 262,144 rows, whose EXPLAIN names it, and a
+    smaller shard must take the exact scan.
 
 Every kernel must launch in the counted phases. After phase 4 it
 profiles 8 single SIMILARs and one batch (cProfile on the host,
@@ -432,7 +453,7 @@ SAMPLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "samples",
 ROUTES = ("ivf", "top65", "top65_latency", "top1_direct", "delta",
           "pooled", "int8", "binary", "wide", "hybrid", "served_ivf",
           "served_brute", "pq", "tt", "ann", "rollback", "chain", "cluster",
-          "served_grpc_ivf", "served_grpc_brute")
+          "served_grpc_ivf", "served_grpc_brute", "sharded")
 # phase 17 (on A's corpus): the TOP 65 batch (k_ivf 146 > 128, the
 # non-fast batched route), and an index over A's rows that takes 10 %
 # more rows through add (in chunks of 65,536) and loses 1 % of A's row
@@ -581,6 +602,16 @@ CLUSTER_CLIENTS = 8
 N_CLUSTER_SIMILAR = 64
 CLUSTER_TIMEOUT_S = 30.0
 CLUSTER_DEADLINE_S = 600.0
+# phase 20 (cell P): phase 7's rows placed on SHARD_SERVERS shard-server
+# processes by a SemanticPartitioner trained (PARTITION_ITERS Lloyd
+# steps) on PARTITION_SAMPLE of them; SIMILAR scattered by the
+# coordinator's planner, fully and at nprobe 1..SHARD_SERVERS; N_SERVED
+# statements from N_CLIENTS threads; N_DEGRADED after one shard's SIGKILL
+SHARD_SERVERS = 3
+PARTITION_SAMPLE = 1 << 16
+PARTITION_ITERS = 20
+N_DEGRADED = 16
+SHARD_START_S = 300.0
 
 
 def say(msg: str) -> None:
@@ -2502,6 +2533,10 @@ def run_brute(args, dev, centres, s_corpus, s_queries,
     t0 = time.perf_counter()
     report.update(run_chain(args, router, corpus, on_card))
     report["phase18a_s"] = time.perf_counter() - t0
+
+    # ---- phase 20: the same rows on shard servers, SIMILAR fanned out ---
+    report.update(run_sharded(dev, corpus, queries, oracle, args.seed,
+                              on_card, report))
     return report
 
 
@@ -5485,6 +5520,346 @@ def run_cluster_processes(dev, vecs: np.ndarray, on_card: bool) -> dict:
     return report
 
 
+# the shard server of phase 20: ``python -c _SHARD_WORKER PREFIX --device
+# DEV`` serves PREFIX.rows.npy (memory-mapped) under the keys k<id> of
+# PREFIX.ids.npy; it prints ``READY <port>`` once warm with its launch
+# counts at 0, the counts as one JSON line for each line read from stdin,
+# and once more when stdin closes, then exits. Its other output goes to
+# stderr.
+_SHARD_WORKER = r"""
+import json, os, sys
+proto = os.fdopen(os.dup(1), "w")
+os.dup2(2, 1)
+import numpy as np
+from neumann_tpu_torch.ops import kernels as tk
+from neumann_tpu_torch.router import QueryRouter
+from neumann_tpu_torch.server.server import NeumannServer
+
+prefix, device = sys.argv[1], sys.argv[sys.argv.index("--device") + 1]
+rows = np.load(prefix + ".rows.npy", mmap_mode="r")
+ids = np.load(prefix + ".ids.npy")
+router = QueryRouter(device=device)
+router.vector.ingest_matrix([f"k{i}" for i in ids.tolist()], rows)
+srv = NeumannServer(router, host="127.0.0.1", port=0, device=device)
+port = srv.serve(warmup=True)
+tk.reset_launch_counts()
+print(f"READY {port}", file=proto, flush=True)
+for _ in sys.stdin:
+    print(json.dumps(dict(tk.LAUNCHES)), file=proto, flush=True)
+print(json.dumps(dict(tk.LAUNCHES)), file=proto, flush=True)
+srv.stop()
+"""
+
+
+class ShardServer:
+    """A ``NeumannServer`` process of this checkout serving one shard's
+    rows (``_SHARD_WORKER``); its stderr in ``log_path``."""
+
+    def __init__(self, prefix: str, device: str, log_path: str):
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [root] + [p for p in [env.get("PYTHONPATH")] if p])
+        self.log_path = log_path
+        with open(log_path, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", _SHARD_WORKER, prefix, "--device",
+                 device], cwd=root, env=env, stdin=subprocess.PIPE,
+                stdout=subprocess.PIPE, stderr=log, bufsize=0)
+        self._buf = b""
+
+    def line(self, deadline: float) -> str:
+        """The next line of its output, or an error naming its log when it
+        exits or the deadline passes first."""
+        import select
+
+        fd = self.proc.stdout.fileno()
+        while b"\n" not in self._buf:
+            left = deadline - time.perf_counter()
+            ready = select.select([fd], [], [], max(left, 0))[0] if \
+                left > 0 else []
+            chunk = os.read(fd, 1 << 16) if ready else b""
+            if not chunk:
+                with open(self.log_path) as f:
+                    tail = f.read()[-3000:]
+                raise AssertionError(
+                    f"[20] shard server {self.log_path} "
+                    f"{'exited' if ready else 'timed out'} "
+                    f"(rc {self.proc.poll()}): {tail}")
+            self._buf += chunk
+        out, _, self._buf = self._buf.partition(b"\n")
+        return out.decode()
+
+    def counts(self, timeout: float = 60.0) -> dict:
+        self.proc.stdin.write(b"\n")
+        self.proc.stdin.flush()
+        return json.loads(self.line(time.perf_counter() + timeout))
+
+    def close(self, timeout: float = 60.0) -> dict:
+        """Close its stdin: its last launch counts, then its exit."""
+        self.proc.stdin.close()
+        counts = json.loads(self.line(time.perf_counter() + timeout))
+        self.proc.wait(timeout=timeout)
+        return counts
+
+    def kill(self) -> None:
+        """SIGKILL it if it still runs, and close its pipes."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=30)
+        self.proc.stdin.close()
+        self.proc.stdout.close()
+
+
+def shard_executor(client, calls: list):
+    """The planner's executor for one shard server: its ``Execute`` answer
+    as a ``QueryResult``; each call's host milliseconds go to ``calls``."""
+    from neumann_tpu_torch.router import QueryResult
+
+    def run(query: str):
+        t0 = time.perf_counter()
+        r = client.execute(query)
+        calls.append((time.perf_counter() - t0) * 1e3)
+        return QueryResult(kind=r.kind, message=r.message, rows=r.rows,
+                           count=r.count, results=r.hits, value=r.value)
+    return run
+
+
+def split_fanned(report: dict, prefix: str, lat, calls: dict) -> None:
+    """Where a fanned-out statement's time went: each shard's call p50,
+    and the p50 of what the coordinator spent around the calls (each
+    statement asked every shard once, in order), the first statement
+    apart as ``latency_stats`` keeps it."""
+    report[f"{prefix}_call_p50_ms"] = {
+        nm: float(np.percentile(c[1:], 50)) for nm, c in calls.items()}
+    own = np.asarray(lat[1:]) - np.sum([c[1:] for c in calls.values()],
+                                       axis=0)
+    report[f"{prefix}_coordinator_p50_ms"] = float(np.percentile(own, 50))
+    for c in calls.values():
+        c.clear()
+
+
+def shard_merge(clients, names, stmt: str) -> tuple:
+    """The top TOP_K of the named shards' own answers to ``stmt``, asked
+    of each directly, merged as ``ResultMerger`` merges them (by score,
+    ties in shard order): (row ids, scores) as ``similar_series`` gives
+    them."""
+    hits = [h for n in names for h in clients[n].execute(stmt).hits]
+    hits.sort(key=lambda h: -h["score"])
+    return ([int(h["key"][1:]) for h in hits[:TOP_K]],
+            [h["score"] for h in hits[:TOP_K]])
+
+
+def run_sharded(dev, corpus, queries, oracle, seed: int, on_card: bool,
+                beside: dict) -> dict:
+    """Phase 20 (cell P): scatter-gather SIMILAR over SHARD_SERVERS shard
+    servers on the one card, each holding the rows of ``corpus`` that a
+    ``SemanticPartitioner`` trained on PARTITION_SAMPLE of them assigns
+    it; the coordinator is a ``QueryRouter`` on ``dev`` whose planner
+    (``attach_planner``) fans statements out over ``NeumannClient``
+    connections. ``oracle``: the exact f32 top-10 rows of ``queries``
+    over all of ``corpus`` (phase 7's). ``beside``: B's single-process
+    numbers from this call, recorded next to P's."""
+    from neumann_tpu_torch.parallel import SemanticPartitioner
+    from neumann_tpu_torch.parallel.distributed import QueryPlanner
+    from neumann_tpu_torch.router import QueryRouter
+    from neumann_tpu_torch.server import NeumannClient
+
+    t_phase = time.perf_counter()
+    n = len(corpus)
+    report = {}
+    names = [f"s{i}" for i in range(SHARD_SERVERS)]
+    t0 = time.perf_counter()
+    sample = corpus[np.sort(np.random.default_rng(seed).choice(
+        n, min(PARTITION_SAMPLE, n), replace=False))]
+    part = SemanticPartitioner(SHARD_SERVERS, device=dev)
+    part.train(sample, iters=PARTITION_ITERS)
+    report["sharded_train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    owner = part.assign_batch(corpus)
+    sizes = np.bincount(owner, minlength=SHARD_SERVERS)
+    report["sharded_assign_s"] = time.perf_counter() - t0
+    report["sharded_sizes"] = sizes.tolist()
+    pooled_min = int(os.environ.get("NEUMANN_POOLED_MIN_ROWS", 1 << 18))
+    work = tempfile.mkdtemp(prefix="neumann_shards_")
+    log_dir = "chiprun_out" if on_card else work
+    servers, clients = {}, {}
+    try:
+        t0 = time.perf_counter()
+        for i, name in enumerate(names):
+            ids = np.flatnonzero(owner == i)
+            np.save(os.path.join(work, f"{name}.ids.npy"), ids)
+            np.save(os.path.join(work, f"{name}.rows.npy"), corpus[ids])
+        report["sharded_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for name in names:
+            servers[name] = ShardServer(os.path.join(work, name), dev.type,
+                                        os.path.join(log_dir,
+                                                     f"shard_{name}.log"))
+        for name in names:
+            ready = servers[name].line(t0 + SHARD_START_S)
+            if not ready.startswith("READY "):
+                raise AssertionError(f"[20] shard {name} said {ready!r}")
+            clients[name] = NeumannClient.connect(
+                f"127.0.0.1:{int(ready.split()[1])}", retries=0)
+        report["sharded_start_s"] = time.perf_counter() - t0
+        say(f"[20] {SHARD_SERVERS} shard servers of {sizes.tolist()} rows "
+            f"up in {report['sharded_start_s']:.1f} s (partitioner trained "
+            f"on {len(sample)} rows in {report['sharded_train_s']:.2f} s, "
+            f"{n} rows assigned in {report['sharded_assign_s']:.2f} s, "
+            f"written in {report['sharded_write_s']:.1f} s)")
+        calls = {nm: [] for nm in names}
+        executors = {nm: shard_executor(c, calls[nm])
+                     for nm, c in clients.items()}
+        router = QueryRouter(device=dev)
+        full = QueryPlanner("coordinator", names)
+        semantic = QueryPlanner("coordinator", names, semantic=part)
+        single = queries[:N_SINGLE]
+        stmts = [f"SIMILAR {vec_literal(q)} TOP {TOP_K}" for q in single]
+
+        # ---- 20a: full fan-out, each merge held to the shards' own ------
+        router.attach_planner(full, executors)
+        lat, rows, scores = similar_series(router, stmts)
+        latency_stats(report, "sharded", lat)
+        split_fanned(report, "sharded", lat, calls)
+        bad = [i for i, stmt in enumerate(stmts)
+               if shard_merge(clients, names, stmt) != (rows[i], scores[i])]
+        report["sharded_mismatches"] = len(bad)
+        report["sharded_recall"] = recall(rows, oracle[:N_SINGLE])
+        say(f"[20a] full fan-out: p50 {report['sharded_p50_ms']:.3f} ms p99 "
+            f"{report['sharded_p99_ms']:.3f} ms (B in one process: p50 "
+            f"{beside['pooled_single_p50_ms']:.3f} ms; each shard's call "
+            f"p50 {report['sharded_call_p50_ms']}, the coordinator's own "
+            f"{report['sharded_coordinator_p50_ms']:.3f} ms); recall@{TOP_K} "
+            f"{report['sharded_recall']:.4f} against the exact scan of all "
+            f"{n} rows; {len(bad)} of {len(stmts)} merges differ from the "
+            f"shards' own")
+        if bad:
+            raise AssertionError(f"[20a] merged hits differ from the shards' "
+                                 f"own merge for queries {bad[:5]}")
+        if report["sharded_recall"] < MIN_RECALL:
+            raise AssertionError("[20a] recall below the limit")
+
+        # ---- 20b: semantic routing at nprobe 1..SHARD_SERVERS -----------
+        for nprobe in range(1, SHARD_SERVERS + 1):
+            router.attach_planner(semantic, executors, nprobe=nprobe)
+            lat_n, rows_n, scores_n = similar_series(router, stmts)
+            latency_stats(report, f"sharded_nprobe{nprobe}", lat_n)
+            report[f"sharded_nprobe{nprobe}_recall"] = recall(
+                rows_n, oracle[:N_SINGLE])
+            if nprobe == SHARD_SERVERS:
+                differ = sum(a != b for a, b in zip(
+                    zip(rows_n, scores_n), zip(rows, scores)))
+                report["sharded_nprobe_all_mismatches"] = differ
+                split_fanned(report, f"sharded_nprobe{nprobe}", lat_n,
+                             calls)
+            for c in calls.values():
+                c.clear()
+        say("[20b] semantic routing: " + "; ".join(
+            f"nprobe {p} p50 {report[f'sharded_nprobe{p}_p50_ms']:.3f} ms "
+            f"recall@{TOP_K} {report[f'sharded_nprobe{p}_recall']:.4f}"
+            for p in range(1, SHARD_SERVERS + 1))
+            + f"; nprobe {SHARD_SERVERS}: "
+            f"{report['sharded_nprobe_all_mismatches']} queries differ from "
+            f"the full fan-out, each shard's call p50 "
+            f"{report[f'sharded_nprobe{SHARD_SERVERS}_call_p50_ms']}, the "
+            f"coordinator's own "
+            f"{report[f'sharded_nprobe{SHARD_SERVERS}_coordinator_p50_ms']:.3f}"
+            f" ms")
+        if report["sharded_nprobe_all_mismatches"]:
+            raise AssertionError(f"[20b] nprobe {SHARD_SERVERS} hits differ "
+                                 f"from the full fan-out's")
+
+        # ---- 20c: throughput from N_CLIENTS threads ---------------------
+        router.attach_planner(full, executors)
+        batch = queries[N_SINGLE:N_SINGLE + N_SERVED]
+        served = [f"SIMILAR {vec_literal(q)} TOP {TOP_K}" for q in batch]
+        got = [None] * len(served)
+
+        def work_thread(c):
+            for i in range(c, len(served), N_CLIENTS):
+                got[i] = similar_series(router, served[i:i + 1])[1][0]
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(N_CLIENTS) as ex:
+            list(ex.map(work_thread, range(N_CLIENTS)))
+        wall = time.perf_counter() - t0
+        report["sharded_qps"] = len(served) / wall
+        report["sharded_served_call_p50_ms"] = {
+            nm: float(np.percentile(c, 50)) for nm, c in calls.items()}
+        report["sharded_served_recall"] = recall(
+            got, oracle[N_SINGLE:N_SINGLE + len(served)])
+        # ---- 20d: an aggregate through the planner ----------------------
+        report["sharded_count"] = router.execute("COUNT EMBEDDINGS").count
+        say(f"[20c] {len(served)} statements from {N_CLIENTS} threads: "
+            f"{report['sharded_qps']:.1f} QPS (B over gRPC in one process, "
+            f"19b: {beside.get('grpc_pooled_qps')} QPS; each shard's call "
+            f"p50 {report['sharded_served_call_p50_ms']}), recall@{TOP_K} "
+            f"{report['sharded_served_recall']:.4f}; [20d] COUNT EMBEDDINGS "
+            f"{report['sharded_count']}")
+        if report["sharded_count"] != n:
+            raise AssertionError(f"[20d] COUNT EMBEDDINGS gave "
+                                 f"{report['sharded_count']}, not {n}")
+
+        # each shard's route, and its launch counts before the SIGKILL
+        explained, counts = {}, {}
+        for name in names:
+            detail = clients[name].execute(f"EXPLAIN {stmts[0]}").rows[0][
+                "detail"]
+            m = re.search(r"\(kernel (\w+)\)", detail)
+            explained[name] = m.group(1) if m else detail
+        victim = names[-1]
+        counts[victim] = servers[victim].counts()
+
+        # ---- 20e: one shard SIGKILLed -----------------------------------
+        servers[victim].kill()
+        live = names[:-1]
+        extra = queries[N_SINGLE + N_BATCH:][:N_DEGRADED]
+        degraded = [f"SIMILAR {vec_literal(q)} TOP {TOP_K}" for q in extra]
+        lat_d, rows_d, scores_d = similar_series(router, degraded)
+        bad_d = [i for i, stmt in enumerate(degraded)
+                 if shard_merge(clients, live, stmt) != (rows_d[i],
+                                                          scores_d[i])]
+        report["sharded_degraded_p50_ms"] = float(np.percentile(lat_d, 50))
+        report["sharded_degraded_mismatches"] = len(bad_d)
+        for name in live:
+            counts[name] = servers[name].close()
+        report["sharded_explain"] = explained
+        report["sharded_launches"] = counts
+        report["launches_sharded"] = {
+            k: sum(c.get(k, 0) for c in counts.values()) for k in counts[
+                victim]}
+        say(f"[20e] {victim} SIGKILLed: {len(degraded)} SIMILARs answered, "
+            f"p50 {report['sharded_degraded_p50_ms']:.3f} ms, {len(bad_d)} "
+            f"differ from the live shards' own merge; EXPLAIN by shard "
+            f"{explained}; f32_pooled_bits launches by shard "
+            + str({nm: c["f32_pooled_bits"] for nm, c in counts.items()}))
+        if bad_d:
+            raise AssertionError(f"[20e] degraded hits differ from the live "
+                                 f"shards' merge for queries {bad_d[:5]}")
+        for i, name in enumerate(names):
+            pooled = sizes[i] >= pooled_min
+            launched = counts[name]["f32_pooled_bits"]
+            if not pooled:
+                say(f"[20] shard {name} holds {sizes[i]} rows, below the "
+                    f"pooled route's {pooled_min}: it takes the exact scan")
+            if on_card and (pooled != (launched > 0) or pooled != (
+                    explained[name] == "f32_pooled_bits")):
+                raise AssertionError(
+                    f"[20] shard {name} of {sizes[i]} rows: EXPLAIN names "
+                    f"{explained[name]}, f32_pooled_bits launched {launched}"
+                    f" times")
+    finally:
+        for c in clients.values():
+            c.close()
+        for srv in servers.values():
+            srv.kill()
+        shutil.rmtree(work, ignore_errors=True)
+    report["phase20_s"] = time.perf_counter() - t_phase
+    say(f"[20] phase 20 took {report['phase20_s']:.1f} s")
+    return report
+
+
 def run_chain_cluster(args, dev, centres, s_consensus, s_cluster,
                       on_card: bool) -> dict:
     """Phases 18b-18d (18a runs at the end of phases 7-9)."""
@@ -5661,7 +6036,19 @@ def main() -> int:
         "grpc_web_mismatches", "phase19a_s", "phase19b_s",
         "pq_repeat_launches", "pq_repeat_mismatches",
         "pq_tables_single_vs_batch_differ",
-        "pq_hits_single_vs_batch_tables_differ", "pq_repeat_s", "total_s")}
+        "pq_hits_single_vs_batch_tables_differ", "pq_repeat_s",
+        "sharded_sizes", "sharded_start_s", "sharded_p50_ms",
+        "sharded_p99_ms", "sharded_recall", "sharded_mismatches",
+        "sharded_call_p50_ms", "sharded_coordinator_p50_ms",
+        f"sharded_nprobe{SHARD_SERVERS}_call_p50_ms",
+        f"sharded_nprobe{SHARD_SERVERS}_coordinator_p50_ms",
+        "sharded_served_call_p50_ms",
+        *(f"sharded_nprobe{p}_{k}" for p in range(1, SHARD_SERVERS + 1)
+          for k in ("p50_ms", "recall")),
+        "sharded_nprobe_all_mismatches", "sharded_qps",
+        "sharded_served_recall", "sharded_count", "sharded_degraded_p50_ms",
+        "sharded_degraded_mismatches", "sharded_explain", "phase20_s",
+        "total_s")}
     for part in ("ivf", "pooled", "int8", "binary"):
         for k in ("p50_ms", "p99_ms", "qps", "batches", "mean_cohort",
                   "recall"):

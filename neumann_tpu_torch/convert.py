@@ -43,6 +43,12 @@ The state root is the port chain's own, seeded from ``store``: equal to
 the JAX chain's when the stores hold the same rows. A Raft node's WAL
 directory needs no converter: both packages write the same bytes.
 
+``partitioner_from_jax(part, device)`` gives the port a trained JAX
+``SemanticPartitioner`` (its centroids), a ``VoronoiPartitioner`` (its
+seeds) or a ``ConsistentHashPartitioner`` (its ring, owners, shards and
+virtual-node count), so both packages assign every key and vector to
+the same shard without training again.
+
 ``router_from_files(wal_path, snapshot_path, device)`` gives a port
 ``QueryRouter`` over a store that the JAX package's router wrote (its
 ``checkpoint`` snapshot and the WAL after it; both packages write the
@@ -209,6 +215,31 @@ def llm_cache_from_jax(cache):
     port._node_of = dict(cache._node_of)
     port.stats = llm_cache.CacheStats(**asdict(cache.stats))
     return port
+
+
+def partitioner_from_jax(part, device="cuda"):
+    """The port's partitioner of the same class as the JAX ``part``,
+    carrying its trained state (module docstring). ``device``: where a
+    semantic partitioner trains again if its caller retrains it."""
+    from neumann_tpu_torch.parallel import partitioner as tp
+
+    kind = type(part).__name__
+    if kind == "SemanticPartitioner":
+        port = tp.SemanticPartitioner(part.n_shards, device=device)
+        port.centroids = (None if part.centroids is None
+                          else np.array(part.centroids, np.float32))
+        return port
+    if kind == "VoronoiPartitioner":
+        return tp.VoronoiPartitioner(np.array(part.seeds, np.float32))
+    if kind == "ConsistentHashPartitioner":
+        port = tp.ConsistentHashPartitioner.__new__(
+            tp.ConsistentHashPartitioner)
+        port.virtual_nodes = part.virtual_nodes
+        port._ring = list(part._ring)
+        port._owner = dict(part._owner)
+        port._shards = list(part._shards)
+        return port
+    raise TypeError(f"no port partitioner for {kind}")
 
 
 def router_from_files(wal_path, snapshot_path=None, device="cuda"):

@@ -39,8 +39,9 @@ The ANN index APIs: ``build_ivf_index`` / ``search_with_ivf_nprobe``
 ``search_with_hnsw`` (the host HNSW graph, ``ops/hnsw``), and
 ``save_index`` / ``load_index`` in the JAX engine's ``.npz`` format.
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-the scan limits. One card places no corpus on a mesh.
+The scan limits (``max_keys_per_scan``, ``search_timeout_s``) are
+accepted and read by neither engine. One card places no corpus on a mesh
+(the mesh is ROADMAP item 12b).
 
 Every tensor lives on the engine's ``device`` (default "cuda"); nothing
 switches to the CPU on its own.
@@ -220,7 +221,7 @@ class VectorEngineConfig:
       no ``approx_max_k``), so "approx" and "approx:<target>" give the
       "topk" results;
     * ``mesh_auto`` / ``mesh_threshold``: one card is no mesh, so no
-      corpus is ever placed on one (the mesh is ROADMAP item 12).
+      corpus is ever placed on one (the mesh is ROADMAP item 12b).
 
     ``max_keys_per_scan`` and ``search_timeout_s`` (set by
     ``low_memory()``) are accepted and enforced by neither engine: the

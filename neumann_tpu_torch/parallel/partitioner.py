@@ -1,5 +1,13 @@
-"""k-means for the IVF build (the slice's part of
-``neumann_tpu/parallel/partitioner.py``).
+"""Partitioners: key -> shard assignment strategies, and k-means (the
+port of ``neumann_tpu/parallel/partitioner.py``).
+
+``ConsistentHashPartitioner`` (a blake2b ring with virtual nodes) and
+``VoronoiPartitioner`` (the nearest seed by euclidean distance) are
+copies of the JAX classes. ``SemanticPartitioner`` (the shard whose
+k-means centroid is nearest by cosine) is the JAX class with one
+argument more: ``device``, where ``train``'s k-means runs at scale
+(default "cuda"; the port's ``kmeans`` names its device).
+``assign_batch`` and ``query_shards`` stay numpy, as in JAX.
 
 ``kmeans``: the JAX package's numpy k-means++ seeding, then Lloyd steps
 in numpy below a size threshold and in torch above it (``segment_sum``
@@ -15,10 +23,62 @@ start from different rows by construction.
 
 from __future__ import annotations
 
-from typing import Optional
+import bisect
+import hashlib
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+
+class ConsistentHashPartitioner:
+    """Hash ring with virtual nodes."""
+
+    def __init__(self, shards: Sequence[str], virtual_nodes: int = 64):
+        if not shards:
+            raise ValueError("need at least one shard")
+        self.virtual_nodes = virtual_nodes
+        self._ring: List[int] = []
+        self._owner: Dict[int, str] = {}
+        self._shards = list(shards)
+        for s in shards:
+            self._add_ring(s)
+
+    @staticmethod
+    def _hash(s: str) -> int:
+        return int.from_bytes(
+            hashlib.blake2b(s.encode(), digest_size=8).digest(), "little")
+
+    def _add_ring(self, shard: str) -> None:
+        for v in range(self.virtual_nodes):
+            h = self._hash(f"{shard}#{v}")
+            bisect.insort(self._ring, h)
+            self._owner[h] = shard
+
+    def assign(self, key: str) -> str:
+        h = self._hash(key)
+        idx = bisect.bisect_right(self._ring, h)
+        if idx == len(self._ring):
+            idx = 0
+        return self._owner[self._ring[idx]]
+
+    def add_shard(self, shard: str) -> None:
+        self._shards.append(shard)
+        self._add_ring(shard)
+
+    def remove_shard(self, shard: str) -> None:
+        self._shards.remove(shard)
+        for v in range(self.virtual_nodes):
+            h = self._hash(f"{shard}#{v}")
+            i = bisect.bisect_left(self._ring, h)
+            if i < len(self._ring) and self._ring[i] == h:
+                self._ring.pop(i)
+                self._owner.pop(h, None)
+
+    @property
+    def shards(self) -> List[str]:
+        return list(self._shards)
+
 
 # below this many elements numpy Lloyd's beats a device round trip
 _DEVICE_KMEANS_MIN_ELEMS = 262_144
@@ -145,3 +205,70 @@ def kmeans_device(x: torch.Tensor, k: int, iters: int = 10, seed: int = 0,
             cent = cent.clone()
             cent[recv] = torch.where(adopt[:, None], jittered, cent[recv])
     return cent
+
+
+class SemanticPartitioner:
+    """Assign embeddings to the shard whose archetype centroid is nearest
+    (cosine), like semantic_partitioner.rs. Centroids are discovered with
+    device k-means over a sample.
+
+    ``device``: where ``train``'s k-means runs its Lloyd steps at scale
+    (default "cuda"; below ``kmeans``'s threshold they run in numpy, as
+    in the JAX package)."""
+
+    def __init__(self, n_shards: int, device="cuda"):
+        self.n_shards = n_shards
+        self.device = device
+        self.centroids: Optional[np.ndarray] = None
+
+    def train(self, sample: np.ndarray, iters: int = 20) -> None:
+        self.centroids = kmeans(np.asarray(sample, np.float32),
+                                self.n_shards, iters, device=self.device)
+
+    def assign(self, vector: np.ndarray) -> int:
+        return int(self.assign_batch(np.asarray(vector)[None, :])[0])
+
+    def assign_batch(self, vectors: np.ndarray) -> np.ndarray:
+        if self.centroids is None:
+            raise ValueError("partitioner not trained")
+        v = np.asarray(vectors, np.float32)
+        c = self.centroids
+        vn = v / np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-30)
+        cn = c / np.maximum(np.linalg.norm(c, axis=1, keepdims=True), 1e-30)
+        return np.argmax(vn @ cn.T, axis=1)
+
+    def query_shards(self, query: np.ndarray, nprobe: int = 1
+                     ) -> List[int]:
+        """Shards to probe for a query, nearest-centroid first."""
+        if self.centroids is None:
+            raise ValueError("partitioner not trained")
+        q = np.asarray(query, np.float32)
+        c = self.centroids
+        qn = q / max(float(np.linalg.norm(q)), 1e-30)
+        cn = c / np.maximum(np.linalg.norm(c, axis=1, keepdims=True), 1e-30)
+        order = np.argsort(-(cn @ qn))
+        return [int(i) for i in order[:nprobe]]
+
+
+class VoronoiPartitioner:
+    """Explicit seed points define regions; assignment = nearest seed by
+    euclidean distance (voronoi.rs capability)."""
+
+    def __init__(self, seeds: np.ndarray):
+        self.seeds = np.asarray(seeds, np.float32)
+        if self.seeds.ndim != 2 or not len(self.seeds):
+            raise ValueError("seeds must be [k, d]")
+
+    def assign(self, vector: np.ndarray) -> int:
+        v = np.asarray(vector, np.float32)
+        d2 = np.sum((self.seeds - v[None, :]) ** 2, axis=1)
+        return int(np.argmin(d2))
+
+    def assign_batch(self, vectors: np.ndarray) -> np.ndarray:
+        v = np.asarray(vectors, np.float32)
+        d2 = (np.sum(v * v, 1)[:, None] - 2 * v @ self.seeds.T
+              + np.sum(self.seeds * self.seeds, 1)[None, :])
+        return np.argmin(d2, axis=1)
+
+    def region_of(self, idx: int) -> np.ndarray:
+        return self.seeds[idx]

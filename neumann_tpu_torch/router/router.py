@@ -37,9 +37,13 @@ TPU hardware. The query cache is a dict of the router's (statement text
 next write, where the JAX cache keeps results in the LLM cache, answers
 from its semantic layer and keeps them across writes. ROLLBACK reloads
 each corpus from row 0 (``VectorEngine.restoring``) and rebuilds the
-unified engine's key -> node map, as ``recover`` does. The
-distributed planner (``attach_planner``) raises ``NeumannError`` naming
-its ROADMAP item.
+unified engine's key -> node map, as ``recover`` does.
+
+``attach_planner`` wires the distributed planner
+(``parallel/distributed.py``) into ``execute``, as the JAX router does:
+a statement the plan scatters runs on the shards' executors (routers in
+the process, or shard servers through ``NeumannClient``) and their
+results merge; a statement the plan keeps local runs here.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ import copy
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -76,11 +80,6 @@ from neumann_tpu_torch.router.cursor_store import CursorError, CursorStore
 from neumann_tpu_torch.store.tensor_store import TensorStore
 from neumann_tpu_torch.utils.errors import NeumannError, VectorError
 from neumann_tpu_torch.utils.observability import QueryMetrics
-
-def _not_ported(what: str, item: str):
-    raise NeumannError(
-        f"{what} is not ported to the PyTorch router yet (ROADMAP: {item})")
-
 
 def _agg_alias(item) -> str:
     """Canonical output column for an un-aliased aggregate item,
@@ -222,6 +221,9 @@ class QueryRouter:
         self.cluster_client = None
         self.cluster = None
         self.cluster_read_mode = "forward"
+        # the distributed planner (attach_planner); None while detached
+        self._dist = None
+        self._dist_nprobe = None
 
     def recover(self, wal_path, snapshot_path=None) -> int:
         """Recover the store from a snapshot + WAL (``TensorStore.
@@ -309,9 +311,51 @@ class QueryRouter:
 
         self.chain = TensorChain(self.store, embedding_dim, **kw)
 
-    # -- not ported yet ------------------------------------------------------
-    def attach_planner(self, *args, **kwargs):
-        _not_ported("distributed planning", "12, mesh")
+    def attach_planner(self, planner, executors: Dict[str, object],
+                       nprobe: Optional[int] = None) -> None:
+        """Wire distributed planning into execute() itself (parity
+        with try_execute_distributed, query_router/src/lib.rs:
+        1751-1773 + distributed.rs:126-208): every statement is
+        classified local / scatter-gather / routed before it runs,
+        shard results merge by TopK/Aggregate/Concat/FirstNonEmpty,
+        and SIMILAR with a vector literal routes semantically (probe
+        the nearest shards only) when the planner has a
+        SemanticPartitioner. ``executors`` maps shard name ->
+        callable(query) -> QueryResult; the local shard defaults to
+        direct in-process execution.
+        """
+        from neumann_tpu_torch.parallel.distributed import (
+            DistributedExecutor,
+        )
+
+        executors = dict(executors)
+        executors.setdefault(
+            planner.local,
+            lambda q: self.execute_statement(parse_cached(q)))
+        self._dist = DistributedExecutor(planner, executors)
+        self._dist_nprobe = nprobe
+
+    def detach_planner(self) -> None:
+        self._dist = None
+
+    def _try_execute_distributed(self, query: str, stmt
+                                 ) -> Optional[QueryResult]:
+        """None = the plan says local; caller falls through to normal
+        execution (writes replicate via Raft, not via the planner)."""
+        dist = self._dist
+        if dist is None or isinstance(stmt, (ast.Cluster, ast.Empty,
+                                             ast.Explain)):
+            return None
+        emb = None
+        if isinstance(stmt, ast.Similar) and stmt.query_vector:
+            emb = np.asarray(stmt.query_vector, np.float32)
+        planner = dist.planner
+        plan = (planner.plan_with_embedding(query, emb, self._dist_nprobe)
+                if emb is not None else planner.plan(query))
+        if plan.kind == "local":
+            return None
+        return dist.execute(query, embedding=emb, nprobe=self._dist_nprobe,
+                            plan=plan)
 
     # -- entry points ---------------------------------------------------------
     def execute(self, query: str) -> QueryResult:
@@ -324,11 +368,14 @@ class QueryRouter:
             else:
                 stmt = parse_cached(query)
                 kind = type(stmt).__name__
+                out = self._try_execute_distributed(query, stmt)
                 cc = self.cluster_client
-                if cc is not None and not self._reads_stay_local(stmt) \
-                        and not isinstance(stmt, (ast.Cluster, ast.Empty)):
+                if out is None and cc is not None and \
+                        not self._reads_stay_local(stmt) and \
+                        not isinstance(stmt, (ast.Cluster, ast.Empty)):
                     return self._execute_remote(cc, query, kind, t0)
-                out = self._try_cache_get(kind, query)
+                if out is None:
+                    out = self._try_cache_get(kind, query)
                 if out is None:
                     writes = self.vector.writes
                     out = self.execute_statement(stmt)

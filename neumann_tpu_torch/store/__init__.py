@@ -1,6 +1,7 @@
-"""Storage of the port: the host store, entity index, codec, WAL and
-snapshots (copies of the JAX package's modules, import lines changed)
-and the embedding slab with torch device views
+"""Storage of the port: the host store, entity index, codec, WAL,
+snapshots, the tiered store (``tiered.py``) and the region-sorted runs
+(``regional.py``) (copies of the JAX package's modules, import lines
+changed) and the embedding slab with torch device views
 (``embedding_slab.py``). The package exports the JAX package's names."""
 
 from neumann_tpu_torch.store.sparse import SparseVector  # noqa: F401

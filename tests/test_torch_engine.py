@@ -25,7 +25,7 @@ from neumann_tpu_torch.engines.vector import VectorEngine
 from neumann_tpu_torch.engines.vector import VectorEngineConfig as TConfig
 from neumann_tpu_torch.ops.ivf import DeviceIVFInt8
 from neumann_tpu_torch.router import QueryRouter as TRouter
-from neumann_tpu_torch.utils.errors import NeumannError, VectorError
+from neumann_tpu_torch.utils.errors import VectorError
 from tests.test_torch_relational import routers as fresh_routers
 from tests.test_torch_relational import run_both
 
@@ -149,12 +149,9 @@ def test_storage_statements_match_jax(routers):
 
 
 def test_unported_statements_raise(routers, tmp_path):
-    """The planner still raises naming its ROADMAP item; the extended
-    modules' and the chain's statements and ``init_*`` answer as the JAX
-    router's do."""
+    """The extended modules' and the chain's statements and ``init_*``
+    answer as the JAX router's do."""
     jr, tr, _ = routers
-    with pytest.raises(NeumannError, match="ROADMAP"):
-        tr.attach_planner()
     stmts = ("VAULT GET 'x'", "CHECKPOINTS", "CACHE STATS",
              "EXPLAIN SELECT * FROM t", "BLOB STATS", "CHAIN HEIGHT")
     mj, mt = fresh_routers()
@@ -408,7 +405,8 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     auto-IVF and brute-force routes over HTTP and over gRPC; the shell;
     the pq and tt
     collections and the ANN index APIs; the chain, the consensus
-    classification and the clusters of phase 18) at a toy size
+    classification and the clusters of phase 18; SIMILAR scattered over
+    three shard-server processes, phase 20) at a toy size
     on the CPU; the kernel phase, the launch checks and the profiles need
     the card. 8 mixture centres
     instead of 4,096 so that 20,480 rows are clustered like the real
@@ -542,3 +540,14 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     assert all(r["lost"] == 0 and r["kernel"] == "int8_dot_scores"
                for r in rep["cluster_kill_reads"].values())
     assert len(rep["cluster_kill_reads"]) == 3
+    # phase 20: B's rows on three shard-server processes; every merge is
+    # the shards' own, nprobe 3 equals the full fan-out, COUNT adds up,
+    # and after a SIGKILL the answers are the live shards' merge
+    assert sum(rep["sharded_sizes"]) == rep["sharded_count"] == 4096
+    assert rep["sharded_mismatches"] == 0
+    assert rep["sharded_nprobe_all_mismatches"] == 0
+    assert rep["sharded_degraded_mismatches"] == 0
+    assert min(rep["sharded_recall"], rep["sharded_nprobe3_recall"],
+               rep["sharded_served_recall"]) >= 0.95
+    assert set(rep["sharded_launches"]) == {"s0", "s1", "s2"}
+    assert rep["launches_sharded"]["f32_pooled_bits"] == 0

@@ -15,7 +15,10 @@ points codec),
 one shell statement, a checkpoint and rollback, a blob, the LLM cache,
 EXPLAIN SIMILAR and the vault, a chain transaction, the pairwise
 consensus classification and a cluster node built as
-``--device cpu``, with the native lexer and parser loaded,
+``--device cpu``, SIMILAR and COUNT scattered over two shard routers by
+a coordinator's semantic planner, the distributed graph engine, a
+tiered store, a regional store, the lock-order tracker and a short
+fuzzing session, with the native lexer and parser loaded,
 and fails if any module named ``neumann_tpu`` or ``neumann_tpu.*`` was
 loaded. A second subprocess blocks ``cryptography`` as well, as on the
 card's machine: the router and the shell import and run, and only
@@ -188,6 +191,52 @@ _NOJAX = textwrap.dedent("""
     node, _ = build_node(["--id", "n0", "--port", "0", "--device", "cpu"])
     assert node.router.vector.device.type == "cpu"
     node.stop()
+    from neumann_tpu_torch.parallel import (ConsistentHashPartitioner,
+                                            SemanticPartitioner,
+                                            VoronoiPartitioner)
+    from neumann_tpu_torch.parallel.distributed import QueryPlanner
+    sem = SemanticPartitioner(2, device="cpu")
+    sem.train(v.astype("f4"))
+    shards = {}
+    for s in ("s0", "s1"):
+        shards[s] = QueryRouter(device="cpu")
+    for i in range(20):
+        shards[f"s{sem.assign(v[i])}"].execute(
+            f"EMBED STORE 'k{i}' [{', '.join(map(str, v[i]))}]")
+    coord = QueryRouter(device="cpu")
+    coord.attach_planner(QueryPlanner("c", list(shards), semantic=sem),
+                         {n: sr.execute for n, sr in shards.items()})
+    hits = coord.execute(f"SIMILAR [{', '.join(map(str, v[11]))}] "
+                         f"TOP 3").results
+    assert hits[0]["key"] == "k11", hits
+    assert coord.execute("COUNT EMBEDDINGS").count == 20
+    assert ConsistentHashPartitioner(["a", "b"]).assign("k") in ("a", "b")
+    from neumann_tpu_torch.engines import DistributedGraphEngine
+    dg = DistributedGraphEngine(device="cpu")
+    a, b = dg.create_node("P"), dg.create_node("P")
+    dg.create_edge(a, b, "R")
+    assert dg.neighbors(a) and dg.local_engine().device.type == "cpu"
+    from neumann_tpu_torch.store.regional import RegionalStore
+    from neumann_tpu_torch.store.tensor_store import TensorData
+    from neumann_tpu_torch.store.tiered import TieredStore
+    from neumann_tpu_torch.utils import covfuzz
+    from neumann_tpu_torch.utils.lockcheck import lock_order_tracking
+    with tempfile.TemporaryDirectory() as tmp:
+        ts = TieredStore(tmp + "/tiered")
+        ts.put("x", TensorData.with_values(v=1))
+        assert ts.migrate_cold() == 1 and ts.get("x").get("v").value == 1
+        ts.close()
+        rs = RegionalStore(tmp + "/rgn", VoronoiPartitioner(v[:3]))
+        rs.put("y", v[1], b"p")
+        rs.flush()
+        assert rs.load_region(1) == [("y", b"p")]
+        rs.close()
+    with lock_order_tracking() as tracker:
+        QueryRouter(device="cpu").execute("CREATE TABLE lt (a INT)")
+    assert not tracker.violations()
+    stats = covfuzz.fuzz(covfuzz.target_parser, [b"SELECT 1"], (Exception,),
+                         max_execs=50, seed=1)
+    assert stats.executions == 50 and not stats.findings
     bad = [m for m, mod in sys.modules.items()
            if mod is not None and (m == "jax" or m.startswith("jax.")
                or m == "neumann_tpu" or m.startswith("neumann_tpu."))]
@@ -302,6 +351,12 @@ def _port_sources() -> list:
             "neumann_tpu_torch/chain/consensus.py",
             "neumann_tpu_torch/chain/jepsen.py",
             "neumann_tpu_torch/store/delta_vector.py",
+            "neumann_tpu_torch/parallel/distributed.py",
+            "neumann_tpu_torch/engines/graph_distributed.py",
+            "neumann_tpu_torch/store/tiered.py",
+            "neumann_tpu_torch/store/regional.py",
+            "neumann_tpu_torch/utils/lockcheck.py",
+            "neumann_tpu_torch/utils/covfuzz.py",
             "scripts/torch_chain_phase.py"} <= names
     return srcs
 

@@ -44,8 +44,7 @@ globals().update(twin_tests("test_entrypoints", (
     "test_server_main_help"), packages=_PORT))
 globals().update(twin_tests("test_tiered_observability", (
     "test_otlp_metrics_json_shape", "test_otlp_http_push_and_span_recorder",
-    "test_otlp_file_endpoint_and_collector_down"), packages=_PORT,
-    absent=("neumann_tpu.store.tiered",)))
+    "test_otlp_file_endpoint_and_collector_down"), packages=_PORT))
 
 
 # ------------------------------------------------ the JAX server beside

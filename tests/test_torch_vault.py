@@ -6,9 +6,8 @@ Every scenario of the JAX vault tests runs on both packages as one test
 parametrised over ``package`` (tests/torch_twins.py): the vault cases of
 tests/test_extended_modules.py (secrets, ACLs, versions, namespaces, rate
 limits, Shamir, point-in-time snapshots, anomalies, PKI, sync and geo
-routing, scoped vaults; not the PKI certificate over the chain's TLS
-transport, which waits for the chain, ROADMAP item 11) and
-tests/test_vault_access.py,
+routing, scoped vaults, a PKI-issued certificate over the chain's TLS
+transport) and tests/test_vault_access.py,
 test_vault_depth.py, test_vault_intel.py and test_vault_scoped_depth.py.
 Then a vault sealed by the JAX package is opened by the port from the
 same store snapshot, and the reverse, and the routers' VAULT statements
@@ -35,7 +34,8 @@ _EXTENDED_VAULT = (
     "test_vault_pitr_snapshots", "test_vault_pitr_non_root_denied",
     "test_vault_pitr_survives_reopen", "test_vault_anomaly_monitor",
     "test_vault_anomaly_wired_and_persisted",
-    "test_pki_ca_issue_verify_revoke_crl", "test_vault_sync_targets",
+    "test_pki_ca_issue_verify_revoke_crl",
+    "test_pki_issued_cert_works_for_tls_transport", "test_vault_sync_targets",
     "test_geo_router_route_exclude_ema", "test_vault_sync_geo_routed_fanout",
     "test_scoped_lifecycle_and_delegation",
     "test_scoped_wrapping_and_dependencies", "test_scoped_dynamic_secrets")

@@ -6,7 +6,9 @@ replaced by ``neumann_tpu_torch``, and the port's entry points that run
 on the card by default asked for the CPU (``QueryRouter()``,
 ``VectorEngine``, the chain's ``TcpClusterNode`` / ``build_node`` /
 ``classify_pairwise(_codes)``, the server's ``NeumannServer`` /
-``RestServer`` / ``NeumannClient.embedded`` / ``main``, and ``python -m
+``RestServer`` / ``NeumannClient.embedded`` / ``main``, the graph
+engines ``GraphEngine`` / ``DistributedGraphEngine``, the
+``SemanticPartitioner``, and ``python -m
 neumann_tpu_torch.chain.node`` or ``neumann_tpu_torch.server``, whose
 processes import this checkout); helpers it imports from another test
 file come from that file's port twin. For each of the file's tests (a
@@ -38,7 +40,8 @@ PACKAGES = ("jax", "port")
 # the port's entry points with a device argument that defaults to "cuda"
 _ON_CARD = r"\b(TcpClusterNode|build_node|classify_pairwise_codes|" \
     r"classify_pairwise|NeumannServer|RestServer|NeumannClient\.embedded|" \
-    r"srvmod\.main|VectorEngine)\("
+    r"srvmod\.main|VectorEngine|SemanticPartitioner|DistributedGraphEngine|" \
+    r"GraphEngine)\("
 
 
 def _on_cpu(fn):
@@ -48,7 +51,7 @@ def _on_cpu(fn):
     return functools.partial(fn, device="cpu")
 
 
-def _load(name: str, package: str, absent=(), patch=None
+def _load(name: str, package: str, absent=(), patch=None, port_patch=None
           ) -> types.ModuleType:
     path = TESTS / f"{name}.py"
     src = path.read_text()
@@ -76,6 +79,9 @@ def _load(name: str, package: str, absent=(), patch=None
                      r'\1 "--device", "cpu",', src)
         src = re.sub(r'(env\["PYTHONPATH"\] = )"[^"]*"',
                      lambda m: m.group(1) + repr(str(TESTS.parent)), src)
+        for old, new in (port_patch or {}).items():
+            assert old in src, f"{name}'s port twin has no {old!r}"
+            src = src.replace(old, new)
         mod._cpu = _on_cpu
     mod.__file__ = str(path)
     exec(compile(src, str(path), "exec"), mod.__dict__)
@@ -169,7 +175,7 @@ def _twin(name: str, mods: dict):
 
 
 def twin_tests(module: str, names=None, packages=PACKAGES,
-               absent=(), patch=None) -> dict:
+               absent=(), patch=None, port_patch=None) -> dict:
     """{test name: twin test} for the tests of tests/<module>.py (all of
     them, or those whose names ``names`` lists), on each of ``packages``
     (("port",) where the JAX side already runs in its own file). A test
@@ -178,8 +184,13 @@ def twin_tests(module: str, names=None, packages=PACKAGES,
     of the JAX package that the port does not have yet: the file's
     one-line imports of them bind None. ``patch`` ({old: new}) replaces
     text of the file's source on every package (each ``old`` must occur):
-    a test's setting changed for both twins, said where it is used."""
-    mods = {pkg: _load(module, pkg, absent, patch) for pkg in packages}
+    a test's setting changed for both twins, said where it is used.
+    ``port_patch`` ({old: new}) replaces text of the port twin's source
+    after its rewrites above (``neumann_tpu_torch``, ``_cpu(...)``): for
+    a line the rewrites cannot carry, such as a worker script's JAX
+    backend query, said where it is used."""
+    mods = {pkg: _load(module, pkg, absent, patch, port_patch)
+            for pkg in packages}
     found = []
     for n, obj in vars(next(iter(mods.values()))).items():
         if n.startswith("test_") and inspect.isfunction(obj):
