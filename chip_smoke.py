@@ -7,7 +7,8 @@ cache, then a 3,072-d binary collection, then the hybrid graph + vector
 query; serve the auto-IVF and brute-force corpora over HTTP and over
 gRPC (Execute, the Points plane, gRPC-web) to concurrent clients, and
 the brute-force corpus from three shard servers behind a scatter-gather
-coordinator; run the shell.
+coordinator and from a mesh of four logical devices of the card; run the
+shell.
 
 Usage, from the root of a checkout, on a machine with one CUDA card and
 the CUDA toolkit (nvcc)::
@@ -271,6 +272,36 @@ Phases (each raises on failure; exit code 0 only if all pass):
     before the kill) and when its stdin closes: row 6 must launch in
     every shard of at least 262,144 rows, whose EXPLAIN names it, and a
     smaller shard must take the exact scan.
+21. the mesh (cell M; after phase 20, on phase 7's rows and queries):
+    ``NEUMANN_MESH_DEVICES=4`` for this phase only, so the engine's
+    mesh is four logical devices of the card; a router of its own holds
+    the rows ``{"cat": i % 16}`` (``bulk_ingest``) and an int8
+    collection of them; every SIMILAR through ``router.execute``,
+    counted from 21a to 21g (``launches_mesh``): 21a 64 singles and a
+    batch of 1,024 on the f32 ``ShardedCorpus`` (hits equal to the exact
+    f32 scan: scores within 1e-5, ids wherever no two scores are within
+    1e-5); 21b the same IN q8 (the int8 ``ShardedCorpus``: row 5 on each
+    shard, then the rerank; recall@10 >= 0.95); 21c 16 IN q8 METRIC
+    euclidean (row 4; recall against the exact euclidean scan); 21d 16
+    ``WHERE cat = 3`` (every hit in cat 3, recall against the masked
+    scan); 21e ``ivf_auto_threshold`` set to the row count: the
+    ``ShardedIVFCorpus`` placement (first query = build, 64 singles, a
+    batch of 1,024; recall@10 against the f32 scan >= 0.85, the
+    reference's numerics, and >= 0.95 against the exact scan of the
+    placement's own rows); 21f 64 keys re-embedded, each new vector's key
+    first on the IVF and the f32 placements, neither rebuilt; 21g
+    ``search_batched`` on the placement, fast (row 2 top-2) and not, over
+    1,024 stored rows: the non-fast top-1 equal to ``search``'s (scores
+    within 1e-5); the fast form's hits equal to its run through the plain
+    batched probe, its top-1 equal to ``search``'s for >= 97 % of the
+    rows (its pool-winner probes pick other windows), ``search``'s the
+    row itself for >= 99 %. Every placement has 4 shards; rows 2, 4 and 5
+    launch. Then the merge equals each shard's own answer concatenated in
+    shard order and cut by ``_topk_stable`` (repeated queries, stored
+    rows, and a small corpus with rows copied across shards), and rows 2,
+    4 and 5 are held bit for bit to their plain versions at the launches
+    the shards make (captured from the path), timed with CUDA events
+    beside their bounds (``_mesh`` / ``_mesh_q1`` in the kernels line).
 
 Every kernel must launch in the counted phases. After phase 4 it
 profiles 8 single SIMILARs and one batch (cProfile on the host,
@@ -453,7 +484,7 @@ SAMPLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "samples",
 ROUTES = ("ivf", "top65", "top65_latency", "top1_direct", "delta",
           "pooled", "int8", "binary", "wide", "hybrid", "served_ivf",
           "served_brute", "pq", "tt", "ann", "rollback", "chain", "cluster",
-          "served_grpc_ivf", "served_grpc_brute", "sharded")
+          "served_grpc_ivf", "served_grpc_brute", "sharded", "mesh")
 # phase 17 (on A's corpus): the TOP 65 batch (k_ivf 146 > 128, the
 # non-fast batched route), and an index over A's rows that takes 10 %
 # more rows through add (in chunks of 65,536) and loses 1 % of A's row
@@ -467,7 +498,7 @@ DELETE_FRAC = 0.01
 # suffix
 SHAPE_SUFFIXES = ("_q1", "_q8", "_q32", "_w96", "_w96q1", "_w96q256",
                   "_d4096", "_hyb", "_ivf", "_m384", "_g_step",
-                  "_h_step", "_h_tail", "_h_single")
+                  "_h_step", "_h_tail", "_h_single", "_mesh", "_mesh_q1")
 # row 7's design, named in its kernels-line entry beside each shape's
 # plan (ops/kernels._hamming_groups)
 HT_DESIGN = ("queries on M (16 a warp, up to 8 warps a block), rows on N "
@@ -612,6 +643,40 @@ PARTITION_SAMPLE = 1 << 16
 PARTITION_ITERS = 20
 N_DEGRADED = 16
 SHARD_START_S = 300.0
+# phase 21 (cell M): phase 7's rows on a mesh of MESH_SHARDS logical
+# devices of the one card (NEUMANN_MESH_DEVICES, this phase only),
+# batches of MESH_BATCH of its queries; MESH_FRESH keys re-embedded in part f; the merge gate's small corpus of
+# MESH_COPY_ROWS rows a shard
+MESH_SHARDS = 4
+MESH_BATCH = N_BATCH
+# the sharded IVF ranks its candidates by their int8 rows times scale /
+# ||f32 row|| (the JAX class's design: no residual plane), which on these
+# mixtures' near-equal neighbours swaps ranks: on 16,384 rows of the
+# recipe, 256 a centre as here, both packages' ShardedIVFCorpus reach
+# recall@10 0.8891 against the f32 scan over every window, and at this
+# phase's layout (windows of 1,024, nprobe a quarter of a shard's
+# windows) on 65,536 rows 0.8656, where an exact int8 scan reaches
+# 0.9703 / 0.9719 (tests/test_torch_mesh.py::
+# test_sharded_ivf_recall_is_the_references, both cases). Against the
+# f32 scan the route is held to MESH_IVF_MIN_RECALL (0.8896-0.8922 read
+# on an H100); against the exact scan of the placement's own rows and
+# multipliers (what its probes and its bf16 first pass can lose) to
+# MIN_RECALL
+MESH_IVF_MIN_RECALL = 0.85
+MESH_FRESH = 64
+MESH_COPY_ROWS = 2048
+MESH_TOL = 1e-5
+# 21g, over stored rows: search's top-1 is the row itself unless its
+# window is not among its shard's nprobe best (a fixed window straddling
+# two clusters has a blended mean); the fast form's pool-winner probes
+# (JAX's probe_mode "pool": one window a strided pool of the centroid
+# scores) pick another window set than search's exact top-nprobe, so its
+# top-1 may differ where that window falls outside it. Both are the JAX
+# class's designs (tests/test_torch_mesh.py holds each form to JAX's); on
+# an H100 at cell M: 5 and 7-14 departures of 1,024 (PERF.md §6), so the
+# limits allow 10 and 15
+MESH_SELF_MIN = 0.99
+MESH_FAST_MIN_AGREE = 0.985
 
 
 def say(msg: str) -> None:
@@ -744,6 +809,13 @@ def bound(n_bytes: float, ops: float, ops_per_s: float) -> dict:
                 bytes_bound_ms=t_bytes, ops_bound_ms=t_ops)
 
 
+def probe_table_bytes(b, rm2, scm, got, n_filled: int) -> int:
+    """The batched probe's bytes: the windows' rows and multipliers, the
+    slots' scales and the packed winners, and the query table's filled
+    slots alone (its empty slots are never read)."""
+    return nbytes(b, rm2, scm, got) + n_filled * DIM
+
+
 def turns(kernel, library, reps: int):
     """Device times of a kernel and of a library call for the same
     product, taken in turns on one card (kernel, library, library,
@@ -830,7 +902,7 @@ def check_kernels(dev, rows: int, seed: int) -> dict:
     # scored against every row of their window
     n_filled = int(filled.clamp(max=q_cap).sum())
     out["batched_probe"] = dict(
-        **bound(nbytes(b, rm2, scm, got) + n_filled * DIM,
+        **bound(probe_table_bytes(b, rm2, scm, got, n_filled),
                 2 * n_filled * window * DIM, INT8_OPS_PER_S),
         filled_slots=n_filled,
         max_abs_err=err,
@@ -851,7 +923,7 @@ def check_kernels(dev, rows: int, seed: int) -> dict:
                              f"{int((got != want).sum())} packed words "
                              f"differ from plain (must be bit-exact)")
     out["batched_probe_top1"] = dict(
-        **bound(nbytes(b, rm2, scm, got) + n_filled * DIM,
+        **bound(probe_table_bytes(b, rm2, scm, got, n_filled),
                 2 * n_filled * window * DIM, INT8_OPS_PER_S),
         filled_slots=n_filled, max_abs_err=0.0,
         ms=cuda_ms(lambda: tk.batched_probe(b, rm2, qsel, scm, window), 10),
@@ -1597,6 +1669,14 @@ def run(args, dev, config=None, on_card: bool = True) -> dict:
     shared = {}
     report.update(run_brute(args, dev, centres, s_corpus7, s_queries7,
                             on_card, shared))
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    # ---- phase 21: the same rows on a mesh of logical devices ----------
+    report.update(run_mesh(args, dev, shared["corpus"], shared["queries"],
+                           on_card, report))
+    for name, rec in report.pop("mesh_kernels", {}).items():
+        report["kernels"][name].update(rec)
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
@@ -5860,6 +5940,456 @@ def run_sharded(dev, corpus, queries, oracle, seed: int, on_card: bool,
     return report
 
 
+def exact_mismatches(rows, scores, o_ids, o_scores, tol: float) -> list:
+    """(query, rank) where a hit list departs from the exact scan's: a
+    score more than ``tol`` from the scan's at that rank, or another id
+    where the scan's score stands more than ``tol`` from every other of
+    its top-(k + 1)."""
+    bad = []
+    for r, (got, sc) in enumerate(zip(rows, scores)):
+        want, ws = o_ids[r], o_scores[r]
+        for j in range(len(got)):
+            if abs(sc[j] - ws[j]) > tol:
+                bad.append((r, j, "score"))
+            elif got[j] != want[j] and (np.abs(np.delete(ws, j) - ws[j])
+                                        > tol).all():
+                bad.append((r, j, "id"))
+    return bad
+
+
+def ivf_placement_exact(ivf, queries: np.ndarray, k: int) -> np.ndarray:
+    """The exact top-k of a ShardedIVFCorpus under its own scoring: every
+    stored int8 row times its multiplier (the unit row its rerank
+    scores) against the normalized f32 query, on each shard, merged in
+    shard order. Returns ids into the rows the placement was loaded
+    with (-1 where fewer)."""
+    import torch
+
+    from neumann_tpu_torch.ops.scan import _topk_stable, host_pull
+    from neumann_tpu_torch.parallel import sharded_search as tss
+
+    q = np.zeros((len(queries), ivf.dim_pad), np.float32)
+    q[:, :queries.shape[1]] = queries
+    parts_s, parts_p = [], []
+    for shard, (buf, rm) in enumerate(zip(ivf.corpus, ivf.rmult)):
+        qd = torch.from_numpy(q).to(buf.device)
+        qn = qd / qd.norm(dim=1, keepdim=True).clamp_min(1e-30)
+        sc = torch.cat([
+            qn @ (buf[r0:r0 + (1 << 16)].float()
+                  * rm[r0:r0 + (1 << 16), None]).T
+            for r0 in range(0, len(buf), 1 << 16)], dim=1)
+        sc = sc.masked_fill((rm <= 0)[None, :], float("-inf"))
+        s_k, pos = _topk_stable(sc, min(k, sc.shape[1]))
+        parts_s.append(s_k)
+        parts_p.append(torch.where(torch.isneginf(s_k), -1,
+                                   pos + shard * ivf.rows_s))
+        del sc
+    s, gpos = host_pull(*tss._merge_gathered(parts_s, parts_p, k,
+                                             ivf.devices[0]))
+    return ivf._host_ids(s, gpos)[1]
+
+
+def mesh_kernel_check(rec: dict, name: str, sfx: str, fn, plain, a: tuple,
+                      ops: float, reps: int, bytes_of=None) -> None:
+    """A kernel launched by a shard (its captured inputs ``a``) against
+    its plain version, bit for bit; CUDA-event times and the bound into
+    ``rec`` under ``sfx``. The bound's bytes are ``bytes_of(got)``, by
+    default every tensor input and the output once."""
+    import torch
+
+    got, want = fn(*a), plain(*a)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"[21] {name}{sfx}: "
+                             f"{int((got != want).sum())} values differ "
+                             f"from plain (must be bit-exact)")
+    if bytes_of is None:
+        n_bytes = nbytes(*[x for x in a if torch.is_tensor(x)], got)
+    else:
+        n_bytes = bytes_of(got)
+    for k, v in bound(n_bytes, ops, INT8_OPS_PER_S).items():
+        rec[f"{k}{sfx}"] = v
+    rec[f"max_abs_err{sfx}"] = 0.0
+    rec[f"ms{sfx}"] = cuda_ms(lambda: fn(*a), reps)
+    rec[f"plain_ms{sfx}"] = cuda_ms(lambda: plain(*a), 1, warm=False)
+    rec[f"shape{sfx}"] = ", ".join(
+        "x".join(map(str, x.shape)) if torch.is_tensor(x) else str(x)
+        for x in a)
+
+
+def run_mesh(args, dev, corpus, queries, on_card: bool, beside: dict
+             ) -> dict:
+    """Phase 21 (cell M): phase 7's rows on a mesh of MESH_SHARDS logical
+    devices of one card, SIMILAR through ``router.execute`` served by the
+    engine's mesh placements (``ShardedCorpus`` f32 and int8,
+    ``ShardedIVFCorpus``). ``beside``: B's numbers from this call on the
+    same rows, recorded next to M's. The variable that makes the logical
+    devices is set for this phase alone."""
+    import torch
+
+    from neumann_tpu_torch.engines.vector import FilterCondition
+    from neumann_tpu_torch.ops import ivf as tivf
+    from neumann_tpu_torch.ops import kernels as tk
+    from neumann_tpu_torch.ops.scan import _topk_stable, topk_scan
+    from neumann_tpu_torch.parallel import mesh as tmesh
+    from neumann_tpu_torch.parallel import sharded_search as tss
+    from neumann_tpu_torch.router import QueryRouter
+
+    t_phase = time.perf_counter()
+    n = len(corpus)
+    report = {}
+    single = queries[:N_SINGLE]
+    batch = queries[N_SINGLE:N_SINGLE + MESH_BATCH]
+    extra = queries[N_SINGLE + N_BATCH:]
+    saved_env = os.environ.get(tmesh.MESH_DEVICES_ENV)
+    os.environ[tmesh.MESH_DEVICES_ENV] = str(MESH_SHARDS)
+    try:
+        router = QueryRouter(device=dev)
+        eng = router.vector
+        # the default mesh_threshold (262,144) on the card; the CPU
+        # rehearsal's rows are fewer
+        eng.config.mesh_threshold = min(eng.config.mesh_threshold, n)
+        ivf_threshold = eng.config.ivf_auto_threshold
+        if ivf_threshold <= n:
+            raise AssertionError(f"[21] parts a-d need fewer rows than "
+                                 f"ivf_auto_threshold ({ivf_threshold})")
+        t0 = time.perf_counter()
+        with eng.bulk_ingest():
+            for i in range(n):
+                eng.store_embedding(f"k{i}", corpus[i], {"cat": i % N_CATS})
+        router.execute(f"CREATE COLLECTION q8 DIM {DIM} QUANTIZATION int8")
+        with eng.bulk_ingest():
+            for i in range(n):
+                eng.store_in_collection("q8", f"k{i}", corpus[i])
+        report["mesh_ingest_s"] = time.perf_counter() - t0
+        base = eng._corpora[""][DIM]
+        q8 = eng._corpora["col/q8"][DIM]
+        # the exact f32 scans of all rows (k + 1: the gap past the k-th)
+        emb, valid = base.slab.device_view()
+        qd = torch.from_numpy(queries).to(dev)
+        cat_rows = base.filter_mask(FilterCondition.eq("cat", FILTER_CAT))
+        o_s, o_i = (t.cpu().numpy() for t in topk_scan(
+            emb, qd, TOP_K + 1, "cosine", valid))
+        o_f = topk_scan(emb, qd[N_SINGLE + N_BATCH:], TOP_K, "cosine",
+                        valid & torch.from_numpy(cat_rows).to(dev)
+                        )[1].cpu().numpy()
+        o_e = topk_scan(emb, qd[N_SINGLE + N_BATCH:], TOP_K, "euclidean",
+                        valid)[1].cpu().numpy()
+        del emb, valid
+        say(f"[21] {n} rows with metadata and an int8 collection of them "
+            f"stored in {report['mesh_ingest_s']:.1f} s; mesh of "
+            f"{MESH_SHARDS} logical devices: {eng._mesh()}")
+
+        stmts = [f"SIMILAR {vec_literal(q)} TOP {TOP_K}" for q in single]
+        fresh_keys = (np.arange(MESH_FRESH) * (n // MESH_FRESH) + 7)
+        fresh = np.random.default_rng(args.seed + 21).standard_normal(
+            (MESH_FRESH, DIM)).astype(np.float32)
+        fresh_stmts = [f"SIMILAR {vec_literal(v)} TOP {TOP_K}"
+                       for v in fresh]
+        tk.reset_launch_counts()
+        # ---- 21a: f32 ShardedCorpus (every shard's exact scan) ---------
+        lat, rows_a, sc_a = similar_series(router, stmts)
+        latency_stats(report, "mesh_f32_single", lat)
+        report["mesh_f32_batch_qps"], report["mesh_f32_batch_s"], \
+            rows_ab, sc_ab = batch_series(lambda: eng.batch_search(
+                batch, TOP_K))
+        placed_f32 = base._sharded[1]
+        # ---- 21b: int8 ShardedCorpus, cosine (row 5, the rerank) ----------
+        lat, rows_b, _ = similar_series(router, [
+            f"SIMILAR {vec_literal(q)} IN q8 TOP {TOP_K}" for q in single])
+        latency_stats(report, "mesh_int8_single", lat)
+        report["mesh_int8_batch_qps"], report["mesh_int8_batch_s"], \
+            rows_bb, _ = batch_series(lambda: eng.batch_search_ns(
+                batch, TOP_K, ns="col/q8"))
+        # ---- 21c: int8, euclidean (row 4, the rerank) --------------------
+        lat, rows_c, _ = similar_series(router, [
+            f"SIMILAR {vec_literal(q)} IN q8 METRIC euclidean TOP {TOP_K}"
+            for q in extra], cosine=False)
+        latency_stats(report, "mesh_euclid", lat)
+        # ---- 21d: WHERE cat = 3 on the f32 placement -------------------
+        lat, rows_d, _ = similar_series(router, [
+            f"SIMILAR {vec_literal(q)} WHERE cat = {FILTER_CAT} TOP {TOP_K}"
+            for q in extra])
+        latency_stats(report, "mesh_filtered", lat)
+        # ---- 21e: the sharded IVF placement ------------------------------
+        eng.config.ivf_auto_threshold = n
+        t0 = time.perf_counter()
+        similar_series(router, stmts[:1])
+        report["mesh_ivf_first_query_s"] = time.perf_counter() - t0
+        ivf = base._sharded_ivf[1]
+        lat, rows_e, _ = similar_series(router, stmts)
+        latency_stats(report, "mesh_ivf_single", lat)
+        report["mesh_ivf_batch_qps"], report["mesh_ivf_batch_s"], \
+            rows_eb, _ = batch_series(lambda: eng.batch_search(batch, TOP_K))
+        # ---- 21f: re-embedded keys, served through the delta rescans ----
+        for key, v in zip(fresh_keys, fresh):
+            router.execute(f"EMBED STORE 'k{key}' {vec_literal(v)}")
+        _, rows_fi, _ = similar_series(router, fresh_stmts)
+        eng.config.ivf_auto_threshold = ivf_threshold
+        _, rows_ff, _ = similar_series(router, fresh_stmts)
+        rebuilt = (base._sharded[1] is not placed_f32
+                   or base._sharded_ivf[1] is not ivf)
+        # ---- 21g: ShardedIVFCorpus.search_batched on the placement, on
+        # stored rows (each must find itself first, as the graft entry
+        # asserts) ------------------------------------------------------
+        ivf_rows = base._sharded_ivf[2]
+        g_pick = np.linspace(0, len(ivf_rows) - 1, MESH_BATCH).astype(
+            np.int64)
+        g_queries = corpus[ivf_rows[g_pick]]
+        got_g = {}
+        for fast in (True, False):
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                got_g[fast] = ivf.search_batched(g_queries, TOP_K, fast=fast)
+                times.append((time.perf_counter() - t0) * 1e3)
+            report[f"mesh_ivf_batched_{'fast' if fast else 'non_fast'}"
+                   f"_ms"] = float(np.median(times))
+        launches = dict(tk.LAUNCHES)
+        report["launches_mesh"] = launches
+        report["mesh_s"] = time.perf_counter() - t_phase
+        # the fast form again through the batched probe's plain version:
+        # the kernel is bit-exact, so the hits must be the same
+        saved = tivf.batched_probe
+        tivf.batched_probe = tk.batched_probe_plain
+        try:
+            plain_g = ivf.search_batched(g_queries, TOP_K, fast=True)
+        finally:
+            tivf.batched_probe = saved
+
+        # ---- gates -------------------------------------------------------
+        shards = {"f32": placed_f32.n_shards,
+                  "int8": q8._sharded[1].n_shards, "ivf": ivf.n_shards}
+        report["mesh_shards"] = shards
+        report["mesh_f32_mismatches"] = len(
+            exact_mismatches(rows_a, sc_a, o_i[:N_SINGLE], o_s[:N_SINGLE],
+                             MESH_TOL)
+            + exact_mismatches(rows_ab, sc_ab, o_i[N_SINGLE:N_SINGLE
+                                                   + MESH_BATCH],
+                               o_s[N_SINGLE:N_SINGLE + MESH_BATCH],
+                               MESH_TOL))
+        o10 = o_i[:, :TOP_K]
+        for name, got, truth in (
+                ("int8_recall_single", rows_b, o10[:N_SINGLE]),
+                ("int8_recall_batch", rows_bb,
+                 o10[N_SINGLE:N_SINGLE + MESH_BATCH]),
+                ("euclid_recall", rows_c, o_e),
+                ("filtered_recall", rows_d, o_f),
+                ("ivf_recall_single", rows_e, o10[:N_SINGLE]),
+                ("ivf_recall_batch", rows_eb,
+                 o10[N_SINGLE:N_SINGLE + MESH_BATCH])):
+            report[f"mesh_{name}"] = recall(got, truth)
+        off_cat = [r for rr in rows_d for r in rr if r % N_CATS != FILTER_CAT]
+        stale = {"ivf": int(sum(r[0] != k
+                                for r, k in zip(rows_fi, fresh_keys))),
+                 "f32": int(sum(r[0] != k
+                                for r, k in zip(rows_ff, fresh_keys)))}
+        report["mesh_fresh_not_first"] = stale
+        ss, is_ = ivf.search(g_queries, TOP_K)
+        g_bad = {"search_self": int((is_[:, 0] != g_pick).sum()),
+                 "fast_plain": int((got_g[True][1] != plain_g[1]).sum()
+                                   + (got_g[True][0] != plain_g[0]).sum())}
+        for fast, (sg, ig) in got_g.items():
+            g_bad["fast" if fast else "non_fast"] = int(
+                ((ig[:, 0] != is_[:, 0])
+                 | (np.abs(sg[:, 0] - ss[:, 0]) > MESH_TOL)).sum())
+        # the IVF route against the exact scan of its own placement
+        own = ivf_rows[np.maximum(ivf_placement_exact(
+            ivf, np.concatenate([single, batch]), TOP_K), 0)]
+        report["mesh_ivf_recall_own_single"] = recall(rows_e,
+                                                      own[:N_SINGLE])
+        report["mesh_ivf_recall_own_batch"] = recall(rows_eb,
+                                                     own[N_SINGLE:])
+        report["mesh_ivf_batched_top1_mismatches"] = g_bad
+        say(f"[21] mesh of {MESH_SHARDS} on one card ({shards} shards): "
+            f"f32 single p50 {report['mesh_f32_single_p50_ms']:.3f} ms p99 "
+            f"{report['mesh_f32_single_p99_ms']:.3f} ms, batch "
+            f"{report['mesh_f32_batch_qps']:.0f} QPS, "
+            f"{report['mesh_f32_mismatches']} departures from the exact "
+            f"scan (B in one process: p50 "
+            f"{beside.get('pooled_single_p50_ms')} ms, batch "
+            f"{beside.get('pooled_batch_qps')} QPS); int8 p50 "
+            f"{report['mesh_int8_single_p50_ms']:.3f} ms, batch "
+            f"{report['mesh_int8_batch_qps']:.0f} QPS, recall "
+            f"{report['mesh_int8_recall_single']:.4f} / "
+            f"{report['mesh_int8_recall_batch']:.4f} (C: p50 "
+            f"{beside.get('int8_single_p50_ms')} ms); euclidean p50 "
+            f"{report['mesh_euclid_p50_ms']:.3f} ms recall "
+            f"{report['mesh_euclid_recall']:.4f}; filtered p50 "
+            f"{report['mesh_filtered_p50_ms']:.3f} ms recall "
+            f"{report['mesh_filtered_recall']:.4f}; IVF: first query "
+            f"(build) {report['mesh_ivf_first_query_s']:.2f} s, p50 "
+            f"{report['mesh_ivf_single_p50_ms']:.3f} ms p99 "
+            f"{report['mesh_ivf_single_p99_ms']:.3f} ms, batch "
+            f"{report['mesh_ivf_batch_qps']:.0f} QPS, recall "
+            f"{report['mesh_ivf_recall_single']:.4f} / "
+            f"{report['mesh_ivf_recall_batch']:.4f}, against the exact scan "
+            f"of the placement's own rows "
+            f"{report['mesh_ivf_recall_own_single']:.4f} / "
+            f"{report['mesh_ivf_recall_own_batch']:.4f} (window {ivf.window}, "
+            f"{ivf.c_per} windows a shard, nprobe {ivf.nprobe}); "
+            f"on {MESH_BATCH} stored rows search_batched fast "
+            f"{report['mesh_ivf_batched_fast_ms']:.1f} ms, non-fast "
+            f"{report['mesh_ivf_batched_non_fast_ms']:.1f} ms; departures "
+            f"of search's top-1 from the row itself, of the batched forms' "
+            f"from search's and of the fast form's hits from its run "
+            f"through the plain batched probe: {g_bad}; re-embedded keys "
+            f"not first "
+            f"{stale}, placements rebuilt: {rebuilt}; launches {launches}")
+        if set(shards.values()) != {MESH_SHARDS}:
+            raise AssertionError(f"[21] placements of {shards} shards")
+        if report["mesh_f32_mismatches"]:
+            raise AssertionError("[21a] hits depart from the exact scan")
+        if min(report[f"mesh_{k}"] for k in (
+                "int8_recall_single", "int8_recall_batch", "euclid_recall",
+                "filtered_recall", "ivf_recall_own_single",
+                "ivf_recall_own_batch")) < MIN_RECALL or min(
+                report["mesh_ivf_recall_single"],
+                report["mesh_ivf_recall_batch"]) < MESH_IVF_MIN_RECALL:
+            raise AssertionError("[21] recall below the limit")
+        if off_cat:
+            raise AssertionError(f"[21d] hits outside cat {FILTER_CAT}: "
+                                 f"{off_cat[:5]}")
+        if any(stale.values()) or rebuilt:
+            raise AssertionError(f"[21f] re-embedded keys not first "
+                                 f"({stale}) or a placement rebuilt "
+                                 f"({rebuilt})")
+        if (g_bad["non_fast"] or g_bad["fast_plain"]
+                or g_bad["search_self"] > (1 - MESH_SELF_MIN) * MESH_BATCH
+                or g_bad["fast"] > (1 - MESH_FAST_MIN_AGREE) * MESH_BATCH):
+            raise AssertionError(f"[21g] departures beyond the limits: "
+                                 f"{g_bad}")
+        if on_card:
+            require_launches(launches, ("batched_probe", "int8_dot_scores",
+                                        "int8_pooled_bits"), "21")
+
+        # ---- the merge: the shards' own answers in shard order ----------
+        dup = np.concatenate([single[:8], single[:8],
+                              corpus[np.arange(MESH_SHARDS) * (n // MESH_SHARDS)
+                                     + 3]])
+        merge_bad = mesh_merge_mismatches(placed_f32, dup, repeated=8)
+        rng = np.random.default_rng(args.seed + 22)
+        small = rng.standard_normal(
+            (MESH_SHARDS * MESH_COPY_ROWS, DIM)).astype(np.float32)
+        src = rng.choice(len(small) // 2, 16, replace=False)
+        small[src + len(small) // 2] = small[src]
+        for quantized in (False, True):
+            sc = tss.ShardedCorpus(placed_f32.mesh, DIM, quantized=quantized)
+            sc.load(small)
+            merge_bad += mesh_merge_mismatches(sc, small[src])
+            _, ids = sc.search(small[src], 2)
+            merge_bad += int((ids[:, 0] != src).sum()
+                             + (ids[:, 1] != src + len(small) // 2).sum())
+        report["mesh_merge_mismatches"] = merge_bad
+        say(f"[21] merge against the shards' own answers concatenated in "
+            f"shard order (repeated queries, stored rows, rows copied "
+            f"across shards): {merge_bad} mismatches")
+        if merge_bad:
+            raise AssertionError("[21] the merge departs from the shards' "
+                                 "own answers")
+
+        # ---- rows 2, 4 and 5 at the shards' launches ---------------------
+        if on_card:
+            recs = {}
+            with captured(tk, "int8_pooled_bits") as seen:
+                router.execute(f"SIMILAR {vec_literal(single[0])} IN q8 "
+                               f"TOP {TOP_K}")
+                eng.batch_search_ns(batch, TOP_K, ns="col/q8")
+            rec = recs.setdefault("int8_pooled_bits", {})
+            for sfx, (a, kw) in (("_mesh_q1", seen[0]),
+                                 ("_mesh", seen[MESH_SHARDS])):
+                q, nr = a[3].shape[0], a[0].shape[0]
+                mesh_kernel_check(rec, "int8_pooled_bits", sfx,
+                                  tk.int8_pooled_bits,
+                                  tk.int8_pooled_bits_plain, a,
+                                  2 * q * nr * DIM, 5)
+            with captured(tk, "int8_dot_scores") as seen:
+                router.execute(f"SIMILAR {vec_literal(extra[0])} IN q8 "
+                               f"METRIC euclidean TOP {TOP_K}")
+            a, _ = seen[0]
+            mesh_kernel_check(recs.setdefault("int8_dot_scores", {}),
+                              "int8_dot_scores", "_mesh_q1",
+                              tk.int8_dot_scores,
+                              tk.int8_dot_scores_plain, a,
+                              2 * a[2].shape[0] * a[0].shape[0] * DIM, 20)
+            with captured(tivf, "batched_probe") as seen:
+                ivf.search_batched(g_queries, TOP_K, fast=True)
+            a, kw = seen[0]
+            if not kw.get("top2"):
+                raise AssertionError("[21g] the fast form ran the top-1 "
+                                     "mode")
+            buf, rm2, _, scm, window = a
+            filled = int((scm != 0).sum())
+            mesh_kernel_check(
+                recs.setdefault("batched_probe", {}), "batched_probe",
+                "_mesh",
+                functools.partial(tk.batched_probe, top2=True),
+                functools.partial(tk.batched_probe_plain, top2=True), a,
+                2 * filled * window * DIM, 10,
+                bytes_of=lambda got: probe_table_bytes(buf, rm2, scm, got,
+                                                       filled))
+            report["mesh_kernels"] = recs
+            say("[21] at the shards' launches, bit for bit: " + "; ".join(
+                f"{name}{sfx} ({rec[f'shape{sfx}']}) kernel "
+                f"{rec[f'ms{sfx}']:.4f} ms, plain {rec[f'plain_ms{sfx}']:.4f}"
+                f" ms, bound {rec[f'bound_ms{sfx}']:.4f} ms "
+                f"({rec[f'bound_by{sfx}']})"
+                for name, rec in recs.items()
+                for sfx in ("_mesh", "_mesh_q1") if f"ms{sfx}" in rec))
+        del router, eng, base, q8, ivf, placed_f32
+    finally:
+        if saved_env is None:
+            os.environ.pop(tmesh.MESH_DEVICES_ENV, None)
+        else:
+            os.environ[tmesh.MESH_DEVICES_ENV] = saved_env
+    report["phase21_s"] = time.perf_counter() - t_phase
+    say(f"[21] phase 21 took {report['phase21_s']:.1f} s (counted part "
+        f"{report['mesh_s']:.1f} s)")
+    return report
+
+
+def mesh_merge_mismatches(sc, q: np.ndarray, repeated: int = 0) -> int:
+    """Queries whose merged top-k (``make_sharded_topk`` over the mesh of
+    ``sc``) departs from each shard's own top-k (the same function over
+    that shard alone), ids made global, concatenated in shard order and
+    cut by ``_topk_stable``; plus, of the first 2 x ``repeated`` queries
+    (the first ``repeated`` twice), those whose hits differ."""
+    import torch
+
+    from neumann_tpu_torch.ops.scan import _topk_stable
+    from neumann_tpu_torch.parallel.mesh import Mesh
+    from neumann_tpu_torch.parallel.sharded_search import make_sharded_topk
+
+    qd = torch.zeros((len(q), sc.dim_pad), device=sc.devices[0])
+    qd[:, :q.shape[1]] = torch.from_numpy(q).to(qd.device)
+
+    def call(mesh, shards):
+        def pick(xs):
+            return [xs[j] for j in shards]
+        fn = make_sharded_topk(mesh, TOP_K, quantized=sc.quantized)
+        if sc.quantized:
+            return fn(pick(sc.corpus), pick(sc.scale), pick(sc.sqnorm), qd,
+                      pick(sc.mask))
+        return fn(pick(sc.corpus), qd, pick(sc.mask))
+
+    s, i = call(sc.mesh, range(sc.n_shards))
+    parts_s, parts_i = [], []
+    for j, dev in enumerate(sc.devices):
+        one = np.empty(1, dtype=object)
+        one[0] = dev
+        ps, pi = call(Mesh(one, ("shard",)), [j])
+        rows = len(sc.corpus[j])
+        parts_s.append(ps.to(qd.device))
+        parts_i.append(torch.where(pi >= 0, pi + j * rows, -1).to(qd.device))
+    want_s, pos = _topk_stable(torch.cat(parts_s, dim=1), s.shape[1])
+    want_i = torch.gather(torch.cat(parts_i, dim=1), 1, pos)
+    bad = int(((s != want_s) | (i != want_i)).any(dim=1).sum())
+    if repeated:
+        bad += int((i[:repeated] != i[repeated:2 * repeated]).any(dim=1)
+                   .sum())
+    return bad
+
+
 def run_chain_cluster(args, dev, centres, s_consensus, s_cluster,
                       on_card: bool) -> dict:
     """Phases 18b-18d (18a runs at the end of phases 7-9)."""
@@ -6048,6 +6578,19 @@ def main() -> int:
         "sharded_nprobe_all_mismatches", "sharded_qps",
         "sharded_served_recall", "sharded_count", "sharded_degraded_p50_ms",
         "sharded_degraded_mismatches", "sharded_explain", "phase20_s",
+        "mesh_ingest_s", "mesh_shards", "mesh_f32_single_p50_ms",
+        "mesh_f32_single_p99_ms", "mesh_f32_batch_qps",
+        "mesh_f32_mismatches", "mesh_int8_single_p50_ms",
+        "mesh_int8_single_p99_ms", "mesh_int8_batch_qps",
+        "mesh_int8_recall_single", "mesh_int8_recall_batch",
+        "mesh_euclid_p50_ms", "mesh_euclid_recall", "mesh_filtered_p50_ms",
+        "mesh_filtered_recall", "mesh_ivf_first_query_s",
+        "mesh_ivf_single_p50_ms", "mesh_ivf_single_p99_ms",
+        "mesh_ivf_batch_qps", "mesh_ivf_recall_single",
+        "mesh_ivf_recall_batch", "mesh_ivf_recall_own_single",
+        "mesh_ivf_recall_own_batch", "mesh_ivf_batched_fast_ms",
+        "mesh_ivf_batched_non_fast_ms", "mesh_ivf_batched_top1_mismatches",
+        "mesh_fresh_not_first", "mesh_merge_mismatches", "phase21_s",
         "total_s")}
     for part in ("ivf", "pooled", "int8", "binary"):
         for k in ("p50_ms", "p99_ms", "qps", "batches", "mean_cohort",

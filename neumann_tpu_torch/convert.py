@@ -49,6 +49,14 @@ seeds) or a ``ConsistentHashPartitioner`` (its ring, owners, shards and
 virtual-node count), so both packages assign every key and vector to
 the same shard without training again.
 
+``sharded_corpus_from_jax(sc, mesh)`` and ``sharded_ivf_from_jax(ivf,
+mesh)`` give the port a JAX ``ShardedCorpus`` (its corpus, scale, sqnorm
+and mask, read as global arrays) or ``ShardedIVFCorpus`` (its windowed
+planes, probe centroids, window starts, row ids and probe settings),
+placed on the port's ``mesh``, which must have as many devices along
+the axis as the JAX placement has shards, so both packages search one
+layout.
+
 ``router_from_files(wal_path, snapshot_path, device)`` gives a port
 ``QueryRouter`` over a store that the JAX package's router wrote (its
 ``checkpoint`` snapshot and the WAL after it; both packages write the
@@ -304,3 +312,61 @@ def chain_from_jax(jax_chain, store):
         setattr(chain.metrics, name, getattr(jax_chain.metrics, name))
     return chain
 
+
+
+def _shards_of(mesh, axis: str, n_shards: int):
+    devices = mesh.axis_devices(axis)
+    if len(devices) != n_shards:
+        raise ValueError(f"the JAX placement has {n_shards} shards, the "
+                         f"mesh {len(devices)} devices along {axis!r}")
+    return devices
+
+
+def sharded_corpus_from_jax(sc, mesh, axis: str = "shard"):
+    """A port ``ShardedCorpus`` holding a loaded JAX ``ShardedCorpus``'s
+    rows, scales, squared norms and mask, shard i on the i-th device of
+    ``mesh`` along ``axis``."""
+    import torch
+
+    from neumann_tpu_torch.parallel.sharded_search import ShardedCorpus
+
+    devices = _shards_of(mesh, axis, sc.n_shards)
+    out = ShardedCorpus(mesh, sc.dim, axis, quantized=sc.quantized)
+
+    def split(arr):
+        parts = np.split(np.asarray(arr), len(devices))
+        return [torch.from_numpy(np.array(p)).to(d)
+                for p, d in zip(parts, devices)]
+
+    out.corpus = split(sc.corpus)
+    if sc.quantized:
+        out.scale, out.sqnorm = split(sc.scale), split(sc.sqnorm)
+    out._mask_host = np.asarray(sc.mask, bool)
+    out.mask = split(out._mask_host)
+    out.n_rows = sc.n_rows
+    return out
+
+
+def sharded_ivf_from_jax(ivf, mesh, axis: str = "shard"):
+    """A port ``ShardedIVFCorpus`` holding a loaded JAX
+    ``ShardedIVFCorpus``'s layout (int8 windows, multipliers, window
+    centroids and starts, row ids) and probe settings, shard i on the
+    i-th device of ``mesh`` along ``axis``."""
+    import torch
+
+    from neumann_tpu_torch.parallel.sharded_search import ShardedIVFCorpus
+
+    devices = _shards_of(mesh, axis, ivf.n_shards)
+    out = ShardedIVFCorpus(mesh, ivf.dim, axis, n_clusters=ivf.n_clusters,
+                           nprobe=ivf._nprobe_cfg, iters=ivf.iters)
+
+    def split(arr):
+        return [torch.from_numpy(np.array(p)).to(d)
+                for p, d in zip(np.asarray(arr), devices)]
+
+    out.corpus, out.rmult = split(ivf.corpus), split(ivf.rmult)
+    out.cents, out.starts = split(ivf.cents), split(ivf.starts)
+    out.row_ids = np.array(ivf.row_ids, np.int64)
+    for name in ("rows_s", "window", "c_per", "n_rows", "nprobe"):
+        setattr(out, name, int(getattr(ivf, name)))
+    return out

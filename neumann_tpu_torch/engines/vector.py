@@ -7,6 +7,18 @@ into one device corpus (EmbeddingSlab) per namespace ("" default,
 "entity", "col/{name}") and dimension through store hooks, so WAL replay
 rebuilds the device state. Search routes, in the JAX engine's order:
 
+* the mesh (``mesh_auto``): where more than one mesh device is visible
+  (``parallel/mesh.mesh_devices``: the CUDA devices, or in tests
+  ``NEUMANN_MESH_DEVICES`` logical ones) and a corpus holds at least
+  ``mesh_threshold`` rows, cosine / dot / euclidean over none or int8
+  storage is placed on the mesh: unfiltered cosine past
+  ``ivf_auto_threshold`` as a ``ShardedIVFCorpus`` (cluster-sharded
+  windowed IVF, plain torch), everything else as a ``ShardedCorpus``
+  (the f32 scan, or the int8 pooled / int8 scan kernels and a rerank, on
+  every shard). Placements rebuild from a slab snapshot once more than
+  ``max(1024, ivf_auto_rebuild_frac * rows)`` rows changed; rows changed
+  since are dropped from the placement's hits and rescanned at their
+  current values. One card with no such variable is no mesh;
 * cosine (and angular/geodesic, which order by cosine) against a corpus
   of at least ``ivf_auto_threshold`` rows, unfiltered, stored as none or
   int8: the auto IVF index (``ops/ivf.DeviceIVFInt8``), built on the
@@ -40,8 +52,7 @@ The ANN index APIs: ``build_ivf_index`` / ``search_with_ivf_nprobe``
 ``save_index`` / ``load_index`` in the JAX engine's ``.npz`` format.
 
 The scan limits (``max_keys_per_scan``, ``search_timeout_s``) are
-accepted and read by neither engine. One card places no corpus on a mesh
-(the mesh is ROADMAP item 12b).
+accepted and read by neither engine.
 
 Every tensor lives on the engine's ``device`` (default "cuda"); nothing
 switches to the CPU on its own.
@@ -70,7 +81,13 @@ from neumann_tpu_torch.ops.rerank import (
     f32_pooled_rerank_topk,
     int8_pooled_rerank_topk,
 )
-from neumann_tpu_torch.ops.scan import METRICS, host_pull, topk_scan
+from neumann_tpu_torch.ops.scan import (
+    METRICS,
+    _finalize,
+    host_pull,
+    score_all,
+    topk_scan,
+)
 from neumann_tpu_torch.store.embedding_slab import EmbeddingSlab
 from neumann_tpu_torch.store.entity_index import EntityIndex
 from neumann_tpu_torch.store.tensor_store import (
@@ -220,8 +237,10 @@ class VectorEngineConfig:
     * ``pooled_selector``: every value takes the exact cut (torch has
       no ``approx_max_k``), so "approx" and "approx:<target>" give the
       "topk" results;
-    * ``mesh_auto`` / ``mesh_threshold``: one card is no mesh, so no
-      corpus is ever placed on one (the mesh is ROADMAP item 12b).
+    * ``mesh_auto`` / ``mesh_threshold``: a mesh needs more than one
+      mesh device, so one card places no corpus on a mesh (tests give
+      it logical devices with ``NEUMANN_MESH_DEVICES``,
+      ``parallel/mesh.py``).
 
     ``max_keys_per_scan`` and ``search_timeout_s`` (set by
     ``low_memory()``) are accepted and enforced by neither engine: the
@@ -310,6 +329,11 @@ class _Corpus:
         # (slab version, ...) of the pq / tt storage routes
         self._pq = None
         self._tt = None
+        # mesh placements, rebuilt when too many rows changed:
+        # (version, ShardedCorpus) and (version, ShardedIVFCorpus, row
+        # map) — see VectorEngine._mesh_search
+        self._sharded = None
+        self._sharded_ivf = None
 
     def upsert(self, key: str, vec: np.ndarray,
                metadata: Optional[Dict[str, object]] = None) -> int:
@@ -415,6 +439,7 @@ class VectorEngine:
         self._corpora: Dict[str, Dict[int, _Corpus]] = {}
         self._collections: Dict[str, VectorCollectionConfig] = {}
         self._lock = threading.RLock()
+        self._mesh_cache = "unset"   # resolved lazily on first search
         # bulk-ingest mode: queued (ns, key, vec, metadata) puts, flushed
         # as one vectorized set_rows per (namespace, dim)
         self._bulk: Optional[list] = None
@@ -740,7 +765,8 @@ class VectorEngine:
                        extra_mask: Optional[np.ndarray] = None,
                        quantization: str = "none"
                        ) -> List[List[SearchResult]]:
-        """The brute-force routes (see the module docstring) over one
+        """The mesh placement where it applies (``_mesh_search``), else
+        the brute-force routes (see the module docstring) over one
         corpus; a metadata filter is a row mask fused into each."""
         angular = metric in ("angular", "geodesic")
         k, metric = _scan_k_metric(corpus, top_k, metric)
@@ -752,6 +778,38 @@ class VectorEngine:
                               f"dimension {corpus.dim}")
         qp = np.zeros((q.shape[0], corpus.slab.dim_pad), np.float32)
         qp[:, :corpus.dim] = q
+        placement = self._mesh_placement(corpus, metric, extra_mask,
+                                         quantization)
+        mesh_got = None
+        if placement is not None:
+            mesh_got = self._mesh_search(corpus, qp, k, metric,
+                                         extra_mask, quantization,
+                                         placement)
+        if mesh_got is not None:
+            scores, idx = mesh_got
+        elif quantization == "pq":
+            return self._pq_search(corpus, torch.from_numpy(qp).to(
+                self.device), top_k, extra_mask)
+        else:
+            scores, idx = self._brute_search(corpus, qp, k, metric,
+                                             extra_mask, quantization)
+
+        def report(s):
+            if quantization == "binary":
+                return s                 # -hamming distance, any metric
+            if metric == "euclidean":
+                return _euclid_report(s)
+            if angular:
+                # quantized cosine may slightly exceed [-1, 1]
+                return float(-np.arccos(np.clip(s, -1.0, 1.0)))
+            return s
+
+        return self._results(corpus, scores, idx, k, report)
+
+    def _brute_search(self, corpus: _Corpus, qp: np.ndarray, k: int,
+                      metric: str, extra_mask, quantization: str):
+        """The single-device routes of ``_device_search`` but pq (which
+        reports its own scores): host (scores, row ids)."""
         qd = torch.from_numpy(qp).to(self.device)
 
         def row_mask(valid):
@@ -762,8 +820,6 @@ class VectorEngine:
 
         route, pool = _brute_route(corpus, k, metric, extra_mask,
                                    quantization)
-        if route == "pq":
-            return self._pq_search(corpus, qd, top_k, extra_mask)
         if route == "tt":
             scores, idx = self._tt_scan(corpus, qd, k, metric, extra_mask)
         elif route == "binary":
@@ -787,19 +843,7 @@ class VectorEngine:
         else:
             emb, valid = corpus.slab.device_view()
             scores, idx = topk_scan(emb, qd, k, metric, row_mask(valid))
-        scores, idx = host_pull(scores, idx)
-
-        def report(s):
-            if quantization == "binary":
-                return s                 # -hamming distance, any metric
-            if metric == "euclidean":
-                return _euclid_report(s)
-            if angular:
-                # quantized cosine may slightly exceed [-1, 1]
-                return float(-np.arccos(np.clip(s, -1.0, 1.0)))
-            return s
-
-        return self._results(corpus, scores, idx, k, report)
+        return host_pull(scores, idx)
 
     def _live_rows(self, corpus: _Corpus) -> Tuple[np.ndarray, torch.Tensor]:
         """(rows [n] int64 on the host, their embeddings [n, dim_pad] on
@@ -924,6 +968,228 @@ class VectorEngine:
                                    quantization)[0]
 
     # ------------------------------------------------------------------
+    # mesh placement: corpora past mesh_threshold are sharded over the
+    # device mesh, so SIMILAR through the engine / router runs a top-k
+    # on every shard and one merge
+    # ------------------------------------------------------------------
+    def _mesh(self):
+        if not self.config.mesh_auto:
+            return None
+        if self._mesh_cache == "unset":
+            from neumann_tpu_torch.parallel.mesh import (
+                make_mesh,
+                mesh_devices,
+            )
+
+            kind = self.device.type
+            self._mesh_cache = (make_mesh(device=kind)
+                                if len(mesh_devices(kind)) > 1 else None)
+        return self._mesh_cache
+
+    def _mesh_placement(self, corpus: _Corpus, metric: str, extra_mask,
+                        quantization: str) -> Optional[str]:
+        """Which mesh placement serves a search of ``corpus``: "mesh_ivf"
+        (the cluster-sharded IVF: unfiltered cosine past
+        ``ivf_auto_threshold``), "mesh" (a ``ShardedCorpus``), or None,
+        which leaves it to the single-device routes: no mesh, storage
+        other than none / int8, another metric, or fewer than
+        ``mesh_threshold`` rows."""
+        cfg = self.config
+        n = corpus.count()
+        if (quantization not in ("none", "int8")
+                or metric not in ("cosine", "dot", "euclidean")
+                or self._mesh() is None or n < cfg.mesh_threshold):
+            return None
+        if (extra_mask is None and metric == "cosine" and cfg.ivf_auto
+                and n >= cfg.ivf_auto_threshold):
+            return "mesh_ivf"
+        return "mesh"
+
+    def _mesh_route(self, corpus: _Corpus, k: int, metric: str,
+                    extra_mask, quantization: str) -> Optional[dict]:
+        """``search_route``'s answer where ``_mesh_search`` takes the
+        query: route "mesh_ivf" (the cluster-sharded IVF, plain torch) or
+        "mesh" (a ``ShardedCorpus``: the f32 scan, or on int8 storage the
+        kernel and pool its shards launch at ``k``), else None."""
+        from neumann_tpu_torch.parallel.sharded_search import (
+            shard_pool,
+            shard_rows,
+        )
+
+        placement = self._mesh_placement(corpus, metric, extra_mask,
+                                         quantization)
+        if placement is None:
+            return None
+        if placement == "mesh_ivf" or quantization == "none":
+            return dict(route=placement, kernel=None, pool=None)
+        # the placement loads the slab's whole host snapshot
+        rows = shard_rows(corpus.slab.capacity,
+                          self._mesh().shape["shard"], quantized=True)
+        pool = shard_pool(rows, k, metric)
+        return dict(route="mesh", pool=pool, kernel=(
+            "int8_dot_scores" if pool is None else "int8_pooled_bits"))
+
+    def _mesh_search(self, corpus: _Corpus, qp: np.ndarray, k: int,
+                     metric: str, extra_mask, quantization: str,
+                     placement: str):
+        """Sharded search on the mesh placement ``_mesh_placement``
+        chose; None leaves the query to the single-device routes.
+        Placements rebuild from a slab snapshot once the rows changed
+        since outnumber the staleness bound; until then those rows are
+        served at their current values by an exact delta rescan."""
+        mesh = self._mesh()
+        cfg = self.config
+        slab = corpus.slab
+        n = corpus.count()
+        # large unfiltered cosine corpora: cluster-sharded IVF probes
+        # (nprobe per shard) instead of full sharded scans
+        if placement == "mesh_ivf":
+            got = self._sharded_ivf_search(corpus, qp, k)
+            if got is not None:
+                return got
+        from neumann_tpu_torch.parallel.sharded_search import ShardedCorpus
+
+        want_quant = quantization == "int8"
+        with corpus.lock:
+            placed = corpus._sharded
+        if placed is not None and placed[1].quantized != want_quant:
+            placed = None       # storage mode changed: must rebuild
+        # mutation-throttled rebuild: a single EMBED STORE must not force
+        # a full host_snapshot and reload of the whole corpus; rows
+        # mutated since the placement are served at their CURRENT values
+        # by an exact delta rescan instead
+        if placed is not None and placed[0] != slab.version and \
+                slab.watch_count("sharded") > \
+                max(1024, cfg.ivf_auto_rebuild_frac * n):
+            placed = None       # too stale: rebuild the placement
+        if placed is None:
+            slab.watch("sharded")   # arm BEFORE reading
+            mat, valid, version = slab.host_snapshot()
+            sh = ShardedCorpus(mesh, slab.dim_pad, quantized=want_quant)
+            sh.load(mat, valid)
+            del mat
+            placed = (version, sh)
+            with corpus.lock:
+                corpus._sharded = placed
+        _, sh = placed
+        mask = (np.asarray(extra_mask, bool)
+                if extra_mask is not None else None)
+        dirty = slab.watched("sharded")
+        # row ids survive placement: rows shard in slab order with
+        # padding only at the tail
+        if dirty.size == 0:
+            return sh.search(qp, k, metric, mask=mask)
+        # oversample so stale-masked hits can backfill from clean rows
+        k_s = min(2 * k + 16, max(sh.n_rows, 1))
+        s, ids = sh.search(qp, k_s, metric, mask=mask)
+        ids = ids.astype(np.int64)
+        stale = np.isin(ids, dirty)
+        s = np.where(stale, -np.inf, s)
+        s, ids = self._merge_delta_rescan(slab, qp, metric, s, ids,
+                                          dirty, extra_mask)
+        order = np.argsort(-s, axis=1)[:, :min(k, s.shape[1])]
+        s = np.take_along_axis(s, order, axis=1)
+        ids = np.take_along_axis(ids, order, axis=1)
+        ids = np.where(np.isfinite(s), ids, -1)
+        return s, ids
+
+    def _merge_delta_rescan(self, slab, qp: np.ndarray, metric: str,
+                            s: np.ndarray, ids: np.ndarray,
+                            dirty: np.ndarray, extra_mask):
+        """Score the mutated rows at their CURRENT values (any metric,
+        honoring the filter mask) and append them to the (stale-masked)
+        placement's results; callers re-sort and cut to k."""
+        live_mask = np.ones(dirty.size, bool)
+        if extra_mask is not None:
+            em = np.asarray(extra_mask, bool)
+            if em.size == 0:
+                return s, ids
+            inb = dirty < em.shape[0]
+            live_mask &= inb & em[np.minimum(dirty, em.shape[0] - 1)]
+        mat_d, valid_d = slab.rows_matrix(dirty)
+        live_mask &= valid_d
+        live = dirty[live_mask]
+        if live.size == 0:
+            return s, ids
+        cur = torch.from_numpy(np.ascontiguousarray(
+            mat_d[live_mask], np.float32)).to(self.device)
+        ds, = host_pull(_finalize(score_all(
+            cur, torch.from_numpy(qp).to(self.device), metric),
+            metric))                                    # [Q, |live|]
+        kd = min(s.shape[1], live.size)
+        top = np.argsort(-ds, axis=1)[:, :kd]
+        s = np.concatenate(
+            [s, np.take_along_axis(ds, top, axis=1)], axis=1)
+        ids = np.concatenate([ids, live[top].astype(np.int64)], axis=1)
+        return s, ids
+
+    def _sharded_ivf_search(self, corpus: _Corpus, qp: np.ndarray, k: int):
+        """The mesh IVF placement, with the single-device auto-IVF's
+        staleness contract: the k-means + relayout rebuild is throttled
+        by a mutation watcher, and rows mutated since the build are
+        served at their CURRENT values by an exact delta rescan merged
+        over the index results, never the index's stale copy."""
+        cfg = self.config
+        slab = corpus.slab
+        with corpus.lock:
+            placed = corpus._sharded_ivf
+        n_valid = corpus.count()
+        if placed is not None and placed[0] != slab.version and \
+                slab.watch_count("sharded_ivf") > \
+                max(1024, cfg.ivf_auto_rebuild_frac * n_valid):
+            placed = None       # too stale: rebuild the placement
+        if placed is None:
+            from neumann_tpu_torch.parallel.sharded_search import (
+                ShardedIVFCorpus,
+            )
+
+            slab.watch("sharded_ivf")   # arm BEFORE reading
+            mat, valid, version = slab.host_snapshot()
+            rows = np.flatnonzero(valid)
+            if rows.size == 0:
+                return None
+            ivf = ShardedIVFCorpus(
+                self._mesh(), slab.dim_pad,
+                n_clusters=max(4, min(cfg.ivf_auto_clusters,
+                                      max(1, rows.size // 64))),
+                nprobe=cfg.ivf_auto_nprobe)
+            ivf.load(mat[rows])
+            del mat
+            placed = (version, ivf, rows)
+            with corpus.lock:
+                corpus._sharded_ivf = placed
+        _, ivf, rows = placed
+        # oversample: the stale mask below can -inf index hits whose rows
+        # were mutated, and clean rows ranked just past k must backfill
+        k_ivf = min(2 * k + 16, rows.size)
+        s, ids = ivf.search(qp, k_ivf)
+        ids = np.where(ids >= 0, rows[np.maximum(ids, 0)], -1)
+        ids = ids.astype(np.int64)
+        dirty = slab.watched("sharded_ivf")
+        if dirty.size:
+            stale = np.isin(ids, dirty)
+            s = np.where(stale, -np.inf, s)
+            mat_d, valid_d = slab.rows_matrix(dirty)
+            live = dirty[valid_d]
+            if live.size:
+                cur = mat_d[valid_d].astype(np.float32)
+                nq = np.maximum(
+                    np.linalg.norm(qp, axis=1, keepdims=True), 1e-30)
+                nc = np.maximum(np.linalg.norm(cur, axis=1), 1e-30)
+                ds = (qp / nq) @ (cur / nc[:, None]).T   # [Q, |live|]
+                kd = min(k, live.size)
+                top = np.argsort(-ds, axis=1)[:, :kd]
+                s = np.concatenate(
+                    [s, np.take_along_axis(ds, top, axis=1)], axis=1)
+                ids = np.concatenate(
+                    [ids, live[top].astype(np.int64)], axis=1)
+        order = np.argsort(-s, axis=1)[:, :min(k, s.shape[1])]
+        s = np.take_along_axis(s, order, axis=1)
+        ids = np.take_along_axis(ids, order, axis=1)
+        ids = np.where(np.isfinite(s), ids, -1)
+        return s, ids
+
+    # ------------------------------------------------------------------
     # auto IVF routing (sub-linear path at large N)
     # ------------------------------------------------------------------
     def build_auto_ivf(self, ns: str = "", dim: Optional[int] = None) -> int:
@@ -992,8 +1258,8 @@ class VectorEngine:
                      quantization: str = "none") -> Optional[dict]:
         """The route one query of ``dim`` floats takes over namespace
         ``ns`` (``_search_ns``'s gates, evaluated without searching), or
-        None when the namespace holds no such rows: ``route`` ("auto_ivf"
-        or a ``_brute_route`` name), ``kernel`` (the ``kernels.LAUNCHES``
+        None when the namespace holds no such rows: ``route`` ("mesh",
+        "mesh_ivf", "auto_ivf" or a ``_brute_route`` name), ``kernel`` (the ``kernels.LAUNCHES``
         name it launches on the card, None for the torch scans), ``pool``
         and ``rows``."""
         from neumann_tpu_torch.ops.pq import pq_kernel
@@ -1006,13 +1272,17 @@ class VectorEngine:
         if corpus is None or corpus.count() == 0:
             return None
         rows = corpus.count()
+        k, scan_metric = _scan_k_metric(corpus, top_k, metric)
+        extra = corpus.filter_mask(filter_cond) if filter_cond else None
+        mesh = self._mesh_route(corpus, k, scan_metric, extra, quantization)
+        if mesh is not None:
+            return dict(mesh, rows=rows)
         if filter_cond is None and self._auto_ivf_applies(
                 corpus, 1, metric, quantization):
             return dict(route="auto_ivf", kernel="ivf_probe", pool=None,
                         rows=rows)
-        k, metric = _scan_k_metric(corpus, top_k, metric)
-        extra = corpus.filter_mask(filter_cond) if filter_cond else None
-        route, pool = _brute_route(corpus, k, metric, extra, quantization)
+        route, pool = _brute_route(corpus, k, scan_metric, extra,
+                                   quantization)
         kernel = {"binary": hamming_kernel(k),
                   "pq": pq_kernel(min(top_k, rows)),
                   "int8_pooled": "int8_pooled_bits",
@@ -1031,6 +1301,10 @@ class VectorEngine:
                                       quantization):
             return None
         n = corpus.count()
+        # the mesh placements (ShardedIVFCorpus under _device_search)
+        # beat the single-device auto index: defer
+        if n >= cfg.mesh_threshold and self._mesh() is not None:
+            return None
         throughput_batch = q.shape[0] > cfg.ivf_auto_max_batch
         slab = corpus.slab
         stale_at = max(1024, cfg.ivf_auto_rebuild_frac * n)

@@ -13,8 +13,9 @@ deployment. On-mesh corpora bypass this entirely — ShardedCorpus merges
 over ICI; this planner is for corpus shards living on *different hosts*.
 
 The port's copy of ``neumann_tpu/parallel/distributed.py``: only its
-import lines differ. One card holds no mesh, so every shard here is a
-router: in the process, or a server reached through ``NeumannClient``.
+import lines differ. Every shard here is a router: in the process, or a
+server reached through ``NeumannClient``; a corpus on the mesh
+(``parallel/sharded_search.py``) is merged inside the vector engine.
 """
 
 from __future__ import annotations

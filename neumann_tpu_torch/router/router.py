@@ -2030,6 +2030,8 @@ _ROUTE_SCAN = {
     "pq": "PQ ADC scan over the codes",
     "tt": "tensor-train reconstruction, then the exact f32 scan",
     "exact": "exact f32 scan",
+    "mesh": "a top-k on each shard of the mesh",
+    "mesh_ivf": "cluster-sharded IVF probe on each shard of the mesh",
 }
 _ROUTE_SELECT = {
     "auto_ivf": "exact f32 rerank of the probed candidates",
@@ -2042,6 +2044,10 @@ _ROUTE_SELECT = {
     "pq_adc": "stable top-k of the ADC scores",
     "tt": "exact top-k",
     "exact": "exact top-k",
+    "mesh": "exact f32 rerank on each shard where int8, then the "
+            "shards' top-k merged",
+    "mesh_ivf": "exact f32 rerank on each shard, then the shards' top-k "
+                "merged",
 }
 
 

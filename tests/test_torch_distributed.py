@@ -5,8 +5,8 @@ on the CPU.
 tests/test_distributed_search.py runs on both packages
 (tests/torch_twins.py): three gRPC shard servers in the process, the
 executor and the router's planner over ``NeumannClient`` connections,
-shard failures, semantic routing. Not its two ``ShardedIVFCorpus``
-tests, which need the mesh (ROADMAP item 12b).
+shard failures, semantic routing. Its two ``ShardedIVFCorpus`` tests
+are twinned with the mesh's, in tests/test_torch_mesh.py.
 tests/test_multihost_search.py runs on both packages too: two shard
 server processes, one SIGKILLed. Its worker script asks JAX for its
 backend; the port's twin asks the router for its device instead, and

@@ -15,6 +15,8 @@ pools, not a power of two — so a batch of 40 runs the non-fast batched
 variant in both packages; both are held to the exact oracle.
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -406,7 +408,8 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     the pq and tt
     collections and the ANN index APIs; the chain, the consensus
     classification and the clusters of phase 18; SIMILAR scattered over
-    three shard-server processes, phase 20) at a toy size
+    three shard-server processes, phase 20; the same rows on a mesh of
+    four logical devices, phase 21) at a toy size
     on the CPU; the kernel phase, the launch checks and the profiles need
     the card. 8 mixture centres
     instead of 4,096 so that 20,480 rows are clustered like the real
@@ -443,6 +446,8 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "N_CHAIN_KEYS", 256)
     monkeypatch.setattr(chip_smoke, "N_DELTAS", 512)
     monkeypatch.setattr(chip_smoke, "CLUSTER_ROWS", 32)
+    # phase 21's batches: 256 queries
+    monkeypatch.setattr(chip_smoke, "MESH_BATCH", 256)
     monkeypatch.setenv("NEUMANN_POOLED_MIN_ROWS", "1024")
     monkeypatch.setenv("NEUMANN_POOLED_MIN_POOLS", "64")
     cfg = TConfig(ivf_auto_threshold=10_000, ivf_auto_clusters=16,
@@ -551,3 +556,18 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
                rep["sharded_served_recall"]) >= 0.95
     assert set(rep["sharded_launches"]) == {"s0", "s1", "s2"}
     assert rep["launches_sharded"]["f32_pooled_bits"] == 0
+    # phase 21: the same rows on a mesh of four logical devices; the f32
+    # placement is the exact scan, the merge the shards' own, re-embedded
+    # keys first on both placements without a rebuild
+    assert rep["mesh_shards"] == {"f32": 4, "int8": 4, "ivf": 4}
+    assert rep["mesh_f32_mismatches"] == rep["mesh_merge_mismatches"] == 0
+    assert rep["mesh_fresh_not_first"] == {"ivf": 0, "f32": 0}
+    assert rep["mesh_ivf_batched_top1_mismatches"] == {
+        "search_self": 0, "fast_plain": 0, "fast": 0, "non_fast": 0}
+    assert min(rep["mesh_ivf_recall_own_single"],
+               rep["mesh_ivf_recall_own_batch"]) >= 0.95
+    assert min(rep["mesh_int8_recall_batch"], rep["mesh_euclid_recall"],
+               rep["mesh_filtered_recall"]) >= 0.95
+    assert rep["mesh_ivf_recall_batch"] >= 0.85
+    assert rep["launches_mesh"]["int8_pooled_bits"] == 0
+    assert "NEUMANN_MESH_DEVICES" not in os.environ

@@ -42,7 +42,9 @@ block of dead rows, gathered candidates with -1; scores and columns
 equal to ``pq_adc_topk_plain``. The batched probe's top-1 mode through
 ``batched_ivf_topk(fused="pallas", presel=0)``, and the plain-torch
 non-fast first pass (exact int8 dots at d 768 and 3,072), equal to the
-CPU's bits. ROLLBACK on a router whose corpora hold device views:
+CPU's bits. The mesh's shard launches: the int8 pooled bits at 262,144
+rows, pools 256 and 1,024, Q 1 and 1,024; the batched top-2 probe over
+258 windows of 1,024 rows, q_cap 16 and 768. ROLLBACK on a router whose corpora hold device views:
 SIMILAR on the f32 pooled, int8 and binary routes gives the hits from
 before the checkpoint, and their kernels launch.
 """
@@ -419,6 +421,54 @@ def test_non_fast_first_pass_on_the_card_equals_the_cpu(cuda, d, selection):
     assert torch.equal(got[0].cpu().view(torch.int32),
                        want[0].view(torch.int32))
     assert torch.equal(got[1].cpu(), want[1])
+
+
+# the mesh's launches (a 1,048,576-row corpus on four logical shards):
+# row 5 on a quantized ShardedCorpus shard of 262,144 rows at pool 1,024
+# (top-10: 40 candidates) and 256 (the delta path's top-36), one query
+# and a batch of 1,024; row 2 (top-2) on a ShardedIVFCorpus shard of 258
+# windows of 1,024 rows at the q_cap of one query (16) and of a batch of
+# 1,024 (768); bit for bit
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", (1, 1024))
+@pytest.mark.parametrize("pool", (256, 1024))
+def test_int8_pooled_at_the_mesh_shard_bit_exact(cuda, q, pool):
+    from neumann_tpu_torch.ops import kernels as tk
+
+    n = 1 << 18
+    x, qs, bias = _inputs(cuda, n, q, 768, pool, 30 + q + pool)
+    cq, rm, qq, qm = _int8(x, qs)
+    del x
+    before = tk.LAUNCHES["int8_pooled_bits"]
+    got = tk.int8_pooled_bits(cq, rm, bias, qq, qm, pool)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["int8_pooled_bits"] == before + 1
+    assert torch.equal(got, tk.int8_pooled_bits_plain(cq, rm, bias, qq, qm,
+                                                      pool))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_cap", (16, 768))
+def test_batched_probe_at_the_mesh_shard_bit_exact(cuda, q_cap):
+    from neumann_tpu_torch.ops import kernels as tk
+
+    n_win, window, d = 258, 1024, 768
+    g = torch.Generator(device=cuda).manual_seed(q_cap)
+    buf = torch.randint(-127, 128, (n_win * window, d), generator=g,
+                        device=cuda, dtype=torch.int8)
+    qsel = torch.randint(-127, 128, (n_win, q_cap, d), generator=g,
+                         device=cuda, dtype=torch.int8)
+    rm = torch.rand(n_win, window, generator=g, device=cuda) * 1e-3
+    rm[-1, window // 2:] = 0.0             # the shard's padding tail
+    count = torch.randint(0, q_cap + 1, (n_win, 1), generator=g, device=cuda)
+    scm = (torch.rand(n_win, q_cap, generator=g, device=cuda) * 1e-2 + 1e-3
+           ) * (torch.arange(q_cap, device=cuda) < count)
+    before = tk.LAUNCHES["batched_probe"]
+    got = tk.batched_probe(buf, rm, qsel, scm, window, top2=True)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["batched_probe"] == before + 1
+    assert torch.equal(got, tk.batched_probe_plain(buf, rm, qsel, scm,
+                                                   window, top2=True))
 
 
 # PQ ADC scan (kernel 8): M on both sides of the 48-subspace shared-memory

@@ -7,7 +7,9 @@ JAX package (``neumann_tpu``) is on the path: it imports every module of
 neumann_tpu_torch, drives EMBED and SIMILAR through the router on the
 CPU, a WAL-backed ``ingest_matrix`` replayed into a new store, one
 collection per storage mode (none, int8, binary, pq, tt), the HNSW and
-legacy IVF index APIs, SQL, graph and Cypher
+legacy IVF index APIs, the mesh (``make_mesh`` over four logical CPU
+devices, an int8 ``ShardedCorpus``, a ``ShardedIVFCorpus`` and the
+engine's mesh route), SQL, graph and Cypher
 statements, ``SIMILAR … CONNECTED TO`` and FIND, one REST ``/query``
 through ``neumann_tpu_torch.server.RestServer`` (batched serving on), one
 Execute and one Points query over gRPC (``NeumannServer``, the native
@@ -237,6 +239,32 @@ _NOJAX = textwrap.dedent("""
     stats = covfuzz.fuzz(covfuzz.target_parser, [b"SELECT 1"], (Exception,),
                          max_execs=50, seed=1)
     assert stats.executions == 50 and not stats.findings
+    import os
+    from neumann_tpu_torch.engines.vector import (
+        VectorEngine,
+        VectorEngineConfig,
+    )
+    from neumann_tpu_torch.parallel import (
+        ShardedCorpus,
+        ShardedIVFCorpus,
+        make_mesh,
+    )
+    os.environ["NEUMANN_MESH_DEVICES"] = "4"
+    mesh = make_mesh(device="cpu")
+    assert mesh.shape["shard"] == 4
+    sc = ShardedCorpus(mesh, 8, quantized=True)
+    sc.load(w)
+    assert sc.search(w[7], 3)[1][0, 0] == 7
+    ivf = ShardedIVFCorpus(mesh, 8, n_clusters=8, nprobe=8)
+    ivf.load(w)
+    assert ivf.search(w[9], 3)[1][0, 0] == 9
+    assert ivf.search_batched(w[[9, 11]], 3)[1][:, 0].tolist() == [9, 11]
+    me = VectorEngine(config=VectorEngineConfig(mesh_threshold=64),
+                      device="cpu")
+    me.ingest_matrix([f"m{i}" for i in range(128)], w[:128])
+    assert me.search_similar(w[5], 1)[0].key == "m5"
+    assert me._corpora[""][8]._sharded[1].n_shards == 4
+    del os.environ["NEUMANN_MESH_DEVICES"]
     bad = [m for m, mod in sys.modules.items()
            if mod is not None and (m == "jax" or m.startswith("jax.")
                or m == "neumann_tpu" or m.startswith("neumann_tpu."))]
@@ -352,6 +380,9 @@ def _port_sources() -> list:
             "neumann_tpu_torch/chain/jepsen.py",
             "neumann_tpu_torch/store/delta_vector.py",
             "neumann_tpu_torch/parallel/distributed.py",
+            "neumann_tpu_torch/parallel/mesh.py",
+            "neumann_tpu_torch/parallel/sharded_search.py",
+            "scripts/torch_mesh_phase.py",
             "neumann_tpu_torch/engines/graph_distributed.py",
             "neumann_tpu_torch/store/tiered.py",
             "neumann_tpu_torch/store/regional.py",

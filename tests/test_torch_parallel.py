@@ -2,16 +2,15 @@
 and its distributed planner against the JAX package's, on the CPU.
 
 The partitioner and planner tests of tests/test_parallel.py run on both
-packages (tests/torch_twins.py); its mesh tests wait for ROADMAP item
-12b, so the file's import of ``ShardedCorpus`` and ``make_mesh`` is
-patched out for both twins. Then the same numpy inputs go to both
+packages (tests/torch_twins.py); its mesh tests are twinned in
+tests/test_torch_mesh.py. Then the same numpy inputs go to both
 packages: a ``SemanticPartitioner`` trained from one sample (below and
 above ``kmeans``'s device threshold: centroids within 1e-5,
 ``assign_batch`` and ``query_shards`` equal), the consistent-hash ring
 and Voronoi seeds (assignments equal, through ``add_shard`` /
 ``remove_shard`` too), and each JAX partitioner carried to the port by
-``convert.partitioner_from_jax`` (both assign alike). The port's mesh
-names raise ``NeumannError`` naming item 12b.
+``convert.partitioner_from_jax`` (both assign alike). The port's
+package exports the JAX package's mesh names.
 """
 
 import numpy as np
@@ -20,30 +19,13 @@ import pytest
 from neumann_tpu.parallel import partitioner as jp
 from neumann_tpu_torch import convert
 from neumann_tpu_torch.parallel import partitioner as tp
-from neumann_tpu_torch.utils.errors import NeumannError
 from tests.torch_twins import twin_tests
-
-_MESH_IMPORT = {
-    """from neumann_tpu.parallel import (
-    ConsistentHashPartitioner,
-    SemanticPartitioner,
-    ShardedCorpus,
-    VoronoiPartitioner,
-    make_mesh,
-)""": """from neumann_tpu.parallel import (
-    ConsistentHashPartitioner,
-    SemanticPartitioner,
-    VoronoiPartitioner,
-)
-ShardedCorpus = make_mesh = None""",
-}
 
 globals().update(twin_tests("test_parallel", (
     "test_consistent_hash", "test_semantic_partitioner",
     "test_voronoi_partitioner", "test_scatter_gather_topk",
     "test_aggregate_and_first_non_empty", "test_concat_merge",
-    "test_semantic_routing", "test_shard_failure_degrades"),
-    patch=_MESH_IMPORT))
+    "test_semantic_routing", "test_shard_failure_degrades")))
 
 
 def _mixture(seed, n, d, k, spread=6.0):
@@ -146,10 +128,11 @@ def test_partitioners_carried_from_jax():
 
 @pytest.mark.parametrize("name", ["make_mesh", "ShardedCorpus",
                                   "ShardedIVFCorpus", "make_sharded_topk"])
-def test_mesh_names_wait_for_item_12b(name):
+def test_mesh_names_import(name):
+    import neumann_tpu.parallel as jpar
     import neumann_tpu_torch.parallel as par
 
-    with pytest.raises(NeumannError, match="item 12b"):
-        getattr(par, name)
+    assert callable(getattr(par, name))
+    assert getattr(par, name).__name__ == getattr(jpar, name).__name__
     with pytest.raises(AttributeError):
         par.no_such_name  # noqa: B018

@@ -8,7 +8,7 @@ on the card by default asked for the CPU (``QueryRouter()``,
 ``classify_pairwise(_codes)``, the server's ``NeumannServer`` /
 ``RestServer`` / ``NeumannClient.embedded`` / ``main``, the graph
 engines ``GraphEngine`` / ``DistributedGraphEngine``, the
-``SemanticPartitioner``, and ``python -m
+``SemanticPartitioner``, ``make_mesh``, and ``python -m
 neumann_tpu_torch.chain.node`` or ``neumann_tpu_torch.server``, whose
 processes import this checkout); helpers it imports from another test
 file come from that file's port twin. For each of the file's tests (a
@@ -41,7 +41,7 @@ PACKAGES = ("jax", "port")
 _ON_CARD = r"\b(TcpClusterNode|build_node|classify_pairwise_codes|" \
     r"classify_pairwise|NeumannServer|RestServer|NeumannClient\.embedded|" \
     r"srvmod\.main|VectorEngine|SemanticPartitioner|DistributedGraphEngine|" \
-    r"GraphEngine)\("
+    r"GraphEngine|make_mesh)\("
 
 
 def _on_cpu(fn):
