@@ -302,6 +302,25 @@ Phases (each raises on failure; exit code 0 only if all pass):
     4 and 5 are held bit for bit to their plain versions at the launches
     the shards make (captured from the path), timed with CUDA events
     beside their bounds (``_mesh`` / ``_mesh_q1`` in the kernels line).
+22. equal scores (after phase 16, on phase 7's rows and queries; a
+    router of its own): 262,144 of the rows each stored 4 times (row i
+    holds vector i % 262,144, so the copies sit in separate pools) by
+    ``ingest_matrix``, 1,048,576 keys; and an int8 collection of
+    131,072 of them 4 times, ``{"cat": i % 16}``, stored row by row (the
+    only way into a collection with metadata; 1,048,576 such rows would
+    take the phase's time alone). Counted (``launches_ties``): 64 singles
+    and a batch of 1,024 on each (the pooled f32 and pooled int8 routes
+    and their rerank), 4 ``WHERE cat = 3`` IN the collection (pooled int8
+    under the mask) and 4 METRIC euclidean on the store (the exact scan),
+    and 4 paginated walks of 4 pages of 10 (METRIC dot: the exact scan,
+    whose top-k are prefixes of each other; a pooled route's candidate
+    count grows with k + offset). Every top-10 meets groups of
+    four equal scores across its 10th place. Gate: each hit list is the
+    one ``_topk_stable``'s rule (equal scores by ascending candidate
+    slot: the first pass's order, or the row for the exact scan) gives
+    over the same candidates, recomputed on the card from the route's
+    first pass (``ties_mismatches`` 0); the walks' pages are disjoint and
+    together the top-40.
 
 Every kernel must launch in the counted phases. After phase 4 it
 profiles 8 single SIMILARs and one batch (cProfile on the host,
@@ -484,7 +503,7 @@ SAMPLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "samples",
 ROUTES = ("ivf", "top65", "top65_latency", "top1_direct", "delta",
           "pooled", "int8", "binary", "wide", "hybrid", "served_ivf",
           "served_brute", "pq", "tt", "ann", "rollback", "chain", "cluster",
-          "served_grpc_ivf", "served_grpc_brute", "sharded", "mesh")
+          "served_grpc_ivf", "served_grpc_brute", "sharded", "mesh", "ties")
 # phase 17 (on A's corpus): the TOP 65 batch (k_ivf 146 > 128, the
 # non-fast batched route), and an index over A's rows that takes 10 %
 # more rows through add (in chunks of 65,536) and loses 1 % of A's row
@@ -529,8 +548,15 @@ PQ_DESIGN = ("shared layout (full scan, Q >= 8): 8 queries and passes of "
              "across blocks by 64-bit atomicMax")
 # phase 14: SIMILARs above the select mode's k cap (the scores mode)
 N_PQ_TOP65 = 2
-# phase 14's standing check of row 8's select mode at one query
-PQ_REPEAT_LAUNCHES = 10_880
+# phase 14's standing check of row 8's select mode at one query (cut
+# from 10,880 to make room for the sweep below in the phase's time), and
+# its sweep: Q 8, each k, the lane layout over the codes, over the codes
+# repeated 4 times, and the gathered mode over PQ_SWEEP_CANDS candidates
+PQ_REPEAT_LAUNCHES = 5_440
+PQ_SWEEP_KS = (1, 10, 64)
+PQ_SWEEP_Q = 8
+PQ_SWEEP_ROUNDS = 16
+PQ_SWEEP_CANDS = 8192
 PQ_TOP65 = 65
 # the CUDA kernels that each counted wrapper (kernels.LAUNCHES) runs once
 # a launch, by their names in a torch.profiler trace; a trace that holds
@@ -677,6 +703,15 @@ MESH_TOL = 1e-5
 # limits allow 10 and 15
 MESH_SELF_MIN = 0.99
 MESH_FAST_MIN_AGREE = 0.985
+# phase 22: TIE_ROWS of phase 7's rows TIE_COPIES times in the store,
+# TIE_INT8_ROWS of them in the int8 collection; TIE_WALKS paginated walks
+# of TIE_PAGES pages of TOP_K
+TIE_ROWS = 1 << 18
+TIE_INT8_ROWS = 1 << 17
+TIE_COPIES = 4
+TIE_FILTERED = 4
+TIE_WALKS = 4
+TIE_PAGES = 4
 
 
 def say(msg: str) -> None:
@@ -1696,6 +1731,8 @@ def run(args, dev, config=None, on_card: bool = True) -> dict:
     report.update(run_extended(args, dev, shared["corpus"],
                                shared["queries"], on_card))
     report["extended_s"] = time.perf_counter() - t0
+    report.update(run_ties(dev, shared["corpus"], shared["queries"],
+                           on_card))
     del shared
     gc.collect()
     if on_card:
@@ -3688,6 +3725,55 @@ def pq_select_repeat(book, codes, live, qd) -> dict:
     return out
 
 
+def pq_select_sweep(codes, live, tables) -> dict:
+    """Row 8's select mode beyond the standing check's one shape: Q 8
+    and k 1 / 10 / 64, in the lane layout over phase 14's codes, over a
+    quarter of them repeated 4 times (equal codes at four rows: ties
+    everywhere, across blocks), and in the gathered mode
+    (PQ_SWEEP_CANDS seeded candidate positions a query, -1 at every 16th
+    and repeats allowed); PQ_SWEEP_ROUNDS launches each, the 8 queries'
+    tables in turn, each held to the scores mode + ``_topk_stable`` on
+    the same inputs (scores and columns equal). A launch that differs
+    fails the phase."""
+    import torch
+
+    from neumann_tpu_torch.ops import kernels as tk
+    from neumann_tpu_torch.ops.scan import _topk_stable
+
+    t0 = time.perf_counter()
+    n = codes.shape[0]
+    quarter = n // 4
+    g = torch.Generator(device=codes.device).manual_seed(PQ_SWEEP_CANDS)
+    cand = torch.randint(0, n, (PQ_SWEEP_Q, PQ_SWEEP_CANDS), generator=g,
+                         device=codes.device, dtype=torch.int32)
+    cand[:, ::16] = -1
+    modes = {"lane": (codes, live, None),
+             "duplicated": (codes[:quarter].repeat(4, 1),
+                            live[:quarter].repeat(4), None),
+             "gathered": (codes, live, cand)}
+    launches, bad = 0, []
+    for k in PQ_SWEEP_KS:
+        for mode, (c, v, cd) in modes.items():
+            for r in range(PQ_SWEEP_ROUNDS):
+                q0 = (r * PQ_SWEEP_Q) % (len(tables) - PQ_SWEEP_Q + 1)
+                t = tables[q0:q0 + PQ_SWEEP_Q]
+                s, col = tk.pq_adc_topk(c, t, v, k, cd)
+                s2, col2 = _topk_stable(tk.pq_adc_scores(c, t, v, cd), k)
+                launches += 1
+                if not (torch.equal(s, s2) and torch.equal(col, col2)):
+                    bad.append((mode, k, r))
+    out = {"pq_sweep_launches": launches, "pq_sweep_mismatches": len(bad),
+           "pq_sweep_s": time.perf_counter() - t0}
+    say(f"[14] row 8 select mode at Q {PQ_SWEEP_Q}, k {PQ_SWEEP_KS}, lane /"
+        f" duplicated codes / gathered: {launches} launches, {len(bad)} "
+        f"differ from the scores mode + _topk_stable {bad[:8]} "
+        f"({out['pq_sweep_s']:.1f} s)")
+    if bad:
+        raise AssertionError(f"[14] row 8's select mode differs from its "
+                             f"scores mode: {bad}")
+    return out
+
+
 def run_quantized(args, dev, corpus, queries, on_card: bool,
                   adc_recs=None) -> dict:
     """Phase 14, cell G: phases 7-9's rows in a ``QUANTIZATION pq``
@@ -3847,6 +3933,8 @@ def run_quantized(args, dev, corpus, queries, on_card: bool,
             f"{ms_text(adc_ms, 2)} ms")
         report.update(pq_select_repeat(book, codes, live,
                                        qd[:N_SINGLE + N_BATCH]))
+        report.update(pq_select_sweep(codes, live, book.adc_tables(
+            qd[:N_SINGLE + N_BATCH])))
     del emb, valid, codes, book, coll, live, cat, router, eng
     gc.collect()
     if on_card:
@@ -6403,6 +6491,184 @@ def run_chain_cluster(args, dev, centres, s_consensus, s_cluster,
     return report
 
 
+def tie_plain(eng, ns: str, q: np.ndarray, k: int, metric: str = "cosine",
+              cat_mask=None, one_by_one: bool = True) -> list:
+    """Phase 22's plain version of one route's hit keys a query: the
+    route's first pass again (its kernel, on the card), the rerank's
+    scores by plain torch ops over the same candidates, and
+    ``_topk_stable``'s selection (equal scores by ascending slot); the
+    exact scan's scores by ``score_all`` over the scan's blocks and the
+    same selection. ``one_by_one``: each query alone, as the single
+    SIMILARs ran (the same shapes, so the same sums); else the batch."""
+    import torch
+
+    from neumann_tpu_torch.ops.quant import f32_pooled_topk, int8_pooled_topk
+    from neumann_tpu_torch.ops.scan import (
+        _DEFAULT_BLOCK_ROWS,
+        _FLAT_MAX_ROWS,
+        NEG_INF,
+        _topk_stable,
+        score_all,
+    )
+
+    if one_by_one and len(q) > 1:
+        return [hits for i in range(len(q))
+                for hits in tie_plain(eng, ns, q[i:i + 1], k, metric,
+                                      cat_mask)]
+    qd = torch.from_numpy(np.ascontiguousarray(q)).to(eng.device)
+
+    quant = "int8" if ns.startswith("col/") else "none"
+    route = eng.search_route(ns, DIM, k, metric, None, quant)
+    if cat_mask is not None:
+        assert route["route"] in ("int8_pooled", "f32_pooled"), route
+    corpus = eng._corpus_for(ns, DIM, False)
+    mask = None if cat_mask is None else torch.from_numpy(cat_mask).to(
+        qd.device)
+    if route["route"] == "exact":
+        emb, valid = corpus.slab.device_view()
+        step = len(emb) if len(emb) <= _FLAT_MAX_ROWS else \
+            _DEFAULT_BLOCK_ROWS
+        s, rows = _topk_stable(torch.cat(
+            [score_all(emb[r:r + step], qd, metric, valid[r:r + step])
+             for r in range(0, len(emb), step)], dim=1), k)
+    else:
+        c = max(8 * k, 64)
+        if route["route"] == "int8_pooled":
+            data, scale, rmult, valid = corpus.slab.quantized_view("int8c")
+            live = valid if mask is None else valid & mask
+            s1, pos = int8_pooled_topk(data, scale, qd, c,
+                                       pool=route["pool"], mask=live,
+                                       row_mult=rmult)
+        else:
+            data, rmult, valid = corpus.slab.quantized_view("f32c")
+            live = valid if mask is None else valid & mask
+            s1, pos = f32_pooled_topk(data, qd, c, pool=route["pool"],
+                                      mask=live, row_mult=rmult)
+        safe = pos.long().clamp_min(0)
+        cand = data[safe].float()
+        dots = torch.einsum("qcd,qd->qc", cand, qd)
+        qn = torch.sqrt((qd * qd).sum(-1, keepdim=True).clamp_min(1e-60))
+        if route["route"] == "int8_pooled":
+            scores = dots * rmult[safe] / qn
+        else:
+            cn2 = (cand * cand).sum(-1)
+            scores = torch.where(
+                cn2 > 0, dots * torch.rsqrt(cn2.clamp_min(1e-60)) / qn,
+                torch.zeros_like(dots))
+        scores = scores.masked_fill((pos < 0) | torch.isneginf(s1), NEG_INF)
+        s, slot = _topk_stable(scores, k)
+        rows = torch.gather(safe, 1, slot)
+    rows = rows.masked_fill(torch.isneginf(s), -1).cpu().numpy()
+    return [[key for key in corpus.index.keys_of(r.tolist())
+             if key is not None] for r in rows]
+
+
+def run_ties(dev, corpus, queries, on_card: bool) -> dict:
+    """Phase 22 (module docstring): equal scores on the pooled f32 and
+    int8 routes, their filtered and batched forms, the exact scan and
+    paginated walks, held to ``tie_plain``."""
+    from neumann_tpu_torch.engines.vector import FilterCondition
+    from neumann_tpu_torch.ops import kernels as tk
+    from neumann_tpu_torch.router import QueryRouter
+
+    t_phase = time.perf_counter()
+    report = {}
+    base = corpus[:min(TIE_ROWS, len(corpus))]
+    n = len(base) * TIE_COPIES
+    n8 = min(TIE_INT8_ROWS, len(base)) * TIE_COPIES
+    router = QueryRouter(device=dev)
+    eng = router.vector
+    t0 = time.perf_counter()
+    eng.ingest_matrix([f"k{i}" for i in range(n)],
+                      np.tile(base, (TIE_COPIES, 1)), copy=False)
+    report["ties_ingest_s"] = time.perf_counter() - t0
+    router.execute(f"CREATE COLLECTION tq8 DIM {DIM} QUANTIZATION int8")
+    t0 = time.perf_counter()
+    with eng.bulk_ingest():
+        for i in range(n8):
+            eng.store_in_collection("tq8", f"k{i}", base[i % (n8 // 4)],
+                                    {"cat": i % N_CATS})
+    report["ties_int8_ingest_s"] = time.perf_counter() - t0
+    single = queries[:N_SINGLE]
+    batch = queries[N_SINGLE:N_SINGLE + N_BATCH]
+    extra = queries[N_SINGLE + N_BATCH:][:max(TIE_FILTERED, TIE_WALKS)]
+    cond = FilterCondition.eq("cat", FILTER_CAT)
+    walk_k = TOP_K * TIE_PAGES
+
+    def keys(hits):
+        return [h.key for h in hits]
+
+    tk.reset_launch_counts()
+    got = {
+        "f32_single": [keys(eng.search_similar(q, TOP_K)) for q in single],
+        "int8_single": [keys(eng.search_in_collection("tq8", q, TOP_K))
+                        for q in single],
+        "f32_batch": [keys(h) for h in eng.batch_search(batch, TOP_K)],
+        "int8_batch": [keys(h) for h in eng.batch_search_ns(
+            batch, TOP_K, ns="col/tq8")],
+        "int8_filtered": [keys(eng.search_filtered_in_collection(
+            "tq8", q, TOP_K, cond)) for q in extra[:TIE_FILTERED]],
+        "f32_euclidean": [keys(eng.search_similar_with_metric(
+            q, TOP_K, "euclidean")) for q in extra[:TIE_FILTERED]],
+        "walks": [[keys(eng.search_similar_paginated(q, TOP_K, off, "dot"))
+                   for off in range(0, walk_k, TOP_K)]
+                  for q in extra[:TIE_WALKS]],
+        "walk_tops": [keys(eng.search_similar_with_metric(q, walk_k, "dot"))
+                      for q in extra[:TIE_WALKS]]}
+    launches = dict(tk.LAUNCHES)
+    report["launches_ties"] = launches
+    if on_card:
+        require_launches(launches, ("f32_pooled_bits", "int8_pooled_bits"),
+                         "22")
+
+    col = eng._corpus_for("col/tq8", DIM, False)
+    cat_mask = col.filter_mask(cond)
+    few = extra[:TIE_FILTERED]
+    want = {
+        "f32_single": tie_plain(eng, "", single, TOP_K),
+        "int8_single": tie_plain(eng, "col/tq8", single, TOP_K),
+        "f32_batch": tie_plain(eng, "", batch, TOP_K, one_by_one=False),
+        "int8_batch": tie_plain(eng, "col/tq8", batch, TOP_K,
+                                one_by_one=False),
+        "int8_filtered": tie_plain(eng, "col/tq8", few, TOP_K,
+                                   cat_mask=cat_mask),
+        "f32_euclidean": tie_plain(eng, "", few, TOP_K, "euclidean"),
+        "walk_tops": tie_plain(eng, "", extra[:TIE_WALKS], walk_k, "dot")}
+    bad = {name: sum(g != w for g, w in zip(got[name], want[name]))
+           for name in want}
+    for name in want:
+        if len(got[name]) != len(want[name]):
+            bad[name] += abs(len(got[name]) - len(want[name]))
+    walk_bad = 0
+    for pages, top in zip(got["walks"], got["walk_tops"]):
+        flat = [key for page in pages for key in page]
+        walk_bad += int(len(set(flat)) != len(flat) or flat != top)
+    bad["walks"] = walk_bad
+    # every hit list meets an exact tie: a group of equal vectors
+    tied = sum(len(set(int(key[1:]) % len(base) for key in hits)) < len(hits)
+               for hits in got["f32_single"] + got["int8_single"])
+    report["ties_mismatches"] = sum(bad.values())
+    report["ties_mismatches_by_route"] = bad
+    report["ties_lists_with_copies"] = tied
+    report["ties_routes"] = {
+        ns or "default": eng.search_route(ns, DIM, TOP_K, "cosine", None,
+                                          quant)["route"]
+        for ns, quant in (("", "none"), ("col/tq8", "int8"))}
+    report["phase22_s"] = time.perf_counter() - t_phase
+    say(f"[22] {n} keys ({len(base)} rows x {TIE_COPIES}) by ingest_matrix "
+        f"in {report['ties_ingest_s']:.1f} s, an int8 collection of {n8} "
+        f"row by row in {report['ties_int8_ingest_s']:.1f} s; routes "
+        f"{report['ties_routes']}; {tied} of {2 * len(single)} single "
+        f"top-{TOP_K}s hold copies; orders differing from the plain "
+        f"versions: {bad}; launches {launches}; "
+        f"{report['phase22_s']:.1f} s")
+    if report["ties_mismatches"] or not tied:
+        raise AssertionError(f"[22] equal scores out of lax.top_k's order "
+                             f"({bad}) or no ties met ({tied})")
+    del router, eng, col
+    return report
+
+
 def kernels_line(report: dict) -> dict:
     """The kernels JSON line: per kernel its time, its plain version's,
     its bound and roofline share, the library call's time (or null and
@@ -6567,6 +6833,7 @@ def main() -> int:
         "pq_repeat_launches", "pq_repeat_mismatches",
         "pq_tables_single_vs_batch_differ",
         "pq_hits_single_vs_batch_tables_differ", "pq_repeat_s",
+        "pq_sweep_launches", "pq_sweep_mismatches", "pq_sweep_s",
         "sharded_sizes", "sharded_start_s", "sharded_p50_ms",
         "sharded_p99_ms", "sharded_recall", "sharded_mismatches",
         "sharded_call_p50_ms", "sharded_coordinator_p50_ms",
@@ -6591,7 +6858,8 @@ def main() -> int:
         "mesh_ivf_recall_own_batch", "mesh_ivf_batched_fast_ms",
         "mesh_ivf_batched_non_fast_ms", "mesh_ivf_batched_top1_mismatches",
         "mesh_fresh_not_first", "mesh_merge_mismatches", "phase21_s",
-        "total_s")}
+        "ties_ingest_s", "ties_int8_ingest_s", "ties_mismatches",
+        "ties_lists_with_copies", "phase22_s", "total_s")}
     for part in ("ivf", "pooled", "int8", "binary"):
         for k in ("p50_ms", "p99_ms", "qps", "batches", "mean_cohort",
                   "recall"):

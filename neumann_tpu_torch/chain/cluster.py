@@ -9,7 +9,8 @@ or by a background thread over any transport (MemoryTransport in-process,
 TcpTransport across processes).
 
 The port's copy of ``neumann_tpu/chain/cluster.py``:
-only its import lines differ.
+only its import lines differ, and a node (and the orchestrator, for its
+nodes) takes the ``device`` its delta replication's k-means runs on.
 """
 
 from __future__ import annotations
@@ -34,8 +35,9 @@ class ClusterNode(ClusterProtocolMixin):
                  query_executor: Optional[Callable[[str], object]] = None,
                  gossip: bool = True, gossip_config=None,
                  auto_remove_faulty: bool = False,
-                 faulty_grace_ticks: int = 10, wal=None):
+                 faulty_grace_ticks: int = 10, wal=None, device="cuda"):
         self.id = node_id
+        self.device = device
         self.store = store if store is not None else TensorStore()
         self.raft = RaftNode(node_id, peer_ids, config, seed=seed,
                              wal=wal)
@@ -180,7 +182,7 @@ class ClusterOrchestrator:
 
     def __init__(self, n_nodes: int = 3, seed: int = 0,
                  config: Optional[RaftConfig] = None,
-                 query_executor_factory=None):
+                 query_executor_factory=None, device="cuda"):
         self.hub = TransportHub(seed=seed)
         ids = [f"n{i}" for i in range(n_nodes)]
         self.nodes: Dict[str, ClusterNode] = {}
@@ -189,7 +191,7 @@ class ClusterOrchestrator:
                         if query_executor_factory else None)
             self.nodes[nid] = ClusterNode(
                 nid, ids, self.hub, config=config, seed=seed + i,
-                query_executor=executor)
+                query_executor=executor, device=device)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 

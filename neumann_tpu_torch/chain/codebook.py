@@ -8,8 +8,9 @@ Quantizing a block's delta to its nearest code both compresses history
 (distance above a calibrated threshold).
 
 The port's copy of ``neumann_tpu/chain/codebook.py``: only its
-import lines differ, and its k-means runs on the host, where
-the chain keeps its state (the port's ``kmeans`` names its device).
+import lines differ, and its books take the ``device`` their k-means
+runs on at scale (the chain's own; "cuda" by default), as the JAX
+package's runs on its default device.
 """
 
 from __future__ import annotations
@@ -22,9 +23,10 @@ import numpy as np
 class GlobalCodebook:
     """Static codebook trained once over representative deltas."""
 
-    def __init__(self, dim: int, n_codes: int = 64):
+    def __init__(self, dim: int, n_codes: int = 64, device="cuda"):
         self.dim = dim
         self.n_codes = n_codes
+        self.device = device
         self.codes: Optional[np.ndarray] = None
         self._threshold: Optional[float] = None
 
@@ -33,7 +35,7 @@ class GlobalCodebook:
 
         x = np.asarray(deltas, np.float32)
         self.codes = kmeans(x, min(self.n_codes, len(x)), iters,
-                            device="cpu")
+                            device=self.device)
         # calibrate anomaly threshold: p99 of training distances
         d = self._distances(x)
         self._threshold = float(np.percentile(d.min(axis=1), 99)) * 1.5
@@ -105,9 +107,11 @@ class CodebookManager:
     block), EMA-adapts the per-domain local book, and logs a transition
     validity record (anomalous = far from every archetype)."""
 
-    def __init__(self, n_codes: int = 16, train_after: int = 16):
+    def __init__(self, n_codes: int = 16, train_after: int = 16,
+                 device="cuda"):
         self.n_codes = n_codes
         self.train_after = train_after
+        self.device = device
         self.global_book: Optional[GlobalCodebook] = None
         self.locals: dict = {}
         self._buffer: list = []        # (height, delta) pre-training
@@ -124,7 +128,7 @@ class CodebookManager:
             dim = max(dims)
             train = np.stack([d for _, d in self._buffer
                               if d.shape[0] == dim])
-            gb = GlobalCodebook(dim, self.n_codes)
+            gb = GlobalCodebook(dim, self.n_codes, self.device)
             gb.train(train)
             self.global_book = gb
             # replay buffered blocks so early history carries codes

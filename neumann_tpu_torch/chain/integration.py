@@ -23,7 +23,8 @@ TcpClusterNode (multiprocess) the integrated behaviors:
   (partition_merge.rs 6-phase protocol with RESOLVE riding Raft).
 
 The port's copy of ``neumann_tpu/chain/integration.py``:
-only its import lines differ.
+only its import lines differ, and delta replication's archetype registry
+runs its k-means on the node's ``device``.
 """
 
 from __future__ import annotations
@@ -419,7 +420,8 @@ class ClusterProtocolMixin:
         """Leader: discover archetypes from current store embeddings and
         replicate the registry through the log. After the registry entry
         commits, every put with a dim-matching dense embedding rides the
-        wire (and the WAL) as (archetype, sparse delta)."""
+        wire (and the WAL) as (archetype, sparse delta). The archetypes'
+        k-means runs on the node's ``device``."""
         from neumann_tpu_torch.chain.delta_replication import DeltaReplicator
         from neumann_tpu_torch.chain.raft import LEADER
         from neumann_tpu_torch.store.delta_vector import (
@@ -440,7 +442,7 @@ class ClusterProtocolMixin:
                 vecs.append(emb)
         if len(vecs) < max(2, n_archetypes):
             return False
-        reg = ArchetypeRegistry()
+        reg = ArchetypeRegistry(device=self.device)
         reg.discover_archetypes(np.stack(vecs),
                                 KMeansConfig(k=n_archetypes))
         rep = DeltaReplicator(reg)

@@ -85,6 +85,7 @@ class TcpClusterNode(ClusterProtocolMixin):
                  faulty_grace_ticks: int = 40,
                  device="cuda"):
         self.id = node_id
+        self.device = device
         self.store = TensorStore()
         # Durability: the Raft WAL is the SINGLE durable log (term, vote,
         # log entries, compaction snapshots). The state machine (store)

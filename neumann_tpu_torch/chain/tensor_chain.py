@@ -8,7 +8,8 @@ orthogonal ones, snapshots the store for rollback, applies ops, computes
 the state root, and appends a signed block; rollback on any failure.
 
 The port's copy of ``neumann_tpu/chain/tensor_chain.py``:
-only its import lines differ.
+only its import lines differ, and the chain takes the ``device`` its
+codebooks' k-means runs on (the router's own; "cuda" by default).
 """
 
 from __future__ import annotations
@@ -83,14 +84,15 @@ class TensorChain:
     def __init__(self, store: Optional[TensorStore] = None,
                  embedding_dim: int = 64,
                  consensus: Optional[ConsensusConfig] = None,
-                 signing_key: bytes = b"neumann"):
+                 signing_key: bytes = b"neumann", device="cuda"):
         from neumann_tpu_torch.chain.codebook import CodebookManager
 
         self.store = store if store is not None else TensorStore()
         self.chain = Chain(signing_key)
         self.embedding_dim = embedding_dim
         self.consensus = consensus or ConsensusConfig()
-        self.codebooks = CodebookManager()
+        # the codebooks' k-means runs on ``device`` at scale
+        self.codebooks = CodebookManager(device=device)
         self._pending: Dict[int, TransactionWorkspace] = {}
         self._tx_ids = itertools.count(1)
         self._lock = threading.RLock()

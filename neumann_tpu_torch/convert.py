@@ -259,9 +259,9 @@ def router_from_files(wal_path, snapshot_path=None, device="cuda"):
     return router
 
 
-def chain_from_jax(jax_chain, store):
+def chain_from_jax(jax_chain, store, device="cuda"):
     """A port ``TensorChain`` over ``store`` carrying a JAX chain's
-    state (module docstring)."""
+    state (module docstring); its codebooks train on ``device``."""
     import itertools
     import re
 
@@ -276,7 +276,7 @@ def chain_from_jax(jax_chain, store):
     cfg = jax_chain.consensus
     chain = TensorChain(store, jax_chain.embedding_dim,
                         ConsensusConfig(**vars(cfg)),
-                        signing_key=jax_chain.chain._key)
+                        signing_key=jax_chain.chain._key, device=device)
     chain.chain._blocks = [Block(
         height=b.height, prev_hash=b.prev_hash, timestamp=b.timestamp,
         transactions=copy.deepcopy(b.transactions),
@@ -291,7 +291,7 @@ def chain_from_jax(jax_chain, store):
     dst.transitions = copy.deepcopy(src.transitions)
     gb = src.global_book
     if gb is not None:
-        book = GlobalCodebook(gb.dim, gb.n_codes)
+        book = GlobalCodebook(gb.dim, gb.n_codes, device)
         book.codes = None if gb.codes is None else np.array(gb.codes,
                                                            np.float32)
         book._threshold = gb._threshold

@@ -44,8 +44,9 @@ checkout, and bound with ``ctypes`` (plain C entry points that return
 
 Differences from the Pallas wrappers: the per-query trace-time unroll
 is gone (the query is a grid axis), and the final cut of
-``ivf_windowed_topk`` is an exact ``torch.topk`` instead of
-``approx_max_k`` — its recall is at least that of the approximate cut.
+``ivf_windowed_topk`` is an exact top-k in ``lax.top_k``'s order (the
+JAX package's XLA core) instead of ``approx_max_k`` — its recall is at
+least that of the approximate cut.
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ from typing import Optional
 
 import torch
 
-from neumann_tpu_torch.ops.scan import stable_keys
+from neumann_tpu_torch.ops.scan import _topk, _topk_stable, stable_keys
 
 LAUNCHES = {"ivf_probe": 0, "batched_probe": 0, "batched_probe_top1": 0,
             "int8_dot_scores": 0, "int8_pooled_bits": 0,
@@ -278,15 +279,19 @@ def ivf_windowed_topk(buf, rmult, cents, starts, queries, k: int,
     Requires 128-aligned window starts and a window that is a multiple
     of 128 (``DeviceIVFInt8`` lays the corpus out that way). Returns
     (scores [Q, k], positions [Q, k] int32 in sorted-buffer
-    coordinates); positions may repeat across overlapping windows."""
+    coordinates); positions may repeat across overlapping windows. Both
+    cuts are in ``lax.top_k``'s order, as the JAX package's XLA core
+    makes them: the probes by ``_topk_stable`` (few centroids), the
+    candidates by ``_topk`` (equal scores by their place in the probed
+    windows)."""
     qn = queries / queries.norm(dim=1, keepdim=True).clamp_min(1e-30)
-    _, probe = torch.topk(qn @ cents.T, nprobe, dim=1)
+    probe = _topk_stable(qn @ cents.T, nprobe)[1]
     sb = torch.div(starts[probe], 128, rounding_mode="floor").int()
     scores = ivf_probe_scores(buf, rmult, sb.contiguous(), qn.contiguous(),
                               window)
     pos = ((sb.long() * 128)[:, :, None]
            + torch.arange(window, device=buf.device)).reshape(qn.shape[0], -1)
-    s, i = torch.topk(scores, min(k, scores.shape[1]), dim=1)
+    s, i = _topk(scores, min(k, scores.shape[1]))
     return s, torch.gather(pos, 1, i).int()
 
 

@@ -33,7 +33,12 @@ from typing import Optional
 import torch
 
 from neumann_tpu_torch.ops import kernels
-from neumann_tpu_torch.ops.scan import NEG_INF, _as2d, _topk_stable
+from neumann_tpu_torch.ops.scan import (
+    NEG_INF,
+    _as2d,
+    _int_topk_stable,
+    _topk_stable,
+)
 
 
 def scalar_quantize(x: torch.Tensor):
@@ -229,12 +234,13 @@ def _pooled_bits_select(allbits: torch.Tensor, pool: int, k: int):
     """Final candidate cut over the packed [Q, N/pool] winner bits:
     (scores [Q, k] f32, rows [Q, k] int32, -1 / -inf where dead).
 
-    An exact ``torch.topk`` (bit-pattern order is score order). The JAX
-    package can instead cut with ``lax.approx_max_k``
-    (``selector="approx[:target]"``), which torch does not have; the
-    exact cut keeps every candidate the approximate one would, so its
-    recall is at least as high."""
-    tb, pos = torch.topk(allbits, min(k, allbits.shape[1]), dim=1)
+    An exact top-k in ``lax.top_k``'s order (bit-pattern order is score
+    order; equal patterns by ascending pool: ``_int_topk_stable`` over
+    the N / pool winners). The JAX package can instead cut with
+    ``lax.approx_max_k`` (``selector="approx[:target]"``), which torch
+    does not have; the exact cut keeps every candidate the approximate
+    one would, so its recall is at least as high."""
+    tb, pos = _int_topk_stable(allbits, min(k, allbits.shape[1]))
     local = tb & (pool - 1)
     score = (tb & ~(pool - 1)).view(torch.float32) - 2.0
     rows = pos.int() * pool + local

@@ -44,9 +44,13 @@ def _dedup_sorted(scores: torch.Tensor, pos: torch.Tensor):
 
 
 def _select(scores, pos, k: int, dedup: bool):
+    """Top-k of the rescored candidates in ``lax.top_k``'s order: equal
+    scores by candidate slot, which with ``dedup`` is ascending row, and
+    without it the first pass's order (the pooled routes' candidates
+    come in their selection order, as the JAX package lays them out)."""
     if dedup:
         scores, pos = _dedup_sorted(scores, pos)
-    s, i = torch.topk(scores, min(k, scores.shape[1]), dim=1)
+    s, i = _topk_stable(scores, min(k, scores.shape[1]))
     out_pos = torch.gather(pos, 1, i).masked_fill(torch.isneginf(s), -1)
     return s, out_pos.int()
 

@@ -8,9 +8,13 @@ package docstring). This is the exact route and the recall oracle.
 Two strategies, both exact:
 
 * **flat**: one product giving the full ``[Q, N]`` score matrix, then
-  a top-k in ``lax.top_k``'s order of values (``_topk``);
+  a top-k in ``lax.top_k``'s order (``_topk``);
 * **blockwise**: a loop over row blocks with a running top-k carry and
   an exact merge, never holding more than ``[Q, block]`` scores.
+
+Both return what ``lax.top_k`` over the whole row returns: the k best
+scores, equal scores by ascending row, so duplicated rows come back in
+the JAX package's order and a page of a longer top-k is a slice of it.
 
 Score conventions match the reference: cosine in [-1, 1], dot
 unbounded, euclidean returned as **negative distance** (higher =
@@ -27,8 +31,12 @@ import torch
 METRICS = ("cosine", "dot", "euclidean", "manhattan", "composite",
            "weighted_jaccard", "angular", "geodesic", "jaccard", "overlap")
 
-# GeometricConfig default: (cosine, structural, magnitude) weights.
+# GeometricConfig presets (distance.rs:140-168): (cosine, structural,
+# magnitude) weights.
 COMPOSITE_DEFAULT = (0.5, 0.3, 0.2)
+COMPOSITE_ANGULAR_HEAVY = (0.8, 0.1, 0.1)
+COMPOSITE_STRUCTURAL_HEAVY = (0.2, 0.7, 0.1)
+COMPOSITE_CONFLICT_DETECTION = (0.4, 0.5, 0.1)
 
 NEG_INF = float("-inf")
 
@@ -125,16 +133,61 @@ def _composite_scores(queries, corpus_block, q_sqnorm, c_sqnorm_block,
     return (w_cos * cos01 + w_struct * jac + w_mag * mag) / total
 
 
-def _topk(scores: torch.Tensor, k: int):
-    """(values, indices) of the k largest along dim 1 in the IEEE total
-    order that ``lax.top_k`` ranks by: a NaN with the sign bit set (what
-    inf / inf and 0 * inf give) ranks below -inf, a positive NaN above
-    +inf, where ``torch.topk`` puts every NaN first. Selects on the
-    bits' order-preserving int32 image; the scores are float32."""
+_LOW = (1 << 32) - 1
+# a selection over at most this many scores ([Q, N] elements) orders the
+# whole plane by one stable sort of its int32 image: fewer kernels than
+# the int64 keys' select, and no straddle test. On an H100 the sort took
+# 0.17 ms at 1 x 2^20 scores against 0.40 for the select, and 0.49 ms at
+# 4 x 2^20 against 0.42 (scripts/torch_ties_cost.py)
+_SORT_MAX = 1 << 21
+
+
+def _image(scores: torch.Tensor) -> torch.Tensor:
+    """The order-preserving int32 image of f32 scores' bits: the IEEE
+    total order that ``lax.top_k`` ranks by (a NaN with the sign bit
+    set, what inf / inf and 0 * inf give, below -inf; a positive NaN
+    above +inf), where ``torch.topk`` puts every NaN first."""
     assert scores.dtype == torch.float32, scores.dtype
     b = scores.contiguous().view(torch.int32)
-    _, idx = torch.topk(torch.where(b < 0, b ^ 0x7FFFFFFF, b), k, dim=1)
-    return torch.gather(scores, 1, idx), idx
+    return torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+
+
+def _topk_flagged(scores: torch.Tensor, k: int):
+    """``_topk`` without its repair: (values, indices, straddle [Q]
+    bool). One ``torch.topk`` takes k + 1 places of the int32 image; the
+    k kept are put in ``lax.top_k``'s order on int64 keys (value, then
+    ascending index: k of them, cheap). Where the k-th and (k + 1)-th
+    values are equal (``straddle``), equal scores cross the cut and
+    which of them are kept is ``torch.topk``'s choice, not the lowest
+    indices: that row wants ``_topk_stable``."""
+    n = scores.shape[1]
+    if k >= n:
+        s, i = _topk_stable(scores, n)
+        return s, i, torch.zeros(scores.shape[0], dtype=torch.bool,
+                                 device=scores.device)
+    v, idx = torch.topk(_image(scores), k + 1, dim=1)
+    straddle = v[:, k - 1] == v[:, k]
+    keys = (v[:, :k].long() << 32) | (_LOW - idx[:, :k])
+    idx = _LOW - (torch.sort(keys, dim=1, descending=True).values & _LOW)
+    return torch.gather(scores, 1, idx), idx, straddle
+
+
+def _topk(scores: torch.Tensor, k: int):
+    """(values, indices) of the k largest f32 scores along dim 1, as
+    ``lax.top_k`` gives them: in the IEEE total order (``_image``),
+    equal scores by ascending index. Up to ``_SORT_MAX`` scores,
+    ``_topk_stable``'s sort; above, ``_topk_flagged``'s one int32
+    select over the row, and ``_topk_stable`` over the whole row only
+    for the rows where equal scores straddle the k-th place (duplicated
+    vectors): a large plane is never selected on int64 keys unless a
+    row needs it. That costs one host sync (the straddle test)."""
+    if scores.numel() <= _SORT_MAX:
+        return _topk_stable(scores, k)
+    s, idx, straddle = _topk_flagged(scores, k)
+    if bool(straddle.any()):
+        rows = straddle.nonzero()[:, 0]
+        s[rows], idx[rows] = _topk_stable(scores[rows], k)
+    return s, idx
 
 
 def stable_keys(scores: torch.Tensor, c0: int = 0) -> torch.Tensor:
@@ -143,23 +196,36 @@ def stable_keys(scores: torch.Tensor, c0: int = 0) -> torch.Tensor:
     column's complement (a greater key is a better column; distinct
     columns give distinct keys). The ADC kernel's select mode
     (csrc/pq_adc.cu) builds the same keys."""
-    b = scores.contiguous().view(torch.int32)
-    img = torch.where(b < 0, b ^ 0x7FFFFFFF, b).long()
-    cols = torch.arange(c0, c0 + scores.shape[1], device=scores.device)
-    return (img << 32) | (((1 << 32) - 1) - cols)
+    return _int_keys(_image(scores), c0)
+
+
+def _int_keys(img: torch.Tensor, c0: int = 0) -> torch.Tensor:
+    """int64 keys of int32 values [Q, B] at columns c0 .. c0 + B - 1:
+    the value above the column's complement."""
+    cols = torch.arange(c0, c0 + img.shape[1], device=img.device)
+    return (img.long() << 32) | (_LOW - cols)
 
 
 def _topk_stable(scores: torch.Tensor, k: int):
-    """``_topk`` that also orders equal scores as ``lax.top_k`` does, by
-    ascending index (``torch.topk`` leaves their order open): selects
-    on int64 keys, the int32 image above the index's complement. For
-    scores with exact ties by design (equal PQ codes, hamming
-    distances)."""
-    assert scores.dtype == torch.float32, scores.dtype
-    low = (1 << 32) - 1
-    top = torch.topk(stable_keys(scores), k, dim=1).values
-    idx = low - (top & low)
+    """``_topk`` in one step over the whole row (``_int_topk_stable`` of
+    the int32 image): for the few candidates of a rerank or a merge, for
+    rows ``_topk`` must repair, and for scores with exact ties by design
+    (equal PQ codes, hamming distances)."""
+    idx = _int_topk_stable(_image(scores), k)[1]
     return torch.gather(scores, 1, idx), idx
+
+
+def _int_topk_stable(values: torch.Tensor, k: int):
+    """(values, indices) of the k largest int32 ``values`` along dim 1,
+    equal values by ascending index, as ``lax.top_k`` on int32: a stable
+    descending sort of the rows up to ``_SORT_MAX`` values, else a
+    ``torch.topk`` of int64 keys (``_int_keys``: twice the bytes of an
+    int32 select)."""
+    if values.numel() <= _SORT_MAX:
+        v, idx = torch.sort(values, dim=1, descending=True, stable=True)
+        return v[:, :k], idx[:, :k]
+    top = torch.topk(_int_keys(values), k, dim=1).values
+    return (top >> 32).int(), _LOW - (top & _LOW)
 
 
 def _finalize(scores, metric):
@@ -222,7 +288,13 @@ def topk_scan(corpus: torch.Tensor, queries: torch.Tensor, k: int,
 
 
 def _blockwise_topk(corpus, queries, k, metric, mask, block_rows,
-                    weights=COMPOSITE_DEFAULT):
+                    weights=COMPOSITE_DEFAULT, stable=False):
+    """Each block's top-k as ``_topk`` takes it but with the straddle
+    test deferred (``_topk_stable`` when ``stable`` or the block is
+    small), merged into the carry by ``_topk_stable`` (2k candidates,
+    the carry's rows before the block's, so equal scores stay by
+    ascending row). Queries whose block select straddled a tie are run
+    again with ``stable``: one host sync for the whole scan."""
     queries = queries.float()
     n = corpus.shape[0]
     q = queries.shape[0]
@@ -230,6 +302,7 @@ def _blockwise_topk(corpus, queries, k, metric, mask, block_rows,
     best_s = queries.new_full((q, k), NEG_INF)
     best_i = torch.full((q, k), -1, dtype=torch.int64,
                         device=queries.device)
+    straddled = torch.zeros(q, dtype=torch.bool, device=queries.device)
     for start in range(0, n, block_rows):
         block = corpus[start:start + block_rows].float()
         c_sq = (block * block).sum(1)
@@ -237,13 +310,25 @@ def _blockwise_topk(corpus, queries, k, metric, mask, block_rows,
         if mask is not None:
             s = s.masked_fill(~mask[None, start:start + block_rows],
                               NEG_INF)
-        bs, bi = _topk(s, min(k, s.shape[1]))
+        kb = min(k, s.shape[1])
+        if stable or s.numel() <= _SORT_MAX:
+            bs, bi = _topk_stable(s, kb)
+        else:
+            bs, bi, straddle = _topk_flagged(s, kb)
+            straddled |= straddle
         cand_s = torch.cat([best_s, bs], dim=1)
         cand_i = torch.cat([best_i, bi + start], dim=1)
-        best_s, pos = _topk(cand_s, k)
+        best_s, pos = _topk_stable(cand_s, k)
         best_i = torch.gather(cand_i, 1, pos)
     best_i = best_i.masked_fill(torch.isneginf(best_s), -1)
-    return _finalize(best_s, metric), best_i.int()
+    best_s = _finalize(best_s, metric)
+    if not stable and bool(straddled.any()):
+        rows = straddled.nonzero()[:, 0]
+        best_s[rows], fixed = _blockwise_topk(
+            corpus, queries[rows], k, metric, mask, block_rows, weights,
+            stable=True)
+        best_i[rows] = fixed.long()
+    return best_s, best_i.int()
 
 
 def host_pull(*tensors):

@@ -188,6 +188,7 @@ def _as_id(value, what: str = "id") -> int:
 class QueryRouter:
     def __init__(self, store: Optional[TensorStore] = None, device="cuda"):
         self.store = store if store is not None else TensorStore()
+        self.device = device
         self.relational = RelationalEngine(self.store)
         self.graph = GraphEngine(self.store, device=device)
         self.vector = VectorEngine(self.store, device=device)
@@ -309,6 +310,7 @@ class QueryRouter:
     def init_chain(self, embedding_dim: int = 64, **kw) -> None:
         from neumann_tpu_torch.chain import TensorChain
 
+        kw.setdefault("device", self.device)
         self.chain = TensorChain(self.store, embedding_dim, **kw)
 
     def attach_planner(self, planner, executors: Dict[str, object],

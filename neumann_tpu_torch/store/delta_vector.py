@@ -6,9 +6,9 @@ discovers archetypes with k-means and batch-encodes. Decode is centroid +
 delta. Compression comes from thresholding the delta to sparse.
 
 The port's copy of ``neumann_tpu/store/delta_vector.py``: only its
-import lines differ, and its k-means runs on the host, where
-the registry keeps its centroids (the port's ``kmeans`` names its
-device).
+import lines differ, and the registry takes the ``device`` its
+k-means runs on at scale (the card by default; a cluster node passes its
+own), as the JAX package's runs on its default device.
 """
 
 from __future__ import annotations
@@ -56,8 +56,9 @@ class ArchetypeRegistry:
     """Discovers archetype centroids (device k-means) and encodes batches
     of embeddings as deltas against their nearest archetype."""
 
-    def __init__(self, threshold: float = 0.01):
+    def __init__(self, threshold: float = 0.01, device="cuda"):
         self.threshold = threshold
+        self.device = device
         self.centroids: Optional[np.ndarray] = None
 
     def discover_archetypes(self, sample: np.ndarray,
@@ -66,7 +67,7 @@ class ArchetypeRegistry:
 
         cfg = config or KMeansConfig()
         self.centroids = kmeans(np.asarray(sample, np.float32), cfg.k,
-                                cfg.iters, cfg.seed, device="cpu")
+                                cfg.iters, cfg.seed, device=self.device)
         return len(self.centroids)
 
     def _nearest(self, vectors: np.ndarray) -> np.ndarray:

@@ -1,6 +1,6 @@
-"""Time cells A and C of chip_smoke.py (the auto-IVF route and the int8
-collection) for two or more checkouts on one card, each tree in a process
-of its own, in the order given.
+"""Time cells A, B and C of chip_smoke.py (the auto-IVF route, the f32
+pooled route and the int8 collection) for two or more checkouts on one
+card, each tree in a process of its own, in the order given.
 
     python scripts/torch_cells_ab.py --trees build/parent . . build/parent
 
@@ -13,8 +13,11 @@ checkout's ``chip_smoke.py`` (``mixture``, ``similar_series``,
   builds the auto-IVF index (``first_query_incl_build_s``), then 63
   singles (p50 / p99) and a batch of 1,024 (QPS over the median of the
   last 3 of 4 calls);
-* C: 1,048,576 rows of phases 7-9's recipe stored row by row in a
-  ``QUANTIZATION int8`` collection; 64 singles and a batch of 1,024.
+* B: 1,048,576 rows of phases 7-9's recipe through ``ingest_matrix``
+  into the default corpus (the f32 pooled route and its rerank); 64
+  singles and a batch of 1,024;
+* C: the same rows stored row by row in a ``QUANTIZATION int8``
+  collection; 64 singles and a batch of 1,024.
 
 Prints one JSON object and writes it to ``chiprun_out/cells_ab.json``.
 """
@@ -80,12 +83,27 @@ def run_tree(seed: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- C: an int8 collection --------------------------------------------
+    # ---- B: the f32 pooled route -----------------------------------------
     s_corpus7, s_queries7 = root.spawn(2)
     n = cs.POOLED_ROWS
     corpus = cs.mixture(n, centres, s_corpus7)
     queries = cs.mixture(cs.N_SINGLE + cs.N_BATCH + cs.N_FILTERED, centres,
                          s_queries7)
+    batch = queries[cs.N_SINGLE:cs.N_SINGLE + cs.N_BATCH]
+    router = QueryRouter(device=dev)
+    router.vector.ingest_matrix([f"k{i}" for i in range(n)], corpus)
+    lat, _, _ = cs.similar_series(router, [
+        f"SIMILAR {cs.vec_literal(q)} TOP {cs.TOP_K}"
+        for q in queries[:cs.N_SINGLE]])
+    rec["b_single_p50_ms"] = float(np.percentile(lat[1:], 50))
+    rec["b_single_p99_ms"] = float(np.percentile(lat[1:], 99))
+    rec["b_batch_qps"], rec["b_batch_s"], _, _ = cs.batch_series(
+        lambda: router.vector.batch_search(batch, cs.TOP_K))
+    del router
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- C: an int8 collection --------------------------------------------
     router = QueryRouter(device=dev)
     eng = router.vector
     router.execute(f"CREATE COLLECTION q8 DIM {cs.DIM} QUANTIZATION int8")
@@ -97,7 +115,6 @@ def run_tree(seed: int) -> dict:
         for q in queries[:cs.N_SINGLE]])
     rec["c_single_p50_ms"] = float(np.percentile(lat[1:], 50))
     rec["c_single_p99_ms"] = float(np.percentile(lat[1:], 99))
-    batch = queries[cs.N_SINGLE:cs.N_SINGLE + cs.N_BATCH]
     rec["c_batch_qps"], rec["c_batch_s"], _, _ = cs.batch_series(
         lambda: eng.batch_search_ns(batch, cs.TOP_K, ns="col/q8"))
     return rec

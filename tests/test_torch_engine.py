@@ -6,7 +6,8 @@ The JAX router builds its auto index on the first SIMILAR; the port is
 then given the SAME index (convert.ivf_state_from_jax ->
 DeviceIVFInt8.from_state), so both search one layout and their results
 compare directly: scores within 1e-5, keys equal wherever scores differ
-by more than that. A second port router builds its own index through
+by more than that, and in the same order among scores exactly equal in
+both packages (apart from every other score). A second port router builds its own index through
 the same statements (the port's k-means draws from a torch.Generator,
 so that layout is compared by recall, not bit for bit).
 
@@ -91,9 +92,9 @@ def _assert_hits_close(got, want, angular=False):
         s_g, s_w = np.cos(s_g), np.cos(s_w)
     np.testing.assert_allclose(s_g, s_w, rtol=0, atol=TOL)
     for j, h in enumerate(want):
-        sep = all(abs(s_w[j] - s_w[i]) > TOL
-                  for i in range(len(want)) if i != j)
-        if sep:
+        near = np.abs(s_w - s_w[j]) <= TOL
+        tied = (s_w == s_w[j]) & (s_g == s_g[j])
+        if (near == tied).all() and (near.sum() == 1 or not near[-1]):
             assert got[j]["key"] == h["key"]
 
 
@@ -409,7 +410,8 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     collections and the ANN index APIs; the chain, the consensus
     classification and the clusters of phase 18; SIMILAR scattered over
     three shard-server processes, phase 20; the same rows on a mesh of
-    four logical devices, phase 21) at a toy size
+    four logical devices, phase 21; equal scores on the pooled routes,
+    phase 22) at a toy size
     on the CPU; the kernel phase, the launch checks and the profiles need
     the card. 8 mixture centres
     instead of 4,096 so that 20,480 rows are clustered like the real
@@ -517,6 +519,12 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     assert rep["grpc_health"]["device"] == "cpu"
     assert rep["points_codec_native"]
     assert rep["grpc_ivf_server_requests"] >= chip_smoke.N_SERVED
+    # phase 22: 4,096 rows x 4 take the pooled f32 and int8 routes, every
+    # single top-10 holds copies, and every order is the plain version's
+    assert rep["ties_routes"] == {"default": "f32_pooled",
+                                  "col/tq8": "int8_pooled"}
+    assert rep["ties_lists_with_copies"] == 2 * chip_smoke.N_SINGLE
+    assert rep["ties_mismatches"] == 0
     assert rep["shell_errors"] == 0 and rep["shell_max_rel_diff"] == 0
     assert rep["shell_doctor_devices"] == ["[OK ] devices         1 x cpu"]
     # phase 16: the rollback restores every route's hits and the events

@@ -76,20 +76,7 @@ globals().update(twin_tests("test_parallel", (
     "test_mesh_has_8_devices", "test_sharded_search_matches_oracle",
     "test_sharded_search_masked", "test_sharded_int8",
     "test_sharded_euclidean", "test_sharded_int8_pooled_parity"),
-    port_patch={
-        """    import jax.numpy as jnp
-
-    from neumann_tpu_torch.ops.quant import int8_topk_scan_jit, scalar_quantize
-""": """    import torch
-
-    from neumann_tpu_torch.ops.quant import int8_topk_scan as int8_topk_scan_jit
-    from neumann_tpu_torch.ops.quant import scalar_quantize
-""",
-        "scalar_quantize(jnp.asarray(vecs))":
-            "scalar_quantize(torch.from_numpy(vecs))",
-        "int8_topk_scan_jit(cq, scale, jnp.asarray(queries), k,":
-            "int8_topk_scan_jit(cq, scale, torch.from_numpy(queries), k,",
-    }))
+    torch_jnp=True))
 globals().update(twin_tests("test_mesh_engine"))
 globals().update(twin_tests("test_distributed_search", (
     "test_sharded_ivf_corpus_recall_and_ids",
