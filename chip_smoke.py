@@ -315,12 +315,19 @@ Phases (each raises on failure; exit code 0 only if all pass):
     and 4 paginated walks of 4 pages of 10 (METRIC dot: the exact scan,
     whose top-k are prefixes of each other; a pooled route's candidate
     count grows with k + offset). Every top-10 meets groups of
-    four equal scores across its 10th place. Gate: each hit list is the
-    one ``_topk_stable``'s rule (equal scores by ascending candidate
-    slot: the first pass's order, or the row for the exact scan) gives
-    over the same candidates, recomputed on the card from the route's
-    first pass (``ties_mismatches`` 0); the walks' pages are disjoint and
-    together the top-40.
+    four equal scores across its 10th place. And a store of its own
+    holding 131,072 of the rows 4 times in a row (524,288 keys), searched
+    by a batch of 64 METRIC euclidean: the exact scan in blocks of 65,536
+    rows, each block's [64, 65,536] scores above ``_SORT_MAX`` (the
+    int64 keys' select), with copies in one block; some top-10 must meet
+    equal scores across the 10th place (``ties_run_straddles``). Gate:
+    each hit list is the one the plain version gives: the scores over
+    the same candidates, recomputed on the card from the route's first
+    pass (or the exact scan's ``score_all``), ordered on the host by
+    ``np.lexsort`` (``host_top``: equal scores by ascending candidate
+    slot, the first pass's order, or the row for the exact scan), apart
+    from the port's selections (``ties_mismatches`` 0); the walks' pages
+    are disjoint and together the top-40.
 
 Every kernel must launch in the counted phases. After phase 4 it
 profiles 8 single SIMILARs and one batch (cProfile on the host,
@@ -548,11 +555,11 @@ PQ_DESIGN = ("shared layout (full scan, Q >= 8): 8 queries and passes of "
              "across blocks by 64-bit atomicMax")
 # phase 14: SIMILARs above the select mode's k cap (the scores mode)
 N_PQ_TOP65 = 2
-# phase 14's standing check of row 8's select mode at one query (cut
-# from 10,880 to make room for the sweep below in the phase's time), and
+# phase 14's standing check of row 8's select mode at one query (10
+# launches for each of 1,088 queries' tables; about 9 s on an H100), and
 # its sweep: Q 8, each k, the lane layout over the codes, over the codes
 # repeated 4 times, and the gathered mode over PQ_SWEEP_CANDS candidates
-PQ_REPEAT_LAUNCHES = 5_440
+PQ_REPEAT_LAUNCHES = 10_880
 PQ_SWEEP_KS = (1, 10, 64)
 PQ_SWEEP_Q = 8
 PQ_SWEEP_ROUNDS = 16
@@ -712,6 +719,11 @@ TIE_COPIES = 4
 TIE_FILTERED = 4
 TIE_WALKS = 4
 TIE_PAGES = 4
+# and TIE_RUN_ROWS of them TIE_COPIES times in a row in a store of its
+# own, searched by a batch of TIE_RUN_QUERIES (the exact scan's blocks of
+# [TIE_RUN_QUERIES, 65,536] scores: above _SORT_MAX, the int64 keys)
+TIE_RUN_ROWS = 1 << 17
+TIE_RUN_QUERIES = 64
 
 
 def say(msg: str) -> None:
@@ -6491,15 +6503,36 @@ def run_chain_cluster(args, dev, centres, s_consensus, s_cluster,
     return report
 
 
+def host_top(scores: np.ndarray, k: int):
+    """(scores, slots) of each row's k best, ordered on the host apart
+    from the port's selections: descending in the IEEE total order of
+    the f32 bits (a negative zero below zero, as ``lax.top_k``), equal
+    scores by ascending slot (``np.lexsort``)."""
+    scores = np.ascontiguousarray(scores, np.float32)
+    b = scores.view(np.int32)
+    img = np.where(b < 0, b ^ 0x7FFFFFFF, b).astype(np.int64)
+    n = scores.shape[1]
+    k = min(k, n)
+    slots = np.empty((len(scores), k), np.int64)
+    for r in range(len(scores)):
+        kth = np.partition(img[r], n - k)[n - k]
+        cand = np.nonzero(img[r] >= kth)[0]
+        slots[r] = cand[np.lexsort((cand, -img[r][cand]))[:k]]
+    return np.take_along_axis(scores, slots, 1), slots
+
+
 def tie_plain(eng, ns: str, q: np.ndarray, k: int, metric: str = "cosine",
-              cat_mask=None, one_by_one: bool = True) -> list:
+              cat_mask=None, one_by_one: bool = True,
+              straddles=None) -> list:
     """Phase 22's plain version of one route's hit keys a query: the
     route's first pass again (its kernel, on the card), the rerank's
-    scores by plain torch ops over the same candidates, and
-    ``_topk_stable``'s selection (equal scores by ascending slot); the
-    exact scan's scores by ``score_all`` over the scan's blocks and the
-    same selection. ``one_by_one``: each query alone, as the single
-    SIMILARs ran (the same shapes, so the same sums); else the batch."""
+    scores by plain torch ops over the same candidates, or the exact
+    scan's by ``score_all`` over the scan's blocks; then ``host_top``'s
+    order on the host (equal scores by ascending slot: the first pass's
+    order, or the row). ``one_by_one``: each query alone, as the single
+    SIMILARs ran (the same shapes, so the same sums); else the batch.
+    ``straddles`` gets the count of queries whose k-th and (k + 1)-th
+    scores are equal."""
     import torch
 
     from neumann_tpu_torch.ops.quant import f32_pooled_topk, int8_pooled_topk
@@ -6507,14 +6540,13 @@ def tie_plain(eng, ns: str, q: np.ndarray, k: int, metric: str = "cosine",
         _DEFAULT_BLOCK_ROWS,
         _FLAT_MAX_ROWS,
         NEG_INF,
-        _topk_stable,
         score_all,
     )
 
     if one_by_one and len(q) > 1:
         return [hits for i in range(len(q))
                 for hits in tie_plain(eng, ns, q[i:i + 1], k, metric,
-                                      cat_mask)]
+                                      cat_mask, straddles=straddles)]
     qd = torch.from_numpy(np.ascontiguousarray(q)).to(eng.device)
 
     quant = "int8" if ns.startswith("col/") else "none"
@@ -6528,9 +6560,10 @@ def tie_plain(eng, ns: str, q: np.ndarray, k: int, metric: str = "cosine",
         emb, valid = corpus.slab.device_view()
         step = len(emb) if len(emb) <= _FLAT_MAX_ROWS else \
             _DEFAULT_BLOCK_ROWS
-        s, rows = _topk_stable(torch.cat(
+        scores = torch.cat(
             [score_all(emb[r:r + step], qd, metric, valid[r:r + step])
-             for r in range(0, len(emb), step)], dim=1), k)
+             for r in range(0, len(emb), step)], dim=1)
+        cand = None
     else:
         c = max(8 * k, 64)
         if route["route"] == "int8_pooled":
@@ -6545,20 +6578,24 @@ def tie_plain(eng, ns: str, q: np.ndarray, k: int, metric: str = "cosine",
             s1, pos = f32_pooled_topk(data, qd, c, pool=route["pool"],
                                       mask=live, row_mult=rmult)
         safe = pos.long().clamp_min(0)
-        cand = data[safe].float()
-        dots = torch.einsum("qcd,qd->qc", cand, qd)
+        rows = data[safe].float()
+        dots = torch.einsum("qcd,qd->qc", rows, qd)
         qn = torch.sqrt((qd * qd).sum(-1, keepdim=True).clamp_min(1e-60))
         if route["route"] == "int8_pooled":
             scores = dots * rmult[safe] / qn
         else:
-            cn2 = (cand * cand).sum(-1)
+            cn2 = (rows * rows).sum(-1)
             scores = torch.where(
                 cn2 > 0, dots * torch.rsqrt(cn2.clamp_min(1e-60)) / qn,
                 torch.zeros_like(dots))
         scores = scores.masked_fill((pos < 0) | torch.isneginf(s1), NEG_INF)
-        s, slot = _topk_stable(scores, k)
-        rows = torch.gather(safe, 1, slot)
-    rows = rows.masked_fill(torch.isneginf(s), -1).cpu().numpy()
+        cand = safe.cpu().numpy()
+    s, slots = host_top(scores.cpu().numpy(), k + 1)
+    if straddles is not None and s.shape[1] > k:
+        straddles.append(int((s[:, k - 1] == s[:, k]).sum()))
+    s, slots = s[:, :k], slots[:, :k]
+    rows = slots if cand is None else np.take_along_axis(cand, slots, 1)
+    rows = np.where(np.isneginf(s), -1, rows)
     return [[key for key in corpus.index.keys_of(r.tolist())
              if key is not None] for r in rows]
 
@@ -6589,6 +6626,14 @@ def run_ties(dev, corpus, queries, on_card: bool) -> dict:
             eng.store_in_collection("tq8", f"k{i}", base[i % (n8 // 4)],
                                     {"cat": i % N_CATS})
     report["ties_int8_ingest_s"] = time.perf_counter() - t0
+    run_router = QueryRouter(device=dev)
+    run_eng = run_router.vector
+    run_base = base[:TIE_RUN_ROWS]
+    n_run = len(run_base) * TIE_COPIES
+    t0 = time.perf_counter()
+    run_eng.ingest_matrix([f"k{i}" for i in range(n_run)],
+                          np.repeat(run_base, TIE_COPIES, axis=0))
+    report["ties_run_ingest_s"] = time.perf_counter() - t0
     single = queries[:N_SINGLE]
     batch = queries[N_SINGLE:N_SINGLE + N_BATCH]
     extra = queries[N_SINGLE + N_BATCH:][:max(TIE_FILTERED, TIE_WALKS)]
@@ -6614,7 +6659,9 @@ def run_ties(dev, corpus, queries, on_card: bool) -> dict:
                    for off in range(0, walk_k, TOP_K)]
                   for q in extra[:TIE_WALKS]],
         "walk_tops": [keys(eng.search_similar_with_metric(q, walk_k, "dot"))
-                      for q in extra[:TIE_WALKS]]}
+                      for q in extra[:TIE_WALKS]],
+        "run_euclidean": [keys(h) for h in run_eng.batch_search(
+            batch[:TIE_RUN_QUERIES], TOP_K, "euclidean")]}
     launches = dict(tk.LAUNCHES)
     report["launches_ties"] = launches
     if on_card:
@@ -6624,6 +6671,7 @@ def run_ties(dev, corpus, queries, on_card: bool) -> dict:
     col = eng._corpus_for("col/tq8", DIM, False)
     cat_mask = col.filter_mask(cond)
     few = extra[:TIE_FILTERED]
+    run_straddles = []
     want = {
         "f32_single": tie_plain(eng, "", single, TOP_K),
         "int8_single": tie_plain(eng, "col/tq8", single, TOP_K),
@@ -6633,7 +6681,10 @@ def run_ties(dev, corpus, queries, on_card: bool) -> dict:
         "int8_filtered": tie_plain(eng, "col/tq8", few, TOP_K,
                                    cat_mask=cat_mask),
         "f32_euclidean": tie_plain(eng, "", few, TOP_K, "euclidean"),
-        "walk_tops": tie_plain(eng, "", extra[:TIE_WALKS], walk_k, "dot")}
+        "walk_tops": tie_plain(eng, "", extra[:TIE_WALKS], walk_k, "dot"),
+        "run_euclidean": tie_plain(run_eng, "", batch[:TIE_RUN_QUERIES],
+                                   TOP_K, "euclidean", one_by_one=False,
+                                   straddles=run_straddles)}
     bad = {name: sum(g != w for g, w in zip(got[name], want[name]))
            for name in want}
     for name in want:
@@ -6654,18 +6705,29 @@ def run_ties(dev, corpus, queries, on_card: bool) -> dict:
         ns or "default": eng.search_route(ns, DIM, TOP_K, "cosine", None,
                                           quant)["route"]
         for ns, quant in (("", "none"), ("col/tq8", "int8"))}
+    report["ties_routes"]["run_euclidean"] = run_eng.search_route(
+        "", DIM, TOP_K, "euclidean", None, "none")["route"]
+    report["ties_run_straddles"] = sum(run_straddles)
     report["phase22_s"] = time.perf_counter() - t_phase
     say(f"[22] {n} keys ({len(base)} rows x {TIE_COPIES}) by ingest_matrix "
         f"in {report['ties_ingest_s']:.1f} s, an int8 collection of {n8} "
-        f"row by row in {report['ties_int8_ingest_s']:.1f} s; routes "
+        f"row by row in {report['ties_int8_ingest_s']:.1f} s, {n_run} keys "
+        f"({len(run_base)} rows x {TIE_COPIES} in a row) in "
+        f"{report['ties_run_ingest_s']:.1f} s; routes "
         f"{report['ties_routes']}; {tied} of {2 * len(single)} single "
-        f"top-{TOP_K}s hold copies; orders differing from the plain "
-        f"versions: {bad}; launches {launches}; "
+        f"top-{TOP_K}s hold copies; {report['ties_run_straddles']} of "
+        f"{TIE_RUN_QUERIES} batched euclidean top-{TOP_K}s meet equal "
+        f"scores across the {TOP_K}th place; orders differing from the "
+        f"plain versions: {bad}; launches {launches}; "
         f"{report['phase22_s']:.1f} s")
-    if report["ties_mismatches"] or not tied:
+    if (report["ties_mismatches"] or not tied
+            or not report["ties_run_straddles"]
+            or report["ties_routes"]["run_euclidean"] != "exact"):
         raise AssertionError(f"[22] equal scores out of lax.top_k's order "
-                             f"({bad}) or no ties met ({tied})")
-    del router, eng, col
+                             f"({bad}) or no ties met ({tied}, "
+                             f"{report['ties_run_straddles']}) or "
+                             f"{report['ties_routes']}")
+    del router, eng, col, run_router, run_eng
     return report
 
 
@@ -6858,7 +6920,8 @@ def main() -> int:
         "mesh_ivf_recall_own_batch", "mesh_ivf_batched_fast_ms",
         "mesh_ivf_batched_non_fast_ms", "mesh_ivf_batched_top1_mismatches",
         "mesh_fresh_not_first", "mesh_merge_mismatches", "phase21_s",
-        "ties_ingest_s", "ties_int8_ingest_s", "ties_mismatches",
+        "ties_ingest_s", "ties_int8_ingest_s", "ties_run_ingest_s",
+        "ties_run_straddles", "ties_mismatches",
         "ties_lists_with_copies", "phase22_s", "total_s")}
     for part in ("ivf", "pooled", "int8", "binary"):
         for k in ("p50_ms", "p99_ms", "qps", "batches", "mean_cohort",

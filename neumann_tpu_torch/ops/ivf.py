@@ -61,7 +61,7 @@ from neumann_tpu_torch.ops.rerank import (
     gather_rerank_topk,
     gather_rerank_topk_chunked,
 )
-from neumann_tpu_torch.ops.scan import NEG_INF, _topk, _topk_stable, host_pull
+from neumann_tpu_torch.ops.scan import NEG_INF, _topk_stable, host_pull
 
 
 def window_mean_centroids(buf: torch.Tensor, rmult: torch.Tensor,
@@ -898,7 +898,8 @@ def batched_ivf_topk(buf, rmult, cents, starts, qs, nprobe: int,
         cand = torch.cat([m1, m2], dim=1)
         # in lax.top_k's order: equal bits by lane, the rerank's
         # candidate order
-        sv, si = _topk(cand.view(torch.float32), min(presel, 2 * lanes))
+        sv, si = _topk_stable(cand.view(torch.float32),
+                              min(presel, 2 * lanes))
         bits = sv.view(torch.int32)
         deadb = bits < 0x3F800000
         g_s = torch.where(

@@ -62,7 +62,7 @@ from typing import Optional
 
 import torch
 
-from neumann_tpu_torch.ops.scan import _topk, _topk_stable, stable_keys
+from neumann_tpu_torch.ops.scan import _topk_stable, stable_keys
 
 LAUNCHES = {"ivf_probe": 0, "batched_probe": 0, "batched_probe_top1": 0,
             "int8_dot_scores": 0, "int8_pooled_bits": 0,
@@ -281,9 +281,8 @@ def ivf_windowed_topk(buf, rmult, cents, starts, queries, k: int,
     (scores [Q, k], positions [Q, k] int32 in sorted-buffer
     coordinates); positions may repeat across overlapping windows. Both
     cuts are in ``lax.top_k``'s order, as the JAX package's XLA core
-    makes them: the probes by ``_topk_stable`` (few centroids), the
-    candidates by ``_topk`` (equal scores by their place in the probed
-    windows)."""
+    makes them (``_topk_stable``; equal candidates by their place in
+    the probed windows)."""
     qn = queries / queries.norm(dim=1, keepdim=True).clamp_min(1e-30)
     probe = _topk_stable(qn @ cents.T, nprobe)[1]
     sb = torch.div(starts[probe], 128, rounding_mode="floor").int()
@@ -291,7 +290,7 @@ def ivf_windowed_topk(buf, rmult, cents, starts, queries, k: int,
                               window)
     pos = ((sb.long() * 128)[:, :, None]
            + torch.arange(window, device=buf.device)).reshape(qn.shape[0], -1)
-    s, i = _topk(scores, min(k, scores.shape[1]))
+    s, i = _topk_stable(scores, min(k, scores.shape[1]))
     return s, torch.gather(pos, 1, i).int()
 
 

@@ -8,7 +8,7 @@ package docstring). This is the exact route and the recall oracle.
 Two strategies, both exact:
 
 * **flat**: one product giving the full ``[Q, N]`` score matrix, then
-  a top-k in ``lax.top_k``'s order (``_topk``);
+  a top-k in ``lax.top_k``'s order (``_topk_stable``);
 * **blockwise**: a loop over row blocks with a running top-k carry and
   an exact merge, never holding more than ``[Q, block]`` scores.
 
@@ -135,10 +135,11 @@ def _composite_scores(queries, corpus_block, q_sqnorm, c_sqnorm_block,
 
 _LOW = (1 << 32) - 1
 # a selection over at most this many scores ([Q, N] elements) orders the
-# whole plane by one stable sort of its int32 image: fewer kernels than
-# the int64 keys' select, and no straddle test. On an H100 the sort took
-# 0.17 ms at 1 x 2^20 scores against 0.40 for the select, and 0.49 ms at
-# 4 x 2^20 against 0.42 (scripts/torch_ties_cost.py)
+# whole plane by one stable sort of its int32 image; above, one
+# torch.topk of int64 keys (``_int_keys``). On an H100 the sort took
+# 0.19-0.21 ms at 1 x 2^20 scores against 0.40-0.50 for the keys, and
+# 0.52 ms at 4 x 2^20 against 0.39-0.47 (host ms a call,
+# scripts/torch_ties_cost.py)
 _SORT_MAX = 1 << 21
 
 
@@ -150,44 +151,6 @@ def _image(scores: torch.Tensor) -> torch.Tensor:
     assert scores.dtype == torch.float32, scores.dtype
     b = scores.contiguous().view(torch.int32)
     return torch.where(b < 0, b ^ 0x7FFFFFFF, b)
-
-
-def _topk_flagged(scores: torch.Tensor, k: int):
-    """``_topk`` without its repair: (values, indices, straddle [Q]
-    bool). One ``torch.topk`` takes k + 1 places of the int32 image; the
-    k kept are put in ``lax.top_k``'s order on int64 keys (value, then
-    ascending index: k of them, cheap). Where the k-th and (k + 1)-th
-    values are equal (``straddle``), equal scores cross the cut and
-    which of them are kept is ``torch.topk``'s choice, not the lowest
-    indices: that row wants ``_topk_stable``."""
-    n = scores.shape[1]
-    if k >= n:
-        s, i = _topk_stable(scores, n)
-        return s, i, torch.zeros(scores.shape[0], dtype=torch.bool,
-                                 device=scores.device)
-    v, idx = torch.topk(_image(scores), k + 1, dim=1)
-    straddle = v[:, k - 1] == v[:, k]
-    keys = (v[:, :k].long() << 32) | (_LOW - idx[:, :k])
-    idx = _LOW - (torch.sort(keys, dim=1, descending=True).values & _LOW)
-    return torch.gather(scores, 1, idx), idx, straddle
-
-
-def _topk(scores: torch.Tensor, k: int):
-    """(values, indices) of the k largest f32 scores along dim 1, as
-    ``lax.top_k`` gives them: in the IEEE total order (``_image``),
-    equal scores by ascending index. Up to ``_SORT_MAX`` scores,
-    ``_topk_stable``'s sort; above, ``_topk_flagged``'s one int32
-    select over the row, and ``_topk_stable`` over the whole row only
-    for the rows where equal scores straddle the k-th place (duplicated
-    vectors): a large plane is never selected on int64 keys unless a
-    row needs it. That costs one host sync (the straddle test)."""
-    if scores.numel() <= _SORT_MAX:
-        return _topk_stable(scores, k)
-    s, idx, straddle = _topk_flagged(scores, k)
-    if bool(straddle.any()):
-        rows = straddle.nonzero()[:, 0]
-        s[rows], idx[rows] = _topk_stable(scores[rows], k)
-    return s, idx
 
 
 def stable_keys(scores: torch.Tensor, c0: int = 0) -> torch.Tensor:
@@ -207,10 +170,10 @@ def _int_keys(img: torch.Tensor, c0: int = 0) -> torch.Tensor:
 
 
 def _topk_stable(scores: torch.Tensor, k: int):
-    """``_topk`` in one step over the whole row (``_int_topk_stable`` of
-    the int32 image): for the few candidates of a rerank or a merge, for
-    rows ``_topk`` must repair, and for scores with exact ties by design
-    (equal PQ codes, hamming distances)."""
+    """(values, indices) of the k largest f32 scores along dim 1, as
+    ``lax.top_k`` gives them: in the IEEE total order (``_image``),
+    equal scores by ascending index (``_int_topk_stable`` of the int32
+    image). Every selection of the port over f32 scores takes it."""
     idx = _int_topk_stable(_image(scores), k)[1]
     return torch.gather(scores, 1, idx), idx
 
@@ -219,8 +182,7 @@ def _int_topk_stable(values: torch.Tensor, k: int):
     """(values, indices) of the k largest int32 ``values`` along dim 1,
     equal values by ascending index, as ``lax.top_k`` on int32: a stable
     descending sort of the rows up to ``_SORT_MAX`` values, else a
-    ``torch.topk`` of int64 keys (``_int_keys``: twice the bytes of an
-    int32 select)."""
+    ``torch.topk`` of int64 keys (``_int_keys``)."""
     if values.numel() <= _SORT_MAX:
         v, idx = torch.sort(values, dim=1, descending=True, stable=True)
         return v[:, :k], idx[:, :k]
@@ -280,7 +242,7 @@ def topk_scan(corpus: torch.Tensor, queries: torch.Tensor, k: int,
             or (block_rows >= _DEFAULT_BLOCK_ROWS and n <= _FLAT_MAX_ROWS))
     if flat:
         scores = score_all(corpus, queries, metric, mask, weights)
-        top_s, top_i = _topk(scores, k)
+        top_s, top_i = _topk_stable(scores, k)
         top_i = top_i.masked_fill(torch.isneginf(top_s), -1)
         return _finalize(top_s, metric), top_i.int()
     return _blockwise_topk(corpus, queries, k, metric, mask, block_rows,
@@ -288,13 +250,10 @@ def topk_scan(corpus: torch.Tensor, queries: torch.Tensor, k: int,
 
 
 def _blockwise_topk(corpus, queries, k, metric, mask, block_rows,
-                    weights=COMPOSITE_DEFAULT, stable=False):
-    """Each block's top-k as ``_topk`` takes it but with the straddle
-    test deferred (``_topk_stable`` when ``stable`` or the block is
-    small), merged into the carry by ``_topk_stable`` (2k candidates,
-    the carry's rows before the block's, so equal scores stay by
-    ascending row). Queries whose block select straddled a tie are run
-    again with ``stable``: one host sync for the whole scan."""
+                    weights=COMPOSITE_DEFAULT):
+    """Each block's top-k by ``_topk_stable``, merged into the carry by
+    ``_topk_stable`` (2k candidates, the carry's rows before the block's,
+    so equal scores stay by ascending row)."""
     queries = queries.float()
     n = corpus.shape[0]
     q = queries.shape[0]
@@ -302,7 +261,6 @@ def _blockwise_topk(corpus, queries, k, metric, mask, block_rows,
     best_s = queries.new_full((q, k), NEG_INF)
     best_i = torch.full((q, k), -1, dtype=torch.int64,
                         device=queries.device)
-    straddled = torch.zeros(q, dtype=torch.bool, device=queries.device)
     for start in range(0, n, block_rows):
         block = corpus[start:start + block_rows].float()
         c_sq = (block * block).sum(1)
@@ -310,25 +268,13 @@ def _blockwise_topk(corpus, queries, k, metric, mask, block_rows,
         if mask is not None:
             s = s.masked_fill(~mask[None, start:start + block_rows],
                               NEG_INF)
-        kb = min(k, s.shape[1])
-        if stable or s.numel() <= _SORT_MAX:
-            bs, bi = _topk_stable(s, kb)
-        else:
-            bs, bi, straddle = _topk_flagged(s, kb)
-            straddled |= straddle
+        bs, bi = _topk_stable(s, min(k, s.shape[1]))
         cand_s = torch.cat([best_s, bs], dim=1)
         cand_i = torch.cat([best_i, bi + start], dim=1)
         best_s, pos = _topk_stable(cand_s, k)
         best_i = torch.gather(cand_i, 1, pos)
     best_i = best_i.masked_fill(torch.isneginf(best_s), -1)
-    best_s = _finalize(best_s, metric)
-    if not stable and bool(straddled.any()):
-        rows = straddled.nonzero()[:, 0]
-        best_s[rows], fixed = _blockwise_topk(
-            corpus, queries[rows], k, metric, mask, block_rows, weights,
-            stable=True)
-        best_i[rows] = fixed.long()
-    return best_s, best_i.int()
+    return _finalize(best_s, metric), best_i.int()
 
 
 def host_pull(*tensors):

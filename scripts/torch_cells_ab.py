@@ -15,7 +15,12 @@ checkout's ``chip_smoke.py`` (``mixture``, ``similar_series``,
   last 3 of 4 calls);
 * B: 1,048,576 rows of phases 7-9's recipe through ``ingest_matrix``
   into the default corpus (the f32 pooled route and its rerank); 64
-  singles and a batch of 1,024;
+  singles and a batch of 1,024, whose call is then split
+  (``b_batch_split``): 8 more calls, each its host ms and its span on
+  the card between two CUDA events, and one under chip_smoke.py's
+  ``profile_calls`` (the kernels' summed device ms, the top kernels;
+  tables in ``chiprun_out/profile_b_batch_<i>_*.txt``, i the tree's
+  place in ``--trees``);
 * C: the same rows stored row by row in a ``QUANTIZATION int8``
   collection; 64 singles and a batch of 1,024.
 
@@ -46,7 +51,33 @@ def _chip_smoke():
     return mod
 
 
-def run_tree(seed: int) -> dict:
+def b_batch_split(cs, fn, tag: str) -> dict:
+    """B's batch call split into host and device time (module
+    docstring)."""
+    import torch
+
+    host, span = [], []
+    for _ in range(8):
+        t0_ev = torch.cuda.Event(enable_timing=True)
+        t1_ev = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t0_ev.record()
+        fn()
+        t1_ev.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        span.append(t0_ev.elapsed_time(t1_ev))
+    name = f"b_batch_{tag}"
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    prof = cs.profile_calls({name: fn}, out_dir)[name]
+    return {"b_batch_host_ms": host, "b_batch_span_ms": span,
+            "b_batch_busy_ms": prof["device_busy_ms"],
+            "b_batch_top_kernels_ms": prof["top_kernels_ms"]}
+
+
+def run_tree(seed: int, tag: str) -> dict:
     import numpy as np
     import torch
 
@@ -99,6 +130,8 @@ def run_tree(seed: int) -> dict:
     rec["b_single_p99_ms"] = float(np.percentile(lat[1:], 99))
     rec["b_batch_qps"], rec["b_batch_s"], _, _ = cs.batch_series(
         lambda: router.vector.batch_search(batch, cs.TOP_K))
+    rec.update(b_batch_split(
+        cs, lambda: router.vector.batch_search(batch, cs.TOP_K), tag))
     del router
     gc.collect()
     torch.cuda.empty_cache()
@@ -125,19 +158,20 @@ def main() -> int:
     ap.add_argument("--trees", nargs="+", default=["."])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--tag", default="0", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        print("AB " + json.dumps(run_tree(args.seed)), flush=True)
+        print("AB " + json.dumps(run_tree(args.seed, args.tag)), flush=True)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     runs = []
-    for tree in args.trees:
+    for i, tree in enumerate(args.trees):
         root = os.path.abspath(tree)
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--one", "--seed",
-             str(args.seed)], cwd=root, env=dict(os.environ, PYTHONPATH=root),
+             str(args.seed), "--tag", str(i)], cwd=root, env=dict(os.environ, PYTHONPATH=root),
             capture_output=True, text=True)
         sys.stderr.write(proc.stderr[-4000:])
         lines = [ln[3:] for ln in proc.stdout.splitlines()
@@ -147,7 +181,8 @@ def main() -> int:
             return 1
         runs.append(json.loads(lines[-1]))
         print(f"{tree}: " + json.dumps({k: v for k, v in runs[-1].items()
-                                        if not k.endswith("batch_s")}),
+                                        if not k.endswith(("batch_s",
+                                                           "kernels_ms"))}),
               flush=True)
     out = {"card": smi, "runs": runs}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -520,10 +520,14 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     assert rep["points_codec_native"]
     assert rep["grpc_ivf_server_requests"] >= chip_smoke.N_SERVED
     # phase 22: 4,096 rows x 4 take the pooled f32 and int8 routes, every
-    # single top-10 holds copies, and every order is the plain version's
+    # single top-10 holds copies, the store of copies in a row takes the
+    # exact scan and meets ties across the 10th place, and every order is
+    # the plain version's
     assert rep["ties_routes"] == {"default": "f32_pooled",
-                                  "col/tq8": "int8_pooled"}
+                                  "col/tq8": "int8_pooled",
+                                  "run_euclidean": "exact"}
     assert rep["ties_lists_with_copies"] == 2 * chip_smoke.N_SINGLE
+    assert rep["ties_run_straddles"] > 0
     assert rep["ties_mismatches"] == 0
     assert rep["shell_errors"] == 0 and rep["shell_max_rel_diff"] == 0
     assert rep["shell_doctor_devices"] == ["[OK ] devices         1 x cpu"]

@@ -246,12 +246,11 @@ def test_planner_top_k_merge():
 
 @pytest.mark.parametrize("sort_max", [0, 1 << 21])
 def test_selection_helpers_match_lax_top_k(sort_max, monkeypatch):
-    """``_topk`` / ``_topk_stable`` on f32 scores full of ties (and NaNs
-    of both signs, infinities, signed zeros) and ``_int_topk_stable`` on
-    int32 give ``lax.top_k``'s values and indices, by either way
-    (``_SORT_MAX`` 0: the int32 select with its straddle repair, and the
-    int64 keys; else the stable sort); so does the exact scan, flat and
-    in blocks of 16 rows, on integer rows copied 4 times."""
+    """``_topk_stable`` on f32 scores full of ties (and NaNs of both
+    signs, infinities, signed zeros) and ``_int_topk_stable`` on int32
+    give ``lax.top_k``'s values and indices, by either way (``_SORT_MAX``
+    0: the int64 keys; else the stable sort); so does the exact scan,
+    flat and in blocks of 16 rows, on integer rows copied 4 times."""
     import jax
     import torch
 
@@ -268,11 +267,10 @@ def test_selection_helpers_match_lax_top_k(sort_max, monkeypatch):
         s = rng.integers(-3, 4, (q, n)).astype(np.float32)
         s.flat[rng.integers(0, s.size, 3)] = rng.choice(specials, 3)
         want_v, want_i = (np.asarray(a) for a in jax.lax.top_k(s, k))
-        for fn in (scan._topk, scan._topk_stable):
-            got_v, got_i = fn(torch.from_numpy(s), k)
-            np.testing.assert_array_equal(got_i.numpy(), want_i)
-            np.testing.assert_array_equal(got_v.numpy().view(np.int32),
-                                          want_v.view(np.int32))
+        got_v, got_i = scan._topk_stable(torch.from_numpy(s), k)
+        np.testing.assert_array_equal(got_i.numpy(), want_i)
+        np.testing.assert_array_equal(got_v.numpy().view(np.int32),
+                                      want_v.view(np.int32))
         b = rng.integers(-4, 4, (q, n)).astype(np.int32)
         want_v, want_i = (np.asarray(a) for a in jax.lax.top_k(b, k))
         got_v, got_i = scan._int_topk_stable(torch.from_numpy(b), k)
