@@ -19,7 +19,7 @@ the CUDA toolkit (nvcc)::
 Phases (each raises on failure; exit code 0 only if all pass):
 
 1. print the card's name and power limit (nvidia-smi), build the CUDA
-   kernels from neumann_tpu_torch/csrc (seven sources, nine entries) and
+   kernels from neumann_tpu_torch/csrc (eight sources, one nvcc each) and
    print the build time; build and load the native lexer and parser
    (neumann_tpu_torch/native/*.cpp), fail if either is missing, and time
    the parse of 64 unseen SIMILARs of 768 and of 3,072 floats through the
@@ -47,7 +47,13 @@ Phases (each raises on failure; exit code 0 only if all pass):
    version beside the scores mode + ``_topk_stable``; phases 14 and 15
    add the shapes their batches launch); the batched probe in top-1 mode
    (``batched_probe_top1``, the launch of the top-1 route that phase
-   17b calls) at the top-2 shape, bit for bit;
+   17b calls) at the top-2 shape, bit for bit; the exact int8 scan of
+   the delta plane (row 9, ``int8_exact_topk``) at A17's 419,430 filled
+   slots x 768, Q 1, 16, 17 and 1,024, k 10 and 64 (select mode) and 65
+   (scores mode), 1 % dead rows and a block of rows copied 4 times in a
+   row: scores within 1e-5 of its plain version, ids equal but at near
+   ties, copies in ascending rows; timed at Q 1,024 and 1 beside the
+   plain version and ``torch.matmul`` (TF32 off) for the product alone;
 3. generate a 4,194,304 x 768 corpus from --seed with numpy (4,096
    N(0,1) centres + sigma 0.25 noise) and load it with
    ``router.vector.ingest_matrix``;
@@ -83,10 +89,14 @@ Phases (each raises on failure; exit code 0 only if all pass):
        it: recall@10 >= 0.95 against one ``int8_exact_topk`` over the
        main and added rows in a single plane (multipliers computed
        there, the phase's own deleted ids masked: not the index's delta
-       scan or merge), no deleted id back, 1,024 added rows (and 64
-       singly) first for their own vectors; the delta scan timed; ``compact`` (the live ids
-       kept), the same searches; seconds of each step and the first
-       search after it;
+       scan or merge; the plain version, not the kernel), no deleted id
+       back, 1,024 added rows (and 64
+       singly, and 4 ``TOP 65`` singles: row 9's scores mode) first
+       for their own vectors; the delta scan (row 9 over the filled
+       slots) must launch in both modes, and is timed at Q 1,024 and 1
+       on the plane beside its plain version and ``torch.matmul``;
+       ``compact`` (the live ids kept), the same searches; seconds of
+       each step and the first search after it;
    then release that router.
 7. the default pooled route (BASELINE configs 2 and 3): a second router
    with 1,048,576 x 768 rows of the same recipe, loaded by
@@ -414,6 +424,10 @@ KERNELS = {
                    replaces="neumann_tpu/ops/pq.py:116"),
     "pq_adc_select": dict(source="neumann_tpu_torch/csrc/pq_adc.cu",
                           replaces="neumann_tpu/ops/pq.py:111"),
+    "int8_exact_select": dict(source="neumann_tpu_torch/csrc/int8_exact.cu",
+                              replaces="neumann_tpu/ops/quant.py:402"),
+    "int8_exact_scores": dict(source="neumann_tpu_torch/csrc/int8_exact.cu",
+                              replaces="neumann_tpu/ops/quant.py:402"),
 }
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
 # a kernel's bound is the larger of its bytes (each input read once, each
@@ -520,10 +534,42 @@ PHASE17_BATCH = N_BATCH
 DELTA_FRAC = 0.1
 DELTA_CHUNK = 1 << 16
 DELETE_FRAC = 0.01
+# phase 17c: the delta plane's TOP 65 singles (row 9's scores mode)
+N_DELTA_TOP65 = 4
+# phases 2 and 17c: row 9, the exact int8 scan of the delta plane. Phase
+# 2 holds it to its plain version at A17's filled delta slots x DIM, each
+# of EXACT_QS queries (the singles, both sides of its stream / batch
+# switch, the delta batch) and EXACT_KS (both sides of its select cap),
+# EXACT_DEAD of the rows dead and a block of EXACT_COPY_ROWS rows from
+# EXACT_COPY0 (its first EXACT_SAME equal) copied EXACT_COPIES times in a
+# row, across its tiles and, for the equal rows, every k-th place: scores
+# within EXACT_TOL, ids equal but where another plain score of the query
+# stands within EXACT_TOL, copies in ascending rows with no tolerance
+EXACT_ROWS = int(4_194_304 * DELTA_FRAC)
+EXACT_QS = (1, 16, 17, N_BATCH)
+EXACT_KS = (TOP_K, 64, TOP65)
+EXACT_DEAD = 0.01
+EXACT_COPY0 = 100_001
+EXACT_COPY_ROWS = 32
+EXACT_SAME = 17
+EXACT_COPIES = 4
+EXACT_TOL = 1e-5
+EXACT_DESIGN = ("Q <= 16: a row a thread against every query, 256 rows a "
+                "block through a 3-stage cp.async ring of 64 K-bytes, int8 "
+                "converted in registers; Q > 16: 128 rows x 128 queries a "
+                "block, an 8 x 8 FFMA tile a thread, K-major double-"
+                "buffered shared tiles (row 6's tiling, rows read as int8); "
+                "one FFMA chain a (query, row) in k order; select mode: "
+                "each block's k best keys a query in shared memory, passing "
+                "keys buffered and merged by a warp a query, one torch.topk "
+                "over the blocks' keys")
+EXACT_LIBRARY = ("torch.matmul(qf, rows.float().t()) with allow_tf32 False, "
+                 "the product alone (rows converted once, outside its time; "
+                 "no mask or selection)")
 # phase 2's records: the main shape's keys bare, the other shapes' with a
 # suffix
-SHAPE_SUFFIXES = ("_q1", "_q8", "_q32", "_w96", "_w96q1", "_w96q256",
-                  "_d4096", "_hyb", "_ivf", "_m384", "_g_step",
+SHAPE_SUFFIXES = ("_q1", "_k64", "_q8", "_q32", "_w96", "_w96q1",
+                  "_w96q256", "_d4096", "_hyb", "_ivf", "_m384", "_g_step",
                   "_h_step", "_h_tail", "_h_single", "_mesh", "_mesh_q1")
 # row 7's design, named in its kernels-line entry beside each shape's
 # plan (ops/kernels._hamming_groups)
@@ -580,6 +626,8 @@ TRACE_KERNELS = {
     "hamming_topk": ("hamming_topk_kernel",),
     "pq_adc": ("pq_adc_kernel",),
     "pq_adc_select": ("pq_adc_kernel",),
+    "int8_exact_select": ("exact_stream_kernel", "exact_batch_kernel"),
+    "int8_exact_scores": ("exact_stream_kernel", "exact_batch_kernel"),
 }
 # row 8's kernels by name in a profile: the scan, and the select mode's
 # threshold fill, codes transpose and tables interleave
@@ -812,11 +860,12 @@ def trace_kernel_ms(tp, launched: dict, what: str):
     return kernels, lost
 
 
-def device_ms(fn, reps: int, what: str = "device_ms"):
-    """Mean device time of the CUDA kernels fn launches, from
-    torch.profiler's kernel records: without the gaps a host-bound call
-    (one query) leaves between launches, which cuda_ms counts. None
-    where the trace lost a counted launch's kernel."""
+def device_ms(fn, reps: int, what: str = "device_ms", only=None):
+    """Mean device time of the CUDA kernels fn launches (those whose
+    names match the regex ``only``, if given), from torch.profiler's
+    kernel records: without the gaps a host-bound call (one query)
+    leaves between launches, which cuda_ms counts. None where the trace
+    lost a counted launch's kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -830,7 +879,10 @@ def device_ms(fn, reps: int, what: str = "device_ms"):
             fn()
         torch.cuda.synchronize()
     kernels, lost = trace_kernel_ms(tp, launches_since(before), what)
-    return None if lost else sum(kernels.values()) / reps
+    if lost:
+        return None
+    return sum(v for name, v in kernels.items()
+               if only is None or re.search(only, name)) / reps
 
 
 def ms_text(ms, digits: int = 3) -> str:
@@ -1693,6 +1745,10 @@ def run(args, dev, config=None, on_card: bool = True) -> dict:
                       f"({sel[f'bound_by{sfx}']})"
                       for sfx in ("", "_q8", "_q1", "_ivf", "_m384")))
         torch.cuda.empty_cache()
+        sel, scr = check_int8_exact(dev, args.seed)
+        report["kernels"]["int8_exact_select"] = sel
+        report["kernels"]["int8_exact_scores"] = scr
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
     report.update(check_native_parse(args.seed))
@@ -2142,10 +2198,11 @@ def live_exact_top(ix, q: np.ndarray, k: int, added_ids: np.ndarray,
     ``added_ids`` rows of its delta plane put into one int8 plane on the
     card, each row's cosine multiplier 1 / ||row|| computed here, the
     ids in ``dead`` (the phase's own record) masked, one
-    ``int8_exact_topk`` over the plane. Host (scores, ids)."""
+    ``int8_exact_topk_plain`` over the plane (the plain version: apart
+    from the kernel the delta scan runs). Host (scores, ids)."""
     import torch
 
-    from neumann_tpu_torch.ops.quant import int8_exact_topk
+    from neumann_tpu_torch.ops.kernels import int8_exact_topk_plain
     from neumann_tpu_torch.ops.scan import host_pull
 
     if ix._dn != len(added_ids):
@@ -2162,7 +2219,8 @@ def live_exact_top(ix, q: np.ndarray, k: int, added_ids: np.ndarray,
     mult = torch.where(live, norm2.clamp_min(1.0).rsqrt(),
                        torch.zeros_like(norm2))
     qd = torch.from_numpy(np.ascontiguousarray(q)).to(ix.device)
-    s, pos = host_pull(*int8_exact_topk(plane, mult, qd, k))
+    qf = qd / qd.norm(dim=1, keepdim=True).clamp_min(1e-30)
+    s, pos = host_pull(*int8_exact_topk_plain(plane, mult, qf, k))
     del plane
     return s, np.where(pos >= 0, ids[np.maximum(pos, 0)], -1)
 
@@ -2209,7 +2267,6 @@ def run_delta_plane(args, ivf, centres, s_delta, queries, on_card: bool
 
     from neumann_tpu_torch.ops import kernels as tk
     from neumann_tpu_torch.ops.ivf import DeviceIVFInt8
-    from neumann_tpu_torch.ops.quant import int8_exact_topk
 
     report = {}
     n = args.rows
@@ -2269,23 +2326,24 @@ def run_delta_plane(args, ivf, centres, s_delta, queries, on_card: bool
     _, ids_s = ix.search(padded(new[probe_rows[:N_SINGLE]]), TOP_K)
     first = np.concatenate([ids_b[:, 0], ids_s[:, 0]])
     want = np.concatenate([n + probe_rows, n + probe_rows[:N_SINGLE]])
+    # TOP 65 singles: the delta scan's scores mode (k above its cap)
+    lat65 = []
+    for r in probe_rows[:N_DELTA_TOP65]:
+        t0 = time.perf_counter()
+        _, ids65 = ix.search(padded(new[r:r + 1]), TOP65)
+        lat65.append((time.perf_counter() - t0) * 1e3)
+        first = np.append(first, ids65[0, 0])
+        want = np.append(want, n + r)
+        if dead & set(ids65[0].tolist()):
+            raise AssertionError("[17c] deleted ids came back (TOP 65)")
+    report["delta_top65_p50_ms"] = float(np.median(lat65))
     report["delta_added_first"] = float(np.mean(first == want))
     if report["delta_added_first"] < 1.0:
         raise AssertionError(f"[17c] an added row did not come first for "
                              f"its own vector: "
                              f"{report['delta_added_first']}")
-    qd = torch.from_numpy(qs).to(ix.device)
-    rows = int(ix._dbuf.shape[0])
-    report["delta_scan"] = dict(
-        shape=f"Q={len(qs)} x {rows} delta rows ({ix._dn} filled) x "
-              f"d {ix.dim}",
-        **bound(rows * (ix.dim + 4) + nbytes(qd) + 12 * len(qs) * TOP_K,
-                2 * len(qs) * rows * ix.dim, F32_FLOPS_PER_S))
-    if on_card:
-        report["delta_scan"].update(torch_step(
-            lambda: int8_exact_topk(ix._dbuf, ix._drmult, qd, TOP_K), 3,
-            "int8_exact_topk"))
     launches = dict(tk.LAUNCHES)
+    report["delta_scan"] = delta_scan_times(ix, qs, on_card)
 
     t0 = time.perf_counter()
     n_live = ix.compact()
@@ -2329,8 +2387,38 @@ def run_delta_plane(args, ivf, centres, s_delta, queries, on_card: bool
         raise AssertionError("[17c] recall below the limit")
     if on_card:
         require_launches(report["launches_delta"],
-                         ("ivf_probe", "batched_probe"), "17c")
+                         ("ivf_probe", "batched_probe", "int8_exact_select",
+                          "int8_exact_scores"), "17c")
     return report
+
+
+def delta_scan_times(ix, qs: np.ndarray, on_card: bool) -> dict:
+    """Phase 17c: row 9 on the index's own delta plane (its filled
+    slots) at the delta batch's Q and at Q 1, top-10: the call (CUDA
+    events), the kernel's device time, the plain version's, the product
+    alone by ``torch.matmul`` (TF32 off), and the bound."""
+    import torch
+
+    from neumann_tpu_torch.ops import kernels as tk
+
+    plane, mult = ix._dbuf[:ix._dn], ix._drmult[:ix._dn]
+    qd = torch.from_numpy(qs).to(ix.device)
+    qf = qd / qd.norm(dim=1, keepdim=True).clamp_min(1e-30)
+    out = dict(shape=f"Q={len(qs)} (and 1) x {ix._dn} filled delta slots "
+                     f"(of {int(ix._dbuf.shape[0])}) x d {ix.dim}, k "
+                     f"{TOP_K}")
+    if not on_card:
+        return out
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cf = plane.float()
+    for sfx, q in (("", len(qs)), ("_q1", 1)):
+        _, lib = turns(lambda: tk.int8_exact_topk(plane, mult, qf[:q], TOP_K),
+                       lambda: torch.matmul(qf[:q], cf.t()),
+                       3 if q > 1 else 20)
+        exact_record(out, sfx, plane, mult, qf[:q], TOP_K,
+                     3 if q > 1 else 20, lib)
+    del cf
+    return out
 
 
 def require_launches(launches: dict, names, phase: str) -> None:
@@ -3636,6 +3724,146 @@ def check_pq_adc(dev, seed: int):
 # ---------------------------------------------------------------------------
 # phase 14 (cell G): PQ and TT collections
 # ---------------------------------------------------------------------------
+
+def exact_mismatch(got, want_k1, k: int) -> dict:
+    """Row 9's top-k against its plain version's top-(k + 1): the largest
+    score difference; the places whose ids differ where no other plain
+    score of the query (k + 1 of them) stands within EXACT_TOL; the
+    places where one is -inf / -1 and the other not; the runs of
+    bit-equal scores whose rows do not ascend."""
+    s_g, i_g = (t.cpu().numpy() for t in got)
+    s_w1, i_w1 = (t.cpu().numpy() for t in want_k1)
+    s_w, i_w = s_w1[:, :k], i_w1[:, :k]
+    dead = int((np.isneginf(s_g) != np.isneginf(s_w)).sum()
+               + ((i_g == -1) != (i_w == -1)).sum())
+    fin = np.isfinite(s_g) & np.isfinite(s_w)
+    err = float(np.abs(s_g[fin] - s_w[fin]).max(initial=0.0))
+    ids = sum(1 for r, j in zip(*np.nonzero(i_g != i_w))
+              if not (np.abs(np.delete(s_w1[r], j) - s_w1[r, j])
+                      <= EXACT_TOL).any())
+    same = (s_g[:, 1:] == s_g[:, :-1]) & np.isfinite(s_g[:, 1:])
+    order = int((same & (i_g[:, 1:] <= i_g[:, :-1])).sum())
+    return dict(max_abs_err=err, id_mismatches=ids, dead_differ=dead,
+                order_errors=order)
+
+
+def exact_record(rec: dict, sfx: str, c, rm, qf, k: int, reps: int,
+                 library_ms: float) -> None:
+    """Row 9's times at one shape into ``rec`` under suffix ``sfx``: the
+    call (CUDA events), its kernels' device time and the hand kernel's
+    own (torch.profiler), the plain version's, the bound (each input
+    read once and the top-k written; the FFMA of the live rows)."""
+    from neumann_tpu_torch.ops import kernels as tk
+
+    q = qf.shape[0]
+    live = int((rm > 0).sum())
+    rec[f"ms{sfx}"] = cuda_ms(lambda: tk.int8_exact_topk(c, rm, qf, k), reps)
+    rec[f"device_ms{sfx}"] = device_ms(
+        lambda: tk.int8_exact_topk(c, rm, qf, k), 3, "int8_exact")
+    rec[f"kernel_ms{sfx}"] = device_ms(
+        lambda: tk.int8_exact_topk(c, rm, qf, k), 3, "int8_exact",
+        only=r"exact_(stream|batch)_kernel")
+    rec[f"plain_ms{sfx}"] = cuda_ms(
+        lambda: tk.int8_exact_topk_plain(c, rm, qf, k), 1)
+    rec[f"library_ms{sfx}"] = library_ms
+    for key, v in bound(nbytes(c, rm, qf) + 12 * q * k,
+                        2 * q * live * c.shape[1], F32_FLOPS_PER_S).items():
+        rec[f"{key}{sfx}"] = v
+
+
+def check_int8_exact(dev, seed: int):
+    """Phase 2, row 9: ``int8_exact_topk`` at A17's delta shapes
+    (EXACT_ROWS x DIM) on random rows of which EXACT_DEAD are dead, and a
+    block of copies (EXACT_COPY0 ..): each of EXACT_QS x EXACT_KS against
+    the plain version (``exact_mismatch``), query 0 the block's equal
+    row (its EXACT_SAME x EXACT_COPIES copies first, rows ascending), the
+    next queries its other rows (their EXACT_COPIES copies first). Times
+    at Q N_BATCH and 1 beside ``torch.matmul`` (TF32 off) for the product
+    alone. Returns the select mode's record and the scores mode's."""
+    import torch
+
+    from neumann_tpu_torch.ops import kernels as tk
+    from neumann_tpu_torch.ops.quant import (
+        int8_cosine_row_mult,
+        scalar_quantize,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    n, b0, br = EXACT_ROWS, EXACT_COPY0, EXACT_COPY_ROWS
+    x = torch.randn(n, DIM, generator=g, device=dev)
+    x[b0:b0 + EXACT_SAME] = x[b0]
+    for m in range(1, EXACT_COPIES):
+        x[b0 + m * br:b0 + (m + 1) * br] = x[b0:b0 + br]
+    c, sc = scalar_quantize(x)
+    rm = int8_cosine_row_mult(c, sc)
+    dead = torch.rand(n, generator=g, device=dev) < EXACT_DEAD
+    dead[b0:b0 + EXACT_COPIES * br] = False
+    rm = rm.masked_fill(dead, 0.0)
+    qs = x[torch.randint(0, n, (N_BATCH,), generator=g, device=dev)] \
+        + 0.1 * torch.randn(N_BATCH, DIM, generator=g, device=dev)
+    qs[:br - EXACT_SAME + 1] = x[b0 + EXACT_SAME - 1:b0 + br]
+    qf = qs / qs.norm(dim=1, keepdim=True).clamp_min(1e-30)
+    copies = [sorted(b0 + m * br + i for m in range(EXACT_COPIES)
+                     for i in range(EXACT_SAME))]
+    copies += [[b0 + i + m * br for m in range(EXACT_COPIES)]
+               for i in range(EXACT_SAME, br)]
+    checks, worst = {}, dict(max_abs_err=0.0)
+    for q in EXACT_QS:
+        for k in EXACT_KS:
+            got = tk.int8_exact_topk(c, rm, qf[:q], k)
+            res = exact_mismatch(
+                got, tk.int8_exact_topk_plain(c, rm, qf[:q], k + 1), k)
+            rows = got[1].cpu().numpy()
+            res["copies_out_of_order"] = sum(
+                1 for j, want in enumerate(copies[:q])
+                if rows[j, :min(k, len(want))].tolist()
+                != want[:min(k, len(want))])
+            checks[f"q{q}_k{k}"] = res
+            worst[f"k{k}"] = max(worst.get(f"k{k}", 0.0), res["max_abs_err"])
+            if (res["max_abs_err"] > EXACT_TOL or res["id_mismatches"]
+                    or res["dead_differ"] or res["order_errors"]
+                    or res["copies_out_of_order"]):
+                raise AssertionError(f"int8_exact at Q={q} k={k} departs "
+                                     f"from its plain version: {res}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cf = c.float()
+    lib = {}
+    for sfx, q in (("", N_BATCH), ("_q1", 1)):
+        _, lib[sfx] = turns(lambda: tk.int8_exact_topk(c, rm, qf[:q], TOP_K),
+                            lambda: torch.matmul(qf[:q], cf.t()),
+                            5 if q > 1 else 20)
+    del cf
+    shape = (f"Q={N_BATCH} (and Q=1) x {n} rows x d={DIM}, "
+             f"{EXACT_DEAD:.0%} dead")
+    sel = dict(shape=f"{shape}, k={TOP_K}", design=EXACT_DESIGN,
+               library=EXACT_LIBRARY, checks=checks)
+    scr = dict(shape=f"{shape}, k={TOP65}", design=EXACT_DESIGN,
+               library=EXACT_LIBRARY)
+    # the select mode also at its largest k, where its keys leave one
+    # batch block a SM (csrc/int8_exact.cu)
+    for rec, sfx, q, k in ((sel, "", N_BATCH, TOP_K), (sel, "_q1", 1, TOP_K),
+                           (sel, "_k64", N_BATCH, 64),
+                           (scr, "", N_BATCH, TOP65), (scr, "_q1", 1, TOP65)):
+        exact_record(rec, sfx, c, rm, qf[:q], k, 3 if q > 1 else 20,
+                     lib["_q1" if q == 1 else ""])
+        rec[f"shape{sfx}"] = f"Q={q} x {n} x {DIM}, k={k}"
+    for rec, k in ((sel, TOP_K), (scr, TOP65)):
+        rec["max_abs_err"] = worst[f"k{k}"]
+        rec["max_abs_err_q1"] = checks[f"q1_k{k}"]["max_abs_err"]
+    sel["max_abs_err_k64"] = checks[f"q{N_BATCH}_k64"]["max_abs_err"]
+    say(f"[2] int8_exact vs plain ({len(checks)} shapes, {shape}): max "
+        f"err {max(worst.values()):.3g}, 0 ids out of place, copies in "
+        f"ascending rows; select k={TOP_K}: Q={N_BATCH} {sel['ms']:.3f} ms "
+        f"(kernel {ms_text(sel['kernel_ms'])}), Q=1 {sel['ms_q1']:.4f} ms "
+        f"(kernel {ms_text(sel['kernel_ms_q1'], 4)}), k=64 "
+        f"{sel['ms_k64']:.3f} ms; scores k={TOP65}: "
+        f"{scr['ms']:.3f} / {scr['ms_q1']:.4f} ms; plain "
+        f"{sel['plain_ms']:.3f} / {sel['plain_ms_q1']:.4f} ms; matmul "
+        f"{lib['']:.3f} / {lib['_q1']:.4f} ms; bound {sel['bound_ms']:.3f} "
+        f"({sel['bound_by']}) / {sel['bound_ms_q1']:.4f} ms "
+        f"({sel['bound_by_q1']})")
+    return sel, scr
+
 
 @contextlib.contextmanager
 def timed_methods(cls, names, sink: dict):
@@ -6873,7 +7101,8 @@ def main() -> int:
         "delta_first_search_after_compact_ms", "delta_before_p50_ms",
         "delta_after_p50_ms", "delta_before_batch_qps",
         "delta_after_batch_qps", "delta_before_recall", "delta_after_recall",
-        "delta_recall_drop", "delta_added_first", "phase17_s",
+        "delta_recall_drop", "delta_added_first", "delta_top65_p50_ms",
+        "delta_scan", "phase17_s",
         "chain_init_s", "chain_store_keys", "chain_embed_s",
         "chain_commit_ms", "chain_rollback_ms",
         "chain_first_similar_after_commit_ms",

@@ -29,8 +29,9 @@ First passes:
   first-pass score. Both end in the chunked exact rerank.
 
 Incremental mutation (``add`` / ``delete`` / ``compact``): added rows go
-to a device DELTA plane that every search scans exactly
-(``ops/quant.int8_exact_topk``) and merges over the windowed hits;
+to a device DELTA plane whose filled slots every search scans exactly
+(``ops/quant.int8_exact_topk``: the ``int8_exact`` kernel on the card)
+and merges over the windowed hits;
 deletes zero a row's cosine multiplier in the main and delta planes;
 ``compact`` rebuilds the windowed layout from the live rows, keeping
 their ids.
@@ -434,11 +435,16 @@ class DeviceIVFInt8:
         return removed
 
     def _delta_topk(self, qd: torch.Tensor, k: int):
-        """Exact f32 cosine top-k over the delta plane; host (scores
-        [Q, k'], original ids [Q, k'] with -inf / -1 sentinels)."""
-        rows = int(self._dbuf.shape[0])
-        s, pos = host_pull(*int8_exact_topk(self._dbuf, self._drmult, qd,
-                                            min(k, rows)))
+        """Exact f32 cosine top-k over the delta plane's filled slots;
+        host (scores [Q, k'], original ids [Q, k'] with -inf / -1
+        sentinels). The JAX package scans every slot of the plane, but a
+        slot past ``_dn`` holds a zero multiplier (``_ensure_delta``), so
+        it scores -inf and would be masked to -1 here: the merged hits
+        are the same."""
+        dn = self._dn
+        s, pos = host_pull(*int8_exact_topk(self._dbuf[:dn],
+                                            self._drmult[:dn], qd,
+                                            min(k, dn)))
         ids = np.where(pos >= 0, self._dids[np.maximum(pos, 0)], -1)
         ids = np.where(np.isneginf(s) | (ids < 0), -1, ids)
         s = np.where(ids < 0, -np.inf, s)

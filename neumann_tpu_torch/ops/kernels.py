@@ -29,6 +29,11 @@ that XLA fuses on the TPU.
   ``neumann_tpu/ops/ivf.IVFIndex.search``: per-query lookup tables summed
   over a code matrix, in full or over gathered candidates, the top-k
   selected inside the kernel (k up to 64) or the scores written.
+* ``int8_exact_topk`` (``csrc/int8_exact.cu``, one kernel in two modes)
+  replaces the jitted ``int8_exact_topk`` of ``neumann_tpu/ops/quant.py``
+  (the exact scan of the IVF delta plane): f32 cosine scores of int8 rows
+  against f32 queries, the top-k selected inside the kernel (k up to 64)
+  or the scores written.
 
 Every wrapper takes its plain version only for tensors on the CPU; for
 a CUDA tensor it launches the kernel or raises — there is no fallback.
@@ -67,11 +72,13 @@ from neumann_tpu_torch.ops.scan import _topk_stable, stable_keys
 LAUNCHES = {"ivf_probe": 0, "batched_probe": 0, "batched_probe_top1": 0,
             "int8_dot_scores": 0, "int8_pooled_bits": 0,
             "f32_pooled_bits": 0, "hamming_scores": 0, "hamming_topk": 0,
-            "pq_adc": 0, "pq_adc_select": 0}
+            "pq_adc": 0, "pq_adc_select": 0, "int8_exact_select": 0,
+            "int8_exact_scores": 0}
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("ivf_probe.cu", "batched_probe.cu", "int8_scores.cu",
-           "f32_pooled.cu", "hamming.cu", "hamming_topk.cu", "pq_adc.cu")
+           "f32_pooled.cu", "hamming.cu", "hamming_topk.cu", "pq_adc.cu",
+           "int8_exact.cu")
 HEADERS = ("pooled_bits.cuh", "mma_s8.cuh", "mma_b1.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "neumann_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -169,7 +176,11 @@ def build_kernels(verbose: bool = False) -> ctypes.CDLL:
                   i32, i64, i64, vp]),
                 ("neumann_pq_adc_select",
                  [vp, vp, vp, vp, vp, vp, vp, vp, i64, i64, i32, i32, i32,
-                  i32, i32, i32, i64, i64, vp])):
+                  i32, i32, i32, i64, i64, vp]),
+                ("neumann_int8_exact_select",
+                 [vp, vp, vp, vp, i64, i32, i32, i32, i32, i32, i64, vp]),
+                ("neumann_int8_exact_scores",
+                 [vp, vp, vp, vp, i64, i32, i32, i32, i32, i64, vp])):
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = i32
         _lib = lib
@@ -1192,3 +1203,193 @@ def pq_adc_topk(codes, tables, valid, k: int, cand=None):
     keys = _pq_adc_launch(codes, tables, valid, cand, kk, True)
     LAUNCHES["pq_adc_select"] += 1
     return decode_score_keys(merge_keys(None, keys, kk, largest=True))
+
+
+# ---------------------------------------------------------------------------
+# kernel 9: the exact int8 scan (the IVF delta plane), the top-k inside
+# (select) or the scores written
+# ---------------------------------------------------------------------------
+
+# the select mode's largest k (it keeps k keys a query in shared memory);
+# above it the scores mode and a selection with a carry
+INT8_EXACT_TOPK_CAP = 64
+# bytes one step of int8_exact_topk_plain or of the scores mode may hold:
+# its block of rows converted to f32, or its [Q, block] scores
+_EXACT_STEP_BYTES = 256 << 20
+# csrc/int8_exact.cu's geometry: the queries' row stride divides by
+# _EXACT_LDQ (the stream kernel's K bytes a stage); the stream kernel takes
+# up to _EXACT_STREAM_Q queries (slots of 1, 4 or 16) in tiles of 256 rows,
+# the batch kernel tiles of 128 rows x 128 queries. A select block's shared
+# memory: the stream kernel's three stages [256 rows x 64 bytes][slots x 64
+# floats] and 128 buffered keys a slot, or the batch kernel's four tiles of
+# 32 x 132 floats and 32 buffered keys a query; each slot's k keys, k-th
+# key and count. A SM holds _SM_SMEM bytes, 1,024 of them reserved a
+# block, and at most two blocks of either kernel
+_EXACT_LDQ = 64
+_EXACT_STREAM_Q = 16
+_EXACT_STREAM_ROWS = 256
+_EXACT_BATCH = 128
+_SM_SMEM = 233472
+
+
+def _exact_plan(n: int, q: int, k: int, select: bool, sms: int):
+    """The exact scan's plan: (parts, span). Each of ``parts`` blocks (a
+    query block's) walks ``span`` rows, whole tiles. Scores mode: a tile
+    a block. Select mode: one wave of the blocks a SM holds by shared
+    memory (two up to k 13 in the batch kernel, one above: two waves of
+    more, shorter parts ran slower on an H100, each part merging its
+    first tiles' keys), each writing k keys a query."""
+    stream = q <= _EXACT_STREAM_Q
+    tile = _EXACT_STREAM_ROWS if stream else _EXACT_BATCH
+    tiles = -(-n // tile)
+    if not select:
+        return tiles, tile
+    if stream:
+        slots = 1 if q <= 1 else (4 if q <= 4 else 16)
+        smem = (3 * (_EXACT_STREAM_ROWS + slots * 4) * _EXACT_LDQ
+                + slots * ((k + 129) * 8 + 4))
+        qblocks = 1
+    else:
+        smem = 4 * 32 * 132 * 4 + _EXACT_BATCH * ((k + 33) * 8 + 4)
+        qblocks = -(-q // _EXACT_BATCH)
+    per_sm = max(1, min(2, _SM_SMEM // (smem + 1024)))
+    parts = max(1, min(tiles, sms * per_sm // qblocks))
+    span = -(-tiles // parts) * tile
+    return -(-n // span), span
+
+
+def _exact_carry(best_s, best_i, s, k: int, r0: int):
+    """The exact scan's running top-k over a block of scores ``s`` of
+    rows r0 ..: the carry's rows all precede the block's, so a stable
+    cut over [carry, block] orders equal scores by row."""
+    best_s, col = _topk_stable(torch.cat([best_s, s], dim=1), k)
+    best_i = torch.where(col < k, best_i.gather(1, col.clamp(max=k - 1)),
+                         col - k + r0)
+    return best_s, best_i
+
+
+def _exact_block(n: int, d: int, q: int, block_rows: int) -> int:
+    return max(1, min(block_rows, _EXACT_STEP_BYTES // (4 * max(d, q))))
+
+
+def int8_exact_topk_plain(corpus_q, row_mult, qf, k: int,
+                          block_rows: int = 256 * 1024):
+    """Plain PyTorch version of ``int8_exact_topk``: each block of rows
+    converted to f32 and multiplied by ``torch.matmul`` (TF32 off: the
+    package docstring), as the JAX package multiplies at
+    ``Precision.HIGHEST``; a running top-k carries across blocks in
+    ``lax.top_k``'s order, equal scores by ascending row. A block holds
+    at most ``block_rows`` rows, and fewer where its f32 rows or its
+    scores would pass ``_EXACT_STEP_BYTES``."""
+    n, d = corpus_q.shape
+    k = min(k, n)
+    q = qf.shape[0]
+    block = _exact_block(n, d, q, block_rows)
+    best_s = qf.new_full((q, k), float("-inf"))
+    best_i = torch.full((q, k), -1, dtype=torch.int64, device=qf.device)
+    for r0 in range(0, n, block):
+        rm = row_mult[r0:r0 + block]
+        s = qf @ corpus_q[r0:r0 + block].float().T
+        s = torch.where(rm > 0, s * rm, torch.full_like(s, float("-inf")))
+        best_s, best_i = _exact_carry(best_s, best_i, s, k, r0)
+    return best_s, best_i.masked_fill(torch.isneginf(best_s), -1)
+
+
+def _exact_queries(qf):
+    """The kernel's queries: [Q, ldq] f32, zero past d, ldq the least
+    multiple of _EXACT_LDQ >= d (qf itself where it is that already)."""
+    q, d = qf.shape
+    ldq = -(-d // _EXACT_LDQ) * _EXACT_LDQ
+    if ldq == d and qf.is_contiguous() and qf.data_ptr() % 16 == 0:
+        return qf
+    x = qf.new_zeros((q, ldq))
+    x[:, :d] = qf
+    return x
+
+
+def _exact_launch(corpus_q, row_mult, x, k: int, select: bool):
+    """One launch of the exact scan by its plan: (keys [Q, parts * k]
+    int64, each block's k greatest keys a query) in select mode, else
+    the masked scores [Q, N] f32. Raises on a CUDA error."""
+    dev = corpus_q.device
+    n, d = corpus_q.shape
+    q = x.shape[0]
+    if n >= (1 << 32) - 1:
+        raise ValueError(f"int8_exact kernel takes fewer than 2^32 - 1 rows "
+                         f"a launch ({n})")
+    parts, span = _exact_plan(
+        n, q, k, select,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    lib = build_kernels()
+    head = (corpus_q.data_ptr(), row_mult.data_ptr(), x.data_ptr())
+    if select:
+        out = torch.empty((q, parts * k), dtype=torch.int64, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.neumann_int8_exact_select(
+                *head, out.data_ptr(), n, d, x.shape[1], q, k, parts, span,
+                _stream())
+    else:
+        out = torch.empty((q, n), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.neumann_int8_exact_scores(
+                *head, out.data_ptr(), n, d, x.shape[1], q, parts, span,
+                _stream())
+    _raise_on(err, "int8_exact")
+    return out
+
+
+def int8_exact_topk(corpus_q, row_mult, qf, k: int,
+                    block_rows: int = 256 * 1024):
+    """Exact cosine top-k over an int8 corpus with f32 queries and f32
+    math throughout (the JAX package's ``int8_exact_topk`` after its
+    query normalisation: ``ops/quant.int8_exact_topk`` normalises).
+
+    corpus_q [N, d] int8, row_mult [N] f32 (``int8_cosine_row_mult``; 0
+    marks invalid rows), qf [Q, d] f32 unit queries. Score = (qf .
+    float(row)) * row_mult, -inf where row_mult <= 0. Returns (scores
+    [Q, k'] f32, rows [Q, k'] int64, -1 where -inf), k' = min(k, N),
+    descending, equal scores by ascending row (``lax.top_k``'s order).
+
+    On the card, k' <= INT8_EXACT_TOPK_CAP: one select launch (each
+    block's k' best keys a query; one ``torch.topk`` over them
+    finishes); above it, the scores mode a block of rows (``block_rows``,
+    bounded by _EXACT_STEP_BYTES) and ``_topk_stable`` with the carry.
+    ``block_rows`` steps only the plain version and the scores mode; the
+    kernel's results do not depend on it."""
+    dev = corpus_q.device
+    _check("corpus_q", corpus_q, torch.int8, 2, dev)
+    _check("row_mult", row_mult, torch.float32, 1, dev)
+    _check("qf", qf, torch.float32, 2, dev)
+    n, d = corpus_q.shape
+    q = qf.shape[0]
+    if qf.shape[1] != d or row_mult.shape[0] != n:
+        raise ValueError(f"int8_exact shapes: corpus {tuple(corpus_q.shape)},"
+                         f" row_mult {tuple(row_mult.shape)}, queries "
+                         f"{tuple(qf.shape)}")
+    if dev.type == "cpu":
+        return int8_exact_topk_plain(corpus_q, row_mult, qf, k, block_rows)
+    if dev.type != "cuda":
+        raise ValueError(f"int8_exact_topk: unsupported device {dev}")
+    kk = min(k, n)
+    if not q or kk < 1:
+        return (torch.empty((q, max(kk, 0)), dtype=torch.float32, device=dev),
+                torch.empty((q, max(kk, 0)), dtype=torch.int64, device=dev))
+    for name, t in (("corpus_q", corpus_q), ("row_mult", row_mult)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous for the kernel")
+    x = _exact_queries(qf)
+    if kk <= INT8_EXACT_TOPK_CAP:
+        keys = _exact_launch(corpus_q, row_mult, x, kk, True)
+        LAUNCHES["int8_exact_select"] += 1
+        best_s, best_i = decode_score_keys(merge_keys(None, keys, kk,
+                                                      largest=True))
+        return best_s, best_i.masked_fill(torch.isneginf(best_s), -1)
+    best_s = qf.new_full((q, kk), float("-inf"))
+    best_i = torch.full((q, kk), -1, dtype=torch.int64, device=dev)
+    block = _exact_block(n, d, q, block_rows)
+    for r0 in range(0, n, block):
+        s = _exact_launch(corpus_q[r0:r0 + block], row_mult[r0:r0 + block],
+                          x, 0, False)
+        LAUNCHES["int8_exact_scores"] += 1
+        best_s, best_i = _exact_carry(best_s, best_i, s, kk, r0)
+    return best_s, best_i.masked_fill(torch.isneginf(best_s), -1)

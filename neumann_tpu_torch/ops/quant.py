@@ -12,7 +12,10 @@ the same way and score int8 x int8 -> int32 through the hand kernels of
 * ``int8_pooled_topk`` / ``f32_pooled_topk``: the pooled-bits cosine
   scans, one ``int8_pooled_bits`` / ``f32_pooled_bits`` launch over the
   whole corpus (the JAX package's row blocks exist for XLA's sake), then
-  a cut over the [Q, N / pool] winner bits.
+  a cut over the [Q, N / pool] winner bits;
+* ``int8_exact_topk``: the query kept in f32 and the rows converted to
+  f32 (the IVF delta plane's scan), one ``int8_exact_topk`` launch
+  (kernel 9) with the top-k inside, or its scores above k 64.
 
 binary: sign bits packed 32 per word; the JAX package's uint32 words
 are int32 bit patterns here (torch's uint32 lacks most bitwise ops).
@@ -37,7 +40,6 @@ from neumann_tpu_torch.ops.scan import (
     NEG_INF,
     _as2d,
     _int_topk_stable,
-    _topk_stable,
 )
 
 
@@ -82,43 +84,25 @@ def int8_cosine_row_mult(corpus_q: torch.Tensor,
                            corpus_sqnorms(corpus_q, corpus_scale), "cosine")
 
 
-# bytes one step of int8_exact_topk may hold: its block of rows converted
-# to f32, or its [Q, block] scores
-_EXACT_STEP_BYTES = 256 << 20
-
-
 def int8_exact_topk(corpus_q: torch.Tensor, row_mult: torch.Tensor,
                     queries: torch.Tensor, k: int,
                     block_rows: int = 256 * 1024):
     """Exact cosine top-k over an int8 corpus with UNQUANTIZED f32
     queries and f32 math throughout (the recall oracle, and the IVF
-    delta plane's scan). Each block of rows is converted to f32 and
-    multiplied by ``torch.matmul`` (TF32 off: the package docstring), as
-    the JAX package multiplies at ``Precision.HIGHEST``; a running top-k
-    carries across blocks in ``lax.top_k``'s order, equal scores by
-    ascending row. row_mult = ``int8_cosine_row_mult`` (0 marks invalid
-    rows). A block holds at most ``block_rows`` rows, and fewer where
-    its f32 rows or its scores would pass ``_EXACT_STEP_BYTES``.
+    delta plane's scan): the queries unit-normalised, then
+    ``kernels.int8_exact_topk`` (``csrc/int8_exact.cu`` on the card, its
+    plain version on the CPU): scores (query . row) * row_mult, equal
+    scores by ascending row as ``lax.top_k`` orders them. row_mult =
+    ``int8_cosine_row_mult`` (0 marks invalid rows). ``block_rows``
+    steps the plain version and the kernel's scores mode (k above 64):
+    the kernel's results do not depend on it, the plain version's sums
+    may move in the last bits with the size of its matmul.
 
     Returns (scores [Q, k] f32, rows [Q, k] int64, -1 where -inf)."""
     qf = _as2d(queries).float()
-    n, d = corpus_q.shape
-    k = min(k, n)
     qf = qf / qf.norm(dim=1, keepdim=True).clamp_min(1e-30)
-    q = qf.shape[0]
-    block = max(1, min(block_rows, _EXACT_STEP_BYTES // (4 * max(d, q))))
-    best_s = qf.new_full((q, k), NEG_INF)
-    best_i = torch.full((q, k), -1, dtype=torch.int64, device=qf.device)
-    for r0 in range(0, n, block):
-        rm = row_mult[r0:r0 + block]
-        s = qf @ corpus_q[r0:r0 + block].float().T
-        s = torch.where(rm > 0, s * rm, torch.full_like(s, NEG_INF))
-        # the carry's rows all precede the block's: a stable cut over
-        # [carry, block] orders equal scores by row
-        best_s, col = _topk_stable(torch.cat([best_s, s], dim=1), k)
-        best_i = torch.where(col < k, best_i.gather(1, col.clamp(max=k - 1)),
-                             col - k + r0)
-    return best_s, best_i.masked_fill(torch.isneginf(best_s), -1)
+    return kernels.int8_exact_topk(corpus_q, row_mult, qf, k,
+                                   block_rows=block_rows)
 
 
 def f32_cosine_row_mult(corpus: torch.Tensor) -> torch.Tensor:

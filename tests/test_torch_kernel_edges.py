@@ -1,6 +1,7 @@
 """Edge shapes of the tensor-core int8 kernels, the f32 pooled-bits
-kernel, the fused hamming top-k, the batched top-2 probe and the PQ ADC
-scan against their plain PyTorch versions, on an NVIDIA card.
+kernel, the fused hamming top-k, the batched top-2 probe, the PQ ADC
+scan and the exact int8 scan against their plain PyTorch versions, on
+an NVIDIA card.
 
 Every test here needs a card and ``nvcc`` (the kernels build from
 ``neumann_tpu_torch/csrc`` at first use) and skips elsewhere; the plain
@@ -30,6 +31,13 @@ the kernel's stages (W 1,408, the distances kernel); scores and ids
 equal. Batched probe: q_cap
 8 to 200, windows of 128 to 4,096 rows, d 64, 768, 784 (d % 32 = 16) and
 4,096 (queries streamed with the rows), top-2 on and off; bit for bit.
+Exact int8 scan (``int8_exact_topk``): Q 1, 16, 17 and 1,024 (both
+sides of its stream / batch switch), N 3,001, 20,011 and 1,000 (not a
+multiple of its tiles), d 768, 100 and 77 (byte loads), k 1, 10, 64 and
+65 (both modes), 160 equal rows across tiles and the k-th place, 1 %
+dead rows, all rows dead, fewer live rows than k; scores within 1e-5 of
+the plain version and ids equal but at near ties, equal scores by
+ascending row; both kernels and both modes bit-equal to each other.
 ADC scan: M 8 to 392 (both sides of its 48-subspace shared-memory chunk,
 M not a multiple of 4), Q 1 to 1,025, N not a multiple of a block's
 rows, dead rows, the gathered mode with -1 and repeated candidates; bit
@@ -590,6 +598,111 @@ def test_pq_adc_select_few_live_rows(cuda, q):
     valid = torch.rand(n, generator=g, device=cuda) > 0.5
     valid[4096:2 * 4096] = False
     _assert_select_equal(tk, codes, tables, valid)
+
+
+# the exact int8 scan (kernel 9): a block of 40 rows from row 97 all
+# copies of row 97, so 160 equal rows straddle the 128- and 256-row tiles
+# and every k-th place up to 65; scores within 1e-5 of the plain version
+# (cuBLAS sums in another order), ids equal but where the plain scores of
+# the places that differ are within that of another, equal scores by
+# ascending row with no tolerance
+EXACT_TOL = 1e-5
+EXACT_SHAPES = ((3001, 768), (20_011, 100), (1000, 77))
+
+
+def _exact_case(dev, n, d, q, seed, dead=0.01):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = torch.randint(-127, 128, (n, d), generator=g, device=dev,
+                      dtype=torch.int8)
+    c[97:257] = c[97]
+    # cosine multipliers scaled by 0.5-1.5 (scores within 1.5), the
+    # copies' by 1.5: they lead query 0
+    scale = 0.5 + torch.rand(n, generator=g, device=dev)
+    scale[97:257] = 1.5
+    rm = scale / c.float().norm(dim=1)
+    rm[torch.rand(n, generator=g, device=dev) < dead] = 0.0
+    rm[97:257] = 1.5 / c[97].float().norm()
+    qf = torch.nn.functional.normalize(
+        torch.randn(q, d, generator=g, device=dev), dim=1)
+    qf[0] = torch.nn.functional.normalize(c[97].float(), dim=0)
+    return c, rm, qf
+
+
+def _assert_exact_close(got, want_k1, k):
+    """got (scores, rows) of k against the plain version's top-(k + 1)."""
+    import numpy as np
+
+    s_g, i_g = (t.cpu().numpy() for t in got)
+    s_w1, i_w1 = (t.cpu().numpy() for t in want_k1)
+    s_w, i_w = s_w1[:, :k], i_w1[:, :k]
+    assert s_g.shape == s_w.shape
+    assert np.array_equal(np.isneginf(s_g), np.isneginf(s_w))
+    fin = np.isfinite(s_w)
+    assert np.abs(s_g[fin] - s_w[fin]).max(initial=0.0) <= EXACT_TOL
+    assert np.array_equal(i_g == -1, i_w == -1)
+    for r, j in zip(*np.nonzero(i_g != i_w)):
+        near = np.abs(np.delete(s_w1[r], j) - s_w1[r, j]) <= EXACT_TOL
+        assert near.any(), (r, j, s_w1[r], i_w1[r], i_g[r])
+    for srow, irow in zip(s_g, i_g):
+        same = (srow[1:] == srow[:-1]) & np.isfinite(srow[1:])
+        assert (irow[1:][same] > irow[:-1][same]).all(), (srow, irow)
+        live = irow[irow >= 0]
+        assert len(set(live.tolist())) == len(live)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", (1, 10, 64, 65))
+@pytest.mark.parametrize("n,d", EXACT_SHAPES)
+@pytest.mark.parametrize("q", (1, 16, 17, 1024))
+def test_int8_exact_edges_close_to_plain(cuda, q, n, d, k):
+    from neumann_tpu_torch.ops import kernels as tk
+
+    c, rm, qf = _exact_case(cuda, n, d, q, seed=q * 7 + d + k)
+    name = "int8_exact_select" if k <= 64 else "int8_exact_scores"
+    before = tk.LAUNCHES[name]
+    got = tk.int8_exact_topk(c, rm, qf, k, block_rows=1000)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES[name] > before
+    _assert_exact_close(got, tk.int8_exact_topk_plain(c, rm, qf, k + 1), k)
+    assert got[1][0].tolist() == list(range(97, 97 + k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", EXACT_SHAPES)
+def test_int8_exact_one_sum_order(cuda, n, d):
+    """Every (query, row) is one FFMA chain in k order in both kernels and
+    both modes: the stream kernel's scores (Q 16) equal the batch
+    kernel's (Q 17) bit for bit, and the select mode's top-64 the scores
+    mode's first 64 of 65."""
+    from neumann_tpu_torch.ops import kernels as tk
+
+    c, rm, qf = _exact_case(cuda, n, d, 17, seed=d)
+    for k in (64, 65):
+        a = tk.int8_exact_topk(c, rm, qf[:16], k)
+        b = tk.int8_exact_topk(c, rm, qf, k)
+        assert torch.equal(a[0], b[0][:16]) and torch.equal(a[1], b[1][:16])
+    s64, i64 = tk.int8_exact_topk(c, rm, qf, 64)
+    s65, i65 = tk.int8_exact_topk(c, rm, qf, 65)
+    assert torch.equal(s64, s65[:, :64]) and torch.equal(i64, i65[:, :64])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", (1, 17))
+@pytest.mark.parametrize("k", (10, 65))
+def test_int8_exact_dead_rows(cuda, q, k):
+    """All rows dead: -inf / -1 everywhere. Fewer live rows than k: the
+    live rows, then -inf / -1, as the plain version."""
+    from neumann_tpu_torch.ops import kernels as tk
+
+    c, rm, qf = _exact_case(cuda, 3001, 768, q, seed=k + q)
+    s, i = tk.int8_exact_topk(c, torch.zeros_like(rm), qf, k)
+    assert torch.isneginf(s).all() and (i == -1).all()
+    few = torch.zeros_like(rm)
+    live = torch.tensor([5, 700, 2999], device=cuda)
+    few[live] = 1.0 / c[live].float().norm(dim=1)
+    got = tk.int8_exact_topk(c, few, qf, k)
+    _assert_exact_close(got, tk.int8_exact_topk_plain(c, few, qf, k + 1), k)
+    assert (got[1][:, 3:] == -1).all()
 
 
 @pytest.mark.cuda

@@ -462,4 +462,5 @@ def test_launch_counters_cover_every_kernel():
                                 "batched_probe_top1", "int8_dot_scores",
                                 "int8_pooled_bits", "f32_pooled_bits",
                                 "hamming_scores", "hamming_topk", "pq_adc",
-                                "pq_adc_select"}
+                                "pq_adc_select", "int8_exact_select",
+                                "int8_exact_scores"}
