@@ -52,11 +52,18 @@ Phases (each raises on failure; exit code 0 only if all pass):
    slots x 768, Q 1, 16, 17 and 1,024, k 10 and 64 (select mode) and 65
    (scores mode), 1 % dead rows and a block of rows copied 4 times in a
    row: scores within 1e-5 of its plain version, ids equal but at near
-   ties, copies in ascending rows; timed at Q 1,024 and 1 beside the
-   plain version and ``torch.matmul`` (TF32 off) for the product alone;
+   ties, copies in ascending rows; its query split into three bf16
+   parts exact on the card, and its few-query and batch kernels'
+   scores (Q 1, 16 and 17) bit-equal over the plane; timed at Q 1,024
+   and 1 beside the plain version and ``torch.matmul`` (TF32 off) for
+   the product alone, bound by the three bf16 passes on the tensor
+   cores;
 3. generate a 4,194,304 x 768 corpus from --seed with numpy (4,096
    N(0,1) centres + sigma 0.25 noise) and load it with
-   ``router.vector.ingest_matrix``;
+   ``router.vector.ingest_matrix``; the int8 planes that the index build
+   (phase 4's first SIMILAR) quantizes on the card with
+   ``EmbeddingSlab.host_int8`` are held, 65,536 rows of each, to the
+   CPU's recomputation bit for bit;
 4. with every launch count at 0: 64 ``router.execute("SIMILAR [...]
    TOP 10")`` queries (the first builds the IVF index and is timed on
    its own; p50/p99 over the rest), then ``router.vector.batch_search``
@@ -144,7 +151,7 @@ Phases (each raises on failure; exit code 0 only if all pass):
     statements, a ``SELECT ... WHERE`` equal to numpy, ``FIND ROWS``.
 12. serving (at the end of phases 4-6 and 7-9, on their routers):
     a. A: ``router.warmup()`` (seconds, calls), batched serving on, a
-       ``RestServer`` on 127.0.0.1:0, and 1,024 ``SIMILAR [...] TOP 10``
+       ``RestServer`` on 127.0.0.1:0, and 512 ``SIMILAR [...] TOP 10``
        POSTed to /query from 32 client threads (a connection per
        request); served p50 / p99, QPS, batches and mean cohort size;
        every response 200, recall@10 >= 0.95, mean cohort above 1;
@@ -187,7 +194,7 @@ Phases (each raises on failure; exit code 0 only if all pass):
     storage (row 8's select mode, gathered, equal to its plain version)
     and the binary storage on 262,144 rows, row 8 timed in both modes at
     the shapes its batch and a single query launch; ``build_hnsw_index`` dense on
-    16,384 rows, quantized on 8,192 and binary on 4,096 (host inserts,
+    4,096 rows, quantized on 2,048 and binary on 1,024 (host inserts,
     one row a call, the three graphs built at once in threads: insert
     rate, p50, recall@10); ``save_index`` ->
     ``load_index`` on a fresh router gives the same hits, for HNSW and
@@ -211,13 +218,15 @@ Phases (each raises on failure; exit code 0 only if all pass):
     hits, searched again after a write. A 64 MiB blob from --seed (BLOB
     PUT / GET MB/s, VERIFY), deleted and brought back by ROLLBACK with
     equal bytes. CACHE INIT (10,000 entries, the 256-d default embedder,
-    on the host) filled with 10,000 prompts from --seed, then 1,000
+    on the host) filled with 2,500 prompts from --seed, then 1,000
     lookups (half repeats, 3/10 with a word swapped): exact and semantic
     hit rates and p50s. Prints whether ``cryptography`` imports; the
     vault is host-only and is not driven on the card (its tests run on
     the CPU).
-18. the chain and the cluster. 18a (at the end of phases 7-9, on their
-    router): ``init_chain(embedding_dim=768)``; a chain transaction
+18. the chain and the cluster. 18a (at the end of phase 16, on its
+    router: 262,144 rows and two collections of 262,144, cut from phases
+    7-9's 3,145,728 keys, whose state root took 34-46 s to seed):
+    ``init_chain(embedding_dim=768)``; a chain transaction
     EMBEDs new vectors for 1,024 existing keys and commits, 64 SIMILARs
     of them give their own keys first; a second re-embeds the same keys
     and ends in ROLLBACK CHAIN, the SIMILARs then give the hits they
@@ -230,7 +239,7 @@ Phases (each raises on failure; exit code 0 only if all pass):
     its launches from torch.profiler, its bound. 18c: three
     TcpClusterNodes in this process on localhost sockets, each router
     on the card; a replicated CREATE COLLECTION … QUANTIZATION int8 and
-    EMBED BATCHes of two rows load 1,024 rows of B's recipe through the
+    EMBED BATCHes of two rows load 256 rows of B's recipe through the
     leader (8 ClusterClients at once, rows a second); 64 SIMILARs a
     replica give their own keys first, row 4 launching on each. 18d:
     three ``python -m neumann_tpu_torch.chain.node --wal-dir …``
@@ -246,23 +255,23 @@ Phases (each raises on failure; exit code 0 only if all pass):
     127.0.0.1:0 started by ``serve()`` (the router's warm-up, which
     raises on a failure; batched serving on), the native points codec
     loaded (or the phase fails), ``Health`` naming the card. 19a (A): 32
-    client threads, a ``NeumannClient.connect`` channel each, send 1,024
+    client threads, a ``NeumannClient.connect`` channel each, send 512
     ``SIMILAR [...] TOP 10`` through ``Execute`` (p50 / p99, QPS,
     batches, mean cohort above 1, recall@10 >= 0.95; the card's idle
     share from the same run under torch.profiler); one Points
-    ``QueryBatch`` of 1,024 equal to ``router.vector.batch_search`` on
+    ``QueryBatch`` of 512 equal to ``router.vector.batch_search`` on
     the same matrix; rows 1 and 2 launch. 19b (B-D): the same ``Execute``
     run on the default namespace (row 6); a ``PointsPipeline``
-    (QueryStream) of 1,024 pipelined queries on q8 answered through the
+    (QueryStream) of 512 pipelined queries on q8 answered through the
     batcher's completion callback (row 5; every future resolves,
-    recall@10 >= 0.95); a ``QueryBatch`` of 1,024 on bits (row 7; ids
+    recall@10 >= 0.95); a ``QueryBatch`` of 512 on bits (row 7; ids
     and distances of the plain hamming top-k, in order); 16 Points
     queries with ``filter_json`` cat = 3 at once on the default
     namespace (q8's rows hold no metadata; every hit in cat 3, recall
     against the masked scan); 64 ``Execute`` over gRPC-web through a
     ``RestServer(grpc_web=server)``, each equal to the same statement
     sent alone over gRPC; rows 5, 6 and 7 launch.
-20. scatter-gather (cell P; after 18a, on phase 7's rows and queries): a
+20. scatter-gather (cell P; after 19b, on phase 7's rows and queries): a
     ``SemanticPartitioner(3)`` trained on the card over 65,536 of the
     rows places every row on a shard (``assign_batch``); the rows go to
     ``.npy`` files in a temporary directory, and three ``NeumannServer``
@@ -284,9 +293,10 @@ Phases (each raises on failure; exit code 0 only if all pass):
     smaller shard must take the exact scan.
 21. the mesh (cell M; after phase 20, on phase 7's rows and queries):
     ``NEUMANN_MESH_DEVICES=4`` for this phase only, so the engine's
-    mesh is four logical devices of the card; a router of its own holds
-    the rows ``{"cat": i % 16}`` (``bulk_ingest``) and an int8
-    collection of them; every SIMILAR through ``router.execute``,
+    mesh is four logical devices of the card; phases 7-9's router,
+    which holds the rows ``{"cat": i % 16}`` and an int8 collection of
+    them (a router of its own would load them again: 54-68 s), places
+    them at its first search; every SIMILAR through ``router.execute``,
     counted from 21a to 21g (``launches_mesh``): 21a 64 singles and a
     batch of 1,024 on the f32 ``ShardedCorpus`` (hits equal to the exact
     f32 scan: scores within 1e-5, ids wherever no two scores are within
@@ -436,6 +446,9 @@ KERNELS = {
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_FLOPS_PER_S = 67e12
+# dense bf16 on the tensor cores (row 9 runs its f32 products there as
+# three bf16 passes; its record keeps the FFMA bound beside)
+BF16_FLOPS_PER_S = 989e12
 # hamming's popcounts have no published peak: the issue rate of the CUDA
 # C++ Programming Guide's throughput table (16 POPC per SM per clock) at
 # 132 SMs and the 1,980 MHz boost clock, reported beside the bytes bound
@@ -504,8 +517,10 @@ N_PARSE = 64
 # phases 12a-12b: statements served over HTTP (batched serving on) from
 # N_CLIENTS client threads, each request on a connection of its own (the
 # REST handler speaks HTTP/1.0); N_POINTS REST Points queries; a served
-# run under cProfile from one client and one under torch.profiler
-N_SERVED = 1024
+# run under cProfile from one client and one under torch.profiler.
+# N_SERVED was cut from 1,024 to keep the run inside its time limit on a
+# slower host (about 8 served runs of 4-6 s each at 1,024)
+N_SERVED = 512
 N_CLIENTS = 32
 N_POINTS = 64
 N_PROFILED = 64
@@ -554,15 +569,21 @@ EXACT_COPY_ROWS = 32
 EXACT_SAME = 17
 EXACT_COPIES = 4
 EXACT_TOL = 1e-5
-EXACT_DESIGN = ("Q <= 16: a row a thread against every query, 256 rows a "
-                "block through a 3-stage cp.async ring of 64 K-bytes, int8 "
-                "converted in registers; Q > 16: 128 rows x 128 queries a "
-                "block, an 8 x 8 FFMA tile a thread, K-major double-"
-                "buffered shared tiles (row 6's tiling, rows read as int8); "
-                "one FFMA chain a (query, row) in k order; select mode: "
-                "each block's k best keys a query in shared memory, passing "
-                "keys buffered and merged by a warp a query, one torch.topk "
-                "over the blocks' keys")
+EXACT_DESIGN = ("the f32 query split into three bf16 parts (hi + mid + lo "
+                "== qf) against int8 rows exact in bf16, on wgmma "
+                "(m64nNk16, f32 accumulation; rows on M from registers, "
+                "converted there by two logic ops and a bf16x2 subtraction "
+                "a pair; query parts on N in shared memory); a block of two "
+                "warpgroups over 128 rows x 8 or 16 queries (Q <= 16, two "
+                "blocks a SM; at d <= 768 the block splits the queries "
+                "itself and keeps their parts) or x 128 (one a SM), its "
+                "first thread filling a TMA ring of 64-K stages; each "
+                "stage's 12 products (lo, mid, hi) in a fresh accumulator, "
+                "added to the running sum by one rounded add: one order for "
+                "every (query, row); select mode: each warpgroup's passing "
+                "keys buffered in shared memory and merged by a warp a "
+                "query into its list in the keys output once a buffer "
+                "fills, one torch.topk over the lists")
 EXACT_LIBRARY = ("torch.matmul(qf, rows.float().t()) with allow_tf32 False, "
                  "the product alone (rows converted once, outside its time; "
                  "no mask or selection)")
@@ -626,8 +647,8 @@ TRACE_KERNELS = {
     "hamming_topk": ("hamming_topk_kernel",),
     "pq_adc": ("pq_adc_kernel",),
     "pq_adc_select": ("pq_adc_kernel",),
-    "int8_exact_select": ("exact_stream_kernel", "exact_batch_kernel"),
-    "int8_exact_scores": ("exact_stream_kernel", "exact_batch_kernel"),
+    "int8_exact_select": ("exact_wgmma_kernel",),
+    "int8_exact_scores": ("exact_wgmma_kernel",),
 }
 # row 8's kernels by name in a profile: the scan, and the select mode's
 # threshold fill, codes transpose and tables interleave
@@ -652,8 +673,10 @@ TT_RTOL = 1e-5
 # each), cut from 1,048,576 rows to what fits beside the other phases in
 # the run's time limit: on the card's host dense inserts ran at 130-160
 # rows a second at 32,768 rows, binary ones at 38-41 a second at 8,192
-# (251 s of phase at 32,768 / 16,384 / 8,192 rows, in a 1,081 s run),
-# so they build at half those sizes
+# (251 s of phase at 32,768 / 16,384 / 8,192 rows, in a 1,081 s run), and
+# at 126 and 48 a second at half those sizes on a slower host (131 s of
+# graphs in a 1,224 s run), and a 1,048 s run at a quarter of them still
+# ran past the 1,200 s limit on a slower host, so they build at an eighth
 IVF_ROWS = 1 << 18
 IVF_CLUSTERS = 1024
 IVF_NPROBES = (8, 32)
@@ -661,9 +684,9 @@ IVF_CHECKED = 16
 IVF_INDEX_ROWS = 1 << 18
 IVF_INDEX_CLUSTERS = 256
 IVF_INDEX_NPROBE = 16
-HNSW_ROWS = 16_384
-HNSW_QUANT_ROWS = 8192
-HNSW_BINARY_ROWS = 4096
+HNSW_ROWS = 4096
+HNSW_QUANT_ROWS = 2048
+HNSW_BINARY_ROWS = 1024
 # phase 16: the extended modules. A router of its own holds the first
 # ROLLBACK_ROWS of phases 7-9's rows (default namespace, {"cat": i % 16};
 # cut from 1,048,576, where the phase took 218 s by
@@ -675,7 +698,8 @@ HNSW_BINARY_ROWS = 4096
 # events table's rows, a blob of BLOB_BYTES, CACHE_PROMPTS prompts of
 # CACHE_WORDS words from a CACHE_VOCAB-word vocabulary and a replayed mix
 # of CACHE_MIX lookups (half repeats, 3/10 one word swapped, the rest
-# unseen)
+# unseen). The cache's prompts were cut from 10,000 (a 30 s fill on the
+# host) to keep the run inside its time limit on a slower host
 ROLLBACK_ROWS = 1 << 18
 ROLLBACK_SUB_ROWS = 1 << 18
 N_ROLLBACK_SINGLE = 16
@@ -684,7 +708,7 @@ N_REEMBED = 1024
 N_EVENTS = 1024
 ROLLBACK_ATOL = 1e-5
 BLOB_BYTES = 64 << 20
-CACHE_PROMPTS = 10_000
+CACHE_PROMPTS = 2_500
 CACHE_WORDS = 24
 CACHE_VOCAB = 4096
 CACHE_MIX = 1000
@@ -704,15 +728,21 @@ DELTA_VOCAB = 1024
 CONSENSUS_MARGIN = 1e-5
 # 18c-d: three replicas load CLUSTER_ROWS rows of B's recipe through Raft
 # (cut from 65,536: the load is held by the statements' parse, PERF.md
-# §4) from CLUSTER_CLIENTS clients (more stall Raft's resends, ROADMAP §2
+# §4; then from 1,024, whose loads, kill and catch-up took 152 s of a
+# 1,048 s run and ran past the 1,200 s limit on a slower host) from
+# CLUSTER_CLIENTS clients (more stall Raft's resends, ROADMAP §2
 # tuning item 10). EMBED BATCH is outside the native parser's grammar,
 # so the Python parser runs on the native lexer's tokens, whose cap
 # (4,096) holds two rows of 768 floats a statement
-CLUSTER_ROWS = 1024
+CLUSTER_ROWS = 256
 CLUSTER_BATCH_ROWS = 2
 CLUSTER_CLIENTS = 8
 N_CLUSTER_SIMILAR = 64
 CLUSTER_TIMEOUT_S = 30.0
+# the load's writes, retried on the next node: writes in flight at the
+# leader when it is SIGKILLed came back only at their timeout (18d's 256
+# rows took 36 s against 18c's 5 s at 30 s), so they wait less
+CLUSTER_WRITE_TIMEOUT_S = 10.0
 CLUSTER_DEADLINE_S = 600.0
 # phase 20 (cell P): phase 7's rows placed on SHARD_SERVERS shard-server
 # processes by a SemanticPartitioner trained (PARTITION_ITERS Lloyd
@@ -774,8 +804,13 @@ TIE_RUN_ROWS = 1 << 17
 TIE_RUN_QUERIES = 64
 
 
+_T_START = time.perf_counter()
+
+
 def say(msg: str) -> None:
-    print(msg, flush=True)
+    """A progress line, led by the seconds since the script started: the
+    run as a whole is held to a time limit."""
+    print(f"{time.perf_counter() - _T_START:7.1f}s {msg}", flush=True)
 
 
 def smi_line() -> str:
@@ -1574,6 +1609,64 @@ def plain_kernels():
 # phase 3: the corpus
 # ---------------------------------------------------------------------------
 
+# rows of each int8 plane the IVF build's EmbeddingSlab.host_int8 returns
+# (quantized on the card) held bit for bit to the CPU's recomputation
+HOST_INT8_CHECK_ROWS = 65_536
+
+
+@contextlib.contextmanager
+def host_int8_sampled(sink: list):
+    """Inside the block, every EmbeddingSlab.host_int8 call appends (the
+    slab, HOST_INT8_CHECK_ROWS rows spread over it, those rows of each
+    plane it returned) to ``sink``."""
+    from neumann_tpu_torch.store.embedding_slab import EmbeddingSlab
+
+    saved = EmbeddingSlab.host_int8
+
+    def call(self, *a, **kw):
+        out = saved(self, *a, **kw)
+        n = out[0].shape[0]
+        idx = np.unique(np.linspace(0, n - 1, min(n, HOST_INT8_CHECK_ROWS))
+                        .astype(np.int64))
+        sink.append((self, idx, [p[idx].copy() for p in out]))
+        return out
+
+    EmbeddingSlab.host_int8 = call
+    try:
+        yield sink
+    finally:
+        EmbeddingSlab.host_int8 = saved
+
+
+def check_host_int8(sink: list) -> dict:
+    """The sampled host_int8 planes against scalar_quantize and
+    residual_quantize of the same host rows on the CPU, in the form
+    host_int8 names ("divide", the JAX slab's numpy quantizer): the
+    rows whose scales or int8 values differ."""
+    import torch
+
+    from neumann_tpu_torch.ops.quant import scalar_quantize
+    from neumann_tpu_torch.ops.rerank import residual_quantize
+
+    rec = dict(calls=len(sink), rows=0, scales_differ=0, values_differ=0)
+    for slab, idx, planes in sink:
+        x = torch.from_numpy(slab.rows_matrix(idx)[0])
+        want = scalar_quantize(x, form="divide")
+        if len(planes) == 4:
+            want = want + residual_quantize(x, *want, form="divide")
+        rec["rows"] += len(idx)
+        for got, w in zip(planes, want):
+            w = w.numpy()
+            view = np.uint8 if w.dtype == np.int8 else np.uint32
+            diff = (got.view(view) != w.view(view)).reshape(len(idx), -1)
+            rec["values_differ" if got.ndim == 2 else "scales_differ"] += \
+                int(diff.any(axis=1).sum())
+    if not rec["calls"] or rec["scales_differ"] or rec["values_differ"]:
+        raise AssertionError(f"host_int8's planes from the device differ "
+                             f"from the CPU's: {rec}")
+    return rec
+
+
 def mixture(n: int, centres: np.ndarray, seed_seq, chunk: int = 1 << 17
             ) -> np.ndarray:
     """n rows of centre + SIGMA * N(0, 1), generated in parallel chunks
@@ -1777,7 +1870,7 @@ def run(args, dev, config=None, on_card: bool = True) -> dict:
         torch.cuda.empty_cache()
     # ---- phase 21: the same rows on a mesh of logical devices ----------
     report.update(run_mesh(args, dev, shared["corpus"], shared["queries"],
-                           on_card, report))
+                           on_card, report, router=shared.pop("router")))
     for name, rec in report.pop("mesh_kernels", {}).items():
         report["kernels"][name].update(rec)
     gc.collect()
@@ -1797,8 +1890,9 @@ def run(args, dev, config=None, on_card: bool = True) -> dict:
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     report.update(run_extended(args, dev, shared["corpus"],
-                               shared["queries"], on_card))
-    report["extended_s"] = time.perf_counter() - t0
+                               shared["queries"], on_card, chain=True))
+    report["extended_s"] = (time.perf_counter() - t0
+                            - report["phase18a_s"])
     report.update(run_ties(dev, shared["corpus"], shared["queries"],
                            on_card))
     del shared
@@ -1857,7 +1951,9 @@ def run_ivf(args, dev, centres, s_corpus, s_queries, config,
         f"{report['ingest_s']:.1f} s")
 
     # ---- phase 4: the main path, counted -----------------------------
-    with gc_pauses_ms() as (gc_pauses, young):
+    quant_sink = []
+    with gc_pauses_ms() as (gc_pauses, young), \
+            host_int8_sampled(quant_sink):
         tk.reset_launch_counts()
         single_rows, lat = [], []
         for i in range(N_SINGLE):
@@ -1904,6 +2000,11 @@ def run_ivf(args, dev, centres, s_corpus, s_queries, config,
         launches = dict(tk.LAUNCHES)
     report["gc_gen2_pauses_ms"] = gc_pauses
     report["gc_young_pauses_ms"] = young
+    # phase 3's rows as the index build quantized them on the device
+    report["host_int8_check"] = check_host_int8(quant_sink)
+    del quant_sink
+    say(f"[3] host_int8 of the index build: {report['host_int8_check']}"
+        f" (rows whose planes differ from the CPU's)")
     say(f"[4] first SIMILAR (incl. index build) "
         f"{report['first_query_incl_build_s']:.2f} s; single p50 "
         f"{report['single_p50_ms']:.3f} ms p99 "
@@ -2746,14 +2847,11 @@ def run_brute(args, dev, centres, s_corpus, s_queries,
         router, batch, extra, oracle[N_SINGLE:N_SINGLE + N_BATCH], oracle_f,
         (ref[0][N_SINGLE:], ref[1][N_SINGLE:]), bits_c.index, dev, on_card))
 
-    # ---- phase 18a: chain transactions on this router ------------------
-    t0 = time.perf_counter()
-    report.update(run_chain(args, router, corpus, on_card))
-    report["phase18a_s"] = time.perf_counter() - t0
-
     # ---- phase 20: the same rows on shard servers, SIMILAR fanned out ---
     report.update(run_sharded(dev, corpus, queries, oracle, args.seed,
                               on_card, report))
+    # phase 21 places this router's rows on a mesh
+    shared["router"] = router
     return report
 
 
@@ -3194,13 +3292,15 @@ def rollback_router(dev, corpus, queries) -> tuple:
     return router, stmts
 
 
-def run_extended(args, dev, corpus, queries, on_card: bool) -> dict:
+def run_extended(args, dev, corpus, queries, on_card: bool,
+                 chain: bool = False) -> dict:
     """Phase 16: checkpoint and rollback of a store of phases 7-9's rows
     on the card, then SIMILAR on every route (ids equal to those before
     the checkpoint, scores within ROLLBACK_ATOL, rows 5-7 launched);
     EXPLAIN SIMILAR names the kernel each route launches; a blob survives
     a delete and a rollback with equal bytes; the LLM cache (host HNSW)
-    and the router's query cache."""
+    and the router's query cache. With ``chain``, phase 18a's chain
+    transactions then run on the same router (``phase18a_s``)."""
     import shutil
     import tempfile
 
@@ -3318,6 +3418,10 @@ def run_extended(args, dev, corpus, queries, on_card: bool) -> dict:
         require_launches(launches, ("f32_pooled_bits", "int8_pooled_bits",
                                     "hamming_topk"), "16")
     report.update(run_query_cache(router, stmts["pooled"][0], corpus))
+    if chain:
+        t0 = time.perf_counter()
+        report.update(run_chain(args, router, corpus[:n], on_card))
+        report["phase18a_s"] = time.perf_counter() - t0
     del router
     gc.collect()
     report.update(run_blob(args, dev))
@@ -3752,7 +3856,8 @@ def exact_record(rec: dict, sfx: str, c, rm, qf, k: int, reps: int,
     """Row 9's times at one shape into ``rec`` under suffix ``sfx``: the
     call (CUDA events), its kernels' device time and the hand kernel's
     own (torch.profiler), the plain version's, the bound (each input
-    read once and the top-k written; the FFMA of the live rows)."""
+    read once and the top-k written; the three bf16 passes of the live
+    rows on the tensor cores, and beside it the FFMA of one f32 pass)."""
     from neumann_tpu_torch.ops import kernels as tk
 
     q = qf.shape[0]
@@ -3762,13 +3867,59 @@ def exact_record(rec: dict, sfx: str, c, rm, qf, k: int, reps: int,
         lambda: tk.int8_exact_topk(c, rm, qf, k), 3, "int8_exact")
     rec[f"kernel_ms{sfx}"] = device_ms(
         lambda: tk.int8_exact_topk(c, rm, qf, k), 3, "int8_exact",
-        only=r"exact_(stream|batch)_kernel")
+        only=r"exact_wgmma_kernel")
     rec[f"plain_ms{sfx}"] = cuda_ms(
         lambda: tk.int8_exact_topk_plain(c, rm, qf, k), 1)
     rec[f"library_ms{sfx}"] = library_ms
     for key, v in bound(nbytes(c, rm, qf) + 12 * q * k,
-                        2 * q * live * c.shape[1], F32_FLOPS_PER_S).items():
+                        6 * q * live * c.shape[1], BF16_FLOPS_PER_S).items():
         rec[f"{key}{sfx}"] = v
+    rec[f"ffma_bound_ms{sfx}"] = max(
+        bound(nbytes(c, rm, qf) + 12 * q * k, 2 * q * live * c.shape[1],
+              F32_FLOPS_PER_S)["bound_ms"], rec[f"bytes_bound_ms{sfx}"])
+
+
+def exact_split_check(qf) -> dict:
+    """Row 9's query split on the card: (hi + mid) + lo == qf bit for
+    bit in f32 for every query (ops/kernels._exact_split)."""
+    import torch
+
+    from neumann_tpu_torch.ops import kernels as tk
+
+    hi, mid, lo = tk._exact_split(qf)
+    back = (hi.float() + mid.float()) + lo.float()
+    bad = int((back.view(torch.int32) != qf.view(torch.int32)).sum())
+    nz = qf[qf != 0].abs()
+    rec = dict(queries=qf.shape[0], elements_differ=bad,
+               min_nonzero=float(nz.min()) if nz.numel() else None)
+    if bad:
+        raise AssertionError(f"int8_exact: the query split is not exact on "
+                             f"the card: {rec}")
+    return rec
+
+
+def exact_paths_bit_equal(c, rm, qf) -> dict:
+    """Row 9's few-query kernels (Q 1: 8-query blocks, Q 16: 16-query
+    blocks, both splitting the queries themselves) and its batch kernel
+    (Q 17: 128-query blocks, the parts split by the wrapper) give the
+    same queries' scores bit for bit alike over the whole plane (the
+    scores mode's launches, uncounted)."""
+    import torch
+
+    from neumann_tpu_torch.ops import kernels as tk
+
+    rows = tk._exact_rows(c)
+    got = {q: tk._exact_launch(rows, rm,
+                               tk._exact_queries(qf[:q], rows.shape[1]), q,
+                               0, False).view(torch.int32)
+           for q in (1, 16, 17)}
+    differ = int((got[16] != got[17][:16]).sum()
+                 + (got[1] != got[17][:1]).sum())
+    rec = dict(scores=got[16].numel() + got[1].numel(), differ=differ)
+    if differ:
+        raise AssertionError(f"int8_exact: the Q=1, Q=16 and Q=17 kernels' "
+                             f"scores differ: {rec}")
+    return rec
 
 
 def check_int8_exact(dev, seed: int):
@@ -3825,6 +3976,8 @@ def check_int8_exact(dev, seed: int):
                     or res["copies_out_of_order"]):
                 raise AssertionError(f"int8_exact at Q={q} k={k} departs "
                                      f"from its plain version: {res}")
+    split = exact_split_check(qf)
+    same = exact_paths_bit_equal(c, rm, qf)
     torch.backends.cuda.matmul.allow_tf32 = False
     cf = c.float()
     lib = {}
@@ -3836,7 +3989,8 @@ def check_int8_exact(dev, seed: int):
     shape = (f"Q={N_BATCH} (and Q=1) x {n} rows x d={DIM}, "
              f"{EXACT_DEAD:.0%} dead")
     sel = dict(shape=f"{shape}, k={TOP_K}", design=EXACT_DESIGN,
-               library=EXACT_LIBRARY, checks=checks)
+               library=EXACT_LIBRARY, checks=checks, split=split,
+               stream_batch_bit_equal=same)
     scr = dict(shape=f"{shape}, k={TOP65}", design=EXACT_DESIGN,
                library=EXACT_LIBRARY)
     # the select mode also at its largest k, where its keys leave one
@@ -3853,15 +4007,17 @@ def check_int8_exact(dev, seed: int):
     sel["max_abs_err_k64"] = checks[f"q{N_BATCH}_k64"]["max_abs_err"]
     say(f"[2] int8_exact vs plain ({len(checks)} shapes, {shape}): max "
         f"err {max(worst.values()):.3g}, 0 ids out of place, copies in "
-        f"ascending rows; select k={TOP_K}: Q={N_BATCH} {sel['ms']:.3f} ms "
+        f"ascending rows; the split exact on the card ({split['queries']} "
+        f"queries), Q=1 / 16 scores bit-equal to Q=17's ({same['scores']} "
+        f"of them); select k={TOP_K}: Q={N_BATCH} {sel['ms']:.3f} ms "
         f"(kernel {ms_text(sel['kernel_ms'])}), Q=1 {sel['ms_q1']:.4f} ms "
         f"(kernel {ms_text(sel['kernel_ms_q1'], 4)}), k=64 "
         f"{sel['ms_k64']:.3f} ms; scores k={TOP65}: "
         f"{scr['ms']:.3f} / {scr['ms_q1']:.4f} ms; plain "
         f"{sel['plain_ms']:.3f} / {sel['plain_ms_q1']:.4f} ms; matmul "
         f"{lib['']:.3f} / {lib['_q1']:.4f} ms; bound {sel['bound_ms']:.3f} "
-        f"({sel['bound_by']}) / {sel['bound_ms_q1']:.4f} ms "
-        f"({sel['bound_by_q1']})")
+        f"({sel['bound_by']}; FFMA {sel['ffma_bound_ms']:.3f}) / "
+        f"{sel['bound_ms_q1']:.4f} ms ({sel['bound_by_q1']})")
     return sel, scr
 
 
@@ -5303,8 +5459,9 @@ def chain_tx(router, keys, vecs, end: str) -> tuple:
 
 
 def run_chain(args, router, corpus, on_card: bool) -> dict:
-    """Phase 18a: chain transactions on phases 7-9's router (B's rows in
-    the default namespace: the f32 pooled route, row 6). ``init_chain``
+    """Phase 18a: chain transactions on a router holding ``corpus`` as
+    keys ``k<i>`` in the default namespace at the f32 pooled route (row
+    6): phase 16's, after its rollback. ``init_chain``
     at 768 dimensions (its state root seeded from every stored key);
     a transaction re-embeds N_CHAIN_KEYS keys and commits: SIMILARs of
     the new vectors give their own keys first; a second re-embeds the
@@ -5585,7 +5742,7 @@ def cluster_load(addrs: list, batches: list, clients: int,
                                 time.sleep(0.2)
                                 continue
                             cc = ClusterClient(live[i % len(live)])
-                        cc.execute(stmt, timeout=CLUSTER_TIMEOUT_S)
+                        cc.execute(stmt, timeout=CLUSTER_WRITE_TIMEOUT_S)
                         break
                     except (ChainError, OSError):
                         with lock:
@@ -6345,14 +6502,18 @@ def mesh_kernel_check(rec: dict, name: str, sfx: str, fn, plain, a: tuple,
         for x in a)
 
 
-def run_mesh(args, dev, corpus, queries, on_card: bool, beside: dict
-             ) -> dict:
+def run_mesh(args, dev, corpus, queries, on_card: bool, beside: dict,
+             router=None) -> dict:
     """Phase 21 (cell M): phase 7's rows on a mesh of MESH_SHARDS logical
     devices of one card, SIMILAR through ``router.execute`` served by the
     engine's mesh placements (``ShardedCorpus`` f32 and int8,
     ``ShardedIVFCorpus``). ``beside``: B's numbers from this call on the
     same rows, recorded next to M's. The variable that makes the logical
-    devices is set for this phase alone."""
+    devices is set for this phase alone. ``router``: phases 7-9's router,
+    which holds ``corpus`` as this phase loads it (the default namespace
+    ``{"cat": i % 16}`` and the ``q8`` collection); without it the phase
+    loads a router of its own. The engine places its rows on the mesh at
+    the first search with the variable set."""
     import torch
 
     from neumann_tpu_torch.engines.vector import FilterCondition
@@ -6372,8 +6533,13 @@ def run_mesh(args, dev, corpus, queries, on_card: bool, beside: dict
     saved_env = os.environ.get(tmesh.MESH_DEVICES_ENV)
     os.environ[tmesh.MESH_DEVICES_ENV] = str(MESH_SHARDS)
     try:
-        router = QueryRouter(device=dev)
+        loaded = router is not None
+        if not loaded:
+            router = QueryRouter(device=dev)
         eng = router.vector
+        # the engine reads its mesh once; phases 7-9's router read it
+        # before the variable was set
+        eng._mesh_cache = "unset"
         # the default mesh_threshold (262,144) on the card; the CPU
         # rehearsal's rows are fewer
         eng.config.mesh_threshold = min(eng.config.mesh_threshold, n)
@@ -6382,14 +6548,18 @@ def run_mesh(args, dev, corpus, queries, on_card: bool, beside: dict
             raise AssertionError(f"[21] parts a-d need fewer rows than "
                                  f"ivf_auto_threshold ({ivf_threshold})")
         t0 = time.perf_counter()
-        with eng.bulk_ingest():
-            for i in range(n):
-                eng.store_embedding(f"k{i}", corpus[i], {"cat": i % N_CATS})
-        router.execute(f"CREATE COLLECTION q8 DIM {DIM} QUANTIZATION int8")
-        with eng.bulk_ingest():
-            for i in range(n):
-                eng.store_in_collection("q8", f"k{i}", corpus[i])
-        report["mesh_ingest_s"] = time.perf_counter() - t0
+        if not loaded:
+            with eng.bulk_ingest():
+                for i in range(n):
+                    eng.store_embedding(f"k{i}", corpus[i],
+                                        {"cat": i % N_CATS})
+            router.execute(f"CREATE COLLECTION q8 DIM {DIM} "
+                           f"QUANTIZATION int8")
+            with eng.bulk_ingest():
+                for i in range(n):
+                    eng.store_in_collection("q8", f"k{i}", corpus[i])
+        report["mesh_ingest_s"] = None if loaded else \
+            time.perf_counter() - t0
         base = eng._corpora[""][DIM]
         q8 = eng._corpora["col/q8"][DIM]
         # the exact f32 scans of all rows (k + 1: the gap past the k-th)
@@ -6405,8 +6575,9 @@ def run_mesh(args, dev, corpus, queries, on_card: bool, beside: dict
                         valid)[1].cpu().numpy()
         del emb, valid
         say(f"[21] {n} rows with metadata and an int8 collection of them "
-            f"stored in {report['mesh_ingest_s']:.1f} s; mesh of "
-            f"{MESH_SHARDS} logical devices: {eng._mesh()}")
+            + ("on phases 7-9's router" if loaded else
+               f"stored in {report['mesh_ingest_s']:.1f} s")
+            + f"; mesh of {MESH_SHARDS} logical devices: {eng._mesh()}")
 
         stmts = [f"SIMILAR {vec_literal(q)} TOP {TOP_K}" for q in single]
         fresh_keys = (np.arange(MESH_FRESH) * (n // MESH_FRESH) + 7)

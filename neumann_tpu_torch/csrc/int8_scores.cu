@@ -62,6 +62,7 @@
 #include <climits>
 #include <cstdint>
 
+#include "hopper.cuh"
 #include "mma_s8.cuh"
 #include "pooled_bits.cuh"
 
@@ -70,11 +71,20 @@ namespace {
 using neumann::cp_async16;
 using neumann::cp_async_commit;
 using neumann::cp_async_wait;
+using neumann::gmma_desc;
 using neumann::kThreads;
 using neumann::ldsm_x2;
 using neumann::ldsm_x4;
+using neumann::mbar_arrive;
+using neumann::mbar_arrive_expect_tx;
+using neumann::mbar_init;
+using neumann::mbar_wait;
 using neumann::mma_s8;
 using neumann::smem_u32;
+using neumann::tma_load_2d;
+using neumann::wgmma_commit;
+using neumann::wgmma_fence;
+using neumann::wgmma_wait;
 
 // The mma.sync tile: 8 warps, each on 16 corpus rows x one 8-query
 // fragment; K staged 128 bytes at a time through a 4-stage ring
@@ -133,83 +143,6 @@ __device__ __forceinline__ void wgmma_m64n128k32(int (&d)[16][4],
         "+r"(d[14][0]), "+r"(d[14][1]), "+r"(d[14][2]), "+r"(d[14][3]),
         "+r"(d[15][0]), "+r"(d[15][1]), "+r"(d[15][2]), "+r"(d[15][3])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// wait until at most kPending committed wgmma groups are still running
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
-               : "memory");
-}
-
-// mbarrier helpers (shared-memory barriers that count arrivals and the
-// bytes a TMA load delivers)
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// spin until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// TMA: the box at (x = K byte, y = row) of a 2-D tensor map into shared
-// memory, completing `bytes` on the mbarrier
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            int x, int y, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x),
-      "r"(y)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile of 128-byte rows in
-// the 128-byte swizzle that TMA writes (8-row groups 1,024 bytes apart,
-// the tile 1,024-byte aligned): start address, leading offset 16 bytes
-// (unused), stride offset 1,024 bytes, all in 16-byte units, and the
-// layout (1: 128-byte swizzle)
-__device__ __forceinline__ uint64_t gmma_desc(const void* p) {
-  return ((smem_u32(p) & 0x3FFFFull) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 / 16) << 32) | (1ull << 62);
 }
 
 // One stage of the block's flat (tile, k) sequence: kBM corpus rows from
@@ -618,28 +551,9 @@ __global__ void __launch_bounds__(kTmaThreads, 2) int8_tma_kernel(
 // a 2-D tensor map of an [rows, d] int8 matrix, boxes of 128 K bytes x
 // 128 rows, 128-byte swizzle, zero fill past the ends
 int make_map(CUtensorMap* map, const void* base, long long rows, int d) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
-        cudaEnableDefault, &found);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (found != cudaDriverEntryPointSuccess || encode == nullptr) {
-      return static_cast<int>(cudaErrorSymbolNotFound);
-    }
-  }
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d)};
-  const cuuint32_t box[2] = {kTmaBK, 128};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  return neumann::encode_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, d,
+                                rows, d, kTmaBK, 128,
+                                CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <bool kPooled>

@@ -865,7 +865,9 @@ def batched_ivf_topk(buf, rmult, cents, starts, qs, nprobe: int,
     probe = _probe_windows(qn, cents, nprobe, probe_mode)
     probe = torch.where(valid_q[:, None], probe, torch.full_like(probe, n_c))
     tbl, rank_of, overflow = _query_tables(probe, n_c, q_cap)
-    qq_i8, qsc = scalar_quantize(qn)
+    # the reciprocal form: the JAX package quantizes inside the jitted
+    # _batched_core
+    qq_i8, qsc = scalar_quantize(qn, form="reciprocal")
     probe = probe.long()
     ok = (probe < n_c) & (rank_of < q_cap)
     cg = probe.clamp(max=n_c - 1)

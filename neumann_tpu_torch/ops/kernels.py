@@ -32,8 +32,9 @@ that XLA fuses on the TPU.
 * ``int8_exact_topk`` (``csrc/int8_exact.cu``, one kernel in two modes)
   replaces the jitted ``int8_exact_topk`` of ``neumann_tpu/ops/quant.py``
   (the exact scan of the IVF delta plane): f32 cosine scores of int8 rows
-  against f32 queries, the top-k selected inside the kernel (k up to 64)
-  or the scores written.
+  against f32 queries on the bf16 tensor cores (each query split into
+  three bf16 parts whose sum is the query), the top-k selected inside
+  the kernel (k up to 64) or the scores written.
 
 Every wrapper takes its plain version only for tensors on the CPU; for
 a CUDA tensor it launches the kernel or raises — there is no fallback.
@@ -79,7 +80,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("ivf_probe.cu", "batched_probe.cu", "int8_scores.cu",
            "f32_pooled.cu", "hamming.cu", "hamming_topk.cu", "pq_adc.cu",
            "int8_exact.cu")
-HEADERS = ("pooled_bits.cuh", "mma_s8.cuh", "mma_b1.cuh")
+HEADERS = ("pooled_bits.cuh", "mma_s8.cuh", "mma_b1.cuh", "hopper.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "neumann_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -1210,51 +1211,45 @@ def pq_adc_topk(codes, tables, valid, k: int, cand=None):
 # (select) or the scores written
 # ---------------------------------------------------------------------------
 
-# the select mode's largest k (it keeps k keys a query in shared memory);
-# above it the scores mode and a selection with a carry
+# the select mode's largest k; above it the scores mode and a selection
+# with a carry
 INT8_EXACT_TOPK_CAP = 64
 # bytes one step of int8_exact_topk_plain or of the scores mode may hold:
 # its block of rows converted to f32, or its [Q, block] scores
 _EXACT_STEP_BYTES = 256 << 20
-# csrc/int8_exact.cu's geometry: the queries' row stride divides by
-# _EXACT_LDQ (the stream kernel's K bytes a stage); the stream kernel takes
-# up to _EXACT_STREAM_Q queries (slots of 1, 4 or 16) in tiles of 256 rows,
-# the batch kernel tiles of 128 rows x 128 queries. A select block's shared
-# memory: the stream kernel's three stages [256 rows x 64 bytes][slots x 64
-# floats] and 128 buffered keys a slot, or the batch kernel's four tiles of
-# 32 x 132 floats and 32 buffered keys a query; each slot's k keys, k-th
-# key and count. A SM holds _SM_SMEM bytes, 1,024 of them reserved a
-# block, and at most two blocks of either kernel
-_EXACT_LDQ = 64
+# csrc/int8_exact.cu's geometry: tiles of _EXACT_TILE rows (64 a
+# warpgroup) against blocks of 8 or _EXACT_STREAM_Q queries (Q up to that
+# many, two blocks a SM) or _EXACT_BATCH (one block a SM: its ring of
+# stages fills the shared memory); stages of _EXACT_STAGE_K K, which the
+# query parts' row stride divides; the rows' TMA wants rows of a multiple
+# of 16 bytes and at least a stage's K. Up to _EXACT_STREAM_Q queries and
+# rows of up to _EXACT_RES_K bytes, each block splits the f32 queries
+# itself and keeps their parts in shared memory
+_EXACT_TILE = 128
 _EXACT_STREAM_Q = 16
-_EXACT_STREAM_ROWS = 256
 _EXACT_BATCH = 128
-_SM_SMEM = 233472
+_EXACT_STAGE_K = 64
+_EXACT_RES_K = 768
 
 
-def _exact_plan(n: int, q: int, k: int, select: bool, sms: int):
-    """The exact scan's plan: (parts, span). Each of ``parts`` blocks (a
-    query block's) walks ``span`` rows, whole tiles. Scores mode: a tile
-    a block. Select mode: one wave of the blocks a SM holds by shared
-    memory (two up to k 13 in the batch kernel, one above: two waves of
-    more, shorter parts ran slower on an H100, each part merging its
-    first tiles' keys), each writing k keys a query."""
-    stream = q <= _EXACT_STREAM_Q
-    tile = _EXACT_STREAM_ROWS if stream else _EXACT_BATCH
-    tiles = -(-n // tile)
-    if not select:
-        return tiles, tile
-    if stream:
-        slots = 1 if q <= 1 else (4 if q <= 4 else 16)
-        smem = (3 * (_EXACT_STREAM_ROWS + slots * 4) * _EXACT_LDQ
-                + slots * ((k + 129) * 8 + 4))
-        qblocks = 1
-    else:
-        smem = 4 * 32 * 132 * 4 + _EXACT_BATCH * ((k + 33) * 8 + 4)
-        qblocks = -(-q // _EXACT_BATCH)
-    per_sm = max(1, min(2, _SM_SMEM // (smem + 1024)))
-    parts = max(1, min(tiles, sms * per_sm // qblocks))
-    span = -(-tiles // parts) * tile
+def _exact_block_queries(q: int):
+    """(queries a block, the padded query count: a multiple of it)."""
+    nq = 8 if q <= 8 else (_EXACT_STREAM_Q if q <= _EXACT_STREAM_Q
+                           else _EXACT_BATCH)
+    return nq, -(-q // nq) * nq
+
+
+def _exact_plan(n: int, q: int, sms: int):
+    """The exact scan's plan, the same in both modes: (parts, span). Each
+    of ``parts`` blocks (a query block's) walks ``span`` rows, whole
+    tiles: one wave of the blocks a SM holds (two of 8 or 16 queries,
+    one of 128) where the rows allow it, so each block's pipeline runs
+    long."""
+    nq, qp = _exact_block_queries(q)
+    per_sm = 2 if nq <= _EXACT_STREAM_Q else 1
+    tiles = -(-n // _EXACT_TILE)
+    parts = max(1, min(tiles, sms * per_sm // (qp // nq)))
+    span = -(-tiles // parts) * _EXACT_TILE
     return -(-n // span), span
 
 
@@ -1295,44 +1290,101 @@ def int8_exact_topk_plain(corpus_q, row_mult, qf, k: int,
     return best_s, best_i.masked_fill(torch.isneginf(best_s), -1)
 
 
-def _exact_queries(qf):
-    """The kernel's queries: [Q, ldq] f32, zero past d, ldq the least
-    multiple of _EXACT_LDQ >= d (qf itself where it is that already)."""
-    q, d = qf.shape
-    ldq = -(-d // _EXACT_LDQ) * _EXACT_LDQ
-    if ldq == d and qf.is_contiguous() and qf.data_ptr() % 16 == 0:
-        return qf
-    x = qf.new_zeros((q, ldq))
-    x[:, :d] = qf
-    return x
+def _exact_split(qf, out=None):
+    """(hi, mid, lo) bf16 of qf's shape: hi = bf16(qf), mid = bf16(qf -
+    hi), lo = bf16(qf - hi - mid), each rounded to nearest even, the
+    differences exact in f32; (hi + mid) + lo == qf bit for bit in f32
+    wherever lo stays above bf16's subnormal range (every element of qf
+    zero or of magnitude at least 2^-110: true of unit queries but for
+    entries some hundred binary orders below their row's largest).
+    ``out``: a bf16 [3, *qf.shape] tensor (or view) to write them to."""
+    if out is None:
+        out = torch.empty((3, *qf.shape), dtype=torch.bfloat16,
+                          device=qf.device)
+    out[0].copy_(qf)
+    r = qf - out[0].float()
+    out[1].copy_(r)
+    out[2].copy_(r.sub_(out[1].float()))
+    return out[0], out[1], out[2]
 
 
-def _exact_launch(corpus_q, row_mult, x, k: int, select: bool):
-    """One launch of the exact scan by its plan: (keys [Q, parts * k]
-    int64, each block's k greatest keys a query) in select mode, else
-    the masked scores [Q, N] f32. Raises on a CUDA error."""
-    dev = corpus_q.device
+def _exact_queries(qf, d: int):
+    """The kernel's queries for rows of width d: up to _EXACT_STREAM_Q
+    queries at d <= _EXACT_RES_K the f32 queries themselves (contiguous,
+    zero-padded to d), which each block splits as ``_exact_split`` and
+    lays out as ``_exact_parts`` in shared memory; else
+    ``_exact_parts``."""
+    q, dq = qf.shape
+    if q <= _EXACT_STREAM_Q and d <= _EXACT_RES_K:
+        if dq == d and qf.is_contiguous():
+            return qf
+        x = qf.new_zeros((q, d))
+        x[:, :dq] = qf
+        return x
+    return _exact_parts(qf, d)
+
+
+def _exact_parts(qf, d: int):
+    """The query parts: [3, qp, ldq] bf16, hi, mid and lo of
+    ``_exact_split``, zero past the Q queries and past qf's columns;
+    qp of ``_exact_block_queries``, ldq the least multiple of
+    _EXACT_STAGE_K >= d (the rows' width). Within each 32 columns the K
+    place 16 c + 8 h + 2 t + e of a wgmma A fragment's K step c (lane t,
+    register pair h, half e) holds the query column 8 t + 4 c + h + 2 e:
+    the row byte that lane t converts there (csrc/int8_exact.cu)."""
+    q, dq = qf.shape
+    _, qp = _exact_block_queries(q)
+    ldq = -(-d // _EXACT_STAGE_K) * _EXACT_STAGE_K
+    x = qf
+    if (qp, ldq) != (q, dq):
+        x = qf.new_zeros((qp, ldq))
+        x[:q, :dq] = qf
+    # the columns as [block][t][c][e][h], read in [block][c][h][t][e] order
+    src = x.view(qp, ldq // 32, 4, 2, 2, 2).permute(0, 1, 3, 5, 2, 4)
+    parts = torch.empty((3, qp, ldq), dtype=torch.bfloat16, device=qf.device)
+    _exact_split(src, out=parts.view(3, qp, ldq // 32, 2, 2, 4, 2))
+    return parts
+
+
+def _exact_rows(corpus_q):
+    """The rows as the kernel's TMA takes them: 16-byte aligned, a width
+    that is a multiple of 16 bytes and at least _EXACT_STAGE_K; else a
+    zero-padded copy (a width the delta plane never has: its rows are
+    the slab's, 128-padded)."""
     n, d = corpus_q.shape
-    q = x.shape[0]
-    if n >= (1 << 32) - 1:
-        raise ValueError(f"int8_exact kernel takes fewer than 2^32 - 1 rows "
-                         f"a launch ({n})")
+    dk = max(_EXACT_STAGE_K, -(-d // 16) * 16)
+    if dk == d and corpus_q.data_ptr() % 16 == 0:
+        return corpus_q
+    rows = corpus_q.new_zeros((n, dk))
+    rows[:, :d] = corpus_q
+    return rows
+
+
+def _exact_launch(rows, row_mult, x, q: int, k: int, select: bool):
+    """One launch of the exact scan by its plan, rows of ``_exact_rows``
+    and the Q queries of ``_exact_queries``: (keys [Q, parts * k] int64,
+    each block's k greatest keys a query) in select mode, else the
+    masked scores [Q, N] f32. Raises on a CUDA error."""
+    dev = rows.device
+    n, d = rows.shape
+    if n >= 1 << 31:
+        raise ValueError(f"int8_exact kernel takes fewer than 2^31 rows a "
+                         f"launch ({n})")
     parts, span = _exact_plan(
-        n, q, k, select,
-        torch.cuda.get_device_properties(dev).multi_processor_count)
+        n, q, torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = build_kernels()
-    head = (corpus_q.data_ptr(), row_mult.data_ptr(), x.data_ptr())
+    head = (rows.data_ptr(), row_mult.data_ptr(), x.data_ptr())
     if select:
         out = torch.empty((q, parts * k), dtype=torch.int64, device=dev)
         with torch.cuda.device(dev):
             err = lib.neumann_int8_exact_select(
-                *head, out.data_ptr(), n, d, x.shape[1], q, k, parts, span,
+                *head, out.data_ptr(), n, d, x.shape[-1], q, k, parts, span,
                 _stream())
     else:
         out = torch.empty((q, n), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             err = lib.neumann_int8_exact_scores(
-                *head, out.data_ptr(), n, d, x.shape[1], q, parts, span,
+                *head, out.data_ptr(), n, d, x.shape[-1], q, parts, span,
                 _stream())
     _raise_on(err, "int8_exact")
     return out
@@ -1354,8 +1406,12 @@ def int8_exact_topk(corpus_q, row_mult, qf, k: int,
     block's k' best keys a query; one ``torch.topk`` over them
     finishes); above it, the scores mode a block of rows (``block_rows``,
     bounded by _EXACT_STEP_BYTES) and ``_topk_stable`` with the carry.
-    ``block_rows`` steps only the plain version and the scores mode; the
-    kernel's results do not depend on it."""
+    The kernel takes each query as its three bf16 parts
+    (``_exact_split``) on the bf16 tensor cores, summed in one order for
+    every (query, row): scores within a few f32 ulps of the plain
+    version's, equal rows bit-equal. ``block_rows`` steps only the plain
+    version and the scores mode; the kernel's results do not depend on
+    it."""
     dev = corpus_q.device
     _check("corpus_q", corpus_q, torch.int8, 2, dev)
     _check("row_mult", row_mult, torch.float32, 1, dev)
@@ -1377,9 +1433,10 @@ def int8_exact_topk(corpus_q, row_mult, qf, k: int,
     for name, t in (("corpus_q", corpus_q), ("row_mult", row_mult)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous for the kernel")
-    x = _exact_queries(qf)
+    rows = _exact_rows(corpus_q)
+    x = _exact_queries(qf, rows.shape[1])
     if kk <= INT8_EXACT_TOPK_CAP:
-        keys = _exact_launch(corpus_q, row_mult, x, kk, True)
+        keys = _exact_launch(rows, row_mult, x, q, kk, True)
         LAUNCHES["int8_exact_select"] += 1
         best_s, best_i = decode_score_keys(merge_keys(None, keys, kk,
                                                       largest=True))
@@ -1388,8 +1445,8 @@ def int8_exact_topk(corpus_q, row_mult, qf, k: int,
     best_i = torch.full((q, kk), -1, dtype=torch.int64, device=dev)
     block = _exact_block(n, d, q, block_rows)
     for r0 in range(0, n, block):
-        s = _exact_launch(corpus_q[r0:r0 + block], row_mult[r0:r0 + block],
-                          x, 0, False)
+        s = _exact_launch(rows[r0:r0 + block], row_mult[r0:r0 + block],
+                          x, q, 0, False)
         LAUNCHES["int8_exact_scores"] += 1
         best_s, best_i = _exact_carry(best_s, best_i, s, kk, r0)
     return best_s, best_i.masked_fill(torch.isneginf(best_s), -1)

@@ -3,8 +3,12 @@
 
 int8: per-row symmetric scale (absmax/127), round half to even, clip to
 [-127, 127] — the same arithmetic as the JAX package, so an int8 plane
-quantized by either package is bit-identical. Scans quantize the query
-the same way and score int8 x int8 -> int32 through the hand kernels of
+quantized by either package is bit-identical. The JAX package's scale
+is absmax / 127 where it runs eagerly or in numpy and absmax *
+float32(1 / 127) under ``jax.jit``, so each port call site names the
+form of its JAX counterpart (``int8_scale``); either form gives the same
+bits on the CPU and on the card. Scans quantize the query the same way
+and score int8 x int8 -> int32 through the hand kernels of
 ``ops/kernels.py``:
 
 * ``int8_topk_scan``: block scores by ``int8_dot_scores`` (kernel 4),
@@ -33,6 +37,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from neumann_tpu_torch.ops import kernels
@@ -43,12 +48,43 @@ from neumann_tpu_torch.ops.scan import (
 )
 
 
-def scalar_quantize(x: torch.Tensor):
-    """Quantize [N, d] f32 -> (int8 [N, d], per-row scale [N] f32)."""
+# float32(1 / 127): the factor XLA multiplies by where a jitted function
+# divides by the constant 127
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+SCALE_FORMS = ("divide", "reciprocal")
+
+
+def int8_scale(absmax: torch.Tensor, form: str = "divide") -> torch.Tensor:
+    """The int8 scale absmax / 127 of each row (1 for a zero row), in the
+    arithmetic of the JAX call site a port site stands for:
+
+    * "divide": absmax divided by 127, as numpy and eager ``jnp`` compute
+      it (the slab's host quantizer, an eager ``scalar_quantize``);
+    * "reciprocal": absmax times float32(1 / 127), as XLA computes the
+      division by a constant under ``jax.jit``.
+
+    The two differ by one ulp for about 5 % of absmax values. Each form
+    gives the same bits on the CPU and on the card: the divisor is a
+    0-dim tensor on absmax's device, since CUDA's division by a CPU
+    scalar multiplies by its rounded reciprocal (and the CPU's divides)."""
+    if form == "divide":
+        s = absmax / torch.full((), 127.0, device=absmax.device)
+    elif form == "reciprocal":
+        s = absmax * _INV_127
+    else:
+        raise ValueError(f"int8 scale form {form!r} not in {SCALE_FORMS}")
+    return torch.where(absmax > 0, s, torch.ones_like(absmax))
+
+
+def scalar_quantize(x: torch.Tensor, form: str = "divide"):
+    """Quantize [N, d] f32 -> (int8 [N, d], per-row scale [N] f32): the
+    scale by ``int8_scale(absmax, form)``, each value divided by its
+    row's scale (tensor by tensor: a true division on either device),
+    rounded half to even and clipped to [-127, 127]. Under ``jax.jit``
+    the JAX package's ``scalar_quantize`` is ``form="reciprocal"``,
+    called eagerly ``form="divide"``."""
     x = x.float()
-    absmax = x.abs().amax(dim=-1)
-    scale = torch.where(absmax > 0, absmax / 127.0,
-                        torch.ones_like(absmax))
+    scale = int8_scale(x.abs().amax(dim=-1), form)
     q = torch.round(x / scale[..., None]).clamp(-127, 127).to(torch.int8)
     return q, scale
 
@@ -114,8 +150,11 @@ def f32_cosine_row_mult(corpus: torch.Tensor) -> torch.Tensor:
 
 
 def _quantize_queries(queries: torch.Tensor):
-    """(qq int8 [Q, d], q_scale [Q], ||dequantized query||^2 [Q])."""
-    qq, q_scale = scalar_quantize(queries)
+    """(qq int8 [Q, d], q_scale [Q], ||dequantized query||^2 [Q]); the
+    scales in the reciprocal form: the JAX scans quantize their queries
+    under ``jax.jit`` (the engine jits ``int8_topk_scan``, and
+    ``int8_pooled_topk`` runs inside its callers' jitted programs)."""
+    qq, q_scale = scalar_quantize(queries, form="reciprocal")
     q_norm2 = ((qq.float() * q_scale[:, None]) ** 2).sum(dim=1)
     return qq, q_scale, q_norm2
 

@@ -16,18 +16,23 @@ from typing import Optional
 
 import torch
 
-from neumann_tpu_torch.ops.quant import f32_pooled_topk, int8_pooled_topk
+from neumann_tpu_torch.ops.quant import (
+    f32_pooled_topk,
+    int8_pooled_topk,
+    int8_scale,
+)
 from neumann_tpu_torch.ops.scan import NEG_INF, _topk_stable
 
 
 def residual_quantize(x: torch.Tensor, q: torch.Tensor,
-                      scale: torch.Tensor):
+                      scale: torch.Tensor, form: str = "divide"):
     """Quantize the int8 reconstruction error as a second int8 plane:
     returns (rq int8 [N, d], rscale f32 [N]) with
-    ``x ~= q * scale + rq * rscale``."""
+    ``x ~= q * scale + rq * rscale``; the residual's scale in ``form``
+    (``ops/quant.int8_scale``), its values divided by it as
+    ``scalar_quantize`` divides."""
     res = x.float() - q.float() * scale[..., None]
-    am = res.abs().amax(dim=-1)
-    rscale = torch.where(am > 0, am / 127.0, torch.ones_like(am))
+    rscale = int8_scale(res.abs().amax(dim=-1), form)
     rq = torch.round(res / rscale[..., None]).clamp(-127, 127).to(torch.int8)
     return rq, rscale
 

@@ -209,7 +209,8 @@ class ShardedCorpus:
             buf = torch.zeros((per, self.dim_pad), device=dev)
             buf[:len(part), :d] = torch.from_numpy(part).to(dev)
             if self.quantized:
-                q, scale = scalar_quantize(buf)
+                # the JAX ShardedCorpus quantizes eagerly: true division
+                q, scale = scalar_quantize(buf, form="divide")
                 del buf
                 self.corpus.append(q)
                 self.scale.append(scale)
@@ -333,7 +334,8 @@ class ShardedIVFCorpus:
             int(counts[cs].sum()) for cs in shard_clusters)
         rows_s = max(window, -(-max_shard_rows // window) * window)
         c_per = rows_s // window          # probe domain: windows/shard
-        q8, scale = scalar_quantize(vp)
+        # the JAX ShardedIVFCorpus quantizes in numpy: true division
+        q8, scale = scalar_quantize(vp, form="divide")
         sq = (vp * vp).sum(dim=1)
         del vp
         # combined multiplier scale / ||x||: an int8 row times it is the

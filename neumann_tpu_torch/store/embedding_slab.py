@@ -8,7 +8,8 @@ half, copied. The views become torch tensors on the slab's device:
 * ``device_view`` flushes pending host mutations by scattering the dirty
   rows, or by a full upload past 1/8 of the capacity;
 * ``host_int8`` (the IVF build's input) quantizes on the device and
-  returns host planes bit-identical to the JAX slab's numpy quantizer;
+  returns host planes bit-identical to the JAX slab's numpy quantizer,
+  on the CPU and on the card;
 * ``quantized_view`` ("int8" | "int8c" | "f32c" | "binary") is
   recomputed on device when the slab version moves, and cached by
   version."""
@@ -215,12 +216,16 @@ class EmbeddingSlab:
         """Host int8 planes of the whole slab for IVF builds, as the JAX
         slab returns them — (q, scale) or (q, scale, rq, rscale) numpy
         arrays — but quantized on the slab's device, chunk by chunk, with
-        ``scalar_quantize`` / ``residual_quantize`` (absmax/127 scale,
-        divide, round half to even). The planes are bit-identical to the
-        JAX slab's numpy quantizer; its native C quantizer multiplies
-        by the reciprocal scale instead and can land one step away at a
-        rounding tie. This replaces a single-threaded host pass that took
-        67.5 s of a 73 s index build at 4.19M x 768 (H100 host)."""
+        ``scalar_quantize`` / ``residual_quantize`` in the "divide" form
+        (the scale absmax / 127 by true division, each value divided by
+        it, rounded half to even): the arithmetic of the JAX slab's numpy
+        quantizer, so the planes are bit-identical to its on the CPU and
+        on the card alike. Where the JAX slab's native C quantizer loads
+        (it takes precedence there), its scales are the same but it
+        multiplies each value by the reciprocal scale, and a value can
+        land one step away at a rounding tie. This replaces a
+        single-threaded host pass that took 67.5 s of a 73 s index build
+        at 4.19M x 768 (H100 host)."""
         with self._lock:
             host = self._host
             n = self._capacity
@@ -231,11 +236,11 @@ class EmbeddingSlab:
         for s in range(0, n, chunk_rows):
             e = min(n, s + chunk_rows)
             x = torch.from_numpy(host[s:e]).to(self.device)
-            qc, sc = scalar_quantize(x)
+            qc, sc = scalar_quantize(x, form="divide")
             q[s:e] = qc.cpu().numpy()
             scale[s:e] = sc.cpu().numpy()
             if residual:
-                rqc, rsc = residual_quantize(x, qc, sc)
+                rqc, rsc = residual_quantize(x, qc, sc, form="divide")
                 rq[s:e] = rqc.cpu().numpy()
                 rscale[s:e] = rsc.cpu().numpy()
         return (q, scale, rq, rscale) if residual else (q, scale)
@@ -299,9 +304,12 @@ class EmbeddingSlab:
             q = torch.empty(emb.shape, dtype=torch.int8, device=emb.device)
             scale = torch.empty(emb.shape[0], dtype=torch.float32,
                                 device=emb.device)
+            # the reciprocal form: the JAX slab quantizes its device view
+            # under jax.jit
             for s in range(0, emb.shape[0], _QUANT_CHUNK_ROWS):
                 q[s:s + _QUANT_CHUNK_ROWS], scale[s:s + _QUANT_CHUNK_ROWS] = \
-                    scalar_quantize(emb[s:s + _QUANT_CHUNK_ROWS])
+                    scalar_quantize(emb[s:s + _QUANT_CHUNK_ROWS],
+                                    form="reciprocal")
             out = (q, scale, valid)
         elif mode == "int8c":
             q, scale, valid = self.quantized_view("int8")

@@ -2,7 +2,7 @@
 """Run ``chip_smoke.py``'s serving phases alone on one NVIDIA card: the
 auto-IVF router of phases 3-6 with phases 17, 12a and 19a (served over
 HTTP, then over gRPC), then the brute-force router of phases 7-9 with
-phases 12b, 19b and 18a, then phase 14 (the pq and tt collections, with
+phases 12b, 19b and 20, then phase 14 (the pq and tt collections, with
 row 8's repeated single-query check). The phases themselves are
 unchanged, gates included; ``--pooled-rows`` may cut phases 7-9 below
 ``chip_smoke.py``'s 1,048,576 rows (with ``--no-pq``: phase 14's gate on
@@ -73,6 +73,7 @@ def main() -> int:
     shared = {}
     report.update(cs.run_brute(args, dev, centres, *root.spawn(2), True,
                                shared))
+    shared.pop("router")    # phases 7-9's router, kept for phase 21
     torch.cuda.empty_cache()
     if not args.no_pq:
         rec = {"library": cs.ADC_LIBRARY}

@@ -158,22 +158,21 @@ def test_wrapper_takes_the_plain_version_only_on_the_cpu():
 @pytest.mark.parametrize("q", [1, 4, 16, 17, 1024, 5000])
 @pytest.mark.parametrize("k,select", [(10, True), (64, True), (0, False)])
 def test_exact_plan_covers_the_rows(n, q, k, select):
-    """The plan the kernel validates: every row in one part, no empty
-    part, whole tiles a part (256 rows up to 16 queries, else 128), at
-    most one wave in select mode where the rows allow it: two blocks a SM
-    at k 10, one batch block a SM at k 64 (its keys fill shared memory)."""
-    parts, span = tk._exact_plan(n, q, k, select, sms=132)
-    tile = 256 if q <= 16 else 128
-    assert span % tile == 0 and span >= tile
+    """The plan the kernel validates, one for both modes and every k (the
+    selection's shared memory does not grow with k): every row in one
+    part, no empty part, whole 128-row tiles a part, at most one wave
+    where the rows allow it: two blocks of 8 or 16 queries a SM up to 16
+    queries, one block of 128 above."""
+    parts, span = tk._exact_plan(n, q, sms=132)
+    assert span % 128 == 0 and span >= 128
     assert parts * span >= n and (parts - 1) * span < n
-    if select:
-        qblocks = 1 if q <= 16 else -(-q // 128)
-        per_sm = 1 if q > 16 and k == 64 else 2
-        assert parts * qblocks <= max(per_sm * 132, qblocks)
-        if n >= 1 << 22:
-            assert parts * qblocks > (per_sm * 132) // 2
-    else:
-        assert span == tile
+    qblocks = 1 if q <= 16 else -(-q // 128)
+    per_sm = 2 if q <= 16 else 1
+    assert parts * qblocks <= max(per_sm * 132, qblocks)
+    if n >= 1 << 22:
+        assert parts * qblocks > (per_sm * 132) // 2
+    nq = 8 if q <= 8 else (16 if q <= 16 else 128)
+    assert tk._exact_block_queries(q) == (nq, qblocks * nq)
 
 
 @pytest.fixture(scope="module")

@@ -37,7 +37,14 @@ multiple of its tiles), d 768, 100 and 77 (byte loads), k 1, 10, 64 and
 65 (both modes), 160 equal rows across tiles and the k-th place, 1 %
 dead rows, all rows dead, fewer live rows than k; scores within 1e-5 of
 the plain version and ids equal but at near ties, equal scores by
-ascending row; both kernels and both modes bit-equal to each other.
+ascending row; both kernels and both modes bit-equal to each other; the
+8-query blocks (Q 1, 8) bit-equal to the 128-query ones; d 1,536 (the
+few-query blocks stage their query parts with the rows). The int8
+quantizers: each scale form of ``ops/quant.int8_scale``, the residual
+plane, the query planes, the slab's ``host_int8`` and
+``quantized_view("int8")`` and a quantized ``ShardedCorpus`` give the
+CPU's bits on the card, on rows whose absmax values tell the two forms
+apart, with entries at and near rounding ties.
 ADC scan: M 8 to 392 (both sides of its 48-subspace shared-memory chunk,
 M not a multiple of 4), Q 1 to 1,025, N not a multiple of a block's
 rows, dead rows, the gathered mode with -1 and repeated candidates; bit
@@ -759,3 +766,107 @@ def test_rollback_under_device_views(cuda, tmp_path, monkeypatch):
     assert hits() == before
     for kernel in stmts:
         assert tk.LAUNCHES[kernel] >= len(stmts[kernel]), dict(tk.LAUNCHES)
+
+
+def _tie_rows(seed: int, n: int, d: int):
+    """[n, d] f32 rows whose absmax values tell the int8 scale's two
+    forms apart (absmax / 127 against absmax * float32(1 / 127)), one
+    entry of each row (m + 1/2) steps of its divided scale, and a last
+    row of absmax 127 whose entries 2.5, -3.5, 0.5 divide by the scale 1
+    to exact halves (rounded half to even: 2, -4, 0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.5, 8.0, 40 * n).astype(np.float32)
+    inv = np.float32(1.0) / np.float32(127.0)
+    a = a[(a / np.float32(127.0)) != a * inv][:n - 1]
+    x = (rng.uniform(-1.0, 1.0, (n - 1, d)) * a[:, None]).astype(np.float32)
+    x[:, 0] = np.where(rng.random(n - 1) < 0.5, -a, a)
+    x[:, 1] = ((rng.integers(-120, 120, n - 1) + 0.5)
+               * (a / np.float32(127.0))).astype(np.float32)
+    tie = np.zeros((1, d), np.float32)
+    tie[0, :4] = (127.0, 2.5, -3.5, 0.5)
+    return np.concatenate([x, tie])
+
+
+# the int8 quantizers (ops/quant.int8_scale): each scale form, and the
+# sites that quantize on the slab's or the shard's device, give the CPU's
+# bits on the card; on rows whose absmax values tell the forms apart,
+# with entries at and near rounding ties
+@pytest.mark.cuda
+def test_quantizers_give_the_cpu_bits(cuda):
+    from neumann_tpu_torch.ops import quant as tq
+    from neumann_tpu_torch.ops.rerank import residual_quantize
+    from neumann_tpu_torch.parallel.mesh import make_mesh
+    from neumann_tpu_torch.parallel.sharded_search import ShardedCorpus
+    from neumann_tpu_torch.store.embedding_slab import EmbeddingSlab
+
+    def same(got, want):
+        for g, w in zip(got, want):
+            g = g.cpu() if isinstance(g, torch.Tensor) else torch.from_numpy(g)
+            w = w if isinstance(w, torch.Tensor) else torch.from_numpy(w)
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(g.view(torch.uint8) if g.dtype == torch.int8
+                               else g.view(torch.int32),
+                               w.view(torch.uint8) if w.dtype == torch.int8
+                               else w.view(torch.int32)), int((g != w).sum())
+
+    n, d = 1001, 768
+    x = torch.from_numpy(_tie_rows(20, n, d))
+    planes = {}
+    for form in tq.SCALE_FORMS:
+        want = tq.scalar_quantize(x, form=form)
+        same(tq.scalar_quantize(x.to(cuda), form=form), want)
+        same(residual_quantize(x.to(cuda), *(t.to(cuda) for t in want),
+                               form=form),
+             residual_quantize(x, *want, form=form))
+        planes[form] = want
+    assert (planes["divide"][1] != planes["reciprocal"][1])[:-1].all()
+    assert planes["divide"][0][-1, :4].tolist() == [127, 2, -4, 0]
+    same(tq._quantize_queries(x.to(cuda))[:2], tq._quantize_queries(x)[:2])
+    slabs = [EmbeddingSlab(d, device=dev) for dev in (cuda, "cpu")]
+    for slab in slabs:
+        slab.set_rows(torch.arange(n).numpy(), x.numpy())
+    same(slabs[0].host_int8(residual=True), slabs[1].host_int8(residual=True))
+    same(slabs[0].quantized_view("int8")[:2],
+         slabs[1].quantized_view("int8")[:2])
+    shards = [ShardedCorpus(make_mesh(1, device=dev), d, quantized=True)
+              for dev in (cuda, "cpu")]
+    for sc in shards:
+        sc.load(x.numpy())
+    same((shards[0].corpus[0], shards[0].scale[0]),
+         (shards[1].corpus[0], shards[1].scale[0]))
+
+
+# row 9 past the width whose 16 queries' parts stay in shared memory (d
+# 768): the 16-query kernel stages them with each stage's rows; equal to
+# the plain version as above, and to the 128-query kernel bit for bit
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", (10, 65))
+def test_int8_exact_wide_rows_stage_the_queries(cuda, k):
+    from neumann_tpu_torch.ops import kernels as tk
+
+    c, rm, qf = _exact_case(cuda, 5003, 1536, 17, seed=k)
+    for q in (1, 16, 17):
+        got = tk.int8_exact_topk(c, rm, qf[:q], k)
+        _assert_exact_close(got, tk.int8_exact_topk_plain(c, rm, qf[:q],
+                                                          k + 1), k)
+        assert got[1][0].tolist() == list(range(97, 97 + k))
+    a = tk.int8_exact_topk(c, rm, qf[:16], k)
+    b = tk.int8_exact_topk(c, rm, qf, k)
+    assert torch.equal(a[0], b[0][:16]) and torch.equal(a[1], b[1][:16])
+
+
+# row 9's 8-query blocks (Q <= 8) against its 128-query blocks (Q 17),
+# bit for bit: one order of sums on every wgmma width
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", EXACT_SHAPES)
+def test_int8_exact_eight_query_blocks_agree(cuda, n, d):
+    from neumann_tpu_torch.ops import kernels as tk
+
+    c, rm, qf = _exact_case(cuda, n, d, 17, seed=3 * d)
+    for k in (10, 65):
+        b = tk.int8_exact_topk(c, rm, qf, k)
+        for q in (1, 8):
+            a = tk.int8_exact_topk(c, rm, qf[:q], k)
+            assert torch.equal(a[0], b[0][:q]) and torch.equal(a[1], b[1][:q])

@@ -105,12 +105,15 @@ def test_int8_dot_scores_plain_bit_exact_with_pallas(corpus):
 @pytest.mark.parametrize("metric", ["cosine", "dot", "euclidean"])
 @pytest.mark.parametrize("blocked", [False, True])
 def test_int8_topk_scan_matches_jax(corpus, metric, blocked):
+    """Against the scan as the JAX package runs it, under ``jax.jit``
+    (``int8_topk_scan_jit``; the engine jits it too): its query scales
+    are absmax * float32(1 / 127), as the port's query planes are."""
     C = corpus
     rows = 1000 if blocked else 512 * 1024
-    want = jq.int8_topk_scan(jnp.asarray(C["cq"]), jnp.asarray(C["cs"]),
-                             jnp.asarray(C["qs"]), 10, metric,
-                             jnp.asarray(C["mask"]),
-                             block_rows=1024 if blocked else 512 * 1024)
+    want = jq.int8_topk_scan_jit(
+        jnp.asarray(C["cq"]), jnp.asarray(C["cs"]), jnp.asarray(C["qs"]),
+        10, metric, jnp.asarray(C["mask"]),
+        block_rows=1024 if blocked else 512 * 1024)
     got = tq.int8_topk_scan(_t(C["cq"]), _t(C["cs"]), _t(C["qs"]), 10,
                             metric, _t(C["mask"]), block_rows=rows)
     tol = TOL * (100 if metric == "euclidean" else 1)
