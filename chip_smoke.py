@@ -26,10 +26,13 @@ Phases (each raises on failure; exit code 0 only if all pass):
    native entry and the pure-Python parser (medians, equal ASTs);
 2. hold each kernel against its plain PyTorch version on the card at
    its path's shapes, timing both with CUDA events (probe: 32 queries x
-   81 probes x 1,024-row windows x 768; batched top-2: 4,096 windows x
+   81 probes x 1,024-row windows x 768, and 1 query, phase 4's single
+   launch, also by torch.profiler; batched top-2: 4,096 windows x
    64 slots; int8 scores: 64 x 1,048,576 x 768, and 1 x 524,288 x 768,
    one block of the int8 euclidean scan's single query; int8 and f32 pooled
-   bits: 8 and 1,024 queries x 1,048,576 x 768 at pool 512; hamming:
+   bits: 8 and 1,024 queries x 1,048,576 x 768 at pool 512, the f32
+   kernel's 1,024 on the TF32 tensor cores as split products, bound by
+   its three TF32 passes with the FFMA's bound beside; hamming:
    1,024 and 1 queries x 131,072 rows x 24 words, the TOP 65 route's
    launch, bit-exact; hamming top-10: 1,024 and 1 queries x 1,048,576
    rows x 24 words with 1 % dead rows, scores and ids equal; both hamming
@@ -449,6 +452,10 @@ F32_FLOPS_PER_S = 67e12
 # dense bf16 on the tensor cores (row 9 runs its f32 products there as
 # three bf16 passes; its record keeps the FFMA bound beside)
 BF16_FLOPS_PER_S = 989e12
+# dense TF32 on the tensor cores (row 6 above 16 queries runs its f32
+# products there as three TF32 passes; its record keeps the FFMA bound
+# beside)
+TF32_FLOPS_PER_S = 495e12
 # hamming's popcounts have no published peak: the issue rate of the CUDA
 # C++ Programming Guide's throughput table (16 POPC per SM per clock) at
 # 132 SMs and the 1,980 MHz boost clock, reported beside the bytes bound
@@ -642,7 +649,7 @@ TRACE_KERNELS = {
     "batched_probe_top1": ("batched_probe_kernel",),
     "int8_dot_scores": ("int8_kernel", "int8_tma_kernel"),
     "int8_pooled_bits": ("int8_kernel", "int8_tma_kernel"),
-    "f32_pooled_bits": ("stream_kernel", "batch_kernel"),
+    "f32_pooled_bits": ("stream_kernel", "tf32_kernel"),
     "hamming_scores": ("hamming_few_kernel", "hamming_batch_kernel"),
     "hamming_topk": ("hamming_topk_kernel",),
     "pq_adc": ("pq_adc_kernel",),
@@ -1009,6 +1016,7 @@ def check_kernels(dev, rows: int, seed: int) -> dict:
     say(f"[2] ivf_probe kernel vs plain: max_abs_err {err:.3g} "
         f"(atol {PROBE_ATOL}); kernel {out['ivf_probe']['ms']:.4f} ms, "
         f"plain {out['ivf_probe']['plain_ms']:.4f} ms")
+    out["ivf_probe"].update(probe_single(buf, rm, sb[:1], qs[:1], window))
     del got, want, live, sb, qs
 
     n_win, q_cap = rows // window, 64
@@ -1072,6 +1080,49 @@ def check_kernels(dev, rows: int, seed: int) -> dict:
     del got, want, qsel, scm, b, rm2, buf, rm
     out["batched_probe"].update(check_batched_probe_wide(dev, seed, window))
     return out
+
+
+def probe_single(buf, rm, sb, q, window: int) -> dict:
+    """Row 1 at A's single-query launch (``_q1``: phase 4's singles, one
+    query's nprobe windows): held to the plain version as at Q 32, its
+    kernel time from torch.profiler (CUDA events over back-to-back calls
+    measure the host's launch rate at one query) and by events, and its
+    bound: the distinct 128-row blocks of its windows read once."""
+    import torch
+
+    from neumann_tpu_torch.ops import kernels as tk
+
+    got = tk.ivf_probe_scores(buf, rm, sb, q, window)
+    want = tk.ivf_probe_scores_plain(buf, rm, sb, q, window)
+    torch.cuda.synchronize()
+    if not torch.equal(torch.isneginf(got), torch.isneginf(want)):
+        raise AssertionError("ivf_probe at Q 1: -inf slots differ from "
+                             "plain")
+    live = torch.isfinite(want)
+    err = float((got[live] - want[live]).abs().max())
+    if not err <= PROBE_ATOL:
+        raise AssertionError(f"ivf_probe at Q 1: max |kernel - plain| {err}"
+                             f" > {PROBE_ATOL}")
+    rows = buf.shape[0]
+    blocks = (sb.long()[:, :, None]
+              + torch.arange(window // 128, device=buf.device)).unique()
+    blocks = int((blocks < rows // 128).sum())
+    nprobe = sb.shape[1]
+    rec = {f"{k}_q1": v for k, v in bound(
+        blocks * 128 * (DIM + 4) + nbytes(sb, q, got),
+        2 * nprobe * window * DIM, F32_FLOPS_PER_S).items()}
+    call = lambda: tk.ivf_probe_scores(buf, rm, sb, q, window)  # noqa: E731
+    rec.update(max_abs_err_q1=err, distinct_blocks_q1=blocks,
+               ms_q1=cuda_ms(call, 200),
+               device_ms_q1=device_ms(call, 50, "ivf_probe_q1"),
+               plain_ms_q1=cuda_ms(lambda: tk.ivf_probe_scores_plain(
+                   buf, rm, sb, q, window), 3),
+               shape_q1=f"Q=1 nprobe={nprobe} window={window} d={DIM}")
+    say(f"[2] ivf_probe at Q 1: max_abs_err {err:.3g}; kernel "
+        f"{ms_text(rec['device_ms_q1'], 4)} ms (device; "
+        f"{rec['ms_q1']:.4f} by events), bound {rec['bound_ms_q1']:.4f} ms "
+        f"({rec['bound_by_q1']}), plain {rec['plain_ms_q1']:.4f} ms")
+    return rec
 
 
 def check_batched_probe_wide(dev, seed: int, window: int) -> dict:
@@ -1251,10 +1302,12 @@ def check_new_kernels(dev, seed: int) -> dict:
             key = "" if q == N_BATCH else f"_q{q}"
             rec[f"max_abs_err{key}"] = err
             int8 = name == "int8_pooled_bits"
-            for k, v in bound(nbytes(*a, got), 2 * q * n * DIM,
-                              INT8_OPS_PER_S if int8
-                              else F32_FLOPS_PER_S).items():
-                rec[f"{k}{key}"] = v
+            if int8:
+                for k, v in bound(nbytes(*a, got), 2 * q * n * DIM,
+                                  INT8_OPS_PER_S).items():
+                    rec[f"{k}{key}"] = v
+            else:
+                f32_bounds(rec, key, nbytes(*a, got), 2 * q * n * DIM)
             if q == N_BATCH:
                 # the same product by one library call (TF32 off, stated
                 # here as well as by the package); no scaling, no pools
@@ -1297,6 +1350,17 @@ def check_new_kernels(dev, seed: int) -> dict:
     return out
 
 
+def f32_bounds(rec: dict, sfx: str, n_bytes: int, flop: float) -> None:
+    """Row 6's bounds into ``rec`` under suffix ``sfx``: the bytes, and
+    the f32 product's ``flop`` as the three TF32 passes on the tensor
+    cores (the kernel's split above 16 queries: the least the card could
+    take for f32-level dots); the FFMA's bound of one f32 pass beside."""
+    for k, v in bound(n_bytes, 3 * flop, TF32_FLOPS_PER_S).items():
+        rec[f"{k}{sfx}"] = v
+    rec[f"ffma_bound_ms{sfx}"] = bound(n_bytes, flop,
+                                       F32_FLOPS_PER_S)["bound_ms"]
+
+
 def check_f32_pooled_hybrid(x, rm, bias, q, qm) -> dict:
     """Row 6 at phase 11's own launch (``_hyb``): FIND's one query against
     the 262,144-row entity corpus at its gate's pool of 128; the same
@@ -1324,8 +1388,8 @@ def check_f32_pooled_hybrid(x, rm, bias, q, qm) -> dict:
         raise AssertionError(
             f"f32_pooled_bits at phase 11's shape: max decoded err {err} "
             f"(atol {atol}), winners agree {agree}")
-    rec = {f"{k}_hyb": v for k, v in bound(
-        nbytes(*a, got), 2 * n * DIM, F32_FLOPS_PER_S).items()}
+    rec = {}
+    f32_bounds(rec, "_hyb", nbytes(*a, got), 2 * n * DIM)
     # the library yardstick at this shape: the product and the per-pool
     # max (no row bias, no winner bits), TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1799,10 +1863,31 @@ def recall(got_rows, truth: np.ndarray) -> float:
                           for g, t in zip(got_rows, truth)]))
 
 
-def run(args, dev, config=None, on_card: bool = True) -> dict:
+# run()'s groups of phases, in the order they run: the native parse (1),
+# the auto-IVF path (3-6, 17, 12a, 19a), the brute-force routes (7-9,
+# 12b, 19b, 20), the mesh (21), pq / tt (14), the ANN indexes (15), the
+# extended modules (16, 18a), equal scores (22), the wide binary
+# collection (10), the hybrid query (11), the shell (13) and the chain's
+# classification and clusters (18b-d)
+PHASES = ("parse", "ivf", "brute", "mesh", "quantized", "ann", "extended",
+          "ties", "wide", "hybrid", "shell", "cluster")
+# the groups that take phases 7-9's rows and queries
+BRUTE_DATA = ("brute", "mesh", "quantized", "ann", "extended", "ties")
+
+
+def run(args, dev, config=None, on_card: bool = True,
+        phases=None) -> dict:
     """All phases on ``dev``. ``config`` (a VectorEngineConfig) and
     on_card=False exist only to rehearse the control flow on the CPU at
-    a toy size: phases 1-2 and the launch checks need the card."""
+    a toy size: phases 1-2 and the launch checks need the card.
+    ``phases`` (names of PHASES; all by default) runs some groups alone,
+    each on the data it would have in the whole run (the seeds are drawn
+    in the same order), for the rehearsal's tests; the card run takes
+    them all."""
+    phases = set(PHASES if phases is None else phases)
+    if phases - set(PHASES) or (on_card and phases != set(PHASES)):
+        raise ValueError(f"phases {sorted(phases)}: names of {PHASES}, "
+                         f"all of them on the card")
     import torch
 
     import neumann_tpu_torch  # noqa: F401  (sets TF32 off)
@@ -1844,14 +1929,16 @@ def run(args, dev, config=None, on_card: bool = True) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
-    report.update(check_native_parse(args.seed))
+    if "parse" in phases:
+        report.update(check_native_parse(args.seed))
 
     root = np.random.SeedSequence(args.seed)
     s_centres, s_corpus, s_queries = root.spawn(3)
     centres = np.random.default_rng(s_centres).standard_normal(
         (N_CENTRES, DIM)).astype(np.float32)
-    report.update(run_ivf(args, dev, centres, s_corpus, s_queries, config,
-                          on_card))
+    if "ivf" in phases:
+        report.update(run_ivf(args, dev, centres, s_corpus, s_queries,
+                              config, on_card))
     # phases 1-6's router is gone with run_ivf's frame; give its memory
     # back before the brute-force corpora
     gc.unfreeze()
@@ -1863,54 +1950,73 @@ def run(args, dev, config=None, on_card: bool = True) -> dict:
         torch.cuda.reset_peak_memory_stats()
     s_corpus7, s_queries7 = root.spawn(2)
     shared = {}
-    report.update(run_brute(args, dev, centres, s_corpus7, s_queries7,
-                            on_card, shared))
+    if "brute" in phases:
+        report.update(run_brute(args, dev, centres, s_corpus7, s_queries7,
+                                on_card, shared))
+    elif phases & set(BRUTE_DATA):
+        shared.update(zip(("corpus", "queries"), brute_data(
+            args, centres, s_corpus7, s_queries7)))
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     # ---- phase 21: the same rows on a mesh of logical devices ----------
-    report.update(run_mesh(args, dev, shared["corpus"], shared["queries"],
-                           on_card, report, router=shared.pop("router")))
-    for name, rec in report.pop("mesh_kernels", {}).items():
-        report["kernels"][name].update(rec)
-    gc.collect()
-    if on_card:
-        torch.cuda.empty_cache()
+    if "mesh" in phases:
+        report.update(run_mesh(args, dev, shared["corpus"],
+                               shared["queries"], on_card, report,
+                               router=shared.pop("router", None)))
+        for name, rec in report.pop("mesh_kernels", {}).items():
+            report["kernels"][name].update(rec)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    shared.pop("router", None)
     adc_recs = ((report["kernels"]["pq_adc"],
                  report["kernels"]["pq_adc_select"]) if on_card else None)
-    report.update(run_quantized(args, dev, shared["corpus"],
-                                shared["queries"], on_card, adc_recs))
-    gc.collect()
-    if on_card:
-        torch.cuda.empty_cache()
-    report.update(run_ann(args, dev, shared["corpus"], shared["queries"],
-                          on_card, adc_recs))
-    gc.collect()
-    if on_card:
-        torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    report.update(run_extended(args, dev, shared["corpus"],
-                               shared["queries"], on_card, chain=True))
-    report["extended_s"] = (time.perf_counter() - t0
-                            - report["phase18a_s"])
-    report.update(run_ties(dev, shared["corpus"], shared["queries"],
-                           on_card))
+    if "quantized" in phases:
+        report.update(run_quantized(args, dev, shared["corpus"],
+                                    shared["queries"], on_card, adc_recs))
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    if "ann" in phases:
+        report.update(run_ann(args, dev, shared["corpus"],
+                              shared["queries"], on_card, adc_recs))
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    if "extended" in phases:
+        t0 = time.perf_counter()
+        report.update(run_extended(args, dev, shared["corpus"],
+                                   shared["queries"], on_card, chain=True))
+        report["extended_s"] = (time.perf_counter() - t0
+                                - report["phase18a_s"])
+    if "ties" in phases:
+        report.update(run_ties(dev, shared["corpus"], shared["queries"],
+                               on_card))
     del shared
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    report.update(run_wide(args, dev, *root.spawn(3), on_card))
-    gc.collect()
-    if on_card:
-        torch.cuda.empty_cache()
-    report.update(run_hybrid(args, dev, centres, *root.spawn(3), on_card))
-    gc.collect()
-    report.update(run_shell(dev))
-    gc.collect()
-    report.update(run_chain_cluster(args, dev, centres, *root.spawn(2),
-                                    on_card))
+    s_wide = root.spawn(3)
+    if "wide" in phases:
+        report.update(run_wide(args, dev, *s_wide, on_card))
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    s_hybrid = root.spawn(3)
+    if "hybrid" in phases:
+        report.update(run_hybrid(args, dev, centres, *s_hybrid, on_card))
+        gc.collect()
+    if "shell" in phases:
+        report.update(run_shell(dev))
+        gc.collect()
+    s_cluster = root.spawn(2)
+    if "cluster" in phases:
+        report.update(run_chain_cluster(args, dev, centres, *s_cluster,
+                                        on_card))
     report["launches"] = {
-        name: sum(report[f"launches_{ph}"].get(name, 0) for ph in ROUTES)
+        name: sum(report.get(f"launches_{ph}", {}).get(name, 0)
+                  for ph in ROUTES)
         for name in tk.LAUNCHES}
     if on_card:
         missing = [n for n, c in report["launches"].items() if c <= 0]
@@ -2575,6 +2681,13 @@ def latency_stats(report: dict, prefix: str, lat) -> None:
     report[f"{prefix}_p99_ms"] = float(np.percentile(lat[1:], 99))
 
 
+def brute_data(args, centres, s_corpus, s_queries) -> tuple:
+    """Phases 7-9's rows (--pooled-rows) and their queries (singles, the
+    batch, the filtered), which phases 14-16, 21 and 22 take too."""
+    return (mixture(args.pooled_rows, centres, s_corpus),
+            mixture(N_SINGLE + N_BATCH + N_FILTERED, centres, s_queries))
+
+
 def run_brute(args, dev, centres, s_corpus, s_queries,
               on_card: bool, shared: dict) -> dict:
     """Phases 7-9: the brute-force routes at --pooled-rows (f32 pooled,
@@ -2595,8 +2708,7 @@ def run_brute(args, dev, centres, s_corpus, s_queries,
     n = args.pooled_rows
     report = {}
     t0 = time.perf_counter()
-    corpus = mixture(n, centres, s_corpus)
-    queries = mixture(N_SINGLE + N_BATCH + N_FILTERED, centres, s_queries)
+    corpus, queries = brute_data(args, centres, s_corpus, s_queries)
     single = queries[:N_SINGLE]
     batch = queries[N_SINGLE:N_SINGLE + N_BATCH]
     extra = queries[N_SINGLE + N_BATCH:]
@@ -7149,7 +7261,7 @@ def kernels_line(report: dict) -> dict:
         for extra in ("bytes_bound_ms", "ops_bound_ms",
                       "popc_issue_bound_ms", "int8_rate_ms", "b1_ops_per_s",
                       "kernel_ms", "unselected_ms", "device_ms", "design",
-                      "plan", "scores_topk_ms"):
+                      "plan", "scores_topk_ms", "ffma_bound_ms"):
             if extra in rec:
                 row[extra] = rec[extra]
         for sfx in SHAPE_SUFFIXES:   # the other shapes a kernel serves
@@ -7159,7 +7271,8 @@ def kernels_line(report: dict) -> dict:
                     "bytes_bound_ms", "ops_bound_ms", "kernel_ms",
                     "unselected_ms", "device_ms", "library_ms",
                     "library_device_ms", "library", "plan", "shape",
-                    "library_max_abs_err", "scores_topk_ms")
+                    "library_max_abs_err", "scores_topk_ms",
+                    "ffma_bound_ms")
                     if f"{k}{sfx}" in rec})
                 row[f"roofline_share{sfx}"] = (rec[f"bound_ms{sfx}"]
                                                / rec[f"ms{sfx}"])

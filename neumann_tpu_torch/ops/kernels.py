@@ -16,7 +16,9 @@ that XLA fuses on the TPU.
 * ``int8_pooled_bits`` (``csrc/int8_scores.cu``) and ``f32_pooled_bits``
   (``csrc/f32_pooled.cu``) replace the XLA-fused pooled-bits steps of
   ``ops/quant.int8_pooled_topk`` / ``f32_pooled_topk``: consecutive
-  pools, packed winner bits, scores never in device memory.
+  pools, packed winner bits, scores never in device memory; above 16
+  queries the f32 dots are split TF32 products on the tensor cores
+  (``_tf32_split``: each operand as two TF32 parts).
 * ``hamming_scores`` (``csrc/hamming.cu``) replaces the Pallas
   ``_hamming_kernel`` (``hamming_scores``), and ``hamming_topk``
   (``csrc/hamming_topk.cu``) replaces ``hamming_topk_pallas`` with the
@@ -163,7 +165,7 @@ def build_kernels(verbose: bool = False) -> ctypes.CDLL:
                 ("neumann_int8_pooled_bits",
                  [vp, vp, vp, vp, vp, vp, i32, i64, i32, i32, vp]),
                 ("neumann_f32_pooled_bits",
-                 [vp, vp, vp, vp, vp, vp, i32, i64, i32, i32, vp]),
+                 [vp, vp, vp, vp, vp, vp, i32, i64, i32, i32, i32, vp]),
                 ("neumann_hamming_scores", [vp, vp, vp, i64, i32, i32, vp]),
                 ("neumann_hamming_topk",
                  [vp, vp, vp, vp, vp, i64, i32, i32, i32, i64, i32, i32,
@@ -595,6 +597,60 @@ def int8_pooled_bits(corpus_q, row_mult, bias, queries_q, q_mult,
 # kernel 6: f32 pooled bits
 # ---------------------------------------------------------------------------
 
+# Up to _F32_STREAM_Q queries, and for rows narrower than a stage, the
+# kernel's FFMA stream blocks take the f32 queries; above, its TF32
+# tensor-core blocks (32, 64 or 128 queries a block) take their split
+# parts, stages of _F32_STAGE_K K
+_F32_STREAM_Q = 16
+_F32_STAGE_K = 32
+
+
+def _f32_block_queries(q: int):
+    """(queries a block, Q padded to a multiple of it) of the TF32
+    blocks (csrc/f32_pooled.cu picks the same by Q)."""
+    nq = 32 if q <= 32 else (64 if q <= 64 else 128)
+    return nq, -(-q // nq) * nq
+
+
+def _tf32_rna(x):
+    """Finite f32 values rounded to TF32 (10 mantissa bits, the low 13
+    bits zero), to nearest with ties away from zero: PTX's
+    ``cvt.rna.tf32.f32``."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_split(x):
+    """(big, small) f32 of x's shape, the TF32 parts the kernel takes:
+    big = rna(x), small = rna(x - big) (the difference exact in f32).
+    Each part keeps 11 significant bits, so x - big - small is at most
+    2^-22 |x|. An inf or NaN x is its own big part, with small 0."""
+    fin = torch.isfinite(x)
+    big = torch.where(fin, _tf32_rna(x), x)
+    small = _tf32_rna(torch.where(fin, x - big, torch.zeros_like(x)))
+    return big, small
+
+
+def _f32_parts(queries):
+    """The TF32 blocks' queries [Q, d]: [2, qp, ldq] f32, big and small
+    of ``_tf32_split``, zero past the Q queries and past d; qp of
+    ``_f32_block_queries``, ldq the least multiple of _F32_STAGE_K >= d.
+    Within each 32 columns, column 8 j + 4 e + t (K place t + 4 e of the
+    wgmma's K step j) holds query column 8 t + 2 j + e: the row float that
+    lane t reads there (csrc/f32_pooled.cu)."""
+    q, d = queries.shape
+    _, qp = _f32_block_queries(q)
+    ldq = -(-d // _F32_STAGE_K) * _F32_STAGE_K
+    x = queries.new_zeros((qp, ldq))
+    x[:q, :d] = queries
+    parts = torch.empty((2, qp, ldq), dtype=torch.float32,
+                        device=queries.device)
+    # the columns as [block][t][j][e], laid out in [block][j][e][t] order
+    dst = parts.view(2, qp, ldq // 32, 4, 2, 4)
+    for i, part in enumerate(_tf32_split(x)):
+        dst[i].copy_(part.view(qp, ldq // 32, 4, 4, 2).permute(0, 1, 3, 4, 2))
+    return parts
+
+
 def f32_pooled_bits_plain(corpus, row_mult, bias, queries, q_mult,
                           pool: int):
     """Plain PyTorch version of ``f32_pooled_bits``: an f32 matmul (no
@@ -613,7 +669,10 @@ def f32_pooled_bits_plain(corpus, row_mult, bias, queries, q_mult,
 def f32_pooled_bits(corpus, row_mult, bias, queries, q_mult, pool: int):
     """Packed pool winners of the f32 cosine scan (the XLA-fused step of
     the JAX package's ``f32_pooled_topk``): as ``int8_pooled_bits`` with
-    an f32 corpus [N, d] and f32 queries [Q, d], dots in full f32."""
+    an f32 corpus [N, d] and f32 queries [Q, d], f32 dots. On the card,
+    up to 16 queries one FFMA a term; above, the split TF32 products of
+    ``_tf32_split`` on the tensor cores (csrc/f32_pooled.cu: within
+    2^-18 sum |x_k c_k| of the exact dot, equal rows bit-equal)."""
     dev = corpus.device
     _check("corpus", corpus, torch.float32, 2, dev)
     _check("row_mult", row_mult, torch.float32, 1, dev)
@@ -634,14 +693,21 @@ def f32_pooled_bits(corpus, row_mult, bias, queries, q_mult, pool: int):
     _cuda_ready("f32_pooled_bits", dev, d, 16, q,
                 (("corpus", corpus), ("row_mult", row_mult), ("bias", bias),
                  ("queries", queries), ("q_mult", q_mult)))
+    if n >= 1 << 31:
+        raise ValueError(f"f32_pooled_bits kernel takes fewer than 2^31 "
+                         f"rows a launch ({n})")
     lib = build_kernels()
     out = torch.empty((q, n // pool), dtype=torch.int32, device=dev)
     if q and n:
+        x, ldq = queries, d
+        if q > _F32_STREAM_Q and d >= _F32_STAGE_K:
+            x = _f32_parts(queries)
+            ldq = x.shape[2]
         with torch.cuda.device(dev):
             err = lib.neumann_f32_pooled_bits(
-                queries.data_ptr(), corpus.data_ptr(), q_mult.data_ptr(),
+                x.data_ptr(), corpus.data_ptr(), q_mult.data_ptr(),
                 row_mult.data_ptr(), bias.data_ptr(), out.data_ptr(), q, n,
-                d, pool, _stream())
+                d, ldq, pool, _stream())
         _raise_on(err, "f32_pooled_bits")
         LAUNCHES["f32_pooled_bits"] += 1
     return out

@@ -16,8 +16,6 @@ pools, not a power of two — so a batch of 40 runs the non-fast batched
 variant in both packages; both are held to the exact oracle.
 """
 
-import os
-
 import numpy as np
 import pytest
 
@@ -401,63 +399,16 @@ def test_chip_smoke_shell_text_tolerance():
 
 
 def test_chip_smoke_rehearses_on_cpu(monkeypatch):
-    """chip_smoke.py's phases 1 and 3-15 (the native parse check, corpus,
-    counted auto-IVF path, recall against the exact scan, delta rescan;
-    then the pooled, int8 and binary routes, the 3,072-d binary
-    collection and the hybrid query with their checks; the served
-    auto-IVF and brute-force routes over HTTP and over gRPC; the shell;
-    the pq and tt
-    collections and the ANN index APIs; the chain, the consensus
-    classification and the clusters of phase 18; SIMILAR scattered over
-    three shard-server processes, phase 20; the same rows on a mesh of
-    four logical devices, phase 21; equal scores on the pooled routes,
-    phase 22) at a toy size
-    on the CPU; the kernel phase, the launch checks and the profiles need
-    the card. 8 mixture centres
-    instead of 4,096 so that 20,480 rows are clustered like the real
-    corpus (each row's neighbours come from its own centre); the pooled
-    gate is lowered so that 4,096 rows take the pooled routes."""
-    import types
-
-    import torch
-
+    """chip_smoke.py's phases 1 and 3-6 at a toy size on the CPU (the
+    native parse check, corpus, counted auto-IVF path, recall against the
+    exact scan, delta rescan), with phase 17 (TOP 65 batches, the delta
+    plane), the served auto-IVF route over HTTP (12a) and over gRPC
+    (19a). The other phases' rehearsals are tests/test_torch_rehearse_*.py
+    (tests/torch_rehearsal.py gives the sizes)."""
     import chip_smoke
+    from tests.torch_rehearsal import rehearse
 
-    monkeypatch.setattr(chip_smoke, "N_CENTRES", 8)
-    monkeypatch.setattr(chip_smoke, "HUB_DEGREE", 40)
-    monkeypatch.setattr(chip_smoke, "HYBRID_ROWS", 8192)
-    monkeypatch.setattr(chip_smoke, "HYBRID_EDGES", 32_768)
-    monkeypatch.setattr(chip_smoke, "N_SERVED", 256)
-    # phases 14-15 at a toy size: the legacy IVF index and IVFIndex with
-    # 16 clusters, HNSW graphs of a few hundred rows, 1,024 tt rows
-    monkeypatch.setattr(chip_smoke, "IVF_CLUSTERS", 16)
-    monkeypatch.setattr(chip_smoke, "IVF_INDEX_CLUSTERS", 16)
-    monkeypatch.setattr(chip_smoke, "TT_ROWS", 1024)
-    monkeypatch.setattr(chip_smoke, "HNSW_ROWS", 512)
-    monkeypatch.setattr(chip_smoke, "HNSW_QUANT_ROWS", 512)
-    monkeypatch.setattr(chip_smoke, "HNSW_BINARY_ROWS", 256)
-    # phase 16 at a toy size: collections of 2,048 rows, a 1 MiB blob,
-    # 256 cache prompts
-    monkeypatch.setattr(chip_smoke, "ROLLBACK_SUB_ROWS", 2048)
-    monkeypatch.setattr(chip_smoke, "BLOB_BYTES", 1 << 20)
-    monkeypatch.setattr(chip_smoke, "CACHE_PROMPTS", 256)
-    monkeypatch.setattr(chip_smoke, "CACHE_MIX", 100)
-    # phase 17's TOP 65 and delta batches: 256 queries
-    monkeypatch.setattr(chip_smoke, "PHASE17_BATCH", 256)
-    # phase 18: 256 chain keys, 512 deltas, clusters of 32 rows
-    monkeypatch.setattr(chip_smoke, "N_CHAIN_KEYS", 256)
-    monkeypatch.setattr(chip_smoke, "N_DELTAS", 512)
-    monkeypatch.setattr(chip_smoke, "CLUSTER_ROWS", 32)
-    # phase 21's batches: 256 queries
-    monkeypatch.setattr(chip_smoke, "MESH_BATCH", 256)
-    monkeypatch.setenv("NEUMANN_POOLED_MIN_ROWS", "1024")
-    monkeypatch.setenv("NEUMANN_POOLED_MIN_POOLS", "64")
-    cfg = TConfig(ivf_auto_threshold=10_000, ivf_auto_clusters=16,
-                  ivf_auto_nprobe=8)
-    rep = chip_smoke.run(
-        types.SimpleNamespace(seed=0, rows=20_480, pooled_rows=4096,
-                              wide_rows=2048),
-        torch.device("cpu"), config=cfg, on_card=False)
+    rep = rehearse(monkeypatch, ("parse", "ivf"))
     assert rep["recall_single"] >= 0.95 and rep["recall_batch"] >= 0.95
     # phase 17: the TOP 65 batch on the non-fast route, the top-1 route,
     # the delta plane before and after compact
@@ -467,119 +418,17 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch):
     assert rep["delta_added_first"] == 1.0
     assert min(rep["delta_before_recall"], rep["delta_after_recall"]) >= 0.95
     assert len(rep["single_ms"]) == chip_smoke.N_SINGLE - 1
-    assert "kernels" not in rep and "profile" not in rep
-    for key in ("pooled_recall_single", "pooled_recall_batch",
-                "pooled_recall_filtered", "int8_recall_single",
-                "int8_recall_batch"):
-        assert rep[key] >= 0.95, key
-    assert rep["int8_euclid_mismatches"] == 0
-    assert len(rep["binary_single_ms"]) == chip_smoke.N_SINGLE - 1
-    assert rep["binary_mismatches"] == 0
-    assert rep["wide_mismatches"] == 0
-    assert len(rep["wide_single_ms"]) == chip_smoke.N_WIDE_SINGLE - 1
-    assert set(rep["launches"]) == set(chip_smoke.KERNELS)
-    # phases 14-15: pq hits equal the plain ADC's, tt hits the exact scan
-    # of the reconstruction, IVF hits an exact scan of the probed lists;
-    # saved indexes load with the same hits
-    assert rep["pq_mismatches"] == 0 and rep["tt_mismatches"] == 0
-    assert rep["tt_sample_max_rel_err"] <= chip_smoke.TT_RTOL
-    assert rep["pq_subspaces"] == chip_smoke.PQ_M
-    assert rep["ivf_nprobe32_recall"] >= rep["ivf_nprobe8_recall"] > 0.5
-    assert rep["hnsw_dense_recall"] > 0.5 and rep["saved_index_ok"]
-    # the launch counts are kept per route; on the CPU nothing launches
-    assert rep["launches_pq"]["pq_adc"] == rep["launches_ann"]["pq_adc"] == 0
-    # phase 11 at 8,192 entities: FIND's tier mask opens the pooled gate
-    # (pool 16, one tier-3 row in each), the hubs' masks do not
-    assert rep["hybrid_find_pool"] == 16
-    assert rep["hybrid_find_recall"] >= 0.95
-    assert len(rep["hybrid_ms"]) == chip_smoke.N_HYBRID - 1
-    assert rep["hybrid_bfs_reached"] > 1
-    assert rep["hybrid_pagerank_max_rel_err"] <= chip_smoke.PAGERANK_RTOL
-    # phase 1: the native parse; phases 12a-12b: served over HTTP with
-    # batching on; phase 13: the shell on two routers
+    # phase 1: the native parse; phase 12a: served over HTTP with
+    # batching on
     assert 0 < rep["parse_native_ms"] < rep["parse_python_ms"]
     assert rep["warmup_calls"] == 5 * 2
-    for part in ("ivf", "pooled", "int8"):
-        assert rep[f"served_{part}_recall"] >= 0.95, part
-    for part in ("ivf", "pooled", "int8", "binary"):
-        assert rep[f"served_{part}_mean_cohort"] > 1, part
-    assert rep["served_binary_mismatches"] == 0
-    assert rep["served_filtered_recall"] >= 0.95
-    assert rep["served_in_filter_ok"] and rep["points_query_mismatches"] == 0
-    # phase 19: the same routers served over gRPC: Execute, the Points
-    # QueryBatch / QueryStream / filtered queries, gRPC-web; Health
-    # names the device, the native points codec serves
-    for part in ("ivf", "pooled"):
-        assert rep[f"grpc_{part}_recall"] >= 0.95, part
-        assert rep[f"grpc_{part}_mean_cohort"] > 1, part
-    assert rep["grpc_stream_recall"] >= 0.95
-    assert rep["grpc_filtered_recall"] >= 0.95
+    assert rep["served_ivf_recall"] >= 0.95
+    assert rep["served_ivf_mean_cohort"] > 1
+    # phase 19a: the same router served over gRPC: Execute, the Points
+    # QueryBatch; Health names the device, the native points codec serves
+    assert rep["grpc_ivf_recall"] >= 0.95
+    assert rep["grpc_ivf_mean_cohort"] > 1
     assert rep["grpc_ivf_query_batch_mismatches"] == 0
-    assert rep["grpc_bits_mismatches"] == rep["grpc_web_mismatches"] == 0
     assert rep["grpc_health"]["device"] == "cpu"
     assert rep["points_codec_native"]
     assert rep["grpc_ivf_server_requests"] >= chip_smoke.N_SERVED
-    # phase 22: 4,096 rows x 4 take the pooled f32 and int8 routes, every
-    # single top-10 holds copies, the store of copies in a row takes the
-    # exact scan and meets ties across the 10th place, and every order is
-    # the plain version's
-    assert rep["ties_routes"] == {"default": "f32_pooled",
-                                  "col/tq8": "int8_pooled",
-                                  "run_euclidean": "exact"}
-    assert rep["ties_lists_with_copies"] == 2 * chip_smoke.N_SINGLE
-    assert rep["ties_run_straddles"] > 0
-    assert rep["ties_mismatches"] == 0
-    assert rep["shell_errors"] == 0 and rep["shell_max_rel_diff"] == 0
-    assert rep["shell_doctor_devices"] == ["[OK ] devices         1 x cpu"]
-    # phase 16: the rollback restores every route's hits and the events
-    # table; EXPLAIN names each route's kernel; the blob comes back with
-    # equal bytes; the query cache serves a repeat and not across a write
-    assert rep["rollback_mismatches"] == 0
-    assert rep["rollback_events_rows"] == chip_smoke.N_EVENTS
-    assert rep["checkpoints_after"] == 3
-    assert rep["explain_kernels"]["pooled"] == "f32_pooled_bits"
-    assert rep["blob_checks"] == [True, "OK", "OK", True]
-    assert rep["cache_entries"] == 256
-    assert rep["cache_exact_hit_rate"] == 0.5
-    assert rep["launches_rollback"]["f32_pooled_bits"] == 0
-    # phase 18: ROLLBACK CHAIN restores the hits; the consensus codes
-    # equal float64 off the thresholds, every class present; every
-    # acknowledged row is read back first on each replica, after the
-    # leader's SIGKILL too, through the int8 scan
-    assert rep["chain_rollback_mismatches"] == 0
-    assert rep["chain_views"]["verify"] == "chain OK"
-    assert rep["consensus_mismatches"] == 0
-    assert min(rep["consensus_class_counts"]) > 0
-    assert rep["cluster_acked_rows"] == chip_smoke.CLUSTER_ROWS
-    assert all(not p["lost"] and p["kernel"] == "int8_dot_scores"
-               for p in rep["cluster_replicas"].values())
-    assert rep["cluster_kill_acked_rows"] == chip_smoke.CLUSTER_ROWS
-    assert all(r["lost"] == 0 and r["kernel"] == "int8_dot_scores"
-               for r in rep["cluster_kill_reads"].values())
-    assert len(rep["cluster_kill_reads"]) == 3
-    # phase 20: B's rows on three shard-server processes; every merge is
-    # the shards' own, nprobe 3 equals the full fan-out, COUNT adds up,
-    # and after a SIGKILL the answers are the live shards' merge
-    assert sum(rep["sharded_sizes"]) == rep["sharded_count"] == 4096
-    assert rep["sharded_mismatches"] == 0
-    assert rep["sharded_nprobe_all_mismatches"] == 0
-    assert rep["sharded_degraded_mismatches"] == 0
-    assert min(rep["sharded_recall"], rep["sharded_nprobe3_recall"],
-               rep["sharded_served_recall"]) >= 0.95
-    assert set(rep["sharded_launches"]) == {"s0", "s1", "s2"}
-    assert rep["launches_sharded"]["f32_pooled_bits"] == 0
-    # phase 21: the same rows on a mesh of four logical devices; the f32
-    # placement is the exact scan, the merge the shards' own, re-embedded
-    # keys first on both placements without a rebuild
-    assert rep["mesh_shards"] == {"f32": 4, "int8": 4, "ivf": 4}
-    assert rep["mesh_f32_mismatches"] == rep["mesh_merge_mismatches"] == 0
-    assert rep["mesh_fresh_not_first"] == {"ivf": 0, "f32": 0}
-    assert rep["mesh_ivf_batched_top1_mismatches"] == {
-        "search_self": 0, "fast_plain": 0, "fast": 0, "non_fast": 0}
-    assert min(rep["mesh_ivf_recall_own_single"],
-               rep["mesh_ivf_recall_own_batch"]) >= 0.95
-    assert min(rep["mesh_int8_recall_batch"], rep["mesh_euclid_recall"],
-               rep["mesh_filtered_recall"]) >= 0.95
-    assert rep["mesh_ivf_recall_batch"] >= 0.85
-    assert rep["launches_mesh"]["int8_pooled_bits"] == 0
-    assert "NEUMANN_MESH_DEVICES" not in os.environ

@@ -12,14 +12,18 @@ tests/test_torch_kernel_edges.py -m cuda`` (this file imports no JAX).
 
 Shapes: query counts on both sides of every switch between kernels
 (int8: mma.sync up to 8 queries, wgmma above; f32: stream kernels of 8
-and 16 queries, batch kernel above) and past one 128-query batch block
-(1, 8, 16, 17, 64 and 1,025), pools of 8 to 4,096 rows, N not a multiple
-of the corpus tile where the pool allows it, 1 % dead rows plus one dead
-pool, d of 64 and 768 (and 80 for the f32 kernel, whose batch kernel
-steps 32 floats of K at a time, so d = 80 ends inside a step). The int8
-outputs must be bit-identical; the f32 pooled
+and 16 queries, the TF32 wgmma kernel above) and past one 128-query batch
+block (1, 8, 16, 17, 64 and 1,025), pools of 8 to 4,096 rows, N not a
+multiple of the corpus tile where the pool allows it, 1 % dead rows plus
+one dead pool, d of 64 and 768 (and 80 for the f32 kernel, whose TF32
+kernel steps 32 floats of K at a time, so d = 80 ends inside a step). The
+int8 outputs must be bit-identical; the f32 pooled
 winners must decode within one packed-mantissa step of the plain
-version's, with the winning rows equal on >= 99 % of the live pools.
+version's, with the winning rows equal on >= 99 % of the live pools. The
+TF32 kernel also at every block width it picks by Q (17, 32, 33, 64, 65,
+128, 129), with copies of one row across lanes, registers, warps,
+warpgroups, tiles and blocks bit-equal (Q 17, 128, 129, 1,025), and on
+rows scaled by 10^-20 to 10^20.
 Hamming top-k: Q 1, 5, 70 and 1,025 and both sides of the fused kernel's
 16-query warp tile and 128-query block (15-17, 127-129), N 3,001 and
 2^20, W 4 to 256 (d up to 8,192; every plan of query tiles, row slices
@@ -179,6 +183,98 @@ def test_f32_pooled_edges_within_tolerance(cuda, q, pool, d):
     assert err <= pool * 2.0 ** -22 + 1e-6
     same = ((got & (pool - 1)) == (want & (pool - 1)))[live]
     assert same.float().mean().item() >= MIN_AGREE
+
+
+def _assert_f32_close(tk, got, want, pool):
+    """Row 6's kernel against its plain version: liveness and dead pools
+    equal, decoded winners within one packed step plus 1e-6, the winning
+    rows equal on >= 99 % of live pools."""
+    live = want > 0
+    assert torch.equal(got > 0, live)
+    assert torch.equal(got[~live], want[~live])
+    dec = lambda b: (b & ~(pool - 1)).view(torch.float32).double()
+    err = (dec(got) - dec(want)).abs()[live].max().item()
+    assert err <= pool * 2.0 ** -22 + 1e-6
+    same = ((got & (pool - 1)) == (want & (pool - 1)))[live]
+    assert same.float().mean().item() >= MIN_AGREE
+
+
+# the TF32 kernel's query blocks (32, 64, 128 queries) on both sides of
+# each switch, and past one 128-query block
+F32_BLOCK_QS = (17, 32, 33, 64, 65, 128, 129)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", (8, 512))
+@pytest.mark.parametrize("q", F32_BLOCK_QS)
+def test_f32_pooled_every_block_width(cuda, q, pool):
+    from neumann_tpu_torch.ops import kernels as tk
+
+    n = _rows(pool)
+    x, qs, bias = _inputs(cuda, n, q, 768, pool, 40 + q)
+    rm = torch.rsqrt((x * x).sum(1))
+    qm = torch.rsqrt((qs * qs).sum(1))
+    got = tk.f32_pooled_bits(x, rm, bias, qs, qm, pool)
+    torch.cuda.synchronize()
+    assert got.shape == (q, n // pool)
+    _assert_f32_close(tk, got, tk.f32_pooled_bits_plain(x, rm, bias, qs, qm,
+                                                        pool), pool)
+
+
+# rows of a tile: r = 64 warpgroup + 16 warp + lane / 4 (and r + 8); the
+# copies of row 0 fall in other lanes, registers, warps, warpgroups,
+# tiles and blocks (a block walks 512 rows), each in a pool of 8 of its own
+F32_COPIES = (9, 23, 36, 60, 70, 127, 131, 255, 300, 511, 515, 1000, 1023,
+              2047, 4001)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", (17, 128, 129, 1025))
+def test_f32_pooled_copies_bit_equal(cuda, q):
+    """Copies of one row, each alone in a pool of 8 (the pool's other
+    rows dead), give the same packed score at every offset: each (query,
+    row) is summed in one order wherever the row falls."""
+    from neumann_tpu_torch.ops import kernels as tk
+
+    pool, n = 8, 4096 + 8
+    x, qs, _ = _inputs(cuda, n, q, 768, pool, 50 + q)
+    bias = torch.full((n,), -1e30, device=cuda)
+    for at in (0,) + F32_COPIES:
+        x[at] = x[0]
+        bias[at] = 2.0
+    rm = torch.rsqrt((x * x).sum(1))
+    qm = torch.rsqrt((qs * qs).sum(1))
+    got = tk.f32_pooled_bits(x, rm, bias, qs, qm, pool)
+    torch.cuda.synchronize()
+    ref = got[:, 0] & ~(pool - 1)
+    assert (ref > 0).all()
+    for at in F32_COPIES:
+        word = got[:, at // pool]
+        assert torch.equal(word & ~(pool - 1), ref), at
+        assert torch.equal(word & (pool - 1),
+                           torch.full_like(word, at % pool)), at
+    _assert_f32_close(tk, got, tk.f32_pooled_bits_plain(x, rm, bias, qs, qm,
+                                                        pool), pool)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", (8, 512))
+@pytest.mark.parametrize("q", (17, 1025))
+def test_f32_pooled_row_magnitudes(cuda, q, pool):
+    """Rows scaled by 10^u, u uniform in [-20, 20]: the split of each
+    entry is relative to it, so the winners stay within the tolerance."""
+    from neumann_tpu_torch.ops import kernels as tk
+
+    n = _rows(pool)
+    x, qs, bias = _inputs(cuda, n, q, 768, pool, 60 + q)
+    g = torch.Generator(device=cuda).manual_seed(q)
+    x *= 10.0 ** (torch.rand(n, 1, generator=g, device=cuda) * 40 - 20)
+    rm = (1.0 / x.double().norm(dim=1)).float()
+    qm = torch.rsqrt((qs * qs).sum(1))
+    got = tk.f32_pooled_bits(x, rm, bias, qs, qm, pool)
+    torch.cuda.synchronize()
+    _assert_f32_close(tk, got, tk.f32_pooled_bits_plain(x, rm, bias, qs, qm,
+                                                        pool), pool)
 
 
 # hamming top-k (kernel 7): every shape through quant.hamming_topk, which
