@@ -19,7 +19,7 @@ the CUDA toolkit (nvcc)::
 Phases (each raises on failure; exit code 0 only if all pass):
 
 1. print the card's name and power limit (nvidia-smi), build the CUDA
-   kernels from neumann_tpu_torch/csrc (eight sources, one nvcc each) and
+   kernels from neumann_tpu_torch/csrc (nine sources, one nvcc each) and
    print the build time; build and load the native lexer and parser
    (neumann_tpu_torch/native/*.cpp), fail if either is missing, and time
    the parse of 64 unseen SIMILARs of 768 and of 3,072 floats through the
@@ -60,7 +60,13 @@ Phases (each raises on failure; exit code 0 only if all pass):
    scores (Q 1, 16 and 17) bit-equal over the plane; timed at Q 1,024
    and 1 beside the plain version and ``torch.matmul`` (TF32 off) for
    the product alone, bound by the three bf16 passes on the tensor
-   cores;
+   cores; the non-fast batched first pass (row 10, ``ivf_window_topm``)
+   at A17's TOP 65 batch (4,096 windows of 1,024 random int8 rows x 768,
+   1 % dead, 1,024 queries x 81 random probes, q_cap 64, m 152, a row's
+   32 copies met by 4 queries) and at m 1,024, Q 64 (q_cap 16), windows
+   of 4,096 rows and d 4,096: scores and positions bit-equal to its plain
+   version on every filled slot, equal scores in ascending positions;
+   each timed beside the plain version, bound by its bytes;
 3. generate a 4,194,304 x 768 corpus from --seed with numpy (4,096
    N(0,1) centres + sigma 0.25 noise) and load it with
    ``router.vector.ingest_matrix``; the int8 planes that the index build
@@ -77,21 +83,23 @@ Phases (each raises on failure; exit code 0 only if all pass):
 17. on the same router and rows (counted: every count at 0 before each
     part, read after it):
     b. 1,024 queries ``TOP 65`` through ``router.vector.batch_search``
-       (k_ivf 146 > 128: ``search_batched``'s non-fast branch, exact int8
-       dots in plain torch, the top-152 of each probed (query, window),
-       1,184 candidates a query to the rerank); QPS (median of the last 3
+       (k_ivf 146 > 128: ``search_batched``'s non-fast branch, row 10's
+       exact int8 dots and top-152 of each probed (query, window) in one
+       launch, 1,184 candidates a query to the rerank); QPS (median of the last 3
        of 4 calls), recall@10 of the first ten hits >= 0.95 against the
        exact scan, recall@65 and the overlap with the latency path's hits
        (the same queries in batches of ``ivf_auto_max_batch``) recorded;
-       the first pass, the pre-selection and the rerank timed on the
-       inputs the route gave them (CUDA events, kernel launches from
-       torch.profiler), the first pass's bound, one batch call profiled;
+       the first pass (and again with row 10's plain version in its
+       place), the pre-selection and the rerank timed on the inputs the
+       route gave them (CUDA events, kernel launches from torch.profiler),
+       the first pass's bound, one batch call profiled;
        then the top-1 batched route (``batched_ivf_topk(fused="pallas",
        presel=0)``, pool expansion in the rerank), which no entry point
        of the port reaches yet, called by this script at TOP 10, recall
-       >= 0.95. Counted apart: the TOP 65 route (plain torch: it must
-       launch no hand kernel), the latency-path comparison (row 1), the
-       top-1 call (row 2's top-1 mode);
+       >= 0.95. Counted apart: the TOP 65 route (it must launch row 10
+       and no other hand kernel, and never run row 10's plain version),
+       the latency-path comparison (row 1), the top-1 call (row 2's top-1
+       mode);
     c. an index over A's int8 rows (the engine's layout, shared; the
        engine's own index is not mutated) takes 419,430 new rows of the
        mixture through ``add`` (chunks of 65,536) and loses 41,943 old and
@@ -441,6 +449,8 @@ KERNELS = {
                               replaces="neumann_tpu/ops/quant.py:402"),
     "int8_exact_scores": dict(source="neumann_tpu_torch/csrc/int8_exact.cu",
                               replaces="neumann_tpu/ops/quant.py:402"),
+    "ivf_topm_select": dict(source="neumann_tpu_torch/csrc/ivf_topm.cu",
+                            replaces="neumann_tpu/ops/ivf.py:1307"),
 }
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
 # a kernel's bound is the larger of its bytes (each input read once, each
@@ -475,6 +485,9 @@ NO_LIBRARY = {
                       "needs them unpacked to floats)",
     "hamming_topk": "no PyTorch call takes packed sign bits, and none "
                     "selects a top-k without the [Q, N] distances",
+    "ivf_topm_select": "no one PyTorch call scores windows against "
+                       "per-window query tables and selects each slot's "
+                       "top-m",
 }
 # row 8's yardstick: one PyTorch call for the same sums (adc_library)
 ADC_LIBRARY = ("F.embedding_bag(idx, w, mode='sum'): bags of a row's M "
@@ -594,11 +607,49 @@ EXACT_DESIGN = ("the f32 query split into three bf16 parts (hi + mid + lo "
 EXACT_LIBRARY = ("torch.matmul(qf, rows.float().t()) with allow_tf32 False, "
                  "the product alone (rows converted once, outside its time; "
                  "no mask or selection)")
+# phases 2 and 17b: row 10, the non-fast batched first pass. Phase 2
+# holds it to its plain version, bit for bit on every filled slot, at
+# A17's TOP 65 batch (TOPM_WINDOWS windows of TOPM_WINDOW random int8
+# rows x DIM, TOPM_DEAD of them dead, N_BATCH queries x TOPM_NPROBE
+# random probes, q_cap TOPM_Q_CAP, m TOPM_M = min(k_ivf + 6, window) with
+# k_ivf = 2 * TOP65 + 16) and at TOPM_EDGES: m up to the window, the
+# smallest batch the route takes (Q 64, its default q_cap 16), windows of
+# 4,096 rows (the kernel's chunks) over the same rows, d 4,096 (8 slots a
+# block). TOPM_COPIES rows from TOPM_COPY0 are copies of the row before
+# them, and TOPM_COPY_QUERIES queries are that row and probe its window:
+# their top-m holds the copies, in ascending positions
+TOPM_WINDOWS = 4096
+TOPM_WINDOW = 1024
+TOPM_NPROBE = 81
+TOPM_Q_CAP = 64
+TOPM_M = 2 * TOP65 + 16 + 6
+TOPM_DEAD = 0.01
+TOPM_COPY0 = 7 * TOPM_WINDOW + 100
+TOPM_COPIES = 32
+TOPM_COPY_QUERIES = 4
+# suffix: (windows, window, d, queries, probes, q_cap, m)
+TOPM_EDGES = {
+    "_m1024": (TOPM_WINDOWS, TOPM_WINDOW, DIM, N_BATCH, TOPM_NPROBE,
+               TOPM_Q_CAP, TOPM_WINDOW),
+    "_q64": (TOPM_WINDOWS, TOPM_WINDOW, DIM, 64, TOPM_NPROBE, 16, TOPM_M),
+    "_w4096": (TOPM_WINDOWS // 4, 4 * TOPM_WINDOW, DIM, 256, 20, 16, TOPM_M),
+    "_d4096": (512, TOPM_WINDOW, 4096, 128, 16, 16, TOPM_M),
+}
+TOPM_DESIGN = ("one block a (probed window, group of 16 table slots; 8 at "
+               "d 4,096), a block whose first slot is empty exits; the "
+               "group's int8 query rows gathered into shared memory, the "
+               "window's rows through a 3-stage cp.async ring of 128 rows x "
+               "128 bytes on mma.sync.m16n8k32.s8 (rows on M, slots on N); "
+               "each 128-row tile's scores (two __fmul_rn, no contraction) "
+               "as lax.top_k's int64 keys in shared memory, a warp a slot "
+               "sorting its 1,024 keys (bitonic) and writing the first m; "
+               "wider windows in 1,024-row chunks merged by one torch.topk")
 # phase 2's records: the main shape's keys bare, the other shapes' with a
 # suffix
 SHAPE_SUFFIXES = ("_q1", "_k64", "_q8", "_q32", "_w96", "_w96q1",
                   "_w96q256", "_d4096", "_hyb", "_ivf", "_m384", "_g_step",
-                  "_h_step", "_h_tail", "_h_single", "_mesh", "_mesh_q1")
+                  "_h_step", "_h_tail", "_h_single", "_mesh", "_mesh_q1",
+                  "_m1024", "_q64", "_w4096")
 # row 7's design, named in its kernels-line entry beside each shape's
 # plan (ops/kernels._hamming_groups)
 HT_DESIGN = ("queries on M (16 a warp, up to 8 warps a block), rows on N "
@@ -656,6 +707,7 @@ TRACE_KERNELS = {
     "pq_adc_select": ("pq_adc_kernel",),
     "int8_exact_select": ("exact_wgmma_kernel",),
     "int8_exact_scores": ("exact_wgmma_kernel",),
+    "ivf_topm_select": ("ivf_topm_kernel",),
 }
 # row 8's kernels by name in a profile: the scan, and the select mode's
 # threshold fill, codes transpose and tables interleave
@@ -1927,6 +1979,8 @@ def run(args, dev, config=None, on_card: bool = True,
         report["kernels"]["int8_exact_select"] = sel
         report["kernels"]["int8_exact_scores"] = scr
         torch.cuda.empty_cache()
+        report["kernels"]["ivf_topm_select"] = check_ivf_topm(dev, args.seed)
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
     if "parse" in phases:
@@ -2225,15 +2279,18 @@ def torch_step(fn, reps: int, what: str) -> dict:
 def top65_steps(ivf, call: tuple, rerank_call: tuple, on_card: bool
                 ) -> dict:
     """The non-fast batched route's three steps, each on the inputs the
-    route gave it: the first pass (``batched_ivf_topk``), the pre-selection
-    (``_topk_stable`` of the first-pass scores) and the rerank (gather and
-    exact rescore of the survivors); their times, launches and the first
-    pass's bound: the probed windows' rows and multipliers read once
-    (bytes), and 2 x window x d int8 operations for every filled table
-    slot (the padded q_cap slots are the JAX design's extra work)."""
+    route gave it: the first pass (``batched_ivf_topk``, row 10 inside),
+    the pre-selection (``_topk_stable`` of the first-pass scores) and the
+    rerank (gather and exact rescore of the survivors); their times,
+    launches and the first pass's bound: the probed windows' rows and
+    multipliers read once (bytes), and 2 x window x d int8 operations for
+    every filled table slot (the padded q_cap slots are the JAX design's
+    extra work); and the first pass again with row 10's plain version in
+    the kernel's place (``first_pass_plain``)."""
     import torch
 
     from neumann_tpu_torch.ops import ivf as tivf
+    from neumann_tpu_torch.ops import kernels as tk
     from neumann_tpu_torch.ops import rerank as trerank
     from neumann_tpu_torch.ops.scan import _topk_stable
 
@@ -2258,7 +2315,7 @@ def top65_steps(ivf, call: tuple, rerank_call: tuple, on_card: bool
               f"m={m} q_cap={q_cap} pre_select={pre}",
         live_windows=live_windows, filled_slots=filled,
         padded_slots=live_windows * q_cap, overflow=overflow,
-        windows_per_step=tivf._windows_per_step(window, q_cap, d))
+        plain_windows_per_step=tk._windows_per_step(window, q_cap, d))
     out.update(bound(live_windows * window * (d + 4) + nbytes(qs)
                      + 8 * sc.numel(),
                      2 * filled * window * d, INT8_OPS_PER_S))
@@ -2267,6 +2324,14 @@ def top65_steps(ivf, call: tuple, rerank_call: tuple, on_card: bool
     if on_card:
         out["first_pass"] = torch_step(
             lambda: tivf.batched_ivf_topk(*a, **kw), 3, "batched_ivf_topk")
+        kernel = tk.ivf_window_topm
+        tk.ivf_window_topm = tk.ivf_window_topm_plain
+        try:
+            out["first_pass_plain"] = torch_step(
+                lambda: tivf.batched_ivf_topk(*a, **kw), 3,
+                "batched_ivf_topk, row 10's plain version")
+        finally:
+            tk.ivf_window_topm = kernel
         out["pre_select"] = torch_step(
             lambda: _topk_stable(sc, pre), 5, "_topk_stable")
         out["rerank"] = torch_step(
@@ -2294,13 +2359,16 @@ def run_top65(router, batch, truth10, emb, valid, on_card: bool) -> dict:
     report = {}
     eng = router.vector
     ivf = eng._corpora[""][DIM]._auto_ivf
-    # counted: the TOP 65 route alone (plain torch: no hand kernel)
+    # counted: the TOP 65 route alone (its first pass row 10; the plain
+    # version of the first pass must not run on the card)
     tk.reset_launch_counts()
     with captured(tivf, "batched_ivf_topk") as calls, \
-            captured(tivf, "gather_rerank_topk_chunked") as reranks:
+            captured(tivf, "gather_rerank_topk_chunked") as reranks, \
+            captured(tk, "ivf_window_topm_plain") as plain_first:
         qps, times, rows, _ = batch_series(
             lambda: eng.batch_search(batch, k), k)
     report["launches_top65"] = dict(tk.LAUNCHES)
+    report["top65_plain_first_pass_calls"] = len(plain_first)
     report["top65_batch_qps"] = qps
     report["top65_batch_s"] = times
     # counted apart: the same queries on the latency path (row 1)
@@ -2332,14 +2400,15 @@ def run_top65(router, batch, truth10, emb, valid, on_card: bool) -> dict:
         f"{report['top65_latency_recall65']:.4f}, overlap "
         f"{report['top65_overlap_latency']:.4f}); first pass "
         + ", ".join(f"{n} {report['top65_steps'][n]}" for n in (
-            "shape", "live_windows", "filled_slots", "windows_per_step",
-            "bound_ms", "bound_by")))
+            "shape", "live_windows", "filled_slots", "bound_ms",
+            "bound_by")))
     if on_card:
         st = report["top65_steps"]
         say("[17b] " + "; ".join(
             f"{n} {st[n]['ms']:.3f} ms (device "
             f"{ms_text(st[n]['device_ms'])}, {st[n]['launches']} launches)"
-            for n in ("first_pass", "pre_select", "rerank")))
+            for n in ("first_pass", "first_pass_plain", "pre_select",
+                      "rerank")))
         report["profile_top65"] = profile_calls(
             {"top65_batch": lambda: eng.batch_search(batch, k)},
             "chiprun_out")["top65_batch"]
@@ -2387,10 +2456,12 @@ def run_top65(router, batch, truth10, emb, valid, on_card: bool) -> dict:
         raise AssertionError("top-1 batched route recall below the limit")
     if on_card:
         hand = {n: c for n, c in report["launches_top65"].items() if c}
-        if hand:
-            raise AssertionError(f"[17b] the TOP {k} route launched hand "
-                                 f"kernels; its first pass is plain "
-                                 f"torch: {hand}")
+        if set(hand) != {"ivf_topm_select"} or \
+                report["top65_plain_first_pass_calls"]:
+            raise AssertionError(
+                f"[17b] the TOP {k} route's first pass must launch row 10 "
+                f"alone and never its plain version: launches {hand}, "
+                f"plain calls {report['top65_plain_first_pass_calls']}")
         require_launches(report["launches_top65_latency"], ("ivf_probe",),
                          "17b")
         require_launches(report["launches_top1_direct"],
@@ -4131,6 +4202,156 @@ def check_int8_exact(dev, seed: int):
         f"({sel['bound_by']}; FFMA {sel['ffma_bound_ms']:.3f}) / "
         f"{sel['bound_ms_q1']:.4f} ms ({sel['bound_by_q1']})")
     return sel, scr
+
+
+def topm_row_mult(buf):
+    """1 / the norm of each int8 row, a step of rows at a time."""
+    import torch
+
+    step = 1 << 18
+    return torch.cat([1.0 / buf[r0:r0 + step].float().norm(dim=1)
+                      for r0 in range(0, buf.shape[0], step)])
+
+
+def topm_inputs(buf, rm, window: int, q: int, nprobe: int, q_cap: int,
+                g, copies: bool = False):
+    """Row 10's inputs over a fixed-window layout: q random unit queries
+    (the first TOPM_COPY_QUERIES the copied row, probing its window where
+    ``copies``) quantized as the route quantizes them, nprobe distinct
+    random probes each, the query tables of q_cap slots. Returns the
+    wrapper's (buf, rmult, first, base, tbl, qq, qsc) and the filled
+    slots."""
+    import torch
+
+    from neumann_tpu_torch.ops import ivf as tivf
+    from neumann_tpu_torch.ops.quant import scalar_quantize
+
+    n_win = buf.shape[0] // window
+    x = torch.randn(q, buf.shape[1], generator=g, device=buf.device)
+    pick = torch.rand(q, n_win, generator=g, device=buf.device)
+    if copies:
+        x[:TOPM_COPY_QUERIES] = buf[TOPM_COPY0 - 1].float()
+        pick[:TOPM_COPY_QUERIES, TOPM_COPY0 // window] = 2.0
+    qq, qsc = scalar_quantize(x / x.norm(dim=1, keepdim=True),
+                              form="reciprocal")
+    tbl, _, _ = tivf._query_tables(pick.topk(nprobe, dim=1).indices, n_win,
+                                   q_cap)
+    live = torch.nonzero(tbl[:, 0] >= 0).flatten()
+    base = live * window
+    args = (buf, rm, base, base.clone(), tbl[live].contiguous(), qq, qsc)
+    return args, int((tbl >= 0).sum())
+
+
+def topm_compare(got, want, tbl) -> dict:
+    """Row 10 against its plain version on the filled slots: scores whose
+    bits differ, positions that differ, the largest score difference,
+    and in the kernel's lists the runs of equal finite scores (ties met)
+    and those whose positions do not ascend."""
+    import torch
+
+    filled = (tbl >= 0)[:, :, None].expand_as(want[0])
+    gs, ws = got[0][filled], want[0][filled]
+    fin = torch.isfinite(ws)
+    s = torch.where(tbl[:, :, None] >= 0, got[0], float("-inf"))
+    same = (s[..., 1:] == s[..., :-1]) & torch.isfinite(s[..., 1:])
+    return dict(
+        score_bits_differ=int((gs.view(torch.int32)
+                               != ws.view(torch.int32)).sum()),
+        positions_differ=int((got[1][filled] != want[1][filled]).sum()),
+        max_abs_err=float((gs[fin] - ws[fin]).abs().max())
+        if fin.any() else 0.0,
+        tied_pairs=int(same.sum()),
+        order_errors=int((same & (got[1][..., 1:]
+                                  <= got[1][..., :-1])).sum()))
+
+
+def topm_record(rec: dict, sfx: str, args, window: int, m: int,
+                filled: int, reps: int) -> None:
+    """Row 10's times at one shape into ``rec`` under suffix ``sfx``: the
+    call (CUDA events), its kernel's device time (torch.profiler), the
+    plain version's, and the bound: the probed windows' rows and
+    multipliers, the queries, scales, tables and starts read once and the
+    filled slots' top-m written (bytes), 2 window d int8 operations a
+    filled slot."""
+    from neumann_tpu_torch.ops import kernels as tk
+
+    buf, rm, first, base, tbl, qq, qsc = args
+    n_live, d = tbl.shape[0], buf.shape[1]
+    rec[f"ms{sfx}"] = cuda_ms(
+        lambda: tk.ivf_window_topm(*args, window, m), reps)
+    rec[f"device_ms{sfx}"] = device_ms(
+        lambda: tk.ivf_window_topm(*args, window, m), 3, "ivf_topm",
+        only=r"ivf_topm_kernel")
+    rec[f"plain_ms{sfx}"] = cuda_ms(
+        lambda: tk.ivf_window_topm_plain(*args, window, m), 1)
+    for key, v in bound(n_live * window * (d + 4)
+                        + nbytes(first, base, tbl, qq, qsc) + 8 * filled * m,
+                        2 * filled * window * d, INT8_OPS_PER_S).items():
+        rec[f"{key}{sfx}"] = v
+    rec[f"shape{sfx}"] = (f"{n_live} probed windows x {window} x d={d}, "
+                          f"q_cap={tbl.shape[1]} ({filled} slots filled), "
+                          f"Q={qq.shape[0]}, m={m}")
+    rec[f"filled_slots{sfx}"] = filled
+
+
+def check_ivf_topm(dev, seed: int) -> dict:
+    """Phase 2, row 10: ``ivf_window_topm`` at A17's TOP 65 batch and at
+    TOPM_EDGES against its plain version on the same inputs, every
+    filled slot bit for bit (``topm_compare``: no score bit and no
+    position may differ, and equal scores must come in ascending
+    positions); its time, device time and bound beside the plain
+    version's at each shape. Returns the record."""
+    import torch
+
+    from neumann_tpu_torch.ops import kernels as tk
+
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+    n = TOPM_WINDOWS * TOPM_WINDOW
+    buf = torch.randint(-127, 128, (n, DIM), generator=g, device=dev,
+                        dtype=torch.int8)
+    buf[TOPM_COPY0:TOPM_COPY0 + TOPM_COPIES] = buf[TOPM_COPY0 - 1]
+    rm = topm_row_mult(buf).masked_fill(
+        torch.rand(n, generator=g, device=dev) < TOPM_DEAD, 0.0)
+    rm[TOPM_COPY0 - 1:TOPM_COPY0 + TOPM_COPIES] = \
+        1.0 / buf[TOPM_COPY0 - 1].float().norm()
+    rec = dict(design=TOPM_DESIGN, checks={})
+    shapes = {"": (TOPM_WINDOWS, TOPM_WINDOW, DIM, N_BATCH, TOPM_NPROBE,
+                   TOPM_Q_CAP, TOPM_M), **TOPM_EDGES}
+    for sfx, (n_win, window, d, q, nprobe, q_cap, m) in shapes.items():
+        if d == DIM:
+            b, r = buf, rm
+        else:
+            b = torch.randint(-127, 128, (n_win * window, d), generator=g,
+                              device=dev, dtype=torch.int8)
+            r = topm_row_mult(b)
+        args, filled = topm_inputs(b, r, window, q, nprobe, q_cap, g,
+                                   copies=d == DIM and window == TOPM_WINDOW)
+        got = tk.ivf_window_topm(*args, window, m)
+        res = topm_compare(got, tk.ivf_window_topm_plain(*args, window, m),
+                           args[4])
+        rec["checks"][sfx or "a17"] = res
+        if (res["score_bits_differ"] or res["positions_differ"]
+                or res["order_errors"]):
+            raise AssertionError(f"ivf_topm{sfx or ' at A17'} departs from "
+                                 f"its plain version: {res}")
+        if sfx == "" and res["tied_pairs"] < TOPM_COPY_QUERIES * TOPM_COPIES:
+            raise AssertionError(f"ivf_topm: the copies' ties were not met "
+                                 f"({res})")
+        del got
+        topm_record(rec, sfx, args, window, m, filled, 5 if q > 64 else 20)
+        del args, b, r
+        torch.cuda.empty_cache()
+    rec["max_abs_err"] = max(c["max_abs_err"] for c in rec["checks"].values())
+    say(f"[2] ivf_topm vs plain ({len(shapes)} shapes): scores and "
+        f"positions bit-equal on every filled slot, "
+        f"{rec['checks']['a17']['tied_pairs']} tied pairs in ascending "
+        f"positions; "
+        + "; ".join(f"{sfx[1:] or 'A17'} {rec[f'ms{sfx}']:.3f} ms (device "
+                    f"{ms_text(rec[f'device_ms{sfx}'])}), plain "
+                    f"{rec[f'plain_ms{sfx}']:.3f} ms, bound "
+                    f"{rec[f'bound_ms{sfx}']:.3f} ms "
+                    f"({rec[f'bound_by{sfx}']})" for sfx in shapes))
+    return rec
 
 
 @contextlib.contextmanager

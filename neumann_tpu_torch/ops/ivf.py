@@ -24,9 +24,11 @@ First passes:
   (fixed windows of a power-of-two number of 128-row pools, k <= 128)
   runs the batched top-2 kernel (``csrc/batched_probe.cu``) and a
   packed-bits preselection; every other batch (k > 128, or another
-  window) takes the JAX package's non-fast variant: exact int8 dots in
-  plain torch, the top-m of each (query, window), a preselection by
-  first-pass score. Both end in the chunked exact rerank.
+  window) takes the JAX package's non-fast variant: exact int8 dots and
+  the top-m of each (query, window) in one launch
+  (``ops/kernels.ivf_window_topm``, ``csrc/ivf_topm.cu``), a
+  preselection by first-pass score. Both end in the chunked exact
+  rerank.
 
 Incremental mutation (``add`` / ``delete`` / ``compact``): added rows go
 to a device DELTA plane whose filled slots every search scans exactly
@@ -46,7 +48,9 @@ import numpy as np
 import torch
 
 from neumann_tpu_torch.ops import kernels
+from neumann_tpu_torch.ops.kernels import _window_dots as _int8_dots
 from neumann_tpu_torch.ops.kernels import (
+    _windows_per_step,
     batched_probe,
     decode_strided_pool_bits,
     ivf_windowed_topk,
@@ -700,75 +704,31 @@ def _query_tables(probe, n_c: int, q_cap: int):
     return tbl, rank_of, overflow
 
 
-# int8 dots are exact in an f32 product while every sum stays below 2^24:
-# up to this many columns a product (1,024 x 127^2 < 2^24)
-_EXACT_DOT_COLS = 1024
-# the non-fused first pass scores its windows in steps of at most this
-# many bytes: a step's rows and queries (int8 and f32), its dots, scores
-# and the sort's values and indices (``_windows_per_step``: at cell A's
-# TOP 65 batch, 293 windows of 1,024 rows a step, 14 steps)
-_WINDOW_STEP_BYTES = 2 << 30
-
-
-def _int8_dots(qsel: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """Exact int8 dots [G, q, d] x [G, w, d] -> [G, q, w] f32, as the
-    JAX package's int32 ``dot_general`` converted to f32.
-
-    torch has no batched int8 product (``torch._int_mm`` is 2-D only, a
-    launch per window), so the product runs in f32 on integer values:
-    every product is exact and so is every partial sum below 2^24, which
-    holds for up to _EXACT_DOT_COLS columns in any summation order, on
-    the CPU and on the card alike while TF32 is off (the package
-    docstring; checked here, as TF32 would round the operands). Wider
-    rows are cut into such column slices whose exact sums add in int32,
-    then convert to f32 once."""
-    if qsel.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("exact int8 dots need TF32 off "
-                           "(torch.backends.cuda.matmul.allow_tf32)")
-    d = qsel.shape[-1]
-    acc = None
-    for c0 in range(0, d, _EXACT_DOT_COLS):
-        part = torch.bmm(qsel[..., c0:c0 + _EXACT_DOT_COLS].float(),
-                         rows[..., c0:c0 + _EXACT_DOT_COLS].float()
-                         .transpose(1, 2))
-        if d <= _EXACT_DOT_COLS:
-            return part
-        acc = part.int() if acc is None else acc + part.int()
-    return acc.float()
-
-
-def _windows_per_step(window: int, q_cap: int, d: int) -> int:
-    """Windows one step of ``_score_windows`` takes: _WINDOW_STEP_BYTES
-    over a window's rows and queries (int8 and f32) and its f32 dots,
-    scores and sorted values and int64 indices."""
-    per_window = 5 * (window + q_cap) * d + 48 * q_cap * window
-    return max(1, _WINDOW_STEP_BYTES // per_window)
-
-
 def _score_windows(buf, rmult, starts, tbl, qq_i8, qsc, window: int, m: int,
                    pool: int, from_view: bool):
     """The non-fused first pass (the JAX package's ``score_window``
-    under its scan and fused variants), in plain torch: each probed
-    window's rows against the int8 queries of its table, exact dots
-    times the query scale and the row multiplier, then per (window,
-    slot) either the top-m (``pool`` 0; ``approx_max_k`` in the JAX
-    package, exact here: a stable descending sort keeps equal scores in
-    ``lax.top_k``'s order) or one pooled-bits winner per contiguous
-    ``pool``-row pool.
+    under its scan and fused variants): each probed window's rows against
+    the int8 queries of its table, exact dots times the query scale and
+    the row multiplier, then per (window, slot) either the top-m (``pool``
+    0: ``kernels.ivf_window_topm``, the hand kernel on the card;
+    ``approx_max_k`` in the JAX package, exact here, in ``lax.top_k``'s
+    order) or, in plain torch, one pooled-bits winner per contiguous
+    ``pool``-row pool (the XLA-fused form, which no entry point reaches).
 
     Only windows some query probed are scored (slots fill from 0, so
     tbl[c, 0] >= 0 marks one). Returns (ys_s [L, q_cap, m_eff] f32, ys_p
-    [L, q_cap, m_eff] int32, -inf / -1 where dead, for the L probed
-    windows; slot_of [C], window c's index among them; m_eff = window //
-    pool or m). from_view: window c's rows are rows c * window on (the
-    stream and fused variants' reshaped view); otherwise the rows at
-    starts[c], clamped into the buffer as ``lax.dynamic_slice`` clamps.
-    Positions are starts[c] + offset either way. Windows go in steps of
-    at most _WINDOW_STEP_BYTES, a few dozen launches each."""
+    [L, q_cap, m_eff] int32, for the L probed windows: -inf / -1 where
+    dead in the pooled form, -inf at the dead rows' own positions in the
+    top-m; the top-m leaves empty slots unwritten; slot_of [C], window c's
+    index among them; m_eff = window // pool or m). from_view: window c's
+    rows are rows c * window on (the stream and fused variants' reshaped
+    view); otherwise the rows at starts[c], clamped into the buffer as
+    ``lax.dynamic_slice`` clamps. Positions are starts[c] + offset either
+    way. The pooled form goes in steps of at most
+    ``kernels._WINDOW_STEP_BYTES``, a few dozen launches each."""
     n_c, q_cap = tbl.shape
     n, d = buf.shape
     dev = buf.device
-    m_eff = window // pool if pool else m
     live = torch.nonzero(tbl[:, 0] >= 0).flatten()
     n_live = live.numel()
     slot_of = torch.zeros(n_c, dtype=torch.int64, device=dev)
@@ -776,6 +736,11 @@ def _score_windows(buf, rmult, starts, tbl, qq_i8, qsc, window: int, m: int,
     base = starts[live].long()
     first = live * window if from_view else base.clamp(0, n - window)
     t = tbl[live]
+    if not pool:
+        ys_s, ys_p = kernels.ivf_window_topm(buf, rmult, first, base, t,
+                                             qq_i8, qsc, window, m)
+        return ys_s, ys_p, slot_of, m
+    m_eff = window // pool
     tq = t.clamp_min(0)
     sc_slot = torch.where(t >= 0, qsc[tq], 0.0)
     span = torch.arange(window, device=dev)
@@ -783,31 +748,25 @@ def _score_windows(buf, rmult, starts, tbl, qq_i8, qsc, window: int, m: int,
     ys_p = torch.empty((n_live, q_cap, m_eff), dtype=torch.int32,
                        device=dev)
     step = _windows_per_step(window, q_cap, d)
+    member = (span % pool).int()
     for i0 in range(0, n_live, step):
         i1 = min(n_live, i0 + step)
         idx = first[i0:i1, None] + span                       # [G, w]
         rm = rmult[idx][:, None, :]                           # [G, 1, w]
         dots = _int8_dots(qq_i8[tq[i0:i1]], buf[idx])         # [G, q, w]
         mult = sc_slot[i0:i1, :, None] * rm
-        if pool:
-            # pooled bits: scores shifted to [1, 3), the member index in
-            # the low mantissa bits; the sum is one fused multiply-add,
-            # as XLA computes it
-            sp = torch.where(rm > 0, kernels._fma_f32(dots, mult, 2.0), 0.0)
-            member = (span % pool).int()
-            bits = (sp.view(torch.int32) & ~(pool - 1)) | member
-            wb = bits.reshape(i1 - i0, q_cap, m_eff, pool).amax(dim=3)
-            dead = wb < 0x3F800000                    # below bitcast(1.0)
-            ys_s[i0:i1] = torch.where(
-                dead, NEG_INF, (wb & ~(pool - 1)).view(torch.float32) - 2.0)
-            pos = (base[i0:i1, None, None] + span[:m_eff] * pool
-                   + (wb & (pool - 1)))
-            ys_p[i0:i1] = torch.where(dead, -1, pos)
-        else:
-            sc = torch.where(rm > 0, dots * mult, NEG_INF)
-            sv, si = torch.sort(sc, dim=2, descending=True, stable=True)
-            ys_s[i0:i1] = sv[:, :, :m]
-            ys_p[i0:i1] = base[i0:i1, None, None] + si[:, :, :m]
+        # pooled bits: scores shifted to [1, 3), the member index in the
+        # low mantissa bits; the sum is one fused multiply-add, as XLA
+        # computes it
+        sp = torch.where(rm > 0, kernels._fma_f32(dots, mult, 2.0), 0.0)
+        bits = (sp.view(torch.int32) & ~(pool - 1)) | member
+        wb = bits.reshape(i1 - i0, q_cap, m_eff, pool).amax(dim=3)
+        dead = wb < 0x3F800000                        # below bitcast(1.0)
+        ys_s[i0:i1] = torch.where(
+            dead, NEG_INF, (wb & ~(pool - 1)).view(torch.float32) - 2.0)
+        pos = (base[i0:i1, None, None] + span[:m_eff] * pool
+               + (wb & (pool - 1)))
+        ys_p[i0:i1] = torch.where(dead, -1, pos)
     return ys_s, ys_p, slot_of, m_eff
 
 

@@ -37,6 +37,11 @@ that XLA fuses on the TPU.
   against f32 queries on the bf16 tensor cores (each query split into
   three bf16 parts whose sum is the query), the top-k selected inside
   the kernel (k up to 64) or the scores written.
+* ``ivf_window_topm`` (``csrc/ivf_topm.cu``) replaces the XLA-fused
+  ``score_window`` + ``lax.approx_max_k`` of the non-fast batched IVF
+  first pass (``neumann_tpu/ops/ivf.py:1307-1351``): exact int8 dots of
+  each probed window's rows against its table's queries, the scales, the
+  mask and the top-m of every (window, slot) in ``lax.top_k``'s order.
 
 Every wrapper takes its plain version only for tensors on the CPU; for
 a CUDA tensor it launches the kernel or raises — there is no fallback.
@@ -76,12 +81,12 @@ LAUNCHES = {"ivf_probe": 0, "batched_probe": 0, "batched_probe_top1": 0,
             "int8_dot_scores": 0, "int8_pooled_bits": 0,
             "f32_pooled_bits": 0, "hamming_scores": 0, "hamming_topk": 0,
             "pq_adc": 0, "pq_adc_select": 0, "int8_exact_select": 0,
-            "int8_exact_scores": 0}
+            "int8_exact_scores": 0, "ivf_topm_select": 0}
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("ivf_probe.cu", "batched_probe.cu", "int8_scores.cu",
            "f32_pooled.cu", "hamming.cu", "hamming_topk.cu", "pq_adc.cu",
-           "int8_exact.cu")
+           "int8_exact.cu", "ivf_topm.cu")
 HEADERS = ("pooled_bits.cuh", "mma_s8.cuh", "mma_b1.cuh", "hopper.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "neumann_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -183,7 +188,10 @@ def build_kernels(verbose: bool = False) -> ctypes.CDLL:
                 ("neumann_int8_exact_select",
                  [vp, vp, vp, vp, i64, i32, i32, i32, i32, i32, i64, vp]),
                 ("neumann_int8_exact_scores",
-                 [vp, vp, vp, vp, i64, i32, i32, i32, i32, i64, vp])):
+                 [vp, vp, vp, vp, i64, i32, i32, i32, i32, i64, vp]),
+                ("neumann_ivf_topm",
+                 [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, i32,
+                  i32, i32, i32, i32, i32, vp])):
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = i32
         _lib = lib
@@ -1516,3 +1524,200 @@ def int8_exact_topk(corpus_q, row_mult, qf, k: int,
         LAUNCHES["int8_exact_scores"] += 1
         best_s, best_i = _exact_carry(best_s, best_i, s, kk, r0)
     return best_s, best_i.masked_fill(torch.isneginf(best_s), -1)
+
+
+# ---------------------------------------------------------------------------
+# kernel 10: the non-fast batched IVF first pass, the top-m of every
+# (probed window, table slot) inside
+# ---------------------------------------------------------------------------
+
+# int8 dots are exact in an f32 product while every sum stays below 2^24:
+# up to this many columns a product (1,024 x 127^2 < 2^24)
+_EXACT_DOT_COLS = 1024
+# the plain versions of the batched first pass (``ivf_window_topm_plain``,
+# the pooled form in ``ops/ivf._score_windows``) and the kernel's chunked
+# windows score their windows in steps of at most this many bytes
+# (``_windows_per_step``: at cell A's TOP 65 batch, 293 windows of 1,024
+# rows a step, 14 steps)
+_WINDOW_STEP_BYTES = 2 << 30
+# csrc/ivf_topm.cu's geometry: a 3-stage ring of 128-row x 128-byte
+# tiles, a 256-byte header, the slots' query rows (a 128-byte row a K
+# stage) and a chunk of int64 keys a slot, at most _TOPM_CHUNK (a power
+# of two), in the _TOPM_SMEM bytes a block can have
+_TOPM_RING = 3 * 128 * 128
+_TOPM_HEADER = 256
+_TOPM_CHUNK = 1024
+_TOPM_SMEM = 232448
+
+
+def _window_dots(qsel: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Exact int8 dots [G, q, d] x [G, w, d] -> [G, q, w] f32, as the
+    JAX package's int32 ``dot_general`` converted to f32.
+
+    torch has no batched int8 product (``torch._int_mm`` is 2-D only, a
+    launch per window), so the product runs in f32 on integer values:
+    every product is exact and so is every partial sum below 2^24, which
+    holds for up to _EXACT_DOT_COLS columns in any summation order, on
+    the CPU and on the card alike while TF32 is off (the package
+    docstring; checked here, as TF32 would round the operands). Wider
+    rows are cut into such column slices whose exact sums add in int32,
+    then convert to f32 once."""
+    if qsel.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("exact int8 dots need TF32 off "
+                           "(torch.backends.cuda.matmul.allow_tf32)")
+    d = qsel.shape[-1]
+    acc = None
+    for c0 in range(0, d, _EXACT_DOT_COLS):
+        part = torch.bmm(qsel[..., c0:c0 + _EXACT_DOT_COLS].float(),
+                         rows[..., c0:c0 + _EXACT_DOT_COLS].float()
+                         .transpose(1, 2))
+        if d <= _EXACT_DOT_COLS:
+            return part
+        acc = part.int() if acc is None else acc + part.int()
+    return acc.float()
+
+
+def _windows_per_step(window: int, q_cap: int, d: int) -> int:
+    """Windows one plain step takes: _WINDOW_STEP_BYTES over a window's
+    rows and queries (int8 and f32) and its f32 dots, scores and
+    selection temporaries (int32 image, int64 keys or indices)."""
+    per_window = 5 * (window + q_cap) * d + 48 * q_cap * window
+    return max(1, _WINDOW_STEP_BYTES // per_window)
+
+
+def _topm_plan(window: int, d: int):
+    """csrc/ivf_topm.cu's plan for windows of ``window`` rows of width d:
+    (slots a block, keys a slot sorts at once, shared-memory bytes). The
+    chunk is the window's power of two up to _TOPM_CHUNK, halved (down to
+    128) only where 8 slots' keys and query rows do not fit; 16 slots a
+    block where they fit, else 8. Raises where none fits (d past about
+    19,000)."""
+    stages = -(-d // 128)
+    top = min(_TOPM_CHUNK, 1 << (window - 1).bit_length())
+    chunk = top
+    while chunk >= 128:
+        for slots in (16, 8):
+            smem = (_TOPM_HEADER + _TOPM_RING + stages * slots * 128
+                    + slots * chunk * 8)
+            if smem <= _TOPM_SMEM:
+                return slots, chunk, smem
+        chunk //= 2
+    raise ValueError(f"ivf_topm kernel: rows of {d} bytes leave no room "
+                     f"in shared memory")
+
+
+def ivf_window_topm_plain(buf, rmult, first, base, tbl, qq, qsc,
+                          window: int, m: int):
+    """Plain PyTorch version of ``ivf_window_topm``: each step of windows
+    (``_windows_per_step``) gathered, their exact dots
+    (``_window_dots``) times the scales, masked, and ``_topk_stable``'s
+    top-m of every (window, slot)."""
+    n_live, q_cap = tbl.shape
+    dev = buf.device
+    tq = tbl.clamp_min(0)
+    sc_slot = torch.where(tbl >= 0, qsc[tq], 0.0)
+    span = torch.arange(window, device=dev)
+    ys_s = torch.empty((n_live, q_cap, m), device=dev)
+    ys_p = torch.empty((n_live, q_cap, m), dtype=torch.int32, device=dev)
+    step = _windows_per_step(window, q_cap, buf.shape[1])
+    for i0 in range(0, n_live, step):
+        i1 = min(n_live, i0 + step)
+        idx = first[i0:i1, None] + span                       # [G, w]
+        rm = rmult[idx][:, None, :]                           # [G, 1, w]
+        dots = _window_dots(qq[tq[i0:i1]], buf[idx])          # [G, q, w]
+        sc = torch.where(rm > 0, dots * (sc_slot[i0:i1, :, None] * rm),
+                         float("-inf"))
+        sv, si = _topk_stable(sc.reshape(-1, window), m)
+        ys_s[i0:i1] = sv.reshape(i1 - i0, q_cap, m)
+        ys_p[i0:i1] = base[i0:i1, None, None] + si.reshape(i1 - i0, q_cap,
+                                                           m)
+    return ys_s, ys_p
+
+
+def ivf_window_topm(buf, rmult, first, base, tbl, qq, qsc, window: int,
+                    m: int):
+    """The non-fast batched IVF first pass over the L probed windows.
+
+    buf [n, d] int8 and rmult [n] f32 (0 = dead row): the layout's
+    planes; first [L] int64: the row each window's ``window`` rows start
+    at (in [0, n - window]); base [L] int64: the start positions are
+    reported from; tbl [L, q_cap] int64: each window's table, the query of
+    each slot (-1 = empty; slots fill from 0); qq [Q, d] int8, qsc [Q]
+    f32: the quantized queries and their scales. Score of slot s and row
+    w: float(int32 dot of qq[tbl[l, s]] and buf[first[l] + w]) * (qsc *
+    rmult), -inf where rmult <= 0. Returns (scores [L, q_cap, m] f32,
+    positions base[l] + w [L, q_cap, m] int32): each filled slot's top m
+    in ``lax.top_k``'s order (equal scores by ascending w; dead rows keep
+    their positions). Empty slots hold no result (the kernel leaves them
+    unwritten).
+
+    On the card, one launch where the window fits a chunk of keys
+    (``_topm_plan``: up to 1,024 rows); wider windows launch a step of
+    windows at a time, each chunk's best keys a slot, and one
+    ``torch.topk`` over a slot's chunks finishes. Scores and positions
+    equal the plain version's bit for bit."""
+    dev = buf.device
+    _check("buf", buf, torch.int8, 2, dev)
+    _check("rmult", rmult, torch.float32, 1, dev)
+    _check("first", first, torch.int64, 1, dev)
+    _check("base", base, torch.int64, 1, dev)
+    _check("tbl", tbl, torch.int64, 2, dev)
+    _check("qq", qq, torch.int8, 2, dev)
+    _check("qsc", qsc, torch.float32, 1, dev)
+    (n, d), (n_live, q_cap) = buf.shape, tbl.shape
+    if (rmult.shape != (n,) or first.shape != (n_live,)
+            or base.shape != (n_live,) or qq.shape[1] != d
+            or qsc.shape != (qq.shape[0],) or not 1 <= m <= window):
+        raise ValueError(
+            f"ivf_topm shapes: buf {tuple(buf.shape)}, rmult "
+            f"{tuple(rmult.shape)}, first {tuple(first.shape)}, base "
+            f"{tuple(base.shape)}, tbl {tuple(tbl.shape)}, qq "
+            f"{tuple(qq.shape)}, qsc {tuple(qsc.shape)}, window {window}, "
+            f"m {m} (1 <= m <= window)")
+    if dev.type == "cpu":
+        return ivf_window_topm_plain(buf, rmult, first, base, tbl, qq, qsc,
+                                     window, m)
+    if dev.type != "cuda":
+        raise ValueError(f"ivf_window_topm: unsupported device {dev}")
+    if window % 128 or d % 16:
+        raise ValueError(f"ivf_topm kernel needs window % 128 == 0 and "
+                         f"d % 16 == 0 (window={window}, d={d})")
+    _launch_ready("buf", buf)
+    _launch_ready("qq", qq)
+    for name, t in (("rmult", rmult), ("first", first), ("base", base),
+                    ("tbl", tbl), ("qsc", qsc)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous for the kernel")
+    ys_s = torch.empty((n_live, q_cap, m), device=dev)
+    ys_p = torch.empty((n_live, q_cap, m), dtype=torch.int32, device=dev)
+    if not n_live or not q_cap:
+        return ys_s, ys_p
+    slots, chunk, smem = _topm_plan(window, d)
+    chunks = -(-window // chunk)
+    lib = build_kernels()
+
+    def launch(i0: int, i1: int, out_s, out_p, out_k) -> None:
+        with torch.cuda.device(dev):
+            err = lib.neumann_ivf_topm(
+                buf.data_ptr(), rmult.data_ptr(), first[i0:].data_ptr(),
+                base[i0:].data_ptr(), tbl[i0:].data_ptr(), qq.data_ptr(),
+                qsc.data_ptr(), out_s, out_p, out_k, n, d, window, m,
+                i1 - i0, q_cap, slots, chunk, smem, _stream())
+        _raise_on(err, "ivf_topm")
+        LAUNCHES["ivf_topm_select"] += 1
+
+    if chunks == 1:
+        launch(0, n_live, ys_s.data_ptr(), ys_p.data_ptr(), None)
+        return ys_s, ys_p
+    width = chunks * min(m, chunk)
+    step = max(1, _WINDOW_STEP_BYTES // (24 * q_cap * width))
+    for i0 in range(0, n_live, step):
+        i1 = min(n_live, i0 + step)
+        keys = torch.empty((i1 - i0, q_cap, width), dtype=torch.int64,
+                           device=dev)
+        launch(i0, i1, None, None, keys.data_ptr())
+        s, w = decode_score_keys(merge_keys(None, keys.view(-1, width), m,
+                                            largest=True))
+        ys_s[i0:i1] = s.view(i1 - i0, q_cap, m)
+        ys_p[i0:i1] = base[i0:i1, None, None] + w.view(i1 - i0, q_cap, m)
+    return ys_s, ys_p

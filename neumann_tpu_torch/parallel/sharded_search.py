@@ -448,7 +448,8 @@ class ShardedIVFCorpus:
         fast (default: on a CUDA mesh, for windows of a power-of-two
         number >= 2 of 128-row pools and k <= 128): the batched top-2
         kernel (kernel 2) with pool-winner probes and a packed-bits
-        preselection; otherwise the plain-torch first pass."""
+        preselection; otherwise the non-fast first pass (kernel 10,
+        ``ops/kernels.ivf_window_topm``)."""
         if self.corpus is None:
             raise ValueError("load() first")
         q = self._queries(queries)

@@ -59,10 +59,11 @@ shared block (8, 70), k 1, 10 and 64, codes copied across distant rows
 (exact ties at the shared threshold), fewer live rows than k, a whole
 block of dead rows, gathered candidates with -1; scores and columns
 equal to ``pq_adc_topk_plain``. The batched probe's top-1 mode through
-``batched_ivf_topk(fused="pallas", presel=0)``, and the plain-torch
-non-fast first pass (exact int8 dots at d 768 and 3,072), equal to the
-CPU's bits. The mesh's shard launches: the int8 pooled bits at 262,144
-rows, pools 256 and 1,024, Q 1 and 1,024; the batched top-2 probe over
+``batched_ivf_topk(fused="pallas", presel=0)``, and the non-fast first
+pass (its top-m through kernel 10, its pooled form in plain torch; exact
+int8 dots at d 768 and 3,072), equal to the CPU's bits (kernel 10's
+edges are in tests/test_torch_ivf_topm.py). The mesh's shard launches:
+the int8 pooled bits at 262,144 rows, pools 256 and 1,024, Q 1 and 1,024; the batched top-2 probe over
 258 windows of 1,024 rows, q_cap 16 and 768. ROLLBACK on a router whose corpora hold device views:
 SIMILAR on the f32 pooled, int8 and binary routes gives the hits from
 before the checkpoint, and their kernels launch.
@@ -508,9 +509,10 @@ def test_batched_top1_route_bit_exact(cuda, window, d, nprobe, q_cap):
     assert torch.equal(p_g.cpu(), p_w)
 
 
-# the non-fast batched first pass is plain torch: on the card its exact
-# int8 dots (f32 products of up to 1,024 columns, TF32 off) and its top-m
-# must give the CPU's bits; d 3,072 takes three column slices
+# the non-fast batched first pass on the card (the top-m: kernel 10,
+# csrc/ivf_topm.cu; the pooled form: plain torch, its exact int8 dots f32
+# products of up to 1,024 columns with TF32 off) must give the CPU's bits;
+# d 3,072 takes three column slices
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [768, 3072])
 @pytest.mark.parametrize("selection", ["approx", 8])

@@ -238,9 +238,10 @@ def test_carried_ivf_search_matches_jax(carried_ivf, k):
 @pytest.mark.parametrize("fast", [False, True])
 @pytest.mark.parametrize("k", [10, 33])
 def test_carried_ivf_search_batched_matches_jax(carried_ivf, fast, k):
-    """Both forms of the batched search: the non-fast plain-torch first
-    pass and the fast one (the batched top-2 kernel's plain version on
-    the CPU, the Pallas kernel in interpret mode in JAX)."""
+    """Both forms of the batched search: the non-fast first pass (kernel
+    10's plain version on the CPU) and the fast one (the batched top-2
+    kernel's plain version on the CPU, the Pallas kernel in interpret
+    mode in JAX)."""
     j, t, q = carried_ivf
     got = t.search_batched(q, k, fast=fast)
     want = j.search_batched(q, k, fast=fast)

@@ -466,4 +466,4 @@ def test_launch_counters_cover_every_kernel():
                                 "int8_pooled_bits", "f32_pooled_bits",
                                 "hamming_scores", "hamming_topk", "pq_adc",
                                 "pq_adc_select", "int8_exact_select",
-                                "int8_exact_scores"}
+                                "int8_exact_scores", "ivf_topm_select"}

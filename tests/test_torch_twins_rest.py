@@ -13,7 +13,10 @@ Patched: test_entrypoints.py"s loader test makes the port"s native
 loaders find no built library through ``pathlib.Path.exists`` (they do
 not use ``os.path``); test_store.py"s view test reads the port"s tensor
 dtypes (``torch.int8``, and sign bits packed as int32 where the JAX
-slab keeps uint32: torch has no uint32 bit ops). Left out:
+slab keeps uint32: torch has no uint32 bit ops); test_integration_parity.py"s
+``test_tcp_node_cas_over_real_sockets`` runs its three-node TCP cluster
+with 30-60 tick elections, as tests/test_torch_chain_cluster.py does (its
+3-6 tick elections split votes under six busy test workers). Left out:
 test_coverage_gaps.py::test_package_lazy_helpers, which tests the JAX
 package"s own ``neumann_tpu._lazy`` / ``open_shell`` helpers (the port
 opens its shell with ``python -m neumann_tpu_torch.shell``).
@@ -50,7 +53,9 @@ globals().update(twin_tests(
         "test_cache_auto_selects_jaccard_for_sparse",
         "test_tcp_node_cas_over_real_sockets",
         "test_rest_hostile_inputs",
-    ), packages=_PORT))
+    ), packages=_PORT, port_patch={
+        "RaftConfig(election_timeout_min=3, election_timeout_max=6)":
+        "RaftConfig(election_timeout_min=30, election_timeout_max=60)"}))
 globals().update(twin_tests(
     "test_memory_temporal", (
         "TestTemporal.test_autocorrelation_and_period",
