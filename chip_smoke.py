@@ -615,17 +615,19 @@ EXACT_LIBRARY = ("torch.matmul(qf, rows.float().t()) with allow_tf32 False, "
 # k_ivf = 2 * TOP65 + 16) and at TOPM_EDGES: m up to the window, the
 # smallest batch the route takes (Q 64, its default q_cap 16), windows of
 # 4,096 rows (the kernel's chunks) over the same rows, d 4,096 (8 slots a
-# block). TOPM_COPIES rows from TOPM_COPY0 are copies of the row before
-# them, and TOPM_COPY_QUERIES queries are that row and probe its window:
-# their top-m holds the copies, in ascending positions
+# block). TOPM_RUNS: (first row, rows) of two runs of copies of the row
+# before them, each in its own window; TOPM_COPY_QUERIES queries are
+# that row and probe its window. The first run fits in their top m, in
+# ascending positions; the second is longer than TOPM_M, so their m-th
+# key lies inside a run of equal scores and the kernel's cut takes its
+# first rows by ascending position
 TOPM_WINDOWS = 4096
 TOPM_WINDOW = 1024
 TOPM_NPROBE = 81
 TOPM_Q_CAP = 64
 TOPM_M = 2 * TOP65 + 16 + 6
 TOPM_DEAD = 0.01
-TOPM_COPY0 = 7 * TOPM_WINDOW + 100
-TOPM_COPIES = 32
+TOPM_RUNS = ((7 * TOPM_WINDOW + 100, 32), (23 * TOPM_WINDOW + 50, 200))
 TOPM_COPY_QUERIES = 4
 # suffix: (windows, window, d, queries, probes, q_cap, m)
 TOPM_EDGES = {
@@ -636,14 +638,21 @@ TOPM_EDGES = {
     "_d4096": (512, TOPM_WINDOW, 4096, 128, 16, 16, TOPM_M),
 }
 TOPM_DESIGN = ("one block a (probed window, group of 16 table slots; 8 at "
-               "d 4,096), a block whose first slot is empty exits; the "
-               "group's int8 query rows gathered into shared memory, the "
-               "window's rows through a 3-stage cp.async ring of 128 rows x "
-               "128 bytes on mma.sync.m16n8k32.s8 (rows on M, slots on N); "
-               "each 128-row tile's scores (two __fmul_rn, no contraction) "
-               "as lax.top_k's int64 keys in shared memory, a warp a slot "
-               "sorting its 1,024 keys (bitonic) and writing the first m; "
-               "wider windows in 1,024-row chunks merged by one torch.topk")
+               "d 3,072 and 4,096), two blocks a SM up to d 4,096, a block "
+               "whose first slot is empty exits; the group's int8 query "
+               "rows gathered into shared memory by cp.async, the window's "
+               "rows by TMA from a producer warp (128 rows x 64 bytes, "
+               "64-byte swizzle, a 4-stage ring on full / empty mbarriers) "
+               "on mma.sync.m16n8k32.s8 in 8 consumer warps (rows on M, "
+               "slots on N); each score (two __fmul_rn, no contraction) "
+               "stored as its 32-bit order-preserving image by row offset; "
+               "a warp a slot: a radix select of the m-th image (8-bit "
+               "digits, a shared histogram with warp-aggregated "
+               "increments), the images above it and the first at it by "
+               "ascending offset, only those m keys sorted in registers "
+               "(bitonic, shuffles; m up to 256, above it the block sorts "
+               "a slot's keys in shared memory); wider windows in "
+               "1,024-row chunks merged by one torch.topk")
 # phase 2's records: the main shape's keys bare, the other shapes' with a
 # suffix
 SHAPE_SUFFIXES = ("_q1", "_k64", "_q8", "_q32", "_w96", "_w96q1",
@@ -4216,11 +4225,11 @@ def topm_row_mult(buf):
 def topm_inputs(buf, rm, window: int, q: int, nprobe: int, q_cap: int,
                 g, copies: bool = False):
     """Row 10's inputs over a fixed-window layout: q random unit queries
-    (the first TOPM_COPY_QUERIES the copied row, probing its window where
-    ``copies``) quantized as the route quantizes them, nprobe distinct
-    random probes each, the query tables of q_cap slots. Returns the
-    wrapper's (buf, rmult, first, base, tbl, qq, qsc) and the filled
-    slots."""
+    (where ``copies``, TOPM_COPY_QUERIES for each of TOPM_RUNS the row
+    the run copies, probing its window) quantized as the route quantizes
+    them, nprobe distinct random probes each, the query tables of q_cap
+    slots. Returns the wrapper's (buf, rmult, first, base, tbl, qq, qsc)
+    and the filled slots."""
     import torch
 
     from neumann_tpu_torch.ops import ivf as tivf
@@ -4230,8 +4239,10 @@ def topm_inputs(buf, rm, window: int, q: int, nprobe: int, q_cap: int,
     x = torch.randn(q, buf.shape[1], generator=g, device=buf.device)
     pick = torch.rand(q, n_win, generator=g, device=buf.device)
     if copies:
-        x[:TOPM_COPY_QUERIES] = buf[TOPM_COPY0 - 1].float()
-        pick[:TOPM_COPY_QUERIES, TOPM_COPY0 // window] = 2.0
+        for i, (r0, _) in enumerate(TOPM_RUNS):
+            qs = slice(i * TOPM_COPY_QUERIES, (i + 1) * TOPM_COPY_QUERIES)
+            x[qs] = buf[r0 - 1].float()
+            pick[qs, r0 // window] = 2.0
     qq, qsc = scalar_quantize(x / x.norm(dim=1, keepdim=True),
                               form="reciprocal")
     tbl, _, _ = tivf._query_tables(pick.topk(nprobe, dim=1).indices, n_win,
@@ -4240,6 +4251,27 @@ def topm_inputs(buf, rm, window: int, q: int, nprobe: int, q_cap: int,
     base = live * window
     args = (buf, rm, base, base.clone(), tbl[live].contiguous(), qq, qsc)
     return args, int((tbl >= 0).sum())
+
+
+def topm_runs_met(got, args, window: int, m: int) -> int:
+    """The runs' queries whose lists start with their run: the copied row
+    and its copies in ascending positions, all one score (the whole list
+    where the run is longer than m)."""
+    import torch
+
+    base, tbl = args[3], args[4]
+    met = 0
+    for i, (r0, copies) in enumerate(TOPM_RUNS):
+        li = int(torch.nonzero(base == r0 // window * window)[0])
+        n = min(m, copies + 1)
+        want = torch.arange(r0 - 1, r0 - 1 + n, device=base.device,
+                            dtype=torch.int32)
+        for qi in range(i * TOPM_COPY_QUERIES, (i + 1) * TOPM_COPY_QUERIES):
+            sl = int(torch.nonzero(tbl[li] == qi)[0])
+            sc = got[0][li, sl, :n]
+            met += int(torch.equal(got[1][li, sl, :n], want)
+                       and bool((sc == sc[0]).all()))
+    return met
 
 
 def topm_compare(got, want, tbl) -> dict:
@@ -4294,27 +4326,23 @@ def topm_record(rec: dict, sfx: str, args, window: int, m: int,
     rec[f"filled_slots{sfx}"] = filled
 
 
-def check_ivf_topm(dev, seed: int) -> dict:
-    """Phase 2, row 10: ``ivf_window_topm`` at A17's TOP 65 batch and at
-    TOPM_EDGES against its plain version on the same inputs, every
-    filled slot bit for bit (``topm_compare``: no score bit and no
-    position may differ, and equal scores must come in ascending
-    positions); its time, device time and bound beside the plain
-    version's at each shape. Returns the record."""
+def topm_cases(dev, seed: int):
+    """Row 10's inputs at A17's TOP 65 batch and at TOPM_EDGES, one shape
+    at a time: yields (suffix, the wrapper's args, filled slots, window,
+    m, queries). The rows at d DIM (with TOPM_RUNS) are made once and
+    shared by the shapes of that width."""
     import torch
-
-    from neumann_tpu_torch.ops import kernels as tk
 
     g = torch.Generator(device=dev).manual_seed(seed + 10)
     n = TOPM_WINDOWS * TOPM_WINDOW
     buf = torch.randint(-127, 128, (n, DIM), generator=g, device=dev,
                         dtype=torch.int8)
-    buf[TOPM_COPY0:TOPM_COPY0 + TOPM_COPIES] = buf[TOPM_COPY0 - 1]
+    for r0, copies in TOPM_RUNS:
+        buf[r0:r0 + copies] = buf[r0 - 1]
     rm = topm_row_mult(buf).masked_fill(
         torch.rand(n, generator=g, device=dev) < TOPM_DEAD, 0.0)
-    rm[TOPM_COPY0 - 1:TOPM_COPY0 + TOPM_COPIES] = \
-        1.0 / buf[TOPM_COPY0 - 1].float().norm()
-    rec = dict(design=TOPM_DESIGN, checks={})
+    for r0, copies in TOPM_RUNS:
+        rm[r0 - 1:r0 + copies] = 1.0 / buf[r0 - 1].float().norm()
     shapes = {"": (TOPM_WINDOWS, TOPM_WINDOW, DIM, N_BATCH, TOPM_NPROBE,
                    TOPM_Q_CAP, TOPM_M), **TOPM_EDGES}
     for sfx, (n_win, window, d, q, nprobe, q_cap, m) in shapes.items():
@@ -4326,31 +4354,53 @@ def check_ivf_topm(dev, seed: int) -> dict:
             r = topm_row_mult(b)
         args, filled = topm_inputs(b, r, window, q, nprobe, q_cap, g,
                                    copies=d == DIM and window == TOPM_WINDOW)
+        yield sfx, args, filled, window, m, q
+        del args, b, r
+        torch.cuda.empty_cache()
+
+
+def check_ivf_topm(dev, seed: int) -> dict:
+    """Phase 2, row 10: ``ivf_window_topm`` at A17's TOP 65 batch and at
+    TOPM_EDGES (``topm_cases``) against its plain version on the same
+    inputs, every filled slot bit for bit (``topm_compare``: no score
+    bit and no position may differ, and equal scores must come in
+    ascending positions), and where the inputs hold TOPM_RUNS, every run
+    query's list led by its run (``topm_runs_met``); its time, device
+    time and bound beside the plain version's at each shape. Returns the
+    record."""
+    from neumann_tpu_torch.ops import kernels as tk
+
+    rec = dict(design=TOPM_DESIGN, checks={})
+    runs = len(TOPM_RUNS) * TOPM_COPY_QUERIES
+    for sfx, args, filled, window, m, q in topm_cases(dev, seed):
         got = tk.ivf_window_topm(*args, window, m)
         res = topm_compare(got, tk.ivf_window_topm_plain(*args, window, m),
                            args[4])
+        if args[0].shape[1] == DIM and window == TOPM_WINDOW:
+            res["runs_met"] = topm_runs_met(got, args, window, m)
         rec["checks"][sfx or "a17"] = res
         if (res["score_bits_differ"] or res["positions_differ"]
-                or res["order_errors"]):
+                or res["order_errors"] or res.get("runs_met", runs) < runs):
             raise AssertionError(f"ivf_topm{sfx or ' at A17'} departs from "
                                  f"its plain version: {res}")
-        if sfx == "" and res["tied_pairs"] < TOPM_COPY_QUERIES * TOPM_COPIES:
+        tied = TOPM_COPY_QUERIES * sum(min(c, m - 1) for _, c in TOPM_RUNS)
+        if sfx == "" and res["tied_pairs"] < tied:
             raise AssertionError(f"ivf_topm: the copies' ties were not met "
                                  f"({res})")
         del got
         topm_record(rec, sfx, args, window, m, filled, 5 if q > 64 else 20)
-        del args, b, r
-        torch.cuda.empty_cache()
     rec["max_abs_err"] = max(c["max_abs_err"] for c in rec["checks"].values())
-    say(f"[2] ivf_topm vs plain ({len(shapes)} shapes): scores and "
+    say(f"[2] ivf_topm vs plain ({len(rec['checks'])} shapes): scores and "
         f"positions bit-equal on every filled slot, "
         f"{rec['checks']['a17']['tied_pairs']} tied pairs in ascending "
-        f"positions; "
+        f"positions, the runs' {runs} queries led by their runs (the "
+        f"second's cut inside it); "
         + "; ".join(f"{sfx[1:] or 'A17'} {rec[f'ms{sfx}']:.3f} ms (device "
                     f"{ms_text(rec[f'device_ms{sfx}'])}), plain "
                     f"{rec[f'plain_ms{sfx}']:.3f} ms, bound "
                     f"{rec[f'bound_ms{sfx}']:.3f} ms "
-                    f"({rec[f'bound_by{sfx}']})" for sfx in shapes))
+                    f"({rec[f'bound_by{sfx}']})"
+                    for sfx in ("", *TOPM_EDGES)))
     return rec
 
 

@@ -23,39 +23,50 @@
 // version's bits (ops/kernels.ivf_window_topm_plain).
 //
 // What bounds it on an H100, at cell A17's TOP 65 batch (4,096 windows of
-// 1,024 x 768, 82,944 filled slots): bytes. The probed windows' rows are
-// read once, 3.2 GB (1.0 ms at 3.35 TB/s); the filled slots' dots are
-// 1.3e11 int8 operations (0.07 ms on the int8 tensor cores). The design:
+// 1,024 x 768, 82,944 filled slots, m 152): bytes. The probed windows'
+// rows are read once, 3.2 GB (1.0 ms at 3.35 TB/s); the filled slots'
+// dots are 1.3e11 int8 operations (0.07 ms on the int8 tensor cores).
+// The design:
 //   * one block per (live window, group of kG slots); slots fill from 0,
-//     so a block whose first slot is empty exits at once, and the padded
-//     slots of the query tables (about two thirds at A17) cost nothing;
-//     a window's groups are neighbouring blocks, so its rows come from L2
-//     after the first;
+//     so a block whose first slot is empty exits at once (the padded
+//     slots of the query tables, about two thirds at A17); a window's
+//     groups are neighbouring blocks, so its rows come from L2 after the
+//     first; the plan (ops/kernels._topm_plan) fits two blocks a SM up to
+//     d 4,096, so one block's selection runs beside the other's stream;
 //   * the group's query rows are gathered through the table into shared
-//     memory once (128-byte swizzle); the window's rows stream through a
-//     3-stage cp.async ring of 128 rows x 128 K bytes, rows on the M side
-//     of mma.sync.m16n8k32.s8 (8 warps x 16 rows), slots on N (csrc/
-//     mma_s8.cuh, as csrc/batched_probe.cu);
-//   * after a 128-row tile's last K stage each warp turns its 16 rows x
-//     kG slots into keys in the slots' key arrays in shared memory; once a
-//     chunk of kChunk rows (the window up to 1,024, a power of two) is in,
-//     each warp sorts its slots' keys descending (bitonic, in shared
-//     memory, one warp a slot, no block barrier) and writes the first m
-//     as scores and positions;
+//     memory once by cp.async; a producer warp streams the window's rows
+//     by TMA in 128-row x 64-byte tiles (64-byte swizzle) through a
+//     kStages ring of full / empty mbarriers; eight consumer warps take
+//     16 rows each on the M side of mma.sync.m16n8k32.s8, slots on N
+//     (csrc/mma_s8.cuh);
+//   * after a tile's last K stage each warp stores its rows' scores as
+//     32-bit order-preserving images (the key's upper half, sign flipped
+//     to unsigned), indexed by the row's offset: 4 bytes a (slot, row);
+//   * once a chunk of rows is in, a warp a slot finds the k-th largest
+//     image T by a radix select (8-bit digits from the top, a 256-count
+//     histogram in shared memory with warp-aggregated increments, the
+//     digit's bin by a prefix scan; it stops at the first digit whose bin
+//     is taken whole), takes every image above T and the first k - count
+//     (> T) equal to T by ascending offset (lax.top_k's tie rule: the
+//     keys of distinct rows are distinct), and sorts only those k keys in
+//     registers (a 256-key bitonic network, warp shuffles); above 256
+//     kept keys (m near the window) the block sorts each slot's whole
+//     chunk of keys in shared memory instead, one slot at a time;
 //   * wider windows (one window a cluster can pass 1,024 rows) run in
-//     chunks: the block writes each chunk's best min(m, kChunk) keys, and
+//     chunks: the block writes each chunk's best min(m, chunk) keys, and
 //     one torch.topk over a slot's chunks finishes (the wrapper). The
 //     keys of distinct rows are distinct, so the cut is exact.
-// A simple kernel: the sort (55 warp steps at 1,024 keys) runs while the
-// ring is idle, and a 1,024-row window holds one block a SM.
+// The histograms and the kept keys use the ring, which is idle once a
+// chunk's last tile is in.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
 
+#include "hopper.cuh"
 #include "mma_s8.cuh"
-#include "pooled_bits.cuh"
 
 namespace {
 
@@ -64,23 +75,51 @@ using neumann::cp_async_commit;
 using neumann::cp_async_wait;
 using neumann::ldsm_x2;
 using neumann::ldsm_x4;
+using neumann::mbar_arrive;
+using neumann::mbar_arrive_expect_tx;
+using neumann::mbar_init;
+using neumann::mbar_wait;
 using neumann::mma_s8;
-using neumann::swz128;
+using neumann::tma_load_2d;
 
-constexpr int kThreads = 256;   // 8 warps x 16 rows
-constexpr int kTile = 128;      // rows a tile
-constexpr int kBK = 128;        // K bytes a stage
-constexpr int kStages = 3;
+constexpr int kConsumers = 8;                 // warps, 16 rows each
+constexpr int kThreads = 32 * (kConsumers + 1);   // + the producer warp
+constexpr int kTile = 128;                    // rows a tile
+constexpr int kBK = 64;                       // K bytes a stage
+constexpr int kStages = 4;
 constexpr int kStageBytes = kTile * kBK;
-constexpr int kHeader = 256;    // slot scales, query rows, the live count
-constexpr long long kEmpty = LLONG_MIN;   // below every real key
+constexpr int kHeader = 512;   // mbarriers, slot scales and queries, count
+constexpr int kAlign = 1024;   // the ring's alignment (slack in the plan)
+constexpr int kPad = 4;        // images past a slot's chunk (bank spread)
+constexpr int kSortMax = 256;  // kept keys a warp sorts in registers
+constexpr int kScratch = kSortMax * 8;   // a warp's share of the ring
+constexpr long long kEmpty = LLONG_MIN;  // below every real key
+constexpr unsigned kFull = 0xffffffffu;
 
-// ops/scan.stable_keys's key of score v at offset w
-__device__ __forceinline__ long long make_key(float v, int w) {
-  int b = __float_as_int(v);
-  b = b < 0 ? (b ^ 0x7FFFFFFF) : b;
+static_assert(kConsumers * kScratch <= kStages * kStageBytes,
+              "the warps' histograms and kept keys fit the ring");
+static_assert(2 * kStages * 8 + 16 * 4 + 16 * 8 + 4 <= kHeader,
+              "the mbarriers, slot scales and queries and the count");
+
+// byte offset of 16-byte chunk c (0-3) of row r in a tile of 64-byte rows
+// in TMA's 64-byte swizzle (the tile 512-byte aligned): the chunk is
+// XORed with bits 1-2 of the row, so 8 consecutive rows at one logical
+// chunk land in 8 different 16-byte bank groups
+__device__ __forceinline__ int swz64(int r, int c) {
+  return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+}
+
+// the score's order-preserving image: the upper half of
+// ops/scan.stable_keys's key, sign bit flipped so it orders as unsigned
+__device__ __forceinline__ unsigned score_image(float v) {
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// ops/scan.stable_keys's key of the score with image `img` at offset w
+__device__ __forceinline__ long long image_key(unsigned img, int w) {
   return static_cast<long long>(
-      (static_cast<unsigned long long>(static_cast<unsigned>(b)) << 32) |
+      (static_cast<unsigned long long>(img ^ 0x80000000u) << 32) |
       static_cast<unsigned long long>(0xFFFFFFFFu -
                                       static_cast<unsigned>(w)));
 }
@@ -92,6 +131,11 @@ __device__ __forceinline__ float key_score(long long k) {
 
 __device__ __forceinline__ int key_offset(long long k) {
   return static_cast<int>(0xFFFFFFFFu - static_cast<unsigned>(k));
+}
+
+// the consumer warps alone (the producer warp does not wait)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumers) : "memory");
 }
 
 struct Args {
@@ -110,21 +154,153 @@ struct Args {
   int window;
   int m;
   int q_cap;
-  int chunk;                // keys a slot sorts at once: a power of two
+  int chunk;                // rows a slot's images hold: a power of two
 };
 
+// A warp's top k (k <= kSortMax) of the images im[0, rows) of rows w0 +
+// 0 .. rows - 1, in lax.top_k's order: x[r] is the key of rank 32 r +
+// lane, kEmpty past k. scratch: the warp's kScratch bytes (the histogram,
+// then the kept keys).
+__device__ __forceinline__ void warp_topk(const unsigned* im, int rows,
+                                          int k, int w0, uint8_t* scratch,
+                                          long long (&x)[8]) {
+  const int lane = threadIdx.x % 32;
+  const unsigned below = (1u << lane) - 1;
+  unsigned* hist = reinterpret_cast<unsigned*>(scratch);
+  long long* kept = reinterpret_cast<long long*>(scratch);
+
+  // T's digits from the top: after each pass the images whose masked
+  // bits equal `prefix` hold the kk-th largest; a bin taken whole ends it
+  unsigned prefix = 0, mask = 0;
+  int kk = k;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+#pragma unroll
+    for (int b = 0; b < 8; ++b) hist[lane + 32 * b] = 0;
+    __syncwarp();
+    for (int i = lane; i < rows; i += 32) {
+      const unsigned v = im[i];
+      const bool in = (v & mask) == prefix;
+      const unsigned act = __ballot_sync(kFull, in);
+      if (in) {
+        const unsigned dig = (v >> shift) & 255u;
+        const unsigned peers = __match_any_sync(act, dig);
+        if ((peers & below) == 0) atomicAdd(&hist[dig], __popc(peers));
+      }
+    }
+    __syncwarp();
+    // lane l holds bins 255 - 8 l - j (j = 0..7): counts from the top
+    int c[8];
+    int sum = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      c[j] = static_cast<int>(hist[255 - 8 * lane - j]);
+      sum += c[j];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += y;
+    }
+    const int src =
+        __ffs(__ballot_sync(kFull, incl - sum < kk && kk <= incl)) - 1;
+    int above = incl - sum, bin = 0, inbin = 0;
+    bool found = false;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (!found && above + c[j] >= kk) {
+        found = true;
+        bin = 255 - 8 * lane - j;
+        inbin = c[j];
+      } else if (!found) {
+        above += c[j];
+      }
+    }
+    bin = __shfl_sync(kFull, bin, src);
+    above = __shfl_sync(kFull, above, src);
+    inbin = __shfl_sync(kFull, inbin, src);
+    kk -= above;
+    prefix |= static_cast<unsigned>(bin) << shift;
+    mask |= 255u << shift;
+    __syncwarp();   // the histogram is read before it is cleared or reused
+    if (inbin == kk) break;
+  }
+
+  // the kept keys: every image above the cut, then the first kk at it
+  // by ascending offset
+  const int n_above = k - kk;
+  int above_seen = 0, at_seen = 0;
+  for (int i = lane; i < rows; i += 32) {
+    const unsigned v = im[i];
+    const unsigned mv = v & mask;
+    const bool gt = mv > prefix;
+    const bool eq = mv == prefix;
+    const unsigned bg = __ballot_sync(kFull, gt);
+    const unsigned be = __ballot_sync(kFull, eq);
+    if (gt) kept[above_seen + __popc(bg & below)] = image_key(v, w0 + i);
+    if (eq) {
+      const int p = at_seen + __popc(be & below);
+      if (p < kk) kept[n_above + p] = image_key(v, w0 + i);
+    }
+    above_seen += __popc(bg);
+    at_seen += __popc(be);
+  }
+  for (int j = k + lane; j < kSortMax; j += 32) kept[j] = kEmpty;
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < 8; ++r) x[r] = kept[32 * r + lane];
+  __syncwarp();   // read before the scratch is reused
+
+  // descending bitonic network over rank 32 r + lane
+#pragma unroll
+  for (int lk = 1; lk <= 8; ++lk) {   // runs of kb = 2^lk keys
+    const int kb = 1 << lk;
+#pragma unroll
+    for (int lj = lk - 1; lj >= 0; --lj) {   // partners j = 2^lj apart
+      const int j = 1 << lj;
+      if (j >= 32) {
+        const int rj = j / 32;
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          if (r & rj) continue;
+          const bool desc = ((32 * r + lane) & kb) == 0;
+          const long long a = x[r];
+          const long long b = x[r | rj];
+          const bool swap = desc ? a < b : a > b;
+          x[r] = swap ? b : a;
+          x[r | rj] = swap ? a : b;
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const long long y = __shfl_xor_sync(kFull, x[r], j);
+          const bool desc = ((32 * r + lane) & kb) == 0;
+          const bool lower = (lane & j) == 0;
+          const bool keep_max = lower == desc;
+          x[r] = keep_max ? (x[r] > y ? x[r] : y) : (x[r] < y ? x[r] : y);
+        }
+      }
+    }
+  }
+}
+
 template <int kG>
-__global__ void __launch_bounds__(kThreads, 1) ivf_topm_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads, 2)
+    ivf_topm_kernel(const __grid_constant__ CUtensorMap row_map,
+                    const Args a) {
   constexpr int kNT = kG / 8;
-  extern __shared__ __align__(128) uint8_t smem[];
-  float* sc_s = reinterpret_cast<float*>(smem);                  // [kG]
-  long long* qidx_s = reinterpret_cast<long long*>(smem + 64);   // [kG]
-  int* count_s = reinterpret_cast<int*>(smem + 192);
-  uint8_t* ring = smem + kHeader;
-  uint8_t* qtile = ring + kStages * kStageBytes;   // [k_stage][kG][128]
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((kAlign - (neumann::smem_u32(smem_raw) &
+                                         (kAlign - 1))) & (kAlign - 1));
   const int k_stages = (a.d + kBK - 1) / kBK;
-  long long* keys =
-      reinterpret_cast<long long*>(qtile + k_stages * kG * kBK);
+  uint8_t* qtile = ring + kStages * kStageBytes;   // [k_stage][kG][64]
+  const int img_stride = a.chunk + kPad;
+  unsigned* img = reinterpret_cast<unsigned*>(qtile + k_stages * kG * kBK);
+  uint64_t* full = reinterpret_cast<uint64_t*>(img + kG * img_stride);
+  uint64_t* empty = full + kStages;
+  float* sc_s = reinterpret_cast<float*>(empty + kStages);        // [kG]
+  long long* qidx_s = reinterpret_cast<long long*>(sc_s + 16);    // [kG]
+  int* count_s = reinterpret_cast<int*>(qidx_s + 16);
 
   const int groups = (a.q_cap + kG - 1) / kG;
   const long long l = blockIdx.x / groups;
@@ -140,28 +316,22 @@ __global__ void __launch_bounds__(kThreads, 1) ivf_topm_kernel(Args a) {
     const int s = slot0 + lane;
     const long long qi =
         lane < kG && s < a.q_cap ? a.tbl[l * a.q_cap + s] : -1;
-    const unsigned filled = __ballot_sync(0xffffffffu, qi >= 0);
+    const unsigned filled = __ballot_sync(kFull, qi >= 0);
     if (lane < kG) {
       qidx_s[lane] = qi;
       sc_s[lane] = qi >= 0 ? a.qsc[qi] : 0.f;
     }
     if (lane == 0) *count_s = filled ? 32 - __clz(filled) : 0;
+  } else if (warp == kConsumers && lane == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumers);   // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   const int count = *count_s;
   if (count == 0) return;   // the whole block: padded slots
-
-  // the group's query rows, zero past d and in empty slots
-  const int row_chunks = k_stages * (kBK / 16);
-  for (int i = threadIdx.x; i < kG * row_chunks; i += kThreads) {
-    const int r = i / row_chunks;
-    const int cc = i % row_chunks;
-    const long long qi = qidx_s[r];
-    const bool ok = r < count && qi >= 0 && cc * 16 < a.d;
-    cp_async16(qtile + (cc >> 3) * kG * kBK + swz128(r, cc & 7),
-               ok ? a.qq + qi * a.d + cc * 16 : a.qq, ok);
-  }
-  cp_async_commit();
 
   const long long first = a.first[l];
   const long long base = a.base[l];
@@ -169,157 +339,216 @@ __global__ void __launch_bounds__(kThreads, 1) ivf_topm_kernel(Args a) {
   const int mc = min(a.m, a.chunk);
   const int n_nt = (count + 7) / 8;
 
+  if (warp < kConsumers) {
+    // the group's query rows, zero past d and in empty slots
+    const int row_chunks = k_stages * (kBK / 16);
+    for (int i = threadIdx.x; i < kG * row_chunks; i += 32 * kConsumers) {
+      const int r = i / row_chunks;
+      const int cc = i % row_chunks;
+      const long long qi = qidx_s[r];
+      const bool ok = r < count && qi >= 0 && cc * 16 < a.d;
+      cp_async16(qtile + (cc >> 2) * kG * kBK + swz64(r, cc & 3),
+                 ok ? a.qq + qi * a.d + cc * 16 : a.qq, ok);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    consumers_sync();
+  }
+
+  int it0 = 0;   // ring stages of the earlier chunks (the phases' count)
   for (int ch = 0; ch < n_chunks; ++ch) {
     const int w0 = ch * a.chunk;
     const int rows = min(a.chunk, a.window - w0);   // a multiple of kTile
     const int iters = (rows / kTile) * k_stages;
-    __syncthreads();   // the last chunk's keys are written out; ring free
 
-    // the flat (row tile, K stage) sequence of the chunk through the ring
-    auto issue = [&](int it) {
-      if (it < iters) {
+    if (warp == kConsumers) {
+      // the producer: stage `it` (row tile it / k_stages, K stage it %
+      // k_stages) into its ring slot once the consumers freed it
+      if (lane == 0) {
+        for (int it = 0; it < iters; ++it) {
+          const int gi = it0 + it;
+          const int st = gi % kStages;
+          if (gi >= kStages) mbar_wait(&empty[st], (gi / kStages - 1) & 1);
+          mbar_arrive_expect_tx(&full[st], kStageBytes);
+          const long long r0 = first + w0 + (it / k_stages) * kTile;
+          tma_load_2d(ring + st * kStageBytes, &row_map,
+                      (it % k_stages) * kBK, static_cast<int>(r0),
+                      &full[st]);
+        }
+      }
+      __syncwarp();
+    } else {
+      int acc[kNT][4];
+      float rm[2];
+      for (int it = 0; it < iters; ++it) {
+        const int gi = it0 + it;
+        const int st = gi % kStages;
         const int tile = it / k_stages;
-        const int k0 = (it % k_stages) * kBK;
-        uint8_t* dst = ring + (it % kStages) * kStageBytes;
-        const long long r0 = first + w0 + tile * kTile;
-        for (int i = threadIdx.x; i < kTile * (kBK / 16); i += kThreads) {
-          const int r = i >> 3;
-          const int c16 = i & 7;
-          const long long row = r0 + r;
-          const bool ok = row >= 0 && row < a.n && k0 + 16 * c16 < a.d;
-          cp_async16(dst + swz128(r, c16),
-                     ok ? a.buf + row * a.d + k0 + 16 * c16 : a.buf, ok);
+        const int kt = it % k_stages;
+        if (kt == 0) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const long long row =
+                first + w0 + tile * kTile + m_base + 8 * h + g;
+            rm[h] = row >= 0 && row < a.n ? a.rmult[row] : 0.f;
+          }
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+            for (int v = 0; v < 4; ++v) acc[nt][v] = 0;
+          }
         }
-      }
-      cp_async_commit();   // an empty group keeps the wait counts aligned
-    };
+        mbar_wait(&full[st], (gi / kStages) & 1);
+        const uint8_t* sa = ring + st * kStageBytes;
+        const uint8_t* sb = qtile + kt * kG * kBK;
+        const int ksteps = min(kBK / 32, (a.d - kt * kBK + 31) / 32);
 #pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) issue(s);
-
-    int acc[kNT][4];
-    float rm[2];
-    for (int it = 0; it < iters; ++it) {
-      cp_async_wait<kStages - 2>();
-      __syncthreads();   // stage `it` landed; stage it - 1 is free again
-      issue(it + kStages - 1);
-      const int tile = it / k_stages;
-      const int kt = it % k_stages;
-      if (kt == 0) {
+        for (int ks = 0; ks < kBK / 32; ++ks) {
+          if (ks < ksteps) {
+            unsigned af[4];
+            ldsm_x4(af, sa + swz64(m_base + (lane & 7) +
+                                       ((lane >> 3) & 1) * 8,
+                                   2 * ks + (lane >> 4)));
+            if (kG == 8) {
+              unsigned bf[2];
+              ldsm_x2(bf, sb + swz64(lane & 7, 2 * ks + ((lane >> 3) & 1)));
+              mma_s8(acc[0], af, bf);
+            } else {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const long long row = first + w0 + tile * kTile + m_base + 8 * h + g;
-          rm[h] = row >= 0 && row < a.n ? a.rmult[row] : 0.f;
-        }
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-          for (int v = 0; v < 4; ++v) acc[nt][v] = 0;
-        }
-      }
-      const uint8_t* sa = ring + (it % kStages) * kStageBytes;
-      const uint8_t* sb = qtile + kt * kG * kBK;
-      const int ksteps = min(kBK / 32, (a.d - kt * kBK + 31) / 32);
-#pragma unroll
-      for (int ks = 0; ks < kBK / 32; ++ks) {
-        if (ks < ksteps) {
-          unsigned af[4];
-          neumann::load_a(af, sa, m_base, ks);
-          if (kG == 8) {
-            unsigned bf[2];
-            ldsm_x2(bf, sb + swz128(lane & 7, 2 * ks + ((lane >> 3) & 1)));
-            mma_s8(acc[0], af, bf);
-          } else {
-#pragma unroll
-            for (int np = 0; np < kNT / 2; ++np) {
-              if (2 * np < n_nt) {
-                // two n8 tiles: (2 np, 2 np + 1) x (the step's two chunks)
-                unsigned bf[4];
-                ldsm_x4(bf, sb + swz128(np * 16 + (lane & 7) +
-                                            (lane >> 4) * 8,
-                                        2 * ks + ((lane >> 3) & 1)));
-                const unsigned b0[2] = {bf[0], bf[1]};
-                const unsigned b1[2] = {bf[2], bf[3]};
-                mma_s8(acc[2 * np], af, b0);
-                if (2 * np + 1 < n_nt) mma_s8(acc[2 * np + 1], af, b1);
+              for (int np = 0; np < kNT / 2; ++np) {
+                if (2 * np < n_nt) {
+                  // two n8 tiles: (2 np, 2 np + 1) x the step's two chunks
+                  unsigned bf[4];
+                  ldsm_x4(bf, sb + swz64(np * 16 + (lane & 7) +
+                                             (lane >> 4) * 8,
+                                         2 * ks + ((lane >> 3) & 1)));
+                  const unsigned b0[2] = {bf[0], bf[1]};
+                  const unsigned b1[2] = {bf[2], bf[3]};
+                  mma_s8(acc[2 * np], af, b0);
+                  if (2 * np + 1 < n_nt) mma_s8(acc[2 * np + 1], af, b1);
+                }
               }
             }
           }
         }
-      }
-      if (kt != k_stages - 1) continue;
-      // tile done: its keys into the slots' arrays
+        __syncwarp();   // the warp's fragments of the stage are read
+        if (lane == 0) mbar_arrive(&empty[st]);
+        if (kt != k_stages - 1) continue;
+        // tile done: its scores' images into the slots' arrays
 #pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        if (nt >= n_nt) continue;
+        for (int nt = 0; nt < kNT; ++nt) {
+          if (nt >= n_nt) continue;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = tile * kTile + m_base + 8 * h + g;   // in the chunk
+          for (int h = 0; h < 2; ++h) {
+            const int r = tile * kTile + m_base + 8 * h + g;   // in chunk
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int sl = nt * 8 + 2 * t + e;
-            if (sl >= count) continue;
-            float s = __int_as_float(0xff800000);   // -inf: a dead row
-            if (rm[h] > 0.f) {
-              s = __fmul_rn(__int2float_rn(acc[nt][2 * h + e]),
-                            __fmul_rn(sc_s[sl], rm[h]));
+            for (int e = 0; e < 2; ++e) {
+              const int sl = nt * 8 + 2 * t + e;
+              if (sl >= count) continue;
+              float s = __int_as_float(0xff800000);   // -inf: a dead row
+              if (rm[h] > 0.f) {
+                s = __fmul_rn(__int2float_rn(acc[nt][2 * h + e]),
+                              __fmul_rn(sc_s[sl], rm[h]));
+              }
+              img[sl * img_stride + r] = score_image(s);
             }
-            keys[sl * a.chunk + r] = make_key(s, w0 + r);
           }
         }
       }
     }
-    cp_async_wait<0>();
-    // past the chunk's rows (a window that is not a power of two): keys
-    // below every real key
-    for (int i = threadIdx.x; i < count * (a.chunk - rows); i += kThreads) {
-      keys[(i / (a.chunk - rows)) * a.chunk + rows + i % (a.chunk - rows)] =
-          kEmpty;
-    }
-    __syncthreads();   // the chunk's keys are in
+    it0 += iters;
+    __syncthreads();   // the chunk's images are in; the ring is idle
 
-    // one warp a slot: a descending bitonic sort of its keys, then the
-    // first m (one chunk) or mc (several) out
-    for (int sl = warp; sl < count; sl += kThreads / 32) {
-      if (qidx_s[sl] < 0) continue;
-      long long* kk = keys + sl * a.chunk;
-      for (int k = 2; k <= a.chunk; k <<= 1) {
-        for (int j = k >> 1; j > 0; j >>= 1) {
-          for (int i = lane; i < a.chunk / 2; i += 32) {
-            const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
-            const long long x = kk[lo];
-            const long long y = kk[lo + j];
-            if ((lo & k) == 0 ? x < y : x > y) {
-              kk[lo] = y;
-              kk[lo + j] = x;
+#ifndef NEUMANN_TOPM_STREAM_ONLY
+    const int k = min(mc, rows);
+    if (k <= kSortMax) {
+      // a warp a slot: the radix select, then its kept keys out
+      for (int sl = warp; sl < count && warp < kConsumers;
+           sl += kConsumers) {
+        if (qidx_s[sl] < 0) continue;
+        long long x[8];
+        warp_topk(img + sl * img_stride, rows, k, w0,
+                  ring + warp * kScratch, x);
+        const long long o = l * a.q_cap + slot0 + sl;
+        if (n_chunks == 1) {
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const int j = 32 * r + lane;
+            if (j < a.m) {
+              a.out_s[o * a.m + j] = key_score(x[r]);
+              a.out_p[o * a.m + j] =
+                  static_cast<int32_t>(base + key_offset(x[r]));
             }
           }
-          __syncwarp();
+        } else {
+          long long* dst = a.out_k + (o * n_chunks + ch) * mc;
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            if (32 * r + lane < mc) dst[32 * r + lane] = x[r];
+          }
+          for (int j = kSortMax + lane; j < mc; j += 32) dst[j] = kEmpty;
         }
       }
-      const long long o = l * a.q_cap + slot0 + sl;
-      if (n_chunks == 1) {
-        for (int j = lane; j < a.m; j += 32) {
-          const long long key = kk[j];
-          a.out_s[o * a.m + j] = key_score(key);
-          a.out_p[o * a.m + j] = static_cast<int32_t>(base + key_offset(key));
+    } else {
+      // m near the window: the block sorts each slot's chunk of keys in
+      // the ring, one slot at a time (bitonic, descending)
+      long long* keys = reinterpret_cast<long long*>(ring);
+      const int p2 = 1 << (32 - __clz(rows - 1));   // <= chunk
+      for (int sl = 0; sl < count; ++sl) {
+        if (qidx_s[sl] < 0) continue;
+        const unsigned* im = img + sl * img_stride;
+        for (int i = threadIdx.x; i < p2; i += kThreads) {
+          keys[i] = i < rows ? image_key(im[i], w0 + i) : kEmpty;
         }
-      } else {
-        long long* dst = a.out_k + (o * n_chunks + ch) * mc;
-        for (int j = lane; j < mc; j += 32) dst[j] = kk[j];
+        __syncthreads();
+        for (int kb = 2; kb <= p2; kb <<= 1) {
+          for (int j = kb >> 1; j > 0; j >>= 1) {
+            for (int i = threadIdx.x; i < p2 / 2; i += kThreads) {
+              const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
+              const long long x = keys[lo];
+              const long long y = keys[lo + j];
+              if ((lo & kb) == 0 ? x < y : x > y) {
+                keys[lo] = y;
+                keys[lo + j] = x;
+              }
+            }
+            __syncthreads();
+          }
+        }
+        const long long o = l * a.q_cap + slot0 + sl;
+        if (n_chunks == 1) {
+          for (int j = threadIdx.x; j < a.m; j += kThreads) {
+            a.out_s[o * a.m + j] = key_score(keys[j]);
+            a.out_p[o * a.m + j] =
+                static_cast<int32_t>(base + key_offset(keys[j]));
+          }
+        } else {
+          long long* dst = a.out_k + (o * n_chunks + ch) * mc;
+          for (int j = threadIdx.x; j < mc; j += kThreads) {
+            dst[j] = j < p2 ? keys[j] : kEmpty;
+          }
+        }
+        __syncthreads();   // the keys are out before the next slot's
       }
     }
+#endif
+    // the ring's next tiles (TMA, the async proxy) follow these stores
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();   // the ring is free for the next chunk's tiles
   }
 }
 
 template <int kG>
-int launch(const Args& a, int n_windows, int smem, cudaStream_t stream) {
+int launch(const CUtensorMap& row_map, const Args& a, int n_windows,
+           int smem, cudaStream_t stream) {
   auto kernel = ivf_topm_kernel<kG>;
   const cudaError_t set = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (set != cudaSuccess) return static_cast<int>(set);
   const long long blocks =
       static_cast<long long>(n_windows) * ((a.q_cap + kG - 1) / kG);
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(a);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(row_map,
+                                                                   a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -330,9 +559,10 @@ int launch(const Args& a, int n_windows, int smem, cudaStream_t stream) {
 // chunk) out_s [L, q_cap, m] f32 and out_p [L, q_cap, m] int32 for the
 // filled slots; else out_k [L, q_cap, chunks, min(m, chunk)] int64, each
 // chunk's best keys (descending). d % 16 == 0, window % 128 == 0,
-// 1 <= m <= window, chunk a power of two >= 128, `slots` 8 or 16 and
-// `smem` the bytes of ops/kernels._topm_plan; buf and qq 16-byte aligned
-// (the wrapper checks). Returns cudaGetLastError() after the launch.
+// 1 <= m <= window, n < 2^31, chunk a power of two >= 128, `slots` 8 or
+// 16 and `smem` the bytes of ops/kernels._topm_plan; buf and qq 16-byte
+// aligned (the wrapper checks). Returns a CUDA error code, or
+// cudaGetLastError() after the launch.
 extern "C" int neumann_ivf_topm(const void* buf, const void* rmult,
                                 const void* first, const void* base,
                                 const void* tbl, const void* qq,
@@ -357,7 +587,17 @@ extern "C" int neumann_ivf_topm(const void* buf, const void* rmult,
   a.m = m;
   a.q_cap = q_cap;
   a.chunk = chunk;
+  if (n < 1 || n >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // rows past n (a window clamped at the end) come as zeros; their
+  // multipliers read 0, so they score -inf
+  CUtensorMap row_map;
+  const int err = neumann::encode_map_2d(
+      &row_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, buf, d, n, d, kBK, kTile,
+      CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err != 0) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return slots == 8 ? launch<8>(a, n_windows, smem, s)
-                    : launch<16>(a, n_windows, smem, s);
+  return slots == 8 ? launch<8>(row_map, a, n_windows, smem, s)
+                    : launch<16>(row_map, a, n_windows, smem, s);
 }

@@ -1540,14 +1540,17 @@ _EXACT_DOT_COLS = 1024
 # (``_windows_per_step``: at cell A's TOP 65 batch, 293 windows of 1,024
 # rows a step, 14 steps)
 _WINDOW_STEP_BYTES = 2 << 30
-# csrc/ivf_topm.cu's geometry: a 3-stage ring of 128-row x 128-byte
-# tiles, a 256-byte header, the slots' query rows (a 128-byte row a K
-# stage) and a chunk of int64 keys a slot, at most _TOPM_CHUNK (a power
-# of two), in the _TOPM_SMEM bytes a block can have
-_TOPM_RING = 3 * 128 * 128
-_TOPM_HEADER = 256
+# csrc/ivf_topm.cu's geometry: a 4-stage TMA ring of 128-row x 64-byte
+# tiles (1,024-byte aligned: the slack) and a 512-byte header, the slots'
+# query rows (a 64-byte row a K stage) and a chunk of 32-bit score images
+# a slot (_TOPM_CHUNK rows at most, a power of two, and 4 of padding), in
+# the _TOPM_SMEM bytes a block can have, or _TOPM_SMEM2 for two blocks a
+# SM (each block also holds 1 KB of the SM's 228 KB)
+_TOPM_BK = 64
+_TOPM_FIXED = 1024 + 512 + 4 * 128 * _TOPM_BK
 _TOPM_CHUNK = 1024
 _TOPM_SMEM = 232448
+_TOPM_SMEM2 = 233472 // 2 - 1024
 
 
 def _window_dots(qsel: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -1587,21 +1590,23 @@ def _windows_per_step(window: int, q_cap: int, d: int) -> int:
 
 def _topm_plan(window: int, d: int):
     """csrc/ivf_topm.cu's plan for windows of ``window`` rows of width d:
-    (slots a block, keys a slot sorts at once, shared-memory bytes). The
-    chunk is the window's power of two up to _TOPM_CHUNK, halved (down to
-    128) only where 8 slots' keys and query rows do not fit; 16 slots a
-    block where they fit, else 8. Raises where none fits (d past about
-    19,000)."""
-    stages = -(-d // 128)
+    (slots a block, rows a chunk, shared-memory bytes, blocks a SM). Two
+    blocks a SM where the window's power of two up to _TOPM_CHUNK fits 16
+    slots, else 8, in _TOPM_SMEM2 (up to d 4,096 at 1,024 rows); else one
+    block, 16 slots or 8, the chunk halved (down to 128) until they fit
+    _TOPM_SMEM. Raises where none fits (d past about 24,000)."""
+    stages = -(-d // _TOPM_BK)
     top = min(_TOPM_CHUNK, 1 << (window - 1).bit_length())
-    chunk = top
-    while chunk >= 128:
-        for slots in (16, 8):
-            smem = (_TOPM_HEADER + _TOPM_RING + stages * slots * 128
-                    + slots * chunk * 8)
-            if smem <= _TOPM_SMEM:
-                return slots, chunk, smem
-        chunk //= 2
+    for per_sm, budget, least in ((2, _TOPM_SMEM2, top),
+                                  (1, _TOPM_SMEM, 128)):
+        chunk = top
+        while chunk >= least:
+            for slots in (16, 8):
+                smem = (_TOPM_FIXED + stages * slots * _TOPM_BK
+                        + slots * (chunk + 4) * 4)
+                if smem <= budget:
+                    return slots, chunk, smem, per_sm
+            chunk //= 2
     raise ValueError(f"ivf_topm kernel: rows of {d} bytes leave no room "
                      f"in shared memory")
 
@@ -1651,8 +1656,8 @@ def ivf_window_topm(buf, rmult, first, base, tbl, qq, qsc, window: int,
     their positions). Empty slots hold no result (the kernel leaves them
     unwritten).
 
-    On the card, one launch where the window fits a chunk of keys
-    (``_topm_plan``: up to 1,024 rows); wider windows launch a step of
+    On the card, one launch where the window fits a chunk of rows
+    (``_topm_plan``: up to 1,024); wider windows launch a step of
     windows at a time, each chunk's best keys a slot, and one
     ``torch.topk`` over a slot's chunks finishes. Scores and positions
     equal the plain version's bit for bit."""
@@ -1692,7 +1697,7 @@ def ivf_window_topm(buf, rmult, first, base, tbl, qq, qsc, window: int,
     ys_p = torch.empty((n_live, q_cap, m), dtype=torch.int32, device=dev)
     if not n_live or not q_cap:
         return ys_s, ys_p
-    slots, chunk, smem = _topm_plan(window, d)
+    slots, chunk, smem, _ = _topm_plan(window, d)
     chunks = -(-window // chunk)
     lib = build_kernels()
 

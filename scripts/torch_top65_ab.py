@@ -10,10 +10,12 @@ Usage, from the root of a checkout::
     python scripts/torch_top65_ab.py --other build/parent [--seed 0]
         [--rows 4194304]
 
-The other tree's ``neumann_tpu_torch/ops/ivf.py`` is loaded by path under
-another module name: its ``_score_windows`` (and whatever of its own
-module it calls) runs in place of this tree's, everything else of the
-route is this tree's. Builds ``chip_smoke.py``'s phase-3 corpus from
+The other tree's ``neumann_tpu_torch/ops/ivf.py`` and ``ops/kernels.py``
+are loaded by path under other module names: its ``_score_windows``
+(and whatever of its own module it calls, with its own kernels built
+from its own ``csrc/``) runs in place of this tree's, everything else of
+the route is this tree's. The route's launches of a turn are the two
+kernels modules' counts together. Builds ``chip_smoke.py``'s phase-3 corpus from
 ``--seed`` (the same draws) and its auto-IVF index (the first SIMILAR),
 then runs turns other, this, this, other, each:
 
@@ -49,14 +51,25 @@ sys.path.insert(0, HERE)
 import chip_smoke as cs  # noqa: E402
 
 
-def other_score_windows(tree: str):
-    """The other tree's ``_score_windows``, its module loaded by path."""
-    path = os.path.join(tree, "neumann_tpu_torch", "ops", "ivf.py")
-    spec = importlib.util.spec_from_file_location("neumann_other_ivf", path)
+def load_by_path(path: str, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = mod      # its dataclasses look themselves up
     spec.loader.exec_module(mod)
-    return mod._score_windows
+    return mod
+
+
+def other_score_windows(tree: str):
+    """The other tree's ``_score_windows`` and its kernels module, both
+    loaded by path: its ``ops/ivf.py`` calls its own ``ops/kernels.py``,
+    which builds the other tree's ``csrc/`` into the other tree's
+    ``build/``."""
+    ops = os.path.join(tree, "neumann_tpu_torch", "ops")
+    kern = load_by_path(os.path.join(ops, "kernels.py"),
+                        "neumann_other_kernels")
+    mod = load_by_path(os.path.join(ops, "ivf.py"), "neumann_other_ivf")
+    mod.kernels = kern
+    return mod._score_windows, kern
 
 
 def main() -> int:
@@ -82,8 +95,9 @@ def main() -> int:
     tk.build_kernels()
     out = dict(card=cs.smi_line(), host_cpu=cs.host_cpu(),
                other=args.other)
-    first_pass = {"this": tivf._score_windows,
-                  "other": other_score_windows(args.other)}
+    other, other_tk = other_score_windows(args.other)
+    other_tk.build_kernels()
+    first_pass = {"this": tivf._score_windows, "other": other}
     s_centres, s_corpus, s_queries = np.random.SeedSequence(
         args.seed).spawn(3)
     centres = np.random.default_rng(s_centres).standard_normal(
@@ -114,8 +128,11 @@ def main() -> int:
         tivf._score_windows = first_pass[tag]
         try:
             tk.reset_launch_counts()
+            other_tk.reset_launch_counts()
             qps, times, rows, _ = cs.batch_series(call, cs.TOP65)
-            launches = {n: c for n, c in tk.LAUNCHES.items() if c}
+            launches = {n: c + other_tk.LAUNCHES.get(n, 0)
+                        for n, c in tk.LAUNCHES.items()
+                        if c + other_tk.LAUNCHES.get(n, 0)}
             host = []
             for _ in range(args.calls):
                 t0 = time.perf_counter()

@@ -24,12 +24,24 @@ equal scores (copies, dead rows) come in no set order; there JAX's
 positions are put in ``lax.top_k``'s order (ascending among equal
 scores) within each probe's m, the order the port keeps at every m.
 
+The kernel's plan (two blocks a SM up to d 4,096) and its selection
+rule are pinned here too: a plain-torch model of its radix select on
+32-bit score images (the m-th image found 8 bits at a time, the images
+above it and the first at it by ascending offset, then only those keys
+sorted) gives ``ops/scan._topk_stable``'s bits and offsets on all-equal
+rows, a run of equal scores across the m-th place, dead rows at the
+cut, m of 1 and of the window, all rows dead, images equal but in their
+last byte, and signed zeros.
+
 Under the ``cuda`` marker (skipped without a card) the kernel is held to
 its plain version on the same cases and past them (windows of 128 to
 4,096 rows, d 64 to 4,096, both slot groups of its plan, q_cap 1 to 200,
-m 1 to the window), scores and positions bit for bit on every filled
-slot, and the route's output in full. This file imports JAX only inside
-the CPU tests, so the card runs it with ``--noconftest``.
+m 1 to the window; windows with 1, 16, 17, 32, 33 and 64 filled slots,
+the edges of its groups; a run of 200 equal scores across the m-th
+place at m 152, 256 and 257, on both sides of its in-register sort, and
+past one chunk), scores and positions bit for bit on every filled slot,
+and the route's output in full. This file imports JAX only inside the
+CPU tests, so the card runs it with ``--noconftest``.
 """
 
 import numpy as np
@@ -250,21 +262,118 @@ def test_plain_steps_change_no_result(monkeypatch):
 
 
 @pytest.mark.parametrize("window,d,want", [
-    (1024, 768, (16, 1024)), (1024, 3072, (16, 1024)),
-    (1024, 4096, (8, 1024)), (640, 768, (16, 1024)), (128, 64, (16, 128)),
-    (2048, 768, (16, 1024)), (4096, 16384, (8, 512)),
-    (1024, 20480, (8, 256))])
+    (1024, 768, (16, 1024, 2)), (1024, 3072, (8, 1024, 2)),
+    (1024, 4096, (8, 1024, 2)), (640, 768, (16, 1024, 2)),
+    (128, 64, (16, 128, 2)), (2048, 768, (16, 1024, 2)),
+    (4096, 16384, (8, 1024, 1)), (1024, 20480, (8, 1024, 1))])
 def test_topm_plan_fits_shared_memory(window, d, want):
-    """The kernel's plan: 16 slots a block where they fit beside a
-    1,024-key chunk, else 8, else a smaller chunk; the bytes it asks for
-    fit the block's shared memory."""
-    slots, chunk, smem = tk._topm_plan(window, d)
-    assert (slots, chunk) == want
+    """The kernel's plan: two blocks a SM (16 slots where they fit beside
+    a 1,024-row chunk of 32-bit images, else 8) up to d 4,096; one block
+    past it; the bytes it asks for fit the SM's 228 KB twice where it
+    says two, and a block's 227 KB always."""
+    slots, chunk, smem, per_sm = tk._topm_plan(window, d)
+    assert (slots, chunk, per_sm) == want
+    assert smem == (tk._TOPM_FIXED + -(-d // tk._TOPM_BK) * slots
+                    * tk._TOPM_BK + slots * (chunk + 4) * 4)
     assert smem <= tk._TOPM_SMEM
-    assert smem == (tk._TOPM_HEADER + tk._TOPM_RING
-                    + -(-d // 128) * slots * 128 + slots * chunk * 8)
+    if per_sm == 2:
+        assert smem <= tk._TOPM_SMEM2 and 2 * (smem + 1024) <= 233472
+    else:
+        assert smem > tk._TOPM_SMEM2
     with pytest.raises(ValueError):
         tk._topm_plan(window, 24576)
+
+
+def _radix_topm_model(scores, k):
+    """csrc/ivf_topm.cu's selection of one slot in plain torch: the
+    scores' unsigned 32-bit images; the k-th largest found 8 bits at a
+    time from the top (a histogram of the digit among the images that
+    match the bits found so far, the digit's bin from the top by a
+    cumulative count; a bin taken whole ends it); every image above the
+    cut and the first of those at it by ascending offset; only those k
+    keys sorted, descending. Returns (values, offsets, passes)."""
+    from neumann_tpu_torch.ops.scan import _image
+
+    signed = _image(scores[None])[0].long()
+    img = (signed & 0xFFFFFFFF) ^ 0x80000000
+    prefix = mask = passes = 0
+    kk = k
+    for shift in (24, 16, 8, 0):
+        passes += 1
+        hist = torch.bincount((img[(img & mask) == prefix] >> shift) & 255,
+                              minlength=256)
+        from_top = hist.flip(0).cumsum(0)
+        i = int(torch.nonzero(from_top >= kk)[0])
+        b = 255 - i
+        kk -= int(from_top[i] - hist[b])
+        prefix |= b << shift
+        mask |= 255 << shift
+        if int(hist[b]) == kk:
+            break
+    cut = img & mask
+    kept = torch.cat([torch.nonzero(cut > prefix).flatten(),
+                      torch.nonzero(cut == prefix).flatten()[:kk]])
+    assert kept.numel() == k
+    keys = (signed[kept] << 32) | (0xFFFFFFFF - kept)
+    off = 0xFFFFFFFF - (keys.sort(descending=True).values & 0xFFFFFFFF)
+    return scores[off], off, passes
+
+
+def _adversarial(name, rows=1024):
+    """(scores [rows] f32, k) of one adversarial case."""
+    rng = np.random.default_rng(len(name))
+    s = rng.standard_normal(rows).astype(np.float32) * 0.05
+    k = 152
+    if name == "all_equal":
+        s[:] = 0.25
+    elif name == "straddle":
+        # 130 rows above a run of 60 equal scores: the 152nd is inside it
+        s = -np.abs(s) - 1.0
+        s[rng.choice(rows, 130, replace=False)] = 2.0
+        run = rng.choice(np.flatnonzero(s < 0), 60, replace=False)
+        s[run] = 0.5
+    elif name == "dead_at_cut":
+        s[rng.random(rows) < 0.9] = -np.inf      # fewer live rows than k
+    elif name == "m1":
+        s[[700, 300, 301]] = 3.0                 # equal maxima: 300 first
+        k = 1
+    elif name == "m_window":
+        s[rng.random(rows) < 0.3] = -np.inf
+        s[10:40] = s[9]
+        k = rows
+    elif name == "all_dead":
+        s[:] = -np.inf
+    elif name == "low_bits":
+        # images equal but in their last byte: all four passes
+        s = (np.float32(1.0) + rng.integers(0, 200, rows).astype(np.float32)
+             * np.float32(2.0 ** -23)).astype(np.float32)
+    elif name == "signed_zeros":
+        s[:] = -1.0
+        s[rng.choice(rows, 200, replace=False)] = 0.0
+        s[rng.choice(np.flatnonzero(s == -1.0), 200, replace=False)] = -0.0
+    return torch.from_numpy(s), k
+
+
+@pytest.mark.parametrize("name", ["all_equal", "straddle", "dead_at_cut",
+                                  "m1", "m_window", "all_dead", "low_bits",
+                                  "signed_zeros", "random"])
+def test_radix_select_rule_equals_topk_stable(name):
+    """The kernel's selection rule (``_radix_topm_model``) gives
+    ``ops/scan._topk_stable``'s values (as bits) and offsets: equal
+    scores by ascending offset, dead rows at their own offsets, -0.0
+    below +0.0, on runs of equal images across the cut and images equal
+    but in their last byte."""
+    from neumann_tpu_torch.ops.scan import _topk_stable
+
+    s, k = _adversarial(name)
+    got_v, got_i, passes = _radix_topm_model(s, k)
+    want_v, want_i = _topk_stable(s[None], k)
+    assert torch.equal(got_i, want_i[0])
+    assert torch.equal(got_v.view(torch.int32), want_v[0].view(torch.int32))
+    if name == "low_bits":
+        assert passes == 4
+    if name in ("all_equal", "all_dead"):
+        assert torch.equal(got_i, torch.arange(k))
 
 
 def test_argument_errors():
@@ -360,3 +469,71 @@ def test_route_on_the_card_equals_the_cpu(cuda, name):
     assert torch.equal(got[0].cpu().view(torch.int32),
                        want[0].view(torch.int32))
     assert torch.equal(got[1].cpu(), want[1])
+
+
+def _group_inputs(dev, window, d, filled, seed, q_cap=64, run=0):
+    """Row 10's inputs over three windows of random int8 rows (2 % dead):
+    window l's table holds filled[l] slots of random queries, so a
+    window's slot groups end where the plan's do; with ``run``, window
+    1's rows 100 .. 100 + run are copies of its row 99 (and 20 more
+    copies past them score 4 times higher), and every query of window 1
+    is that row, so its m-th place lies inside a run of equal scores."""
+    g = torch.Generator().manual_seed(seed)
+    n_win = len(filled)
+    buf = torch.randint(-127, 128, (n_win * window, d), generator=g,
+                        dtype=torch.int8)
+    rm = 1.0 / buf.float().norm(dim=1)
+    rm[torch.rand(len(rm), generator=g) < 0.02] = 0.0
+    n_q = 96
+    qq = torch.randint(-127, 128, (n_q, d), generator=g, dtype=torch.int8)
+    if run:
+        r0 = window + 100
+        buf[r0:r0 + run + 20] = buf[r0 - 1]
+        rm[r0 - 1:r0 + run] = rm[r0 - 1] if rm[r0 - 1] > 0 else 1e-3
+        rm[r0 + run:r0 + run + 20] = 4 * rm[r0]
+        qq[:] = buf[r0 - 1]
+    qsc = torch.rand(n_q, generator=g) * 1e-2 + 1e-3
+    tbl = torch.full((n_win, q_cap), -1, dtype=torch.int64)
+    for li, f in enumerate(filled):
+        tbl[li, :f] = torch.randperm(n_q, generator=g)[:f]
+    first = torch.arange(n_win, dtype=torch.int64) * window
+    return tuple(t.to(dev) for t in (buf, rm, first, first.clone(), tbl, qq,
+                                     qsc))
+
+
+def _direct_vs_plain(args, window, m):
+    before = tk.LAUNCHES["ivf_topm_select"]
+    got = tk.ivf_window_topm(*args, window, m)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["ivf_topm_select"] > before
+    want = tk.ivf_window_topm_plain(*args, window, m)
+    filled = (args[4] >= 0)[:, :, None].expand_as(want[0])
+    assert torch.equal(got[0][filled].view(torch.int32),
+                       want[0][filled].view(torch.int32))
+    assert torch.equal(got[1][filled], want[1][filled])
+    return got
+
+
+# filled slots at the edges of the plan's groups of 16 (and one window
+# with 64: all four groups of a q_cap of 64)
+@pytest.mark.cuda
+@pytest.mark.parametrize("filled", [1, 16, 17, 32, 33, 64])
+def test_kernel_equals_plain_at_group_edges(cuda, filled):
+    args = _group_inputs(cuda, 1024, 768, (filled, 64 - filled, filled),
+                         filled)
+    _direct_vs_plain(args, 1024, 152)
+
+
+# a run of 200 equal scores across the m-th place, 20 higher ones above
+# it: the warp's radix select (m up to 256), the block's sort (257), one
+# window past a chunk (4,096 rows)
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,m", [(1024, 152), (1024, 256),
+                                      (1024, 257), (4096, 152)])
+def test_kernel_meets_ties_across_the_cut(cuda, window, m):
+    args = _group_inputs(cuda, window, 768, (5, 17, 3), window + m, run=200)
+    got = _direct_vs_plain(args, window, m)
+    s, p = got[0][1, :17].cpu(), got[1][1, :17].cpu()
+    same = s[:, 1:] == s[:, :-1]
+    assert int(same.sum()) >= 17 * (min(m, 220) - 21)
+    assert (p[:, 1:][same] > p[:, :-1][same]).all()

@@ -536,6 +536,47 @@ def test_non_fast_first_pass_on_the_card_equals_the_cpu(cuda, d, selection):
     assert torch.equal(got[1].cpu(), want[1])
 
 
+# kernel 10 where its plan takes groups of 8 slots (d 3,072 and 4,096,
+# still two blocks a SM) and one block a SM (d 16,384): windows with 1,
+# 8, 9, 16 and 17 filled slots, a run of 41 equal rows across the m-th
+# place of window 0; scores and positions bit for bit
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3072, 4096, 16384])
+def test_ivf_topm_at_groups_of_eight_bit_exact(cuda, d):
+    from neumann_tpu_torch.ops import kernels as tk
+
+    window, m, q_cap, filled = 1024, 32, 24, (17, 1, 8, 9, 16)
+    g = torch.Generator().manual_seed(d)
+    buf = torch.randint(-127, 128, (len(filled) * window, d), generator=g,
+                        dtype=torch.int8)
+    buf[31:71] = buf[30]
+    rm = 1.0 / buf.float().norm(dim=1)
+    rm[torch.rand(len(rm), generator=g) < 0.02] = 0.0
+    rm[30:71] = rm[30].clamp_min(1e-3)
+    qq = torch.randint(-127, 128, (48, d), generator=g, dtype=torch.int8)
+    qq[:8] = buf[30]
+    tbl = torch.full((len(filled), q_cap), -1, dtype=torch.int64)
+    for li, f in enumerate(filled):
+        tbl[li, :f] = torch.randperm(48, generator=g)[:f]
+    tbl[0, :8] = torch.arange(8)
+    first = torch.arange(len(filled), dtype=torch.int64) * window
+    args = tuple(t.to(cuda) for t in (
+        buf, rm, first, first.clone(), tbl, qq,
+        torch.rand(48, generator=g) * 1e-2 + 1e-3))
+    assert tk._topm_plan(window, d)[::3] == (8, 2 if d <= 4096 else 1)
+    before = tk.LAUNCHES["ivf_topm_select"]
+    got = tk.ivf_window_topm(*args, window, m)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["ivf_topm_select"] == before + 1
+    want = tk.ivf_window_topm_plain(*args, window, m)
+    on = (args[4] >= 0)[:, :, None].expand_as(want[0])
+    assert torch.equal(got[0][on].view(torch.int32),
+                       want[0][on].view(torch.int32))
+    assert torch.equal(got[1][on], want[1][on])
+    assert torch.equal(got[1][0, :8].cpu(),
+                       torch.arange(30, 30 + m).expand(8, m).int())
+
+
 # the mesh's launches (a 1,048,576-row corpus on four logical shards):
 # row 5 on a quantized ShardedCorpus shard of 262,144 rows at pool 1,024
 # (top-10: 40 candidates) and 256 (the delta path's top-36), one query
